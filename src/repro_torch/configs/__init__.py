@@ -1,0 +1,5 @@
+"""Architecture registry (``--arch <id>``): the architectures the port serves."""
+from repro_torch.configs.base import (ModelConfig, get_config, list_archs,
+                                      register)
+
+__all__ = ["ModelConfig", "get_config", "list_archs", "register"]

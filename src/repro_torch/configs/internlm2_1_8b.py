@@ -1,0 +1,17 @@
+"""InternLM2-1.8B — dense GQA [arXiv:2403.17297]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="internlm2-1.8b",
+    family="dense",
+    source="arXiv:2403.17297",
+    num_layers=24,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=8,
+    d_ff=8192,
+    vocab_size=92544,
+    attention="gqa",
+    rope_theta=1.0e6,
+    subquadratic=False,
+))

@@ -13,13 +13,28 @@ Phases, in order; any failure exits non-zero:
              PyTorch version and time kernel, plain version, one PyTorch
              library call, and the bound (bytes / 3.35 TB/s or operations /
              peak rate, the larger).
-3. serve   — internlm2-1.8b at full width (24 layers, d_model 2048, vocab
+3. flash   — the flash-attention kernel against its plain version at the
+             training shape (16 rows, S 143, H 16, Hkv 8, D 128, bf16) and
+             at S 4096 (2 rows); the gradients of ``FlashAttentionFn``
+             against autograd through the plain version; times of the
+             kernel, the plain version, ``scaled_dot_product_attention``
+             and the bound.
+4. serve   — internlm2-1.8b at full width (24 layers, d_model 2048, vocab
              92544) in bf16 with seeded random weights: 16 requests with
              prompts of 32-512 token ids, 8 slots, 128 new tokens, through
              ``serve_continuous`` for contiguous, paged and paged-int8 KV.
              Kernel launch counts are zeroed before and read after each
              run; every decode kernel must have run layers x decode steps
-             times, greedy sampling once per decode step.
+             times, greedy sampling once per decode step, flash attention
+             once per layer and prefill.
+5. train   — two GRPO iterations at full width through ``run_training``
+             (batch 4 x group 4, 128 new tokens, temperature 1, engine
+             rollout, ``--mux off``): decode attention layers x decode
+             steps times, flash attention layers x (prefills + 2) times per
+             iteration (the forward and its recompute under remat), greedy
+             sampling never; finite loss and gradient norm; the trainer's
+             log-probabilities of the sampled tokens match the engine's
+             (mean ratio within 1e-2 of 1); the weights move.
 
 Prints the card's name and power limit, a JSON line with every kernel's
 numbers, and as its last line ``{"ok": true, "device": {...}}``.  Needs a
@@ -205,17 +220,76 @@ def phase_kernels(torch, dev, timer):
     return rows
 
 
+# (label, rows, positions): the training shape, and a long one
+FLASH_CASES = (("main", 16, 16 + MAX_NEW - 1), ("long", 2, 4096))
+
+
+def phase_flash(torch, dev, timer):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    H, Hkv, D = 16, 8, 128
+    row = {"max_abs_err": 0.0}
+    for label, B, S in FLASH_CASES:
+        g = torch.Generator(device=dev).manual_seed(2)
+        q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev,
+                               dtype=torch.bfloat16) for h in (H, Hkv, Hkv))
+        err = check_close(torch, f"flash_attention {label}",
+                          fa.flash_attention(q, k, v),
+                          fa.flash_attention_plain(q, k, v), ATTN_TOL)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        # gradients: FlashAttentionFn against autograd through the plain
+        dout = torch.randn(B, S, H, D, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+        got = [t.detach().requires_grad_() for t in (q, k, v)]
+        fa.FlashAttentionFn.apply(*got, True, None).backward(dout)
+        ref = [t.detach().requires_grad_() for t in (q, k, v)]
+        fa.flash_attention_plain(*ref).backward(dout)
+        g_err = {n: check_close(torch, f"flash_attention {label} {n}",
+                                a.grad, b.grad, ATTN_TOL)
+                 for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
+        del got, ref
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        kt, vt, qt = k.transpose(1, 2), v.transpose(1, 2), q.transpose(1, 2)
+        ms = timer(lambda: fa.flash_attention(q, k, v, return_lse=True))
+        plain_ms = timer(lambda: fa.flash_attention_plain(q, k, v,
+                                                          return_lse=True),
+                         iters=10)
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        bwd_ms = timer(lambda: fa.flash_attention_backward_plain(
+            q, k, v, out, lse, dout), iters=10)
+        n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 \
+            + lse.numel() * 4
+        n_ops = 4 * B * H * D * (S * (S + 1) // 2)     # causal pairs only
+        b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
+        print(f"[flash] {label} (B={B}, S={S}): max_abs_err={err:.3e} "
+              f"grad max_abs_err {g_err} kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}); plain backward {bwd_ms:.4f} "
+              f"ms")
+        row[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by,
+                          backward_plain_ms=bwd_ms, grad_err=g_err)
+        if label == "main":
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+        del q, k, v, out, lse, dout
+    return row
+
+
 def wrappers():
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import sampling
     return {"decode_attention": da.decode_attention,
             "paged_decode_attention": da.paged_decode_attention,
-            "greedy_sample": sampling.greedy_sample}
+            "greedy_sample": sampling.greedy_sample,
+            "flash_attention": fa.flash_attention}
 
 
-def phase_serve(torch, dev):
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.launch.serve import serve_continuous
+def build(torch, dev):
     from repro_torch.models import build_model
 
     model = build_model(ARCH)
@@ -224,9 +298,17 @@ def phase_serve(torch, dev):
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[serve] {ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model},"
+    print(f"[model] {ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model},"
           f" vocab {cfg.vocab_size}, {n_params / 1e9:.3f}B params "
           f"({cfg.dtype}) initialised in {time.perf_counter() - t0:.1f}s")
+    return model, params
+
+
+def phase_serve(torch, dev, model, params):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch.serve import serve_continuous
+
+    cfg = model.cfg
     rs = np.random.RandomState(0)
     lens = rs.randint(32, 513, size=N_REQ)
     prompts = [rs.randint(0, cfg.vocab_size, size=n).astype(np.int32)
@@ -259,6 +341,7 @@ def phase_serve(torch, dev):
         want = {k: 0 for k in counts}
         want[attn] = cfg.num_layers * steps
         want["greedy_sample"] = steps
+        want["flash_attention"] = cfg.num_layers * rep["prefills"]
         if counts != want:
             raise AssertionError(f"{run}: launches {counts} != {want}")
         for k in launches:
@@ -291,6 +374,94 @@ def phase_serve(torch, dev):
         reports[run]["token_agreement_with_contiguous"] = same / max(total,
                                                                     1)
     return launches, reports
+
+
+def token_share_reward(vocab_size: int):
+    """Row-wise verifier for the train phase: the share of a row's
+    recorded tokens in the lower half of the vocabulary.  A randomly
+    initialised full-vocabulary model earns 0 from the arithmetic verifier
+    on every row (its samples are almost never byte tokens), which makes
+    every GRPO advantage, and so every gradient, exactly 0; this reward
+    differs from row to row, so the step has something to learn."""
+    def reward(completions, mask, answers):
+        comp, m = np.asarray(completions), np.asarray(mask)
+        low = ((comp < vocab_size // 2) * m).sum(1)
+        return (low / np.maximum(m.sum(1), 1)).astype(np.float32)
+    return reward
+
+
+def phase_train(torch, dev, model, params):
+    from repro_torch.launch.train import run_training
+
+    cfg = model.cfg
+    watch = {"embed": params["embed"], "lm_head": params["lm_head"],
+             "layer0.wq": params["layers"][0]["attn"]["wq"],
+             "layer23.mlp.wo": params["layers"][-1]["mlp"]["wo"]}
+    before = {n: t.clone() for n, t in watch.items()}
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, hist, report = run_training(
+        ARCH, model=model, params=params, steps=2, batch=4, group=4,
+        max_new=MAX_NEW, temperature=1.0,
+        reward_fn=token_share_reward(cfg.vocab_size),
+        device=dev, log_every=1, return_report=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in fns.items()}
+    steps = sum(r["decode_steps"] for r in hist)
+    prefills = sum(r["prefills"] for r in hist)
+    want = {"decode_attention": cfg.num_layers * steps,
+            "paged_decode_attention": 0, "greedy_sample": 0,
+            "flash_attention": cfg.num_layers * (prefills + 2 * len(hist))}
+    if len(hist) != 2 or prefills != 2 * 16 or counts != want:
+        raise AssertionError(f"train: launches {counts} != {want} "
+                             f"({len(hist)} iterations, {prefills} "
+                             f"prefills)")
+    for r in hist:
+        if not all(np.isfinite(r[k]) for k in ("loss", "grad_norm",
+                                                "entropy", "reward")) \
+                or r["grad_norm"] <= 0 or r["tokens"] < 1:
+            raise AssertionError(f"train: iteration {r['step']} malformed: "
+                                 f"{r}")
+        # the trainer's forward (flash attention) and the engine's decode
+        # (decode attention) score the sampled tokens alike: the masked
+        # mean of exp(logp - behaviour logp) is 1 up to bf16 rounding
+        if abs(r["ratio_mean"] - 1) > 1e-2:
+            raise AssertionError(f"train: iteration {r['step']}: policy and "
+                                 f"behaviour logprobs disagree, ratio_mean "
+                                 f"{r['ratio_mean']}")
+    moved = {n: not torch.equal(before[n], t) for n, t in watch.items()}
+    if not all(moved.values()):
+        raise AssertionError(f"train: weights did not move: {moved}")
+    if not all(torch.isfinite(t).all() for t in watch.values()):
+        raise AssertionError("train: non-finite weights after the step")
+    s = report.summary()
+    roll = [t1 - t0_ for _, t0_, t1 in report.timelines["rollout"]]
+    train = [t1 - t0_ for _, t0_, t1 in report.timelines["train"]]
+    positions = 4 * 4 * (16 + MAX_NEW - 1)      # rows x trained positions
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] {ARCH}: 2 GRPO iterations in {wall:.2f}s; rollout "
+          f"busy {s['total_rollout_s']:.2f}s {roll}, train busy "
+          f"{s['total_train_s']:.2f}s {train}; {positions} positions per "
+          f"step, {positions * len(train) / s['total_train_s']:.1f} "
+          f"training tokens/s; peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"launches {counts}")
+    for r in hist:
+        print(f"[train] iteration {r['step']}: loss={r['loss']:.6f} "
+              f"grad_norm={r['grad_norm']:.4f} entropy={r['entropy']:.4f} "
+              f"reward={r['reward']:.4f} ratio_mean={r['ratio_mean']:.6f} "
+              f"ratio_max={r['ratio_max']:.4f} tokens={r['tokens']} "
+              f"decode_steps={r['decode_steps']}")
+    del state
+    return counts, {"wall_s": wall, "rollout_s": roll, "train_s": train,
+                    "positions_per_step": positions,
+                    "train_tokens_per_s": positions * len(train)
+                    / s["total_train_s"],
+                    "max_memory_allocated": peak, "history": hist,
+                    "launches": counts}
 
 
 def recheck_pool(torch, dev, da, engine, run):
@@ -336,6 +507,8 @@ SOURCES = {
         "src/repro/kernels/decode_attention.py:138"),
     "greedy_sample": ("src/repro_torch/kernels/csrc/greedy_sample.cu",
                       "src/repro/kernels/sampling.py:34"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:24"),
 }
 
 
@@ -354,9 +527,14 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s")
     timer = Timer(torch, dev)
     rows = phase_kernels(torch, dev, timer)
+    rows["flash_attention"] = phase_flash(torch, dev, timer)
     del timer
     torch.cuda.empty_cache()
-    launches, serve = phase_serve(torch, dev)
+    model, params = build(torch, dev)
+    launches, serve = phase_serve(torch, dev, model, params)
+    train_launches, train = phase_train(torch, dev, model, params)
+    for k, n in train_launches.items():
+        launches[k] += n
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -373,8 +551,9 @@ def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "kernels": kernels, "serve": serve}, f,
-                  indent=1)
+        json.dump({"card": smi, "kernels": kernels, "serve": serve,
+                   "flash": rows["flash_attention"], "train": train}, f,
+                  indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

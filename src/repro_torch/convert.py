@@ -1,4 +1,5 @@
-"""Convert the JAX package's parameter pytree into the port's parameters.
+"""Convert the JAX package's parameter pytree (and train state) into the
+port's.
 
 The input is the JAX pytree as nested dicts of numpy arrays (``jax.tree.map
 (np.asarray, params)``), so this module needs neither JAX nor the JAX
@@ -60,3 +61,16 @@ def from_jax_params(tree: dict, device="cpu") -> dict:
         out[k] = ([conv(layer) for layer in _unstack(v)] if k in STACKED
                   else conv(v))
     return out
+
+
+def from_jax_train_state(state: dict, device="cpu") -> dict:
+    """JAX train state ``{"params", "opt": {"mu", "nu", "step"}}`` (nested
+    dicts of numpy arrays) -> the port's train state on ``device``: the
+    parameters and both AdamW moments converted like parameters, the step
+    a 0-d int32 tensor."""
+    opt = state["opt"]
+    return {"params": from_jax_params(state["params"], device),
+            "opt": {"mu": from_jax_params(opt["mu"], device),
+                    "nu": from_jax_params(opt["nu"], device),
+                    "step": to_tensor(np.asarray(opt["step"], np.int32),
+                                      device)}}

@@ -1,3 +1,4 @@
 from repro_torch.data import tokenizer
+from repro_torch.data.pipeline import ArithmeticTask, Batch, TaskConfig
 
-__all__ = ["tokenizer"]
+__all__ = ["ArithmeticTask", "Batch", "TaskConfig", "tokenizer"]

@@ -23,11 +23,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("decode_attention", "greedy_sample")
+SOURCES = ("decode_attention", "greedy_sample", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 # C signatures of every exported function, by source
 SIGNATURES = {
     "decode_attention": {
@@ -38,6 +39,10 @@ SIGNATURES = {
     },
     "greedy_sample": {
         "greedy_sample_launch": [_P, _P, _P, _I, _I, _P],
+    },
+    "flash_attention": {
+        "flash_attention_forward": [_P] * 5 + [_L] * 12 + [_I] * 7
+                                   + [_F, _I, _P],
     },
 }
 

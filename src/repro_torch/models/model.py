@@ -1,5 +1,5 @@
-"""Model facade: one object per architecture exposing init, caches, prefill
-and the batched kernel decode step.  Counterpart of
+"""Model facade: one object per architecture exposing init, the training
+forward, caches, prefill and the batched kernel decode step.  Counterpart of
 ``repro/models/model.py``."""
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.models import kvcache
-from repro_torch.models.stacks import stack_init
+from repro_torch.models.stacks import stack_forward, stack_init
 from repro_torch.models.stacks_infer import (stack_kernel_decode_step,
                                              stack_prefill)
 
@@ -22,6 +22,10 @@ class Model:
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters on the generator's device."""
         return stack_init(generator, self.cfg)
+
+    def forward(self, params, tokens, *, remat: bool = False):
+        """tokens (B, S) -> (logits (B, S, V) float32, aux scalar)."""
+        return stack_forward(params, self.cfg, tokens, remat=remat)
 
     def init_cache(self, batch: int, max_len: int, *, device) -> dict:
         return kvcache.init_cache(self.cfg, batch, max_len, device=device)

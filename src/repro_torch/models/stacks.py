@@ -1,5 +1,6 @@
-"""Layer-stack parameters and the pieces every stack step shares: init,
-embedding, unembedding, norms and the per-layer (rope theta, window).
+"""Layer-stack parameters, the pieces every stack step shares (init,
+embedding, unembedding, norms, the per-layer rope theta and window) and
+the full-sequence training forward :func:`stack_forward`.
 
 Counterpart of ``repro/models/stacks.py``, dense GQA branch.  Where the
 JAX package stacks layers on axis 0 for ``lax.scan``, the port keeps
@@ -10,11 +11,12 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (dense_init, embed_init, mlp_init,
-                                       rms_norm, torch_dtype)
+from repro_torch.models.common import (dense_init, embed_init, mlp_apply,
+                                       mlp_init, rms_norm, torch_dtype)
 from repro_torch.models.kvcache import check_supported
 
 NO_WINDOW = 2 ** 30     # far beyond any max_seq_len: never masks
@@ -73,3 +75,39 @@ def _unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = _norm(p["final_norm"], x, cfg)
     w = p["embed"].t() if cfg.tie_embeddings else p["lm_head"]
     return (x @ w).float()
+
+
+def _dense_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, theta: float,
+                 window: int) -> torch.Tensor:
+    h = _norm(lp["ln1"], x, cfg)
+    x = x + attn.gqa_apply_full(lp["attn"], cfg, h, positions,
+                                window=window, rope_theta=theta)
+    h = _norm(lp["ln2"], x, cfg)
+    return x + mlp_apply(lp["mlp"], h)
+
+
+def stack_forward(p: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                  remat: bool = False):
+    """tokens: (B,S) integer -> (logits (B,S,V) float32, aux scalar 0).
+
+    Dense GQA only; the other families raise.  ``remat=True`` wraps each
+    layer in ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+    the JAX package's ``jax.checkpoint`` around the scanned layer body: the
+    layer's activations are recomputed in the backward pass."""
+    if cfg.family != "dense" or cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"stack_forward for family {cfg.family!r} / attention "
+            f"{cfg.attention!r} is not ported yet: it comes with the "
+            f"other-architectures slice (ROADMAP, modules to port)")
+    B, S = tokens.shape
+    x = _embed_tokens(p, cfg, tokens)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for lp, (theta, window) in zip(p["layers"], _layer_theta_window(cfg)):
+        if remat:
+            x = checkpoint(_dense_layer, lp, cfg, x, positions, theta,
+                           window, use_reentrant=False)
+        else:
+            x = _dense_layer(lp, cfg, x, positions, theta, window)
+    return _unembed(p, cfg, x), torch.zeros((), dtype=torch.float32,
+                                            device=x.device)

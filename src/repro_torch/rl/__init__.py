@@ -1,5 +1,6 @@
 from repro_torch.rl.rollout import (SamplerConfig, build_engine,
-                                   generate_continuous, run_requests)
+                                   completions_to_text, generate_continuous,
+                                   run_requests)
 
-__all__ = ["SamplerConfig", "build_engine", "generate_continuous",
-           "run_requests"]
+__all__ = ["SamplerConfig", "build_engine", "completions_to_text",
+           "generate_continuous", "run_requests"]

@@ -1,8 +1,10 @@
 """Rollout phase served by the continuous-batching engine.
 
-Counterpart of ``repro/rl/rollout.py`` ``generate_continuous`` for greedy
-decoding.  The engine shape is given as plain keyword arguments; the JAX
-package's ``RolloutSpec`` comes with the disaggregated-serving slice.
+Counterpart of ``repro/rl/rollout.py`` ``generate_continuous`` (greedy and
+sampled decoding) and ``completions_to_text``.  The engine shape is given
+as plain keyword arguments; the JAX package's ``RolloutSpec`` comes with
+the disaggregated-serving slice, the static ``generate`` scan with
+``stack_decode_step`` (ROADMAP).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.serve.request import Request, RequestOutput
 @dataclass(frozen=True)
 class SamplerConfig:
     max_new_tokens: int = 16
-    temperature: float = 0.0          # only greedy is served so far
+    temperature: float = 0.0          # 0 => greedy (the JAX default is 1.0)
     eos_id: int = tok.EOS
 
 
@@ -29,13 +31,15 @@ def build_engine(model, params, *, max_seq_len: int, eos_id: int = tok.EOS,
                  block_size: int = 1, kv_layout: str = "contiguous",
                  kv_block_size: int = 16, num_kv_blocks: int | None = None,
                  sched: str = "fifo", kv_dtype: str | None = None,
-                 policy=None, device=None) -> Engine:
-    """An :class:`Engine` from plain engine-shape keyword arguments."""
+                 policy=None, device=None, generator=None) -> Engine:
+    """An :class:`Engine` from plain engine-shape keyword arguments;
+    ``generator`` feeds sampled decoding."""
     return Engine(model, params, EngineConfig(
         num_slots=num_slots, max_seq_len=max_seq_len, eos_id=eos_id,
         temperature=temperature, block_size=block_size, kv_layout=kv_layout,
         kv_block_size=kv_block_size, num_kv_blocks=num_kv_blocks,
-        sched=sched, kv_dtype=kv_dtype), device=device, policy=policy)
+        sched=sched, kv_dtype=kv_dtype), device=device, policy=policy,
+        generator=generator)
 
 
 def run_requests(engine: Engine, requests) -> list[RequestOutput]:
@@ -51,12 +55,14 @@ def run_requests(engine: Engine, requests) -> list[RequestOutput]:
 
 
 def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
-                        num_slots: int | None = None, device=None,
-                        **engine_kw) -> dict:
+                        generator=None, num_slots: int | None = None,
+                        device=None, **engine_kw) -> dict:
     """Serve each row of ``prompts (B, Sp)`` as one request through the
     engine (``num_slots`` KV slots, default one per row; fewer slots than
-    rows queue and recycle).  ``engine_kw`` are :func:`build_engine`'s
-    engine-shape arguments (``block_size``, ``kv_layout``,
+    rows queue and recycle).  Sampled decoding (``sampler.temperature >
+    0``) draws from ``generator``, a ``torch.Generator`` on ``device``,
+    where the JAX package takes a key.  ``engine_kw`` are
+    :func:`build_engine`'s engine-shape arguments (``block_size``, ``kv_layout``,
     ``kv_block_size``, ``num_kv_blocks``, ``sched``, ``policy``,
     ``kv_dtype``).
 
@@ -71,7 +77,7 @@ def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
         model, params, max_seq_len=Sp + T, eos_id=sampler.eos_id,
         temperature=sampler.temperature,
         num_slots=B if num_slots is None else num_slots, device=device,
-        **engine_kw)
+        generator=generator, **engine_kw)
     outs = run_requests(engine, (Request(rid=i, prompt=prompts_np[i],
                                          max_new_tokens=T)
                                  for i in range(B)))
@@ -95,3 +101,11 @@ def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
         "engine_stats": engine.stats,
     }
 
+
+def completions_to_text(completions, mask) -> list[str]:
+    """Decode each row's recorded tokens (mask > 0, EOS dropped)."""
+    out = []
+    for row, m in zip(np.asarray(completions), np.asarray(mask)):
+        ids = [int(t) for t, mi in zip(row, m) if mi > 0 and int(t) != tok.EOS]
+        out.append(tok.decode(ids))
+    return out

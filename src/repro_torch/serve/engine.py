@@ -9,16 +9,18 @@ slot at once.  A slot is recycled the moment its request hits EOS or its
 decode budget, and the next queued request prefills into it.
 
 Every decode step samples the next token of every slot from the previous
-step's logits with the fused greedy kernel (``kernels.sampling``), then
-runs the model's batched kernel decode step (``Model.kernel_decode_step``:
+step's logits (at temperature 0 with the fused greedy kernel,
+``kernels.sampling``; above it by :func:`sample_logp`'s Gumbel-max draw
+from the engine's ``torch.Generator``), then runs the model's batched
+kernel decode step (``Model.kernel_decode_step``:
 decode attention in a kernel, per layer, over contiguous stripes or paged
 block pools).  There is no backend switch: on CUDA tensors the kernels
 run, on CPU tensors their plain versions.  Admission prefills one request
 at a time and never samples.
 
-Not ported yet, and refused with ``NotImplementedError``: sampled decoding
-(``temperature > 0``), radix prefix sharing, stop-token suspension and
-resume, disaggregated adoption, ``reset`` and ``export_state``.
+Not ported yet, and refused with ``NotImplementedError``: radix prefix
+sharing, stop-token suspension and resume, disaggregated adoption,
+``reset`` and ``export_state``.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ class EngineConfig:
     num_slots: int = 8
     max_seq_len: int = 256
     eos_id: int = tok.EOS
-    temperature: float = 0.0          # only 0 (greedy) is served so far
+    temperature: float = 0.0          # 0 => greedy
     block_size: int = 1               # decode steps per scheduler tick
     max_waiting: Optional[int] = None
     kv_layout: str = "contiguous"     # "contiguous" | "paged"
@@ -90,6 +92,30 @@ class EngineStats:
         return self.recorded_tokens / max(self.slot_steps, 1)
 
 
+def sample_logp(logits: torch.Tensor, temperature: float, *,
+                generator: Optional[torch.Generator] = None,
+                gumbel: Optional[torch.Tensor] = None):
+    """(N, V) float32 logits -> (next token (N,) int32, its log-probability
+    (N,) float32).  Counterpart of the JAX engine's ``_make_sampler``.
+
+    Temperature 0 is the fused greedy kernel.  Above it the token is
+    ``argmax(logits / T + g)`` with ``g`` standard Gumbel noise, which is
+    how ``jax.random.categorical`` draws; ``g`` comes from ``generator``
+    (on the logits' device) unless the caller passes it as ``gumbel``.
+    The log-probability is that of the untempered logits, as the JAX
+    engine records it."""
+    if temperature == 0:
+        return greedy_sample(logits)
+    if gumbel is None:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
+        tiny = torch.finfo(torch.float32).tiny
+        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+    nxt = torch.argmax(logits / temperature + gumbel, dim=-1)
+    logp = torch.log_softmax(logits, dim=-1).gather(-1, nxt[:, None])[:, 0]
+    return nxt.to(torch.int32), logp
+
+
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP, modules to "
@@ -97,24 +123,28 @@ def _not_ported(what: str):
 
 
 class Engine:
-    """Continuous-batching greedy generation engine over a fixed slot pool.
+    """Continuous-batching generation engine over a fixed slot pool.
 
     ``device`` defaults to the CUDA card and raises without one; pass
     ``device="cpu"`` to run the plain versions of the kernels.  ``params``
-    must already live on that device."""
+    must already live on that device.  Sampled decoding (``temperature >
+    0``) draws from ``generator`` (a ``torch.Generator`` on ``device``;
+    default: one seeded with 0, as the JAX engine defaults to
+    ``PRNGKey(0)``)."""
 
     def __init__(self, model, params, config: EngineConfig, *, device=None,
-                 policy=None):
-        if config.temperature != 0:
-            raise NotImplementedError(
-                "temperature > 0 (sampled decoding) comes with the training "
-                "slice (ROADMAP)")
+                 policy=None, generator: Optional[torch.Generator] = None):
+        if config.temperature < 0:
+            raise ValueError("temperature must be >= 0")
         if config.prefix_share:
             raise _not_ported("prefix_share (radix prefix sharing)")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine on {self.device}")
+        if config.temperature > 0 and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self.generator = generator
         self.model = model
         self.params = params
         self.config = config
@@ -254,7 +284,8 @@ class Engine:
     def _decode_step(self, tables):
         """Sample every slot's next token from the last logits, then decode
         it for the whole pool; returns (tokens, logprobs, recorded)."""
-        nxt, logp = greedy_sample(self._last_logits)
+        nxt, logp = sample_logp(self._last_logits, self.config.temperature,
+                                generator=self.generator)
         rec = self._alive & (self._remaining > 0)
         self._last_logits, self.slots.cache = self.model.kernel_decode_step(
             self.params, nxt[:, None], self.slots.cache, tables=tables)

@@ -123,8 +123,11 @@ def test_engine_invariants_and_stats(pair):
 
 def test_engine_refuses_what_is_not_ported(pair):
     _, _, tm, tp = pair
-    with pytest.raises(NotImplementedError, match="temperature"):
-        Engine(tm, tp, EngineConfig(temperature=1.0), device="cpu")
+    # sampled decoding is ported: it draws from a seeded generator
+    eng = Engine(tm, tp, EngineConfig(temperature=1.0), device="cpu")
+    assert eng.generator is not None
+    with pytest.raises(ValueError, match="temperature"):
+        Engine(tm, tp, EngineConfig(temperature=-1.0), device="cpu")
     with pytest.raises(NotImplementedError, match="prefix_share"):
         Engine(tm, tp, EngineConfig(kv_layout="paged", prefix_share=True),
                device="cpu")

@@ -46,11 +46,17 @@ def _no_cuda():
 def test_entry_points_without_device_raise_on_a_cpu_only_machine():
     _no_cuda()
     from repro_torch.launch.serve import serve_continuous
+    from repro_torch.launch.train import run_training
     from repro_torch.models import build_model
+    from repro_torch.rl.coexec import GRPOJob
     from repro_torch.serve import Engine, EngineConfig
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_continuous("internlm2-1.8b", [[1, 2, 3]], reduced=True,
                          max_new=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_training(reduced=True, steps=1, batch=1, group=2, max_new=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GRPOJob("job0", reduced=True)
     m = build_model("internlm2-1.8b", reduced=True)
     params = m.init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -60,6 +66,7 @@ def test_entry_points_without_device_raise_on_a_cpu_only_machine():
 def _cuda_calls():
     from repro_torch.kernels.decode_attention import (
         decode_attention, paged_decode_attention)
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.sampling import greedy_sample
     i32 = dict(dtype=torch.int32, device="cuda")
     bf = dict(dtype=torch.bfloat16, device="cuda")
@@ -74,11 +81,14 @@ def _cuda_calls():
             q, pool, pool, tables, lengths),
         "greedy_sample": lambda: greedy_sample(
             torch.zeros(2, 100, dtype=torch.float32, device="cuda")),
+        "flash_attention": lambda: flash_attention(
+            torch.zeros(2, 8, 4, 16, **bf), kv, kv),
     }
 
 
 @pytest.mark.parametrize("name", ["decode_attention",
-                                  "paged_decode_attention", "greedy_sample"])
+                                  "paged_decode_attention", "greedy_sample",
+                                  "flash_attention"])
 def test_wrapper_on_cuda_tensors_raises_without_cuda(name, monkeypatch):
     """Fake CUDA tensors (no storage) reach the kernel path, which must
     raise for want of a toolchain, not answer with the plain version."""

@@ -13,6 +13,16 @@ Phases, in order; any failure exits non-zero:
              PyTorch version and time kernel, plain version, one PyTorch
              library call, and the bound (bytes / 3.35 TB/s or operations /
              peak rate, the larger).
+             The rwkv6 scan kernel is held against its plain version at
+             the rwkv6-7b prefill's widths (B 1, H 64, Dk = Dv = 64,
+             r/k/v bf16): at S 512 and S 200 with the model's weak decays
+             (w0 = -6, so the state carries across every chunk), at S 512
+             with the JAX kernel test's decays and with strong ones (log_w
+             down to -8 per step), at one float32 shape with odd Dk and a
+             partial value slice, and at Dk 96, Dv 128; times of kernel and
+             plain version, and the bound (operations at the float32 rate).
+             No single PyTorch call computes the recurrence, so it has no
+             library time.
 3. flash   — the flash-attention kernel against its plain version at the
              training shape (16 rows, S 143, H 16, Hkv 8, D 128, bf16) and
              at S 4096 (2 rows); the gradients of ``FlashAttentionFn``
@@ -35,6 +45,20 @@ Phases, in order; any failure exits non-zero:
              sampling never; finite loss and gradient norm; the trainer's
              log-probabilities of the sampled tokens match the engine's
              (mean ratio within 1e-2 of 1); the weights move.
+6. serve-rwkv6 — internlm2's weights freed, rwkv6-7b at full width (32
+             layers, d_model 4096, 64 heads of 64, vocab 65536) in bf16 with
+             seeded random weights: the same 16 prompt lengths, 8 slots, 128
+             new tokens, contiguous, greedy.  The scan kernel must have run
+             32 times per prefill, greedy sampling once per decode step, no
+             attention kernel at all.  Prefill and decode are held to each
+             other: for 4 requests, ``prompt + completion[:n]`` is prefilled
+             again at n = 0, 31, 63, 127 and the log-probability of
+             ``completion[n]`` compared with the engine's.  In bf16 the
+             rounding of 32 recurrent layers moves these by up to ~0.3 (the
+             plain scan in place of the kernel does the same), so the bf16
+             mean of exp(diff) is held within 0.1 of 1 and the 1e-2 measure
+             of the train phase is held on a float32 run of 4 requests with
+             the same weights upcast.
 
 Prints the card's name and power limit, a JSON line with every kernel's
 numbers, and as its last line ``{"ok": true, "device": {...}}``.  Needs a
@@ -42,6 +66,7 @@ CUDA card; there is no CPU path.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -57,6 +82,8 @@ HBM_BPS = 3.35e12          # H100 SXM device memory rate, bytes/s
 PEAK = {"bfloat16": 989e12, "float32": 67e12}   # dense ops/s by input type
 ATTN_TOL = dict(atol=2e-2, rtol=2e-2)
 ARCH, SLOTS, MAX_NEW, MAX_SEQ, N_REQ = "internlm2-1.8b", 8, 128, 1024, 16
+RWKV_ARCH = "rwkv6-7b"
+SCAN_CHUNK = 64
 
 
 def bound(n_bytes: float, n_ops: float, dtype: str):
@@ -220,6 +247,83 @@ def phase_kernels(torch, dev, timer):
     return rows
 
 
+# (label, B, S, H, Dk, Dv, r/k/v dtype, decays): rwkv6-7b's prefill widths
+# at the smoke's longest prompt and a ragged one with the model's decays,
+# the JAX kernel test's decays, strong decays, a float32 shape with odd Dk
+# and a partial 32-column value slice, and head dims past 64 (the kernel's
+# second channel pass, four value slices)
+SCAN_CASES = (
+    ("main", 1, 512, 64, 64, 64, "bfloat16", "weak"),
+    ("ragged", 1, 200, 64, 64, 64, "bfloat16", "weak"),
+    ("jax-test", 1, 512, 64, 64, 64, "bfloat16", "normal"),
+    ("strong", 1, 512, 64, 64, 64, "bfloat16", "strong"),
+    ("f32", 2, 100, 3, 33, 80, "float32", "normal"),
+    ("wide", 2, 150, 2, 96, 128, "bfloat16", "normal"))
+
+
+def scan_ops(B, S, H, Dk, Dv, c=SCAN_CHUNK):
+    """Operations of the chunked scan, counted per chunk of the run's
+    length: the intra-chunk weights (4 per (t, s < t, d) term: difference,
+    exponential, two products), the u diagonal, the decayed read of the
+    state, A v over s <= t, and the state update."""
+    n = 0
+    for c0 in range(0, S, c):
+        m = min(c, S - c0)
+        n += (4 * Dk * m * (m - 1) // 2 + 3 * Dk * m + 2 * m * Dk * Dv
+              + 2 * Dv * m * (m + 1) // 2 + 2 * m * Dk * Dv)
+    return n * B * H
+
+
+def phase_scan(torch, dev, timer):
+    from repro_torch.kernels import rwkv6_scan as rs
+
+    row = {"max_abs_err": 0.0}
+    for label, B, S, H, Dk, Dv, dtype, decay in SCAN_CASES:
+        g = torch.Generator(device=dev).manual_seed(3)
+        dt = getattr(torch, dtype)
+        r, k = (torch.randn(B, S, H, Dk, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        v = torch.randn(B, S, H, Dv, generator=g, device=dev).to(dt)
+        if decay == "weak":        # the model's: -exp(w0 + ...), w0 = -6
+            lw = -torch.exp(-6 + 0.5 * torch.randn(B, S, H, Dk, generator=g,
+                                                   device=dev))
+        elif decay == "normal":    # -exp(N(0, 1)), the JAX kernel test's
+            lw = -torch.exp(torch.randn(B, S, H, Dk, generator=g,
+                                        device=dev))
+        else:                      # down to -8 per step
+            lw = -(torch.rand(B, S, H, Dk, generator=g, device=dev) * 8
+                   + 1e-3)
+        u = torch.randn(H, Dk, generator=g, device=dev)
+        y, st = rs.rwkv6_scan(r, k, v, lw, u)
+        y0, st0 = rs.rwkv6_scan_plain(r, k, v, lw, u)
+        y_tol = ATTN_TOL if dtype == "bfloat16" else dict(atol=1e-3,
+                                                          rtol=1e-3)
+        err = check_close(torch, f"rwkv6_scan {label} y", y, y0, y_tol)
+        st_err = check_close(torch, f"rwkv6_scan {label} state", st, st0,
+                             dict(atol=1e-3, rtol=1e-3))
+        if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"rwkv6_scan {label}: non-finite output")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        ms = timer(lambda: rs.rwkv6_scan(r, k, v, lw, u))
+        plain_ms = timer(lambda: rs.rwkv6_scan_plain(r, k, v, lw, u),
+                         iters=10)
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in (r, k, v, lw, u, y, st))
+        b_ms, b_by = bound(n_bytes, scan_ops(B, S, H, Dk, Dv), "float32")
+        print(f"[kernels] rwkv6_scan {label} (B={B}, S={S}, H={H}, "
+              f"Dk={Dk}, Dv={Dv}, {dtype}, {decay} decays): "
+              f"max_abs_err y={err:.3e} state={st_err:.3e} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})")
+        row[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, state_err=st_err)
+        if label == "main":
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=b_ms, bound_by=b_by)
+        del r, k, v, lw, u, y, st, y0, st0
+    return row
+
+
 # (label, rows, positions): the training shape, and a long one
 FLASH_CASES = (("main", 16, 16 + MAX_NEW - 1), ("long", 2, 4096))
 
@@ -282,26 +386,49 @@ def phase_flash(torch, dev, timer):
 def wrappers():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import sampling
     return {"decode_attention": da.decode_attention,
             "paged_decode_attention": da.paged_decode_attention,
             "greedy_sample": sampling.greedy_sample,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "rwkv6_scan": rs.rwkv6_scan}
 
 
-def build(torch, dev):
+def build(torch, dev, arch=ARCH):
     from repro_torch.models import build_model
 
-    model = build_model(ARCH)
+    model = build_model(arch)
     cfg = model.cfg
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[model] {ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model},"
+    print(f"[model] {arch}: {cfg.num_layers} layers, d_model {cfg.d_model},"
           f" vocab {cfg.vocab_size}, {n_params / 1e9:.3f}B params "
           f"({cfg.dtype}) initialised in {time.perf_counter() - t0:.1f}s")
     return model, params
+
+
+def serve_prompts(vocab_size: int):
+    """N_REQ prompts of 32-512 token ids from ``RandomState(0)``."""
+    rs = np.random.RandomState(0)
+    lens = rs.randint(32, 513, size=N_REQ)
+    return [rs.randint(0, vocab_size, size=n).astype(np.int32)
+            for n in lens]
+
+
+def check_outputs(run, outs):
+    """Every request finished, with 1..MAX_NEW tokens and finite
+    log-probabilities <= 0."""
+    if len(outs) != N_REQ or any(o.finish_reason not in ("length", "eos")
+                                 for o in outs):
+        raise AssertionError(f"{run}: unfinished requests")
+    for o in outs:
+        lp = np.asarray(o.logprobs)
+        if not (1 <= o.num_tokens <= MAX_NEW and np.isfinite(lp).all()
+                and (lp <= 1e-6).all()):
+            raise AssertionError(f"{run}: rid {o.rid} output malformed")
 
 
 def phase_serve(torch, dev, model, params):
@@ -309,10 +436,7 @@ def phase_serve(torch, dev, model, params):
     from repro_torch.launch.serve import serve_continuous
 
     cfg = model.cfg
-    rs = np.random.RandomState(0)
-    lens = rs.randint(32, 513, size=N_REQ)
-    prompts = [rs.randint(0, cfg.vocab_size, size=n).astype(np.int32)
-               for n in lens]
+    prompts = serve_prompts(cfg.vocab_size)
     launches = {k: 0 for k in wrappers()}
     firsts, tokens, reports = {}, {}, {}
     for kv, kv_dtype in (("contiguous", None), ("paged", None),
@@ -328,14 +452,7 @@ def phase_serve(torch, dev, model, params):
         counts = {k: f.launches for k, f in fns.items()}
         steps = rep["decode_steps"]
         outs = rep["outputs"]
-        if len(outs) != N_REQ or any(o.finish_reason not in ("length", "eos")
-                                     for o in outs):
-            raise AssertionError(f"{run}: unfinished requests")
-        for o in outs:
-            lp = np.asarray(o.logprobs)
-            if not (1 <= o.num_tokens <= MAX_NEW and np.isfinite(lp).all()
-                    and (lp <= 1e-6).all()):
-                raise AssertionError(f"{run}: rid {o.rid} output malformed")
+        check_outputs(run, outs)
         attn = "decode_attention" if kv == "contiguous" \
             else "paged_decode_attention"
         want = {k: 0 for k in counts}
@@ -415,7 +532,8 @@ def phase_train(torch, dev, model, params):
     prefills = sum(r["prefills"] for r in hist)
     want = {"decode_attention": cfg.num_layers * steps,
             "paged_decode_attention": 0, "greedy_sample": 0,
-            "flash_attention": cfg.num_layers * (prefills + 2 * len(hist))}
+            "flash_attention": cfg.num_layers * (prefills + 2 * len(hist)),
+            "rwkv6_scan": 0}
     if len(hist) != 2 or prefills != 2 * 16 or counts != want:
         raise AssertionError(f"train: launches {counts} != {want} "
                              f"({len(hist)} iterations, {prefills} "
@@ -464,6 +582,127 @@ def phase_train(torch, dev, model, params):
                     "launches": counts}
 
 
+# completion positions re-prefilled by the serve-rwkv6 phase
+RECHECK_AT = (0, 31, 63, 127)
+
+
+def phase_serve_rwkv6(torch, dev):
+    """rwkv6-7b at full width through the continuous engine: the scan
+    kernel in every prefill, plain decode steps, greedy sampling."""
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.models import build_model
+
+    model, params = build(torch, dev, RWKV_ARCH)
+    cfg = model.cfg
+    prompts = serve_prompts(cfg.vocab_size)
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rep = serve_continuous(RWKV_ARCH, prompts, model=model, params=params,
+                           max_new=MAX_NEW, num_slots=SLOTS,
+                           kv="contiguous", max_seq_len=MAX_SEQ, device=dev)
+    counts = {k: f.launches for k, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps, outs = rep["decode_steps"], rep["outputs"]
+    check_outputs("serve-rwkv6", outs)
+    want = {k: 0 for k in counts}
+    want["rwkv6_scan"] = cfg.num_layers * rep["prefills"]
+    want["greedy_sample"] = steps
+    if counts != want or rep["prefills"] != N_REQ:
+        raise AssertionError(f"serve-rwkv6: launches {counts} != {want} "
+                             f"({rep['prefills']} prefills)")
+    step_ms = rep["decode_time_s"] / max(steps, 1) * 1e3
+    print(f"[serve-rwkv6] {RWKV_ARCH}: {N_REQ} requests, {rep['tokens']} "
+          f"tokens, {steps} decode steps in {rep['wall_s']:.2f}s = "
+          f"{rep['tok_per_s']:.1f} tok/s; {step_ms:.2f} ms per decode step, "
+          f"{rep['wall_s'] - rep['decode_time_s']:.2f}s outside decode "
+          f"(prefill, admission); peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"launches {counts}")
+    bf = prefill_decode_check(torch, dev, model, params, outs, "bf16", 0.1,
+                              plain_too=True)
+    # float32: the same weights upcast, 4 requests
+    del rep["engine"]
+    params = _tree_map(lambda t: t.float(), params)
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    torch.cuda.empty_cache()
+    rep32 = serve_continuous(RWKV_ARCH, prompts[:4], model=model,
+                             params=params, max_new=MAX_NEW, num_slots=4,
+                             kv="contiguous", max_seq_len=MAX_SEQ, device=dev)
+    f32 = prefill_decode_check(torch, dev, model, params, rep32["outputs"],
+                               "float32", 1e-2)
+    report = {"tokens": rep["tokens"], "decode_steps": steps,
+              "prefills": rep["prefills"], "wall_s": rep["wall_s"],
+              "decode_time_s": rep["decode_time_s"],
+              "tok_per_s": rep["tok_per_s"], "ms_per_decode_step": step_ms,
+              "max_memory_allocated": peak, "launches": counts,
+              "prefill_decode_bf16": bf, "prefill_decode_float32": f32}
+    del rep, rep32, model, params
+    return counts, report
+
+
+def prefill_decode_check(torch, dev, model, params, outs, label, tol, *,
+                         plain_too=False):
+    """Prefill ``prompt + completion[:n]`` again for 4 full completions at
+    n in RECHECK_AT and compare the log-probability of ``completion[n]``
+    with the engine's (decode) one: the mean of exp(diff) must lie within
+    ``tol`` of 1.  ``plain_too`` repeats the prefills with the plain scan in
+    place of the kernel, as a yardstick of the rounding noise."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
+    from repro_torch.models import rwkv6 as rw
+
+    full = [o for o in outs if o.num_tokens == MAX_NEW][:4]
+    if len(full) < 4:
+        raise AssertionError(f"serve-rwkv6 {label}: fewer than 4 full "
+                             f"completions")
+
+    def diffs():
+        out = []
+        for o in full:
+            for n in RECHECK_AT:
+                seq = np.concatenate([o.prompt, np.asarray(o.tokens[:n],
+                                                           np.int32)])
+                tokens = torch.from_numpy(seq).to(dev)[None]
+                logits, _ = model.prefill(params, tokens, model.init_cache(
+                    1, MAX_SEQ, device=dev))
+                lp = float(torch.log_softmax(logits[0], -1)[o.tokens[n]])
+                out.append(lp - o.logprobs[n])
+        return np.asarray(out)
+
+    deltas = diffs()
+    ratio = float(np.exp(deltas).mean())
+    res = {"ratio_mean": ratio, "max_abs_diff": float(np.abs(deltas).max()),
+           "diffs": deltas.tolist()}
+    note = ""
+    if plain_too:
+        kernel, rw.rwkv6_scan = rw.rwkv6_scan, rwkv6_scan_plain
+        try:
+            plain = diffs()
+        finally:
+            rw.rwkv6_scan = kernel
+        res.update(plain_ratio_mean=float(np.exp(plain).mean()),
+                   plain_max_abs_diff=float(np.abs(plain).max()))
+        note = (f"; through the plain scan instead: mean exp(diff) "
+                f"{res['plain_ratio_mean']:.6f}, max |diff| "
+                f"{res['plain_max_abs_diff']:.4e}")
+    print(f"[serve-rwkv6] {label}: prefill vs decode log-probabilities at "
+          f"n = {RECHECK_AT} for rids {[o.rid for o in full]}: mean "
+          f"exp(diff) {ratio:.6f} (held within {tol} of 1), max |diff| "
+          f"{res['max_abs_diff']:.4e}{note}")
+    if abs(ratio - 1) > tol:
+        raise AssertionError(f"serve-rwkv6 {label}: prefill and decode "
+                             f"disagree, mean exp(diff) {ratio}")
+    return res
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def recheck_pool(torch, dev, da, engine, run):
     """The paged kernel against its plain version on the pool and tables
     the run left (the tables of its last decode step)."""
@@ -509,6 +748,8 @@ SOURCES = {
                       "src/repro/kernels/sampling.py:34"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:24"),
+    "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan.py:22"),
 }
 
 
@@ -527,14 +768,19 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s")
     timer = Timer(torch, dev)
     rows = phase_kernels(torch, dev, timer)
+    rows["rwkv6_scan"] = phase_scan(torch, dev, timer)
     rows["flash_attention"] = phase_flash(torch, dev, timer)
     del timer
     torch.cuda.empty_cache()
     model, params = build(torch, dev)
     launches, serve = phase_serve(torch, dev, model, params)
     train_launches, train = phase_train(torch, dev, model, params)
-    for k, n in train_launches.items():
-        launches[k] += n
+    del model, params
+    torch.cuda.empty_cache()
+    rwkv_launches, serve_rwkv6 = phase_serve_rwkv6(torch, dev)
+    for counts in (train_launches, rwkv_launches):
+        for k, n in counts.items():
+            launches[k] += n
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -552,8 +798,9 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "serve": serve,
-                   "flash": rows["flash_attention"], "train": train}, f,
-                  indent=1, default=str)
+                   "flash": rows["flash_attention"],
+                   "rwkv6_scan": rows["rwkv6_scan"], "train": train,
+                   "serve_rwkv6": serve_rwkv6}, f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

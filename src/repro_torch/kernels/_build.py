@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("decode_attention", "greedy_sample", "flash_attention")
+SOURCES = ("decode_attention", "greedy_sample", "flash_attention",
+           "rwkv6_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,6 +44,9 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention_forward": [_P] * 5 + [_L] * 12 + [_I] * 7
                                    + [_F, _I, _P],
+    },
+    "rwkv6_scan": {
+        "rwkv6_scan_forward": [_P] * 7 + [_L] * 15 + [_I] * 6 + [_P],
     },
 }
 

@@ -1,4 +1,5 @@
-"""Shared model building blocks: dtypes, inits, RMSNorm, SwiGLU MLP, RoPE.
+"""Shared model building blocks: dtypes, inits, RMSNorm, per-head group
+norm, SwiGLU MLP, RoPE.
 
 Counterpart of ``repro/models/common.py``.  Weights keep the JAX package's
 layouts (``(in, *out)`` for dense kernels), so converted parameters drop in
@@ -64,6 +65,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     xf = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
     return (xf * (1.0 + w.float())).to(dt)
+
+
+def group_norm_heads(x: torch.Tensor, w: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """Per-head group norm over the last dim in float32; x: (..., H, D),
+    w: (H, D); cast back to ``x``'s dtype."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).pow(2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w.float()).to(dt)
 
 
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:

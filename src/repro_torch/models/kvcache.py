@@ -1,12 +1,19 @@
-"""Decode caches for the dense GQA family (plain dicts of tensors).
+"""Decode caches for the dense GQA and rwkv6 (ssm) families (plain dicts of
+tensors).
 
-Counterpart of ``repro/models/kvcache.py``.  Two serving layouts:
+Counterpart of ``repro/models/kvcache.py``.  Two serving layouts for the
+dense family:
 
 * contiguous (:func:`init_cache`) — ``k``/``v`` ``(L, B, S, Hkv, hd)``, one
   ``max_len`` stripe per batch row;
 * paged (:func:`init_paged_cache`) — ``k``/``v`` become shared block pools
   ``(L, num_blocks + 1, block_size, Hkv, hd)`` (block 0 is the null
   block), optionally int8 with per-position float32 scale pools.
+
+The ssm family carries no sequence-shaped leaf: its contiguous cache is
+the recurrent state, ``att_x``/``ffn_x`` ``(L, B, d)`` in the model dtype
+and ``wkv`` ``(L, B, H, hd, hd)`` float32.  Its paged layout is not ported
+yet.
 
 Where the JAX package rebuilds a cache with ``.at[].set``, the port updates
 these tensors in place (``index_put_`` / slice assignment): a cache dict is
@@ -18,13 +25,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import torch_dtype
+from repro_torch.models.rwkv6 import rwkv6_init_state
 
 SCALE_SUFFIX = "_scale"
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense GQA family; the others wait for theirs."""
-    if cfg.family not in ("dense",) or cfg.attention != "gqa":
+    """The port serves the dense GQA and the ssm (rwkv6) families; the
+    others wait for theirs."""
+    if cfg.family != "ssm" and (cfg.family != "dense"
+                                or cfg.attention != "gqa"):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attention!r} is not "
             f"ported yet: it comes with the other-architectures slice "
@@ -35,18 +45,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device) -> dict:
     """Zeroed contiguous decode cache with a scalar ``index``."""
     check_supported(cfg)
+    idx = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.family == "ssm":     # rwkv6: one block's state per layer
+        one = rwkv6_init_state(cfg, batch, device=device)
+        return {name: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype,
+                                  device=device)
+                for name, t in one.items()} | {"index": idx}
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     dt = torch_dtype(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
-            "index": torch.zeros((), dtype=torch.int32, device=device)}
+            "index": idx}
 
 
 def paged_names(cfg: ModelConfig) -> tuple[str, ...]:
-    """Cache leaves that get block-paged (those with a sequence axis)."""
+    """Cache leaves that get block-paged (those with a sequence axis):
+    none for the ssm family."""
     check_supported(cfg)
-    return ("k", "v")
+    return () if cfg.family == "ssm" else ("k", "v")
 
 
 def scale_names(cfg: ModelConfig) -> tuple[str, ...]:
@@ -93,6 +110,11 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, max_len: int, *,
     if kv_dtype not in (None, "auto", "int8"):
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
     check_supported(cfg)
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            "the paged layout for the ssm family (rwkv6) is not ported yet: "
+            "it comes with paged, radix and suspend for ssm (ROADMAP, "
+            "modules to port); serve it with kv_layout='contiguous'")
     int8 = kv_dtype == "int8"
     pool = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
             cfg.resolved_head_dim)

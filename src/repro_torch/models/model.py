@@ -1,5 +1,6 @@
 """Model facade: one object per architecture exposing init, the training
-forward, caches, prefill and the batched kernel decode step.  Counterpart of
+forward, caches, prefill and the batched decode steps (through the decode
+attention kernels for GQA stacks, plain for rwkv6).  Counterpart of
 ``repro/models/model.py``."""
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ import torch
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.models import kvcache
 from repro_torch.models.stacks import stack_forward, stack_init
-from repro_torch.models.stacks_infer import (stack_kernel_decode_step,
+from repro_torch.models.stacks_infer import (kernel_supported,
+                                             stack_decode_step,
+                                             stack_kernel_decode_step,
                                              stack_prefill)
 
 
@@ -45,6 +48,16 @@ class Model:
 
     def prefill(self, params, tokens, cache):
         return stack_prefill(params, self.cfg, tokens, cache)
+
+    def decode_step(self, params, token, cache):
+        """Batched one-token decode over a whole contiguous slot pool in
+        plain PyTorch (the ssm family)."""
+        return stack_decode_step(params, self.cfg, token, cache)
+
+    def kernel_supported(self) -> bool:
+        """Whether :meth:`kernel_decode_step` serves this architecture
+        (GQA stacks); the others decode through :meth:`decode_step`."""
+        return kernel_supported(self.cfg)
 
     def kernel_decode_step(self, params, token, cache, *, tables=None):
         """Batched one-token decode over a whole slot pool through the

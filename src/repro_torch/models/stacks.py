@@ -2,7 +2,8 @@
 embedding, unembedding, norms, the per-layer rope theta and window) and
 the full-sequence training forward :func:`stack_forward`.
 
-Counterpart of ``repro/models/stacks.py``, dense GQA branch.  Where the
+Counterpart of ``repro/models/stacks.py``, dense GQA and ssm (rwkv6)
+branches of the init, dense GQA of the forward.  Where the
 JAX package stacks layers on axis 0 for ``lax.scan``, the port keeps
 ``params["layers"]`` as a Python list of per-layer dicts and loops over it.
 """
@@ -18,6 +19,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (dense_init, embed_init, mlp_apply,
                                        mlp_init, rms_norm, torch_dtype)
 from repro_torch.models.kvcache import check_supported
+from repro_torch.models.rwkv6 import rwkv6_init
 
 NO_WINDOW = 2 ** 30     # far beyond any max_seq_len: never masks
 
@@ -43,7 +45,8 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on ``gen``'s device: ``embed (V, d)``,
     ``final_norm (d,)``, ``lm_head (d, V)`` and ``layers``, a list of
     ``{"ln1", "ln2", "attn": {wq, wk, wv, wo}, "mlp": {wi_gate, wi_up,
-    wo}}`` in the JAX package's weight layouts."""
+    wo}}`` (dense) or ``{"ln1", "ln2", "mix": <rwkv6 block>}`` (ssm) in
+    the JAX package's weight layouts."""
     check_supported(cfg)
     dt = torch_dtype(cfg.dtype)
     dev = gen.device
@@ -55,6 +58,11 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
                "final_norm": norm()}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, (cfg.vocab_size,), dt)
+    if cfg.family == "ssm":
+        p["layers"] = [{"ln1": norm(), "ln2": norm(),
+                        "mix": rwkv6_init(gen, cfg)}
+                       for _ in range(cfg.num_layers)]
+        return p
     p["layers"] = [{"ln1": norm(), "ln2": norm(),
                     "attn": attn.gqa_init(gen, cfg),
                     "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
@@ -91,10 +99,16 @@ def stack_forward(p: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                   remat: bool = False):
     """tokens: (B,S) integer -> (logits (B,S,V) float32, aux scalar 0).
 
-    Dense GQA only; the other families raise.  ``remat=True`` wraps each
+    Dense GQA only; the other families raise (rwkv6 training waits for a
+    backward of the scan and for sharding).  ``remat=True`` wraps each
     layer in ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
     the JAX package's ``jax.checkpoint`` around the scanned layer body: the
     layer's activations are recomputed in the backward pass."""
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            "stack_forward for the ssm family (rwkv6 training) is not ported "
+            "yet: it needs a backward of the scan and does not fit one card "
+            "at full width (ROADMAP, rwkv6 training)")
     if cfg.family != "dense" or cfg.attention != "gqa":
         raise NotImplementedError(
             f"stack_forward for family {cfg.family!r} / attention "

@@ -1,9 +1,13 @@
-"""Prefill and the batched one-token decode step of the dense GQA stack.
+"""Prefill and the batched one-token decode steps of the dense GQA and
+rwkv6 (ssm) stacks.
 
 Counterpart of ``repro/models/stacks_infer.py``: :func:`stack_prefill`
-(dense branch) fills a contiguous cache; :func:`stack_kernel_decode_step`
-decodes one token for every slot of the serving pool through the decode
-attention kernels.  Caches are updated in place (slice assignment and
+(dense and ssm branches) fills a contiguous cache;
+:func:`stack_kernel_decode_step` decodes one token for every slot of the
+serving pool through the decode attention kernels (dense GQA);
+:func:`stack_decode_step` decodes one token for every slot of the pool in
+plain PyTorch (ssm: the recurrent state has no sequence axis for a decode
+kernel).  Caches are updated in place (slice assignment and
 ``index_put_``) where the JAX package rebuilds them with ``.at[].set``.
 """
 from __future__ import annotations
@@ -15,6 +19,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache
+from repro_torch.models import rwkv6 as rw
 from repro_torch.models.common import mlp_apply
 from repro_torch.models.stacks import (_embed_tokens, _layer_theta_window,
                                        _norm, _unembed)
@@ -23,12 +28,26 @@ from repro_torch.models.stacks import (_embed_tokens, _layer_theta_window,
 def stack_prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: dict):
     """Full-sequence forward over ``tokens (B, S)`` that writes each layer's
-    K/V into positions ``[0, S)`` of the contiguous ``cache`` (in place)
-    and sets its ``index`` to S.  Returns ``(last_logits (B, V) f32,
-    cache)``."""
+    K/V into positions ``[0, S)`` of the contiguous ``cache`` (dense) or
+    each layer's final recurrent state (ssm: ``att_x``, ``ffn_x``, ``wkv``),
+    in place, and sets its ``index`` to S.  Returns ``(last_logits (B, V)
+    f32, cache)``."""
     kvcache.check_supported(cfg)
     B, S = tokens.shape
     x = _embed_tokens(p, cfg, tokens)
+    if cfg.family == "ssm":
+        for li, lp in enumerate(p["layers"]):
+            h = _norm(lp["ln1"], x, cfg)
+            o, (ax, wkv) = rw.rwkv6_time_mix_full(lp["mix"], cfg, h)
+            x = x + o
+            h = _norm(lp["ln2"], x, cfg)
+            o, fx = rw.rwkv6_channel_mix(lp["mix"], cfg, h)
+            x = x + o
+            cache["att_x"][li] = ax
+            cache["ffn_x"][li] = fx
+            cache["wkv"][li] = wkv
+        cache["index"].fill_(S)
+        return _unembed(p, cfg, x[:, -1:])[:, 0], cache
     pos = torch.arange(S, device=x.device)
     positions = pos.expand(B, S)
     for li, (lp, (theta, window)) in enumerate(
@@ -45,6 +64,45 @@ def stack_prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
         cache["v"][li, :, :S] = v
     cache["index"].fill_(S)
     return _unembed(p, cfg, x[:, -1:])[:, 0], cache
+
+
+def kernel_supported(cfg: ModelConfig) -> bool:
+    """Whether :func:`stack_kernel_decode_step` serves this config: GQA
+    transformer stacks only.  The ssm family carries no sequence-shaped KV
+    for a decode kernel and steps its recurrence in
+    :func:`stack_decode_step`."""
+    return cfg.family == "dense" and cfg.attention == "gqa"
+
+
+def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
+                      cache: dict):
+    """One-token decode for every slot of the pool, plain PyTorch (ssm).
+
+    token: ``(N, 1)`` integer.  cache: ``att_x``/``ffn_x`` ``(L, N, d)``,
+    ``wkv`` ``(L, N, H, hd, hd)`` float32, ``index`` ``(N,)``.  The JAX
+    engine vmaps a batch-1 step over the slots; the rows here are as
+    independent, so one batched step computes the same thing.  The cache is
+    updated in place (``index`` advances by one); returns ``(logits (N, V)
+    f32, cache)``."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"stack_decode_step for family {cfg.family!r} is not ported "
+            f"yet: the dense family decodes through "
+            f"stack_kernel_decode_step")
+    x = _embed_tokens(p, cfg, token)                         # (N, 1, d)
+    for li, lp in enumerate(p["layers"]):
+        h = _norm(lp["ln1"], x, cfg)
+        o, ax, wkv = rw.rwkv6_time_mix_step(
+            lp["mix"], cfg, h, cache["att_x"][li], cache["wkv"][li])
+        x = x + o
+        h = _norm(lp["ln2"], x, cfg)
+        o, fx = rw.rwkv6_channel_mix(lp["mix"], cfg, h, cache["ffn_x"][li])
+        x = x + o
+        cache["att_x"][li] = ax
+        cache["ffn_x"][li] = fx
+        cache["wkv"][li] = wkv
+    cache["index"].add_(1)
+    return _unembed(p, cfg, x)[:, 0], cache
 
 
 def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -69,6 +127,9 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     cache)``.
     """
     kvcache.check_supported(cfg)
+    if not kernel_supported(cfg):
+        raise ValueError(f"stack_kernel_decode_step serves GQA stacks, not "
+                         f"family {cfg.family!r}: use stack_decode_step")
     index = cache["index"]                                   # (N,)
     N = token.shape[0]
     rows = torch.arange(N, device=index.device)

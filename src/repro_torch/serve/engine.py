@@ -12,11 +12,13 @@ Every decode step samples the next token of every slot from the previous
 step's logits (at temperature 0 with the fused greedy kernel,
 ``kernels.sampling``; above it by :func:`sample_logp`'s Gumbel-max draw
 from the engine's ``torch.Generator``), then runs the model's batched
-kernel decode step (``Model.kernel_decode_step``:
-decode attention in a kernel, per layer, over contiguous stripes or paged
-block pools).  There is no backend switch: on CUDA tensors the kernels
-run, on CPU tensors their plain versions.  Admission prefills one request
-at a time and never samples.
+decode step: ``Model.kernel_decode_step`` for GQA stacks (decode attention
+in a kernel, per layer, over contiguous stripes or paged block pools),
+``Model.decode_step`` for rwkv6 (the recurrence in plain PyTorch, over
+contiguous slots).  The model's family decides, as the JAX engine's
+``_resolve_backend`` does; there is no backend switch: on CUDA tensors the
+kernels run, on CPU tensors their plain versions.  Admission prefills one
+request at a time and never samples.
 
 Not ported yet, and refused with ``NotImplementedError``: radix prefix
 sharing, stop-token suspension and resume, disaggregated adoption,
@@ -287,8 +289,14 @@ class Engine:
         nxt, logp = sample_logp(self._last_logits, self.config.temperature,
                                 generator=self.generator)
         rec = self._alive & (self._remaining > 0)
-        self._last_logits, self.slots.cache = self.model.kernel_decode_step(
-            self.params, nxt[:, None], self.slots.cache, tables=tables)
+        if self.model.kernel_supported():
+            self._last_logits, self.slots.cache = \
+                self.model.kernel_decode_step(self.params, nxt[:, None],
+                                              self.slots.cache,
+                                              tables=tables)
+        else:
+            self._last_logits, self.slots.cache = self.model.decode_step(
+                self.params, nxt[:, None], self.slots.cache)
         self._alive &= nxt != self.config.eos_id
         self._remaining -= rec.to(torch.int32)
         return nxt, logp, rec

@@ -67,6 +67,7 @@ def _cuda_calls():
     from repro_torch.kernels.decode_attention import (
         decode_attention, paged_decode_attention)
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     from repro_torch.kernels.sampling import greedy_sample
     i32 = dict(dtype=torch.int32, device="cuda")
     bf = dict(dtype=torch.bfloat16, device="cuda")
@@ -83,12 +84,15 @@ def _cuda_calls():
             torch.zeros(2, 100, dtype=torch.float32, device="cuda")),
         "flash_attention": lambda: flash_attention(
             torch.zeros(2, 8, 4, 16, **bf), kv, kv),
+        "rwkv6_scan": lambda: rwkv6_scan(
+            kv, kv, kv, kv.float(),
+            torch.zeros(2, 16, dtype=torch.float32, device="cuda")),
     }
 
 
 @pytest.mark.parametrize("name", ["decode_attention",
                                   "paged_decode_attention", "greedy_sample",
-                                  "flash_attention"])
+                                  "flash_attention", "rwkv6_scan"])
 def test_wrapper_on_cuda_tensors_raises_without_cuda(name, monkeypatch):
     """Fake CUDA tensors (no storage) reach the kernel path, which must
     raise for want of a toolchain, not answer with the plain version."""

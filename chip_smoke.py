@@ -13,6 +13,9 @@ Phases, in order; any failure exits non-zero:
              PyTorch version and time kernel, plain version, one PyTorch
              library call, and the bound (bytes / 3.35 TB/s or operations /
              peak rate, the larger).
+             Greedy sampling is also held at rwkv6-7b's and zamba2-2.7b's
+             vocabularies (65536, 32000), ties planted at block edges and in
+             the row's last columns in each.
              The rwkv6 scan kernel is held against its plain version at
              the rwkv6-7b prefill's widths (B 1, H 64, Dk = Dv = 64,
              r/k/v bf16): at S 512 and S 200 with the model's weak decays
@@ -23,9 +26,28 @@ Phases, in order; any failure exits non-zero:
              plain version, and the bound (operations at the float32 rate).
              No single PyTorch call computes the recurrence, so it has no
              library time.
+             The Mamba2 SSD scan kernel is held against its plain version
+             at zamba2-2.7b's prefill widths (B 1, H 80, N = hd = 64, r/k
+             bf16 broadcasts of one (B, S, 1, N) slice, v float32): at S 512
+             and S 200 with the model's decays (-exp(A_log) softplus(dt)
+             of a seeded dt), at S 512 with weak decays (about -1e-3, so
+             the state carries across all eight chunks) and with the JAX
+             kernel test's decays, at one all-float32 shape with a partial
+             value slice, and at N = hd = 128 with v bf16; the bound is
+             operations (R K^T at r and k's rate, the rest at the float32
+             rate), no library time.
+             Top-k (values and mask) is held bit for bit against its plain
+             version at the greedy kernel's shape (8 x 92544 float32) for
+             k 1, 50 and 64, with rows tied at the top and at the k-th
+             value and one whose k-th value is a zero of either sign (the
+             values compared with -0.0 read as +0.0: the two are one value
+             to ``torch.sort``, which fixes no order between them), and
+             timed against ``torch.topk``.  No entry point calls
+             it (the JAX engine samples the whole vocabulary).
 3. flash   — the flash-attention kernel against its plain version at the
-             training shape (16 rows, S 143, H 16, Hkv 8, D 128, bf16) and
-             at S 4096 (2 rows); the gradients of ``FlashAttentionFn``
+             training shape (16 rows, S 143, H 16, Hkv 8, D 128, bf16), at
+             S 4096 (2 rows) and at zamba2's shared-attention shape (1 row,
+             S 512, H = Hkv = 32, D 80); the gradients of ``FlashAttentionFn``
              against autograd through the plain version; times of the
              kernel, the plain version, ``scaled_dot_product_attention``
              and the bound.
@@ -59,6 +81,21 @@ Phases, in order; any failure exits non-zero:
              mean of exp(diff) is held within 0.1 of 1 and the 1e-2 measure
              of the train phase is held on a float32 run of 4 requests with
              the same weights upcast.
+7. serve-zamba2 — rwkv6's weights freed, zamba2-2.7b at full width (54
+             Mamba2 layers, d_model 2560, 80 SSD heads of 64, the shared
+             attention block after every 6th layer, vocab 32000) in bf16
+             with seeded random weights: the same 16 prompt lengths, 8
+             slots, 128 new tokens, contiguous, greedy.  The SSD scan
+             kernel must have run 54 times per prefill, flash attention 9
+             times per prefill, greedy sampling once per decode step, no
+             decode attention kernel.  Prefill and decode are held to each
+             other as for rwkv6: bf16 within 0.1 (with the plain scan's
+             numbers beside it), float32 (4 requests, weights upcast)
+             within 1e-2.
+
+In the float32 runs of phases 6 and 7 the engine's tokens are also held to
+the re-prefill's argmax (log-probability gap within 1e-2); in bf16 the gap
+is reported.
 
 Prints the card's name and power limit, a JSON line with every kernel's
 numbers, and as its last line ``{"ok": true, "device": {...}}``.  Needs a
@@ -83,11 +120,17 @@ PEAK = {"bfloat16": 989e12, "float32": 67e12}   # dense ops/s by input type
 ATTN_TOL = dict(atol=2e-2, rtol=2e-2)
 ARCH, SLOTS, MAX_NEW, MAX_SEQ, N_REQ = "internlm2-1.8b", 8, 128, 1024, 16
 RWKV_ARCH = "rwkv6-7b"
+ZAMBA_ARCH = "zamba2-2.7b"
 SCAN_CHUNK = 64
 
 
-def bound(n_bytes: float, n_ops: float, dtype: str):
-    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / PEAK[dtype] * 1e3
+def bound(n_bytes: float, n_ops, dtype: str = None):
+    """The larger of the bytes' time and the operations' time, in ms.
+    ``n_ops`` is a count at ``dtype``'s peak rate, or a ``{dtype: count}``
+    of work whose parts run at different rates."""
+    by_type = n_ops if isinstance(n_ops, dict) else {dtype: n_ops}
+    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_ops = sum(n / PEAK[t] for t, n in by_type.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -226,24 +269,30 @@ def phase_kernels(torch, dev, timer):
             del kg, vg
         del kp, vp, kq, vq, ks, vs
 
-    # greedy sampling at the vocabulary of internlm2, planted ties
-    B, V = 8, 92544
-    x = torch.randn(B, V, dtype=torch.float32, device=dev)
-    x[0, [100, 5000]] = 50.0          # tie across 1024-wide blocks 0 and 4
-    x[1, [1023, 1024]] = 40.0         # tie across a block edge
-    x[2, [V - 1, 7]] = 30.0           # last column against an early one
-    t_k, lp_k = sampling.greedy_sample(x)
-    t_p, lp_p = sampling.greedy_sample_plain(x)
-    if not torch.equal(t_k, t_p) or t_k[:3].tolist() != [100, 1023, 7]:
-        raise AssertionError(f"greedy_sample tokens {t_k.tolist()} != "
-                             f"plain {t_p.tolist()}")
-    err = check_close(torch, "greedy_sample", lp_k, lp_p,
-                      dict(atol=1e-4, rtol=0))
-    record("greedy_sample", "main", err,
-           timer(lambda: sampling.greedy_sample(x)),
-           timer(lambda: sampling.greedy_sample_plain(x)),
-           timer(lambda: (torch.argmax(x, -1), torch.logsumexp(x, -1))),
-           B * V * 4 + B * 8, 3 * B * V, "float32")
+    # greedy sampling at the vocabularies of the three served models
+    # (internlm2's is the timed one), planted ties: the kernel's tokens
+    # must be the plain version's and the first occurrence of each tie
+    B = 8
+    for label, V in (("main", 92544), ("rwkv6", 65536), ("zamba2", 32000)):
+        x = torch.randn(B, V, dtype=torch.float32, device=dev)
+        x[0, [100, 5000]] = 50.0      # tie across 1024-wide blocks 0 and 4
+        x[1, [1023, 1024]] = 40.0     # tie across a block edge
+        x[2, [V - 1, 7]] = 30.0       # last column against an early one
+        x[3, [V - 2, V - 1]] = 35.0   # tie in the row's last columns
+        x[4, [2047, 2048, 4096]] = 45.0   # ties across 2048-wide strides
+        t_k, lp_k = sampling.greedy_sample(x)
+        t_p, lp_p = sampling.greedy_sample_plain(x)
+        if not torch.equal(t_k, t_p) or \
+                t_k[:5].tolist() != [100, 1023, 7, V - 2, 2047]:
+            raise AssertionError(f"greedy_sample V={V}: tokens "
+                                 f"{t_k.tolist()} != plain {t_p.tolist()}")
+        err = check_close(torch, f"greedy_sample V={V}", lp_k, lp_p,
+                          dict(atol=1e-4, rtol=0))
+        record("greedy_sample", label, err,
+               timer(lambda: sampling.greedy_sample(x)),
+               timer(lambda: sampling.greedy_sample_plain(x)),
+               timer(lambda: (torch.argmax(x, -1), torch.logsumexp(x, -1))),
+               B * V * 4 + B * 8, 3 * B * V, "float32")
     return rows
 
 
@@ -324,8 +373,151 @@ def phase_scan(torch, dev, timer):
     return row
 
 
-# (label, rows, positions): the training shape, and a long one
-FLASH_CASES = (("main", 16, 16 + MAX_NEW - 1), ("long", 2, 4096))
+# (label, B, S, H, N, hd, r/k dtype, v dtype, decays): zamba2-2.7b's
+# prefill widths at the smoke's longest prompt and a ragged one with the
+# model's decays, weak decays, the JAX kernel test's decays, an all-float32
+# shape with a partial 32-column value slice, and N = hd = 128 with v bf16
+MAMBA_CASES = (
+    ("main", 1, 512, 80, 64, 64, "bfloat16", "float32", "model"),
+    ("ragged", 1, 200, 80, 64, 64, "bfloat16", "float32", "model"),
+    ("weak", 1, 512, 80, 64, 64, "bfloat16", "float32", "weak"),
+    ("jax-test", 1, 512, 80, 64, 64, "bfloat16", "float32", "normal"),
+    ("f32", 2, 130, 4, 16, 40, "float32", "float32", "normal"),
+    ("wide", 1, 100, 4, 128, 128, "bfloat16", "bfloat16", "normal"))
+
+
+def mamba2_ops(B, S, H, N, hd, rk_dtype, c=SCAN_CHUNK):
+    """Operations of the chunked SSD scan, counted per chunk of the run's
+    length, by the type they run at: R K^T over s <= t takes r and k in
+    their own type (bf16 x bf16 with a float32 sum is exact on the tensor
+    cores); the decay weights (an exponential and a product each), A v over
+    s <= t, the decayed read r S and the state update run in float32."""
+    rk = rest = 0
+    for c0 in range(0, S, c):
+        m = min(c, S - c0)
+        rk += N * m * (m + 1)
+        rest += (m * (m + 1) + hd * m * (m + 1) + 2 * m * N * hd + m * hd
+                 + 2 * m * N * hd + N * hd)
+    ops = {rk_dtype: rk * B * H}
+    ops["float32"] = ops.get("float32", 0) + rest * B * H
+    return ops
+
+
+def phase_mamba2_scan(torch, dev, timer):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mamba2_scan as ms
+
+    row = {"max_abs_err": 0.0}
+    for label, B, S, H, N, hd, rk_dt, v_dt, decay in MAMBA_CASES:
+        g = torch.Generator(device=dev).manual_seed(4)
+        rkt, vt = getattr(torch, rk_dt), getattr(torch, v_dt)
+        r1, k1 = (torch.randn(B, S, 1, N, generator=g, device=dev).to(rkt)
+                  for _ in range(2))
+        r, k = r1.expand(B, S, H, N), k1.expand(B, S, H, N)
+        x = torch.randn(B, S, H, hd, generator=g, device=dev)
+        if decay == "model":       # the block's: -exp(A_log) softplus(dt)
+            a_log = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
+            dt = F.softplus(torch.randn(B, S, H, generator=g, device=dev))
+            lw = (-torch.exp(a_log) * dt)[..., None]
+            v = (x.to(rkt).float() * dt[..., None]).to(vt)
+        else:
+            if decay == "weak":    # about -1e-3 per step
+                lw = -1e-3 * torch.exp(0.1 * torch.randn(
+                    B, S, H, 1, generator=g, device=dev))
+            else:                  # -exp(N(0, 1)), the JAX kernel test's
+                lw = -torch.exp(torch.randn(B, S, H, 1, generator=g,
+                                            device=dev))
+            v = x.to(vt)
+        y, st = ms.mamba2_scan(r, k, v, lw)
+        y0, st0 = ms.mamba2_scan_plain(r, k, v, lw)
+        y_tol = ATTN_TOL if v_dt == "bfloat16" else dict(atol=1e-3,
+                                                         rtol=1e-3)
+        err = check_close(torch, f"mamba2_scan {label} y", y, y0, y_tol)
+        st_err = check_close(torch, f"mamba2_scan {label} state", st, st0,
+                             dict(atol=1e-3, rtol=1e-3))
+        if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"mamba2_scan {label}: non-finite output")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        ms_ = timer(lambda: ms.mamba2_scan(r, k, v, lw))
+        plain_ms = timer(lambda: ms.mamba2_scan_plain(r, k, v, lw), iters=10)
+        # each input read once: r and k are one (B, S, 1, N) slice each
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in (r1, k1, v, lw, y, st))
+        b_ms, b_by = bound(n_bytes, mamba2_ops(B, S, H, N, hd, rk_dt))
+        print(f"[kernels] mamba2_scan {label} (B={B}, S={S}, H={H}, N={N}, "
+              f"hd={hd}, r/k {rk_dt}, v {v_dt}, {decay} decays): "
+              f"max_abs_err y={err:.3e} state={st_err:.3e} "
+              f"kernel_ms={ms_:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})")
+        row[label] = dict(ms=ms_, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, state_err=st_err)
+        if label == "main":
+            row.update(ms=ms_, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=b_ms, bound_by=b_by)
+        del r, k, r1, k1, x, v, lw, y, st, y0, st0
+    return row
+
+
+TOPK_KS, TOPK_MAIN = (1, 50, 64), 50
+
+
+def phase_topk(torch, dev, timer):
+    """Top-k at the greedy kernel's shape, bit for bit against the plain
+    version; k 50 (a common top-k sampling setting) is the timed case."""
+    from repro_torch.kernels import sampling
+
+    B, V = 8, 92544
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(B, V, generator=g, device=dev)
+    x[0, 5:20] = 20.0                # 15 tied at the top ...
+    x[0, 1000:1100:2] = 10.0         # ... above 50 tied at the 50th value
+    x[1, [1023, 1024, V - 1]] = 9.0  # a tie across a 1024 edge and the end
+    x[2] = -x[2].abs() - 1.0         # 30 above zero, then 20 + 0.0 and
+    x[2, 10:40] = 5.0                # 20 -0.0: the k-th value is a zero
+    x[2, 40:60] = 0.0
+    x[2, 60:80] = -0.0
+
+    def bits(t):                     # -0.0 read as +0.0
+        return (t + 0.0).view(torch.int32)
+    row = {"max_abs_err": 0.0}
+    for k in TOPK_KS:
+        got, want = sampling.topk_values(x, k), \
+            sampling.topk_values_plain(x, k)
+        m_got, m_want = sampling.topk_mask(x, k), \
+            sampling.topk_mask_plain(x, k)
+        if not (torch.equal(bits(got), bits(want))
+                and torch.equal(m_got.view(torch.int32),
+                                m_want.view(torch.int32))):
+            raise AssertionError(f"topk k={k}: kernel differs from its "
+                                 f"plain version")
+        kept = (m_got > sampling.NEG_INF).sum(1).tolist()
+        print(f"[kernels] topk k={k}: values and mask bit-identical to the "
+              f"plain version (a zero's sign aside); entries kept per row "
+              f"{kept}")
+    k = TOPK_MAIN
+    ms = timer(lambda: sampling.topk_values(x, k))
+    plain_ms = timer(lambda: sampling.topk_values_plain(x, k))
+    lib_ms = timer(lambda: torch.topk(x, k, dim=-1))
+    mask_ms = timer(lambda: sampling.topk_mask(x, k))
+    mask_plain_ms = timer(lambda: sampling.topk_mask_plain(x, k))
+    b_ms, b_by = bound(B * V * 4 + B * k * 4, 0, "float32")
+    mb_ms, _ = bound(2 * B * V * 4, 0, "float32")
+    print(f"[kernels] topk k={k} (B={B}, V={V}): kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (torch.topk) "
+          f"bound_ms={b_ms:.4f} ({b_by}); mask: kernel_ms={mask_ms:.4f} "
+          f"plain_ms={mask_plain_ms:.4f} bound_ms={mb_ms:.4f}")
+    row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by, mask=dict(ms=mask_ms, plain_ms=mask_plain_ms,
+                                        bound_ms=mb_ms))
+    return row
+
+
+# (label, rows, positions, H, Hkv, D): internlm2's training shape, a long
+# one, and zamba2's shared attention at the smoke's longest prompt
+FLASH_CASES = (("main", 16, 16 + MAX_NEW - 1, 16, 8, 128),
+               ("long", 2, 4096, 16, 8, 128),
+               ("zamba2", 1, 512, 32, 32, 80))
 
 
 def phase_flash(torch, dev, timer):
@@ -333,9 +525,8 @@ def phase_flash(torch, dev, timer):
 
     from repro_torch.kernels import flash_attention as fa
 
-    H, Hkv, D = 16, 8, 128
     row = {"max_abs_err": 0.0}
-    for label, B, S in FLASH_CASES:
+    for label, B, S, H, Hkv, D in FLASH_CASES:
         g = torch.Generator(device=dev).manual_seed(2)
         q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev,
                                dtype=torch.bfloat16) for h in (H, Hkv, Hkv))
@@ -368,7 +559,8 @@ def phase_flash(torch, dev, timer):
             + lse.numel() * 4
         n_ops = 4 * B * H * D * (S * (S + 1) // 2)     # causal pairs only
         b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
-        print(f"[flash] {label} (B={B}, S={S}): max_abs_err={err:.3e} "
+        print(f"[flash] {label} (B={B}, S={S}, H={H}, Hkv={Hkv}, D={D}): "
+              f"max_abs_err={err:.3e} "
               f"grad max_abs_err {g_err} kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}); plain backward {bwd_ms:.4f} "
@@ -386,13 +578,17 @@ def phase_flash(torch, dev, timer):
 def wrappers():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_scan as ms
     from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import sampling
     return {"decode_attention": da.decode_attention,
             "paged_decode_attention": da.paged_decode_attention,
             "greedy_sample": sampling.greedy_sample,
             "flash_attention": fa.flash_attention,
-            "rwkv6_scan": rs.rwkv6_scan}
+            "topk_values": sampling.topk_values,
+            "topk_mask": sampling.topk_mask,
+            "rwkv6_scan": rs.rwkv6_scan,
+            "mamba2_scan": ms.mamba2_scan}
 
 
 def build(torch, dev, arch=ARCH):
@@ -530,10 +726,9 @@ def phase_train(torch, dev, model, params):
     counts = {k: f.launches for k, f in fns.items()}
     steps = sum(r["decode_steps"] for r in hist)
     prefills = sum(r["prefills"] for r in hist)
-    want = {"decode_attention": cfg.num_layers * steps,
-            "paged_decode_attention": 0, "greedy_sample": 0,
-            "flash_attention": cfg.num_layers * (prefills + 2 * len(hist)),
-            "rwkv6_scan": 0}
+    want = {k: 0 for k in counts}
+    want["decode_attention"] = cfg.num_layers * steps
+    want["flash_attention"] = cfg.num_layers * (prefills + 2 * len(hist))
     if len(hist) != 2 or prefills != 2 * 16 or counts != want:
         raise AssertionError(f"train: launches {counts} != {want} "
                              f"({len(hist)} iterations, {prefills} "
@@ -619,8 +814,12 @@ def phase_serve_rwkv6(torch, dev):
           f"{rep['wall_s'] - rep['decode_time_s']:.2f}s outside decode "
           f"(prefill, admission); peak memory {peak / 2 ** 30:.2f} GiB; "
           f"launches {counts}")
-    bf = prefill_decode_check(torch, dev, model, params, outs, "bf16", 0.1,
-                              plain_too=True)
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
+    from repro_torch.models import rwkv6 as rw
+
+    bf = prefill_decode_check(torch, dev, model, params, outs, "serve-rwkv6",
+                              "bf16", 0.1,
+                              plain=(rw, "rwkv6_scan", rwkv6_scan_plain))
     # float32: the same weights upcast, 4 requests
     del rep["engine"]
     params = _tree_map(lambda t: t.float(), params)
@@ -630,7 +829,7 @@ def phase_serve_rwkv6(torch, dev):
                              params=params, max_new=MAX_NEW, num_slots=4,
                              kv="contiguous", max_seq_len=MAX_SEQ, device=dev)
     f32 = prefill_decode_check(torch, dev, model, params, rep32["outputs"],
-                               "float32", 1e-2)
+                               "serve-rwkv6", "float32", 1e-2)
     report = {"tokens": rep["tokens"], "decode_steps": steps,
               "prefills": rep["prefills"], "wall_s": rep["wall_s"],
               "decode_time_s": rep["decode_time_s"],
@@ -641,23 +840,26 @@ def phase_serve_rwkv6(torch, dev):
     return counts, report
 
 
-def prefill_decode_check(torch, dev, model, params, outs, label, tol, *,
-                         plain_too=False):
+def prefill_decode_check(torch, dev, model, params, outs, phase, label,
+                         tol, *, plain=None):
     """Prefill ``prompt + completion[:n]`` again for 4 full completions at
     n in RECHECK_AT and compare the log-probability of ``completion[n]``
     with the engine's (decode) one: the mean of exp(diff) must lie within
-    ``tol`` of 1.  ``plain_too`` repeats the prefills with the plain scan in
-    place of the kernel, as a yardstick of the rounding noise."""
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
-    from repro_torch.models import rwkv6 as rw
-
+    ``tol`` of 1.  The engine's token must also be the prefill's argmax up
+    to rounding: its log-probability below the prefill's largest by at most
+    ``tol`` in float32 (a wrong argmax of the greedy kernel at this
+    vocabulary shows here); in bf16, where rounding moves log-probabilities
+    by more, the gap is reported.  ``plain = (module, name, plain_fn)``
+    repeats the
+    prefills with ``module.name`` (the scan kernel's wrapper) swapped for
+    its plain version, as a yardstick of the rounding noise."""
     full = [o for o in outs if o.num_tokens == MAX_NEW][:4]
     if len(full) < 4:
-        raise AssertionError(f"serve-rwkv6 {label}: fewer than 4 full "
+        raise AssertionError(f"{phase} {label}: fewer than 4 full "
                              f"completions")
 
     def diffs():
-        out = []
+        out, gaps = [], []
         for o in full:
             for n in RECHECK_AT:
                 seq = np.concatenate([o.prompt, np.asarray(o.tokens[:n],
@@ -665,34 +867,105 @@ def prefill_decode_check(torch, dev, model, params, outs, label, tol, *,
                 tokens = torch.from_numpy(seq).to(dev)[None]
                 logits, _ = model.prefill(params, tokens, model.init_cache(
                     1, MAX_SEQ, device=dev))
-                lp = float(torch.log_softmax(logits[0], -1)[o.tokens[n]])
+                lps = torch.log_softmax(logits[0], -1)
+                lp = float(lps[o.tokens[n]])
                 out.append(lp - o.logprobs[n])
-        return np.asarray(out)
+                gaps.append(float(lps.max()) - lp)
+        return np.asarray(out), np.asarray(gaps)
 
-    deltas = diffs()
+    deltas, gaps = diffs()
     ratio = float(np.exp(deltas).mean())
     res = {"ratio_mean": ratio, "max_abs_diff": float(np.abs(deltas).max()),
-           "diffs": deltas.tolist()}
+           "max_argmax_gap": float(gaps.max()), "diffs": deltas.tolist()}
     note = ""
-    if plain_too:
-        kernel, rw.rwkv6_scan = rw.rwkv6_scan, rwkv6_scan_plain
+    if plain is not None:
+        module, name, plain_fn = plain
+        kernel = getattr(module, name)
+        setattr(module, name, plain_fn)
         try:
-            plain = diffs()
+            yard, _ = diffs()
         finally:
-            rw.rwkv6_scan = kernel
-        res.update(plain_ratio_mean=float(np.exp(plain).mean()),
-                   plain_max_abs_diff=float(np.abs(plain).max()))
+            setattr(module, name, kernel)
+        res.update(plain_ratio_mean=float(np.exp(yard).mean()),
+                   plain_max_abs_diff=float(np.abs(yard).max()))
         note = (f"; through the plain scan instead: mean exp(diff) "
                 f"{res['plain_ratio_mean']:.6f}, max |diff| "
                 f"{res['plain_max_abs_diff']:.4e}")
-    print(f"[serve-rwkv6] {label}: prefill vs decode log-probabilities at "
+    print(f"[{phase}] {label}: prefill vs decode log-probabilities at "
           f"n = {RECHECK_AT} for rids {[o.rid for o in full]}: mean "
           f"exp(diff) {ratio:.6f} (held within {tol} of 1), max |diff| "
-          f"{res['max_abs_diff']:.4e}{note}")
+          f"{res['max_abs_diff']:.4e}; engine's token below the prefill's "
+          f"argmax by at most {res['max_argmax_gap']:.4e}{note}")
     if abs(ratio - 1) > tol:
-        raise AssertionError(f"serve-rwkv6 {label}: prefill and decode "
+        raise AssertionError(f"{phase} {label}: prefill and decode "
                              f"disagree, mean exp(diff) {ratio}")
+    if label == "float32" and res["max_argmax_gap"] > tol:
+        raise AssertionError(f"{phase} {label}: the engine's token is not "
+                             f"the prefill's argmax (gap "
+                             f"{res['max_argmax_gap']})")
     return res
+
+
+def phase_serve_zamba2(torch, dev):
+    """zamba2-2.7b at full width through the continuous engine: the SSD
+    scan kernel in every Mamba2 layer and flash attention in every shared
+    block of every prefill, plain decode steps, greedy sampling."""
+    from repro_torch.kernels.mamba2_scan import mamba2_scan_plain
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.models import build_model
+    from repro_torch.models import mamba2 as mb
+
+    model, params = build(torch, dev, ZAMBA_ARCH)
+    cfg = model.cfg
+    prompts = serve_prompts(cfg.vocab_size)
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rep = serve_continuous(ZAMBA_ARCH, prompts, model=model, params=params,
+                           max_new=MAX_NEW, num_slots=SLOTS,
+                           kv="contiguous", max_seq_len=MAX_SEQ, device=dev)
+    counts = {k: f.launches for k, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps, outs = rep["decode_steps"], rep["outputs"]
+    check_outputs("serve-zamba2", outs)
+    uses = cfg.num_layers // cfg.hybrid_attn_every
+    want = {k: 0 for k in counts}
+    want["mamba2_scan"] = cfg.num_layers * rep["prefills"]
+    want["flash_attention"] = uses * rep["prefills"]
+    want["greedy_sample"] = steps
+    if counts != want or rep["prefills"] != N_REQ:
+        raise AssertionError(f"serve-zamba2: launches {counts} != {want} "
+                             f"({rep['prefills']} prefills)")
+    step_ms = rep["decode_time_s"] / max(steps, 1) * 1e3
+    print(f"[serve-zamba2] {ZAMBA_ARCH}: {N_REQ} requests, {rep['tokens']} "
+          f"tokens, {steps} decode steps in {rep['wall_s']:.2f}s = "
+          f"{rep['tok_per_s']:.1f} tok/s; {step_ms:.2f} ms per decode step, "
+          f"{rep['wall_s'] - rep['decode_time_s']:.2f}s outside decode "
+          f"(prefill, admission); peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"launches {counts}")
+    bf = prefill_decode_check(torch, dev, model, params, outs,
+                              "serve-zamba2", "bf16", 0.1,
+                              plain=(mb, "mamba2_scan", mamba2_scan_plain))
+    # float32: the same weights upcast, 4 requests
+    del rep["engine"]
+    params = _tree_map(lambda t: t.float(), params)
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    torch.cuda.empty_cache()
+    rep32 = serve_continuous(ZAMBA_ARCH, prompts[:4], model=model,
+                             params=params, max_new=MAX_NEW, num_slots=4,
+                             kv="contiguous", max_seq_len=MAX_SEQ, device=dev)
+    f32 = prefill_decode_check(torch, dev, model, params, rep32["outputs"],
+                               "serve-zamba2", "float32", 1e-2)
+    report = {"tokens": rep["tokens"], "decode_steps": steps,
+              "prefills": rep["prefills"], "wall_s": rep["wall_s"],
+              "decode_time_s": rep["decode_time_s"],
+              "tok_per_s": rep["tok_per_s"], "ms_per_decode_step": step_ms,
+              "max_memory_allocated": peak, "launches": counts,
+              "prefill_decode_bf16": bf,
+              "prefill_decode_float32": f32}
+    del rep, rep32, model, params
+    return counts, report
 
 
 def _tree_map(fn, tree):
@@ -748,8 +1021,12 @@ SOURCES = {
                       "src/repro/kernels/sampling.py:34"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:24"),
+    "topk": ("src/repro_torch/kernels/csrc/topk.cu",
+             "src/repro/kernels/sampling.py:98"),
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan.py:22"),
+    "mamba2_scan": ("src/repro_torch/kernels/csrc/mamba2_scan.cu",
+                    "src/repro/kernels/mamba2_scan.py:20"),
 }
 
 
@@ -769,6 +1046,8 @@ def main() -> int:
     timer = Timer(torch, dev)
     rows = phase_kernels(torch, dev, timer)
     rows["rwkv6_scan"] = phase_scan(torch, dev, timer)
+    rows["mamba2_scan"] = phase_mamba2_scan(torch, dev, timer)
+    rows["topk"] = phase_topk(torch, dev, timer)
     rows["flash_attention"] = phase_flash(torch, dev, timer)
     del timer
     torch.cuda.empty_cache()
@@ -778,9 +1057,12 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
     rwkv_launches, serve_rwkv6 = phase_serve_rwkv6(torch, dev)
-    for counts in (train_launches, rwkv_launches):
+    torch.cuda.empty_cache()
+    zamba_launches, serve_zamba2 = phase_serve_zamba2(torch, dev)
+    for counts in (train_launches, rwkv_launches, zamba_launches):
         for k, n in counts.items():
             launches[k] += n
+    launches["topk"] = launches["topk_values"] + launches["topk_mask"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -799,8 +1081,10 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "serve": serve,
                    "flash": rows["flash_attention"],
-                   "rwkv6_scan": rows["rwkv6_scan"], "train": train,
-                   "serve_rwkv6": serve_rwkv6}, f, indent=1, default=str)
+                   "rwkv6_scan": rows["rwkv6_scan"],
+                   "mamba2_scan": rows["mamba2_scan"], "topk": rows["topk"],
+                   "train": train, "serve_rwkv6": serve_rwkv6,
+                   "serve_zamba2": serve_zamba2}, f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

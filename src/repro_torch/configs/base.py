@@ -242,4 +242,5 @@ def list_archs() -> list[str]:
 def _ensure_loaded() -> None:
     # import arch modules lazily to avoid cycles; the port registers the
     # architectures it serves (the others come with their own slices)
-    from repro_torch.configs import internlm2_1_8b, rwkv6_7b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        internlm2_1_8b, rwkv6_7b, zamba2_2_7b)

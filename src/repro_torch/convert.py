@@ -5,7 +5,10 @@ The input is the JAX pytree as nested dicts of numpy arrays (``jax.tree.map
 (np.asarray, params)``), so this module needs neither JAX nor the JAX
 package.  Layer groups the JAX stack keeps stacked on axis 0 for
 ``lax.scan`` (``layers``, ``dense_layers``) become Python lists of
-per-layer dicts; every array keeps its layout.  float32 converts exactly;
+per-layer dicts (zamba2's ``layers`` hold ``norm`` and the nested
+``mamba`` block); unstacked groups such as zamba2's ``shared_attn`` keep
+their nesting; every array keeps its layout and dtype (zamba2's
+``A_log``, ``D`` and ``dt_bias`` stay float32 in a bf16 model).  float32 converts exactly;
 bfloat16 (numpy's ``ml_dtypes`` bfloat16) goes bit for bit through a
 ``uint16`` view into ``torch.bfloat16``.
 """

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("decode_attention", "greedy_sample", "flash_attention",
-           "rwkv6_scan")
+           "rwkv6_scan", "mamba2_scan", "topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -47,6 +47,12 @@ SIGNATURES = {
     },
     "rwkv6_scan": {
         "rwkv6_scan_forward": [_P] * 7 + [_L] * 15 + [_I] * 6 + [_P],
+    },
+    "mamba2_scan": {
+        "mamba2_scan_forward": [_P] * 6 + [_L] * 15 + [_I] * 7 + [_P],
+    },
+    "topk": {
+        "topk_launch": [_P, _P, _P, _I, _I, _I, _P],
     },
 }
 

@@ -1,0 +1,92 @@
+"""Mamba2 (SSD) chunked scan: the CUDA kernel and its plain version.
+
+Counterpart of ``repro/kernels/mamba2_scan.py`` ``mamba2_scan`` (oracle
+``repro/kernels/ref.py`` ``mamba2_scan_ref``).  The kernel is
+``csrc/mamba2_scan.cu``; its header says what bounds it on the H100 and how
+the design answers that.  Per batch row and head, from a zero state S::
+
+    y_t = r_t^T (w_t S_{t-1} + k_t v_t^T)
+    S_t = w_t S_{t-1} + k_t v_t^T,     w_t = exp(log_w_t), one per head
+
+with ``r``/``k`` ``(B, S, H, N)``, ``v`` ``(B, S, H, hd)`` and ``log_w``
+``(B, S, H, 1)``; returns ``y`` ``(B, S, H, hd)`` in v's dtype and the final
+state ``(B, H, N, hd)`` float32.
+
+:func:`mamba2_scan` dispatches by the device of ``r``: a CPU tensor runs the
+plain version, a CUDA tensor launches the kernel or raises.
+``mamba2_scan.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_DIM = 128           # N and hd: the kernel's shared-memory sizing
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def mamba2_scan_plain(r, k, v, log_w, *, chunk: int = 64):
+    """The chunked recurrence in float32 PyTorch from a zero state:
+    ``models.linear_scan.chunked_decay_attention`` with the decay in the
+    output.  ``chunk`` changes the summation order only."""
+    # imported here: models.mamba2 imports this module
+    from repro_torch.models.linear_scan import chunked_decay_attention
+    return chunked_decay_attention(r, k, v, log_w, None, chunk=chunk,
+                                   decay_in_output=True)
+
+
+def mamba2_scan(r, k, v, log_w):
+    """r/k: (B,S,H,N); v: (B,S,H,hd); log_w: (B,S,H,1).  Returns
+    ``(y (B,S,H,hd) in v's dtype, state (B,H,N,hd) float32)``.
+
+    The kernel takes r and k of one dtype and v of any, each bfloat16 or
+    float32 (the model passes r/k in its dtype and v float32), log_w
+    float32, N and hd up to 128, and any strides with the last dim
+    contiguous (r and k may be stride-0 broadcasts over the heads).  Both
+    start from a zero state, as the TPU kernel does."""
+    if r.device.type == "cpu":
+        return mamba2_scan_plain(r, k, v, log_w)
+    if r.device.type != "cuda":
+        raise ValueError(f"mamba2_scan takes CPU or CUDA tensors, not "
+                         f"{r.device.type}")
+    if r.dim() != 4 or k.shape != r.shape or v.dim() != 4 \
+            or v.shape[:3] != r.shape[:3] \
+            or tuple(log_w.shape) != (*r.shape[:3], 1):
+        raise ValueError(f"r {tuple(r.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, log_w {tuple(log_w.shape)}: "
+                         f"want two (B,S,H,N), one (B,S,H,hd) and one "
+                         f"(B,S,H,1)")
+    B, S, H, N = r.shape
+    hd = v.shape[3]
+    if S < 1 or N > MAX_DIM or hd > MAX_DIM:
+        raise ValueError(f"kernel takes S >= 1 and N, hd up to {MAX_DIM}; "
+                         f"got S {S}, N {N}, hd {hd}")
+    if r.dtype not in _DTYPE_CODES or k.dtype != r.dtype \
+            or v.dtype not in _DTYPE_CODES:
+        raise TypeError(f"r/k/v dtypes {r.dtype}/{k.dtype}/{v.dtype}: the "
+                        f"kernel takes r and k of one dtype and v, each "
+                        f"bfloat16 or float32")
+    if log_w.dtype != torch.float32:
+        raise TypeError(f"log_w {log_w.dtype}: the kernel takes float32")
+    for name, t in (("r", r), ("k", k), ("v", v), ("log_w", log_w)):
+        if t.device != r.device:
+            raise ValueError(f"{name} on {t.device}, r on {r.device}")
+        if name != "log_w" and t.stride(-1) != 1:
+            raise ValueError(f"{name} strides {t.stride()}: the last dim "
+                             f"must be contiguous")
+    y = torch.empty((B, S, H, hd), dtype=v.dtype, device=r.device)
+    state = torch.empty((B, H, N, hd), dtype=torch.float32, device=r.device)
+    lib = _build.load("mamba2_scan")
+    err = lib.mamba2_scan_forward(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+        y.data_ptr(), state.data_ptr(),
+        *(s for t in (r, k, v, log_w, y) for s in t.stride()[:3]),
+        B, S, H, N, hd, _DTYPE_CODES[r.dtype], _DTYPE_CODES[v.dtype],
+        torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check("mamba2_scan", err, "mamba2_scan launch")
+    mamba2_scan.launches += 1
+    return y, state
+
+
+mamba2_scan.launches = 0

@@ -1,18 +1,29 @@
-"""Fused greedy sampling epilogue: the CUDA kernel and its plain version.
+"""Sampling epilogues: greedy sampling and top-k, CUDA kernels and their
+plain versions.
 
-Counterpart of ``repro/kernels/sampling.py`` ``greedy_sample``; the kernel
-is ``csrc/greedy_sample.cu``.  ``greedy_sample(logits)`` returns the
-first-occurrence argmax token of each row and its log-probability
-``log_softmax(logits)[token] = -log(sum exp(x - max))``.
+Counterpart of ``repro/kernels/sampling.py``.
+
+* ``greedy_sample(logits)`` (kernel ``csrc/greedy_sample.cu``) returns the
+  first-occurrence argmax token of each row and its log-probability
+  ``log_softmax(logits)[token] = -log(sum exp(x - max))``.
+* ``topk_values(logits, k)`` (kernel ``csrc/topk.cu``) returns the k
+  largest values of each row, descending, as a multiset;
+  ``topk_mask(logits, k)`` keeps every entry ``>=`` the k-th value (ties at
+  the threshold all survive) and sets the rest to ``NEG_INF``.  No entry
+  point calls them: the JAX engine samples the whole vocabulary, and so
+  does the port's.
 
 A CPU tensor runs the plain version, a CUDA tensor launches the kernel or
-raises.  ``greedy_sample.launches`` counts kernel launches.
+raises.  Each wrapper's ``launches`` counts its kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+
+NEG_INF = -1.0e30
+MAX_TOPK = 1024         # the kernel's shared-memory sizing
 
 
 def greedy_sample_plain(logits):
@@ -46,3 +57,73 @@ def greedy_sample(logits):
 
 
 greedy_sample.launches = 0
+
+
+def topk_values_plain(logits, k: int):
+    """The k largest values per row, descending (``torch.sort``)."""
+    _check_k(logits, k)
+    return torch.sort(logits.float(), dim=-1, descending=True)[0][:, :k]
+
+
+def topk_mask_plain(logits, k: int):
+    """Entries below the k-th largest of their row become ``NEG_INF``."""
+    thresh = topk_values_plain(logits, k)[:, k - 1]
+    x = logits.float()
+    return torch.where(x >= thresh[:, None], x, torch.full_like(x, NEG_INF))
+
+
+def _check_k(logits, k: int) -> None:
+    if logits.dim() != 2:
+        raise ValueError(f"logits {tuple(logits.shape)}: want (B, V)")
+    if not 0 < k <= logits.shape[1]:
+        raise ValueError(f"k={k} out of range for vocab {logits.shape[1]}")
+
+
+def _topk_launch(logits, k: int, with_mask: bool):
+    """One launch of the top-k kernel: ``(values (B, k), mask (B, V) or
+    None)``."""
+    if logits.device.type != "cuda":
+        raise ValueError(f"topk takes CPU or CUDA tensors, not "
+                         f"{logits.device.type}")
+    _check_k(logits, k)
+    if logits.dtype != torch.float32 or not logits.is_contiguous():
+        raise ValueError("logits must be contiguous (B, V) float32")
+    if k > MAX_TOPK:
+        raise ValueError(f"the kernel takes k up to {MAX_TOPK}; got {k}")
+    B, V = logits.shape
+    top = torch.empty((B, k), dtype=torch.float32, device=logits.device)
+    mask = (torch.empty((B, V), dtype=torch.float32, device=logits.device)
+            if with_mask else None)
+    lib = _build.load("topk")
+    err = lib.topk_launch(
+        logits.data_ptr(), top.data_ptr(),
+        mask.data_ptr() if with_mask else None, B, V, k,
+        torch.cuda.current_stream(logits.device).cuda_stream)
+    _build.check("topk", err, "topk launch")
+    return top, mask
+
+
+def topk_values(logits, k: int):
+    """logits: (B, V) float32 -> (B, k) largest values per row,
+    descending; a value that occurs m times fills up to m places."""
+    if logits.device.type == "cpu":
+        return topk_values_plain(logits, k)
+    top, _ = _topk_launch(logits, k, with_mask=False)
+    topk_values.launches += 1
+    return top
+
+
+def topk_mask(logits, k: int):
+    """logits: (B, V) float32 -> (B, V) float32 with every entry below the
+    row's k-th largest value set to ``NEG_INF``; ties at the threshold all
+    survive, so a row may keep more than k entries.  On the card one
+    kernel launch computes the threshold and writes the mask."""
+    if logits.device.type == "cpu":
+        return topk_mask_plain(logits, k)
+    _, mask = _topk_launch(logits, k, with_mask=True)
+    topk_mask.launches += 1
+    return mask
+
+
+topk_values.launches = 0
+topk_mask.launches = 0

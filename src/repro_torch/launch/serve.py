@@ -3,9 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --kv paged --kv-dtype int8 --batch 8 --slots 4 --max-new 32
 
-Runs on the CUDA card at the architecture's full width with random
-weights from ``--seed``; ``--reduced`` serves the smoke-test variant and
-``--device cpu`` runs the kernels' plain versions on the CPU.
+``--arch`` takes internlm2-1.8b, rwkv6-7b or zamba2-2.7b (the last two on
+contiguous slots only).  Runs on the CUDA card at the architecture's full
+width with random weights from ``--seed``; ``--reduced`` serves the
+smoke-test variant and ``--device cpu`` runs the kernels' plain versions on
+the CPU.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """GQA attention: block gather, full-sequence softmax attention, QKV
-projection and init.
+projection, init and a batched plain one-token decode.
 
 Counterpart of ``repro/models/attention.py`` (dense GQA only).
 :func:`multi_head_attention` dispatches by device.  On the CPU it takes the
@@ -199,3 +199,39 @@ def gqa_apply_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
     out = multi_head_attention(q, k, v, qpos, qpos, causal=causal,
                                window=window)
     return attn_out(out, p["wo"])
+
+
+def gqa_decode_step(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    index: torch.Tensor):
+    """One-token decode for a batch of rows, each at its own position, in
+    plain PyTorch (the hybrid family's shared attention block).
+
+    x: (B,1,d); k/v_cache: (B,S,Hkv,hd); index: (B,) integer.  Row b
+    writes its K/V at position ``index[b]`` and attends over positions
+    ``<= index[b]``.  A row past its stripe (a dead slot that keeps
+    stepping) writes onto the stripe's last position and reads only its own
+    stripe, so nothing live sees it; the JAX step's ``dynamic_update_slice``
+    clamps the same way.  The JAX package's step takes a scalar index and
+    its engine vmaps it over the slots; the rows here are as independent.
+    Caches are updated in place; returns
+    ``(out (B,1,d), k_cache, v_cache)``."""
+    B = x.shape[0]
+    idx = index.long()
+    q, k_new, v_new = gqa_project_qkv(p, cfg, x, idx[:, None])
+    S = k_cache.shape[1]
+    rows = torch.arange(B, device=x.device)
+    widx = idx.clamp(max=S - 1)
+    k_cache[rows, widx] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, widx] = v_new[:, 0].to(v_cache.dtype)
+    H, Hkv = q.shape[2], k_cache.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, -1)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float()
+    s = s * (q.shape[-1] ** -0.5)
+    kpos = torch.arange(S, device=x.device)
+    valid = kpos[None, :] <= idx[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", w.to(v_cache.dtype), v_cache)
+    out = out.reshape(B, 1, H, -1)
+    return attn_out(out, p["wo"]).to(x.dtype), k_cache, v_cache

@@ -1,5 +1,5 @@
-"""Decode caches for the dense GQA and rwkv6 (ssm) families (plain dicts of
-tensors).
+"""Decode caches for the dense GQA, rwkv6 (ssm) and zamba2 (hybrid)
+families (plain dicts of tensors).
 
 Counterpart of ``repro/models/kvcache.py``.  Two serving layouts for the
 dense family:
@@ -12,8 +12,11 @@ dense family:
 
 The ssm family carries no sequence-shaped leaf: its contiguous cache is
 the recurrent state, ``att_x``/``ffn_x`` ``(L, B, d)`` in the model dtype
-and ``wkv`` ``(L, B, H, hd, hd)`` float32.  Its paged layout is not ported
-yet.
+and ``wkv`` ``(L, B, H, hd, hd)`` float32.  The hybrid family carries each
+Mamba2 layer's state, ``conv`` ``(L, B, W-1, inner + 2N)`` in the model
+dtype and ``ssm`` ``(L, B, nh, N, hd)`` float32, and one K/V stripe per use
+of the shared attention block, ``attn_k``/``attn_v`` ``(ceil(L / every), B,
+S, Hkv, hd)``.  Neither family's paged layout is ported yet.
 
 Where the JAX package rebuilds a cache with ``.at[].set``, the port updates
 these tensors in place (``index_put_`` / slice assignment): a cache dict is
@@ -25,15 +28,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import torch_dtype
+from repro_torch.models.mamba2 import mamba2_init_state
 from repro_torch.models.rwkv6 import rwkv6_init_state
 
 SCALE_SUFFIX = "_scale"
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense GQA and the ssm (rwkv6) families; the
-    others wait for theirs."""
-    if cfg.family != "ssm" and (cfg.family != "dense"
+    """The port serves the dense GQA, the ssm (rwkv6) and the hybrid
+    (zamba2) families; the others wait for theirs."""
+    if cfg.family != "ssm" and (cfg.family not in ("dense", "hybrid")
                                 or cfg.attention != "gqa"):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attention!r} is not "
@@ -51,9 +55,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         return {name: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype,
                                   device=device)
                 for name, t in one.items()} | {"index": idx}
+    dt = torch_dtype(cfg.dtype)
+    if cfg.family == "hybrid":  # zamba2: mamba2 state per layer, shared K/V
+        one = mamba2_init_state(cfg, batch, device=device)
+        out = {name: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype,
+                                 device=device)
+               for name, t in one.items()}
+        n_attn = -(-cfg.num_layers // cfg.hybrid_attn_every)
+        shape = (n_attn, batch, max_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        return out | {"attn_k": torch.zeros(shape, dtype=dt, device=device),
+                      "attn_v": torch.zeros(shape, dtype=dt, device=device),
+                      "index": idx}
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    dt = torch_dtype(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
             "index": idx}
@@ -61,9 +76,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def paged_names(cfg: ModelConfig) -> tuple[str, ...]:
     """Cache leaves that get block-paged (those with a sequence axis):
-    none for the ssm family."""
+    none for the ssm family, the shared block's K/V for the hybrid one."""
     check_supported(cfg)
-    return () if cfg.family == "ssm" else ("k", "v")
+    return {"ssm": (), "hybrid": ("attn_k", "attn_v")}.get(cfg.family,
+                                                          ("k", "v"))
 
 
 def scale_names(cfg: ModelConfig) -> tuple[str, ...]:
@@ -115,6 +131,12 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, max_len: int, *,
             "the paged layout for the ssm family (rwkv6) is not ported yet: "
             "it comes with paged, radix and suspend for ssm (ROADMAP, "
             "modules to port); serve it with kv_layout='contiguous'")
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "the paged layout for the hybrid family (zamba2) is not ported "
+            "yet: it comes with paged, radix and suspend for the hybrid "
+            "family (ROADMAP, modules to port); serve it with "
+            "kv_layout='contiguous'")
     int8 = kv_dtype == "int8"
     pool = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
             cfg.resolved_head_dim)

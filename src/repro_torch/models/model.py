@@ -1,7 +1,7 @@
 """Model facade: one object per architecture exposing init, the training
 forward, caches, prefill and the batched decode steps (through the decode
-attention kernels for GQA stacks, plain for rwkv6).  Counterpart of
-``repro/models/model.py``."""
+attention kernels for GQA stacks, plain for rwkv6 and zamba2).
+Counterpart of ``repro/models/model.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -49,10 +49,10 @@ class Model:
     def prefill(self, params, tokens, cache):
         return stack_prefill(params, self.cfg, tokens, cache)
 
-    def decode_step(self, params, token, cache):
+    def decode_step(self, params, token, cache, *, ring: bool = False):
         """Batched one-token decode over a whole contiguous slot pool in
-        plain PyTorch (the ssm family)."""
-        return stack_decode_step(params, self.cfg, token, cache)
+        plain PyTorch (the ssm and hybrid families); ``ring`` is refused."""
+        return stack_decode_step(params, self.cfg, token, cache, ring=ring)
 
     def kernel_supported(self) -> bool:
         """Whether :meth:`kernel_decode_step` serves this architecture

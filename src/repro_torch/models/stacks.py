@@ -2,8 +2,8 @@
 embedding, unembedding, norms, the per-layer rope theta and window) and
 the full-sequence training forward :func:`stack_forward`.
 
-Counterpart of ``repro/models/stacks.py``, dense GQA and ssm (rwkv6)
-branches of the init, dense GQA of the forward.  Where the
+Counterpart of ``repro/models/stacks.py``: the dense GQA, ssm (rwkv6) and
+hybrid (zamba2) branches of the init, dense GQA of the forward.  Where the
 JAX package stacks layers on axis 0 for ``lax.scan``, the port keeps
 ``params["layers"]`` as a Python list of per-layer dicts and loops over it.
 """
@@ -19,6 +19,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (dense_init, embed_init, mlp_apply,
                                        mlp_init, rms_norm, torch_dtype)
 from repro_torch.models.kvcache import check_supported
+from repro_torch.models.mamba2 import mamba2_init
 from repro_torch.models.rwkv6 import rwkv6_init
 
 NO_WINDOW = 2 ** 30     # far beyond any max_seq_len: never masks
@@ -45,8 +46,11 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on ``gen``'s device: ``embed (V, d)``,
     ``final_norm (d,)``, ``lm_head (d, V)`` and ``layers``, a list of
     ``{"ln1", "ln2", "attn": {wq, wk, wv, wo}, "mlp": {wi_gate, wi_up,
-    wo}}`` (dense) or ``{"ln1", "ln2", "mix": <rwkv6 block>}`` (ssm) in
-    the JAX package's weight layouts."""
+    wo}}`` (dense), ``{"ln1", "ln2", "mix": <rwkv6 block>}`` (ssm) or
+    ``{"norm", "mamba": <mamba2 block>}`` (hybrid, which also holds one
+    ``shared_attn = {"ln1", "attn", "ln2", "mlp"}`` that every
+    ``hybrid_attn_every``-th layer applies) in the JAX package's weight
+    layouts."""
     check_supported(cfg)
     dt = torch_dtype(cfg.dtype)
     dev = gen.device
@@ -62,6 +66,13 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         p["layers"] = [{"ln1": norm(), "ln2": norm(),
                         "mix": rwkv6_init(gen, cfg)}
                        for _ in range(cfg.num_layers)]
+        return p
+    if cfg.family == "hybrid":
+        p["layers"] = [{"norm": norm(), "mamba": mamba2_init(gen, cfg)}
+                       for _ in range(cfg.num_layers)]
+        p["shared_attn"] = {"ln1": norm(), "attn": attn.gqa_init(gen, cfg),
+                            "ln2": norm(),
+                            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
         return p
     p["layers"] = [{"ln1": norm(), "ln2": norm(),
                     "attn": attn.gqa_init(gen, cfg),
@@ -100,7 +111,8 @@ def stack_forward(p: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     """tokens: (B,S) integer -> (logits (B,S,V) float32, aux scalar 0).
 
     Dense GQA only; the other families raise (rwkv6 training waits for a
-    backward of the scan and for sharding).  ``remat=True`` wraps each
+    backward of the scan and for sharding, zamba2 training for a backward
+    of the SSD scan).  ``remat=True`` wraps each
     layer in ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
     the JAX package's ``jax.checkpoint`` around the scanned layer body: the
     layer's activations are recomputed in the backward pass."""
@@ -109,6 +121,11 @@ def stack_forward(p: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             "stack_forward for the ssm family (rwkv6 training) is not ported "
             "yet: it needs a backward of the scan and does not fit one card "
             "at full width (ROADMAP, rwkv6 training)")
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "stack_forward for the hybrid family (zamba2 training) is not "
+            "ported yet: it needs a backward of the SSD scan (ROADMAP, "
+            "zamba2 training)")
     if cfg.family != "dense" or cfg.attention != "gqa":
         raise NotImplementedError(
             f"stack_forward for family {cfg.family!r} / attention "

@@ -1,13 +1,14 @@
-"""Prefill and the batched one-token decode steps of the dense GQA and
-rwkv6 (ssm) stacks.
+"""Prefill and the batched one-token decode steps of the dense GQA, rwkv6
+(ssm) and zamba2 (hybrid) stacks.
 
 Counterpart of ``repro/models/stacks_infer.py``: :func:`stack_prefill`
-(dense and ssm branches) fills a contiguous cache;
+(dense, ssm and hybrid branches) fills a contiguous cache;
 :func:`stack_kernel_decode_step` decodes one token for every slot of the
 serving pool through the decode attention kernels (dense GQA);
 :func:`stack_decode_step` decodes one token for every slot of the pool in
-plain PyTorch (ssm: the recurrent state has no sequence axis for a decode
-kernel).  Caches are updated in place (slice assignment and
+plain PyTorch (ssm and hybrid: the recurrent state has no sequence axis
+for a decode kernel, and the JAX engine refuses its kernel backend for the
+hybrid family).  Caches are updated in place (slice assignment and
 ``index_put_``) where the JAX package rebuilds them with ``.at[].set``.
 """
 from __future__ import annotations
@@ -19,6 +20,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache
+from repro_torch.models import mamba2 as mb
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.common import mlp_apply
 from repro_torch.models.stacks import (_embed_tokens, _layer_theta_window,
@@ -28,13 +30,16 @@ from repro_torch.models.stacks import (_embed_tokens, _layer_theta_window,
 def stack_prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: dict):
     """Full-sequence forward over ``tokens (B, S)`` that writes each layer's
-    K/V into positions ``[0, S)`` of the contiguous ``cache`` (dense) or
-    each layer's final recurrent state (ssm: ``att_x``, ``ffn_x``, ``wkv``),
-    in place, and sets its ``index`` to S.  Returns ``(last_logits (B, V)
-    f32, cache)``."""
+    K/V into positions ``[0, S)`` of the contiguous ``cache`` (dense), each
+    layer's final recurrent state (ssm: ``att_x``, ``ffn_x``, ``wkv``), or
+    each Mamba2 layer's state and each shared-attention use's K/V (hybrid:
+    ``conv``, ``ssm``, ``attn_k``, ``attn_v``), in place, and sets its
+    ``index`` to S.  Returns ``(last_logits (B, V) f32, cache)``."""
     kvcache.check_supported(cfg)
     B, S = tokens.shape
     x = _embed_tokens(p, cfg, tokens)
+    if cfg.family == "hybrid":
+        return _hybrid_prefill(p, cfg, x, cache)
     if cfg.family == "ssm":
         for li, lp in enumerate(p["layers"]):
             h = _norm(lp["ln1"], x, cfg)
@@ -66,30 +71,81 @@ def stack_prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return _unembed(p, cfg, x[:, -1:])[:, 0], cache
 
 
+def _shared_block_full(sp: dict, cfg: ModelConfig, x, positions, pos):
+    """The hybrid family's shared attention + MLP block over a whole
+    sequence; returns ``(x, k, v)``."""
+    h = _norm(sp["ln1"], x, cfg)
+    q, k, v = attn.gqa_project_qkv(sp["attn"], cfg, h, positions)
+    out = attn.multi_head_attention(q, k, v, pos, pos, causal=True)
+    x = x + attn.attn_out(out, sp["attn"]["wo"])
+    h = _norm(sp["ln2"], x, cfg)
+    return x + mlp_apply(sp["mlp"], h), k, v
+
+
+def _hybrid_prefill(p: dict, cfg: ModelConfig, x, cache: dict):
+    """zamba2: every layer runs its Mamba2 block (the SSD scan kernel on
+    the card); after layer ``idx`` with ``(idx + 1) % every == 0`` the
+    shared block runs and its K/V go to use ``idx // every`` of
+    ``attn_k``/``attn_v``.  The JAX package stacks all layers' K/V (dummies
+    where the block does not run) and slices every ``every``-th; the port
+    writes the uses directly."""
+    B, S = x.shape[:2]
+    every = cfg.hybrid_attn_every
+    pos = torch.arange(S, device=x.device)
+    positions = pos.expand(B, S)
+    sp = p["shared_attn"]
+    for li, lp in enumerate(p["layers"]):
+        h = _norm(lp["norm"], x, cfg)
+        m, (conv, ssm) = mb.mamba2_apply_full(lp["mamba"], cfg, h)
+        x = x + m
+        cache["conv"][li] = conv
+        cache["ssm"][li] = ssm
+        if (li + 1) % every == 0:
+            x, k, v = _shared_block_full(sp, cfg, x, positions, pos)
+            cache["attn_k"][li // every, :, :S] = k
+            cache["attn_v"][li // every, :, :S] = v
+    cache["index"].fill_(S)
+    return _unembed(p, cfg, x[:, -1:])[:, 0], cache
+
+
 def kernel_supported(cfg: ModelConfig) -> bool:
     """Whether :func:`stack_kernel_decode_step` serves this config: GQA
     transformer stacks only.  The ssm family carries no sequence-shaped KV
     for a decode kernel and steps its recurrence in
-    :func:`stack_decode_step`."""
+    :func:`stack_decode_step`; so does the hybrid family, whose kernel
+    backend the JAX engine refuses."""
     return cfg.family == "dense" and cfg.attention == "gqa"
 
 
 def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
-                      cache: dict):
-    """One-token decode for every slot of the pool, plain PyTorch (ssm).
+                      cache: dict, *, ring: bool = False):
+    """One-token decode for every slot of the pool, plain PyTorch (ssm and
+    hybrid).
 
-    token: ``(N, 1)`` integer.  cache: ``att_x``/``ffn_x`` ``(L, N, d)``,
-    ``wkv`` ``(L, N, H, hd, hd)`` float32, ``index`` ``(N,)``.  The JAX
-    engine vmaps a batch-1 step over the slots; the rows here are as
-    independent, so one batched step computes the same thing.  The cache is
-    updated in place (``index`` advances by one); returns ``(logits (N, V)
-    f32, cache)``."""
-    if cfg.family != "ssm":
+    token: ``(N, 1)`` integer.  cache: ``index`` ``(N,)`` and the family's
+    leaves — ssm: ``att_x``/``ffn_x`` ``(L, N, d)``, ``wkv`` ``(L, N, H, hd,
+    hd)`` float32; hybrid: ``conv`` ``(L, N, W-1, C)``, ``ssm`` ``(L, N, nh,
+    N_state, hd)`` float32, ``attn_k``/``attn_v`` ``(n_attn, N, S, Hkv,
+    hd)``.  The JAX engine vmaps a batch-1 step over the slots; the rows
+    here are as independent, so one batched step computes the same thing
+    (the shared attention block writes and reads each row at its own
+    ``index``).  The cache is updated in place (``index`` advances by one);
+    returns ``(logits (N, V) f32, cache)``.  ``ring`` (the sliding-window
+    ring buffer of the long-context cells) is not ported."""
+    if ring:
+        raise NotImplementedError(
+            "ring decode (the sliding-window ring-buffer cache of the "
+            "long-context cells) is not ported yet")
+    if cfg.family not in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"stack_decode_step for family {cfg.family!r} is not ported "
             f"yet: the dense family decodes through "
             f"stack_kernel_decode_step")
     x = _embed_tokens(p, cfg, token)                         # (N, 1, d)
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(p, cfg, x, cache)
+        cache["index"].add_(1)
+        return _unembed(p, cfg, x)[:, 0], cache
     for li, lp in enumerate(p["layers"]):
         h = _norm(lp["ln1"], x, cfg)
         o, ax, wkv = rw.rwkv6_time_mix_step(
@@ -103,6 +159,32 @@ def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
         cache["wkv"][li] = wkv
     cache["index"].add_(1)
     return _unembed(p, cfg, x)[:, 0], cache
+
+
+def _hybrid_decode(p: dict, cfg: ModelConfig, x, cache: dict):
+    """zamba2's layers for one token of every slot: each Mamba2 block steps
+    its conv and SSM state; after layer ``idx`` with ``(idx + 1) % every ==
+    0`` the shared block decodes against use ``occ = idx // every``."""
+    every = cfg.hybrid_attn_every
+    sp = p["shared_attn"]
+    index = cache["index"]
+    for li, lp in enumerate(p["layers"]):
+        h = _norm(lp["norm"], x, cfg)
+        m, conv, ssm = mb.mamba2_decode_step(
+            lp["mamba"], cfg, h, cache["conv"][li], cache["ssm"][li])
+        x = x + m
+        cache["conv"][li] = conv
+        cache["ssm"][li] = ssm
+        if (li + 1) % every == 0:
+            occ = li // every
+            h = _norm(sp["ln1"], x, cfg)
+            a, _, _ = attn.gqa_decode_step(
+                sp["attn"], cfg, h, cache["attn_k"][occ],
+                cache["attn_v"][occ], index)
+            x = x + a
+            h = _norm(sp["ln2"], x, cfg)
+            x = x + mlp_apply(sp["mlp"], h)
+    return x
 
 
 def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,

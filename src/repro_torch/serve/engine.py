@@ -14,8 +14,9 @@ step's logits (at temperature 0 with the fused greedy kernel,
 from the engine's ``torch.Generator``), then runs the model's batched
 decode step: ``Model.kernel_decode_step`` for GQA stacks (decode attention
 in a kernel, per layer, over contiguous stripes or paged block pools),
-``Model.decode_step`` for rwkv6 (the recurrence in plain PyTorch, over
-contiguous slots).  The model's family decides, as the JAX engine's
+``Model.decode_step`` for rwkv6 and zamba2 (the recurrences and zamba2's
+shared attention block in plain PyTorch, over contiguous slots; their
+paged layouts are not ported and raise ``NotImplementedError``).  The model's family decides, as the JAX engine's
 ``_resolve_backend`` does; there is no backend switch: on CUDA tensors the
 kernels run, on CPU tensors their plain versions.  Admission prefills one
 request at a time and never samples.

@@ -1,7 +1,7 @@
 """The port stands alone and never hides the card or a kernel.
 
-* No file of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax`` or
-  the JAX package ``repro``.
+* No file of ``src/repro_torch`` (nor ``chip_smoke.py`` and
+  ``profile_zamba2.py``) imports ``jax`` or the JAX package ``repro``.
 * Entry points called without ``device`` on a machine with no CUDA card
   raise instead of running on the CPU.
 * A kernel wrapper handed CUDA tensors with no CUDA toolchain present
@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "profile_zamba2.py"]
 
 
 def _imported_modules(path: Path):
@@ -67,8 +67,10 @@ def _cuda_calls():
     from repro_torch.kernels.decode_attention import (
         decode_attention, paged_decode_attention)
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_scan import mamba2_scan
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-    from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.kernels.sampling import (greedy_sample, topk_mask,
+                                              topk_values)
     i32 = dict(dtype=torch.int32, device="cuda")
     bf = dict(dtype=torch.bfloat16, device="cuda")
     q = torch.zeros(2, 4, 16, **bf)
@@ -87,12 +89,21 @@ def _cuda_calls():
         "rwkv6_scan": lambda: rwkv6_scan(
             kv, kv, kv, kv.float(),
             torch.zeros(2, 16, dtype=torch.float32, device="cuda")),
+        "mamba2_scan": lambda: mamba2_scan(
+            kv, kv, kv.float(),
+            torch.zeros(2, 8, 2, 1, dtype=torch.float32, device="cuda")),
+        "topk_values": lambda: topk_values(
+            torch.zeros(2, 100, dtype=torch.float32, device="cuda"), 5),
+        "topk_mask": lambda: topk_mask(
+            torch.zeros(2, 100, dtype=torch.float32, device="cuda"), 5),
     }
 
 
 @pytest.mark.parametrize("name", ["decode_attention",
                                   "paged_decode_attention", "greedy_sample",
-                                  "flash_attention", "rwkv6_scan"])
+                                  "flash_attention", "rwkv6_scan",
+                                  "mamba2_scan", "topk_values",
+                                  "topk_mask"])
 def test_wrapper_on_cuda_tensors_raises_without_cuda(name, monkeypatch):
     """Fake CUDA tensors (no storage) reach the kernel path, which must
     raise for want of a toolchain, not answer with the plain version."""

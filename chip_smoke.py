@@ -13,6 +13,16 @@ Phases, in order; any failure exits non-zero:
              PyTorch version and time kernel, plain version, one PyTorch
              library call, and the bound (bytes / 3.35 TB/s or operations /
              peak rate, the larger).
+             The split-K decode kernels print their split plan beside each
+             timed row and are also held, untimed, where splitting is risky
+             (DECODE_EDGE_CASES): lengths at chunk edges, at S, 1 and 0; a
+             window that cuts a chunk and skips whole ones; G 1, 4, 8 at D
+             64 and 80; float32 and bf16 at odd D (element loads); G 3; a
+             plan of one split; the paged entry at bs 1 to 64, bf16 (or
+             float32) and int8.  Their limits (DECODE_EDGE_TOL) are tighter
+             than the timed rows' 2e-2: float32 noise, and one bf16
+             rounding step; the smoke shows they catch a row that lost one
+             position.
              Greedy sampling is also held at rwkv6-7b's and zamba2-2.7b's
              vocabularies (65536, 32000), ties planted at block edges and in
              the row's last columns in each.
@@ -167,6 +177,125 @@ ATTN_CASES = (
     ("long", np.asarray([4096, 3000, 2048, 1500, 1024, 777, 300, 64],
                         np.int32), 4096))
 
+# (label, lengths, S, H, Hkv, D, dtype, window, paged block sizes): the
+# cases split-K makes risky, held against the plain versions untimed.
+# Chunk edges (C - 1, C, C + 1 for C 128, and S), a row of length 1 and one
+# of 0; a window that cuts through a chunk and skips whole ones; G 1, 4, 8
+# at D 64 and 80; float32 and bf16 at odd D (the element-load path); a plan
+# of one split (S 128); the paged entry at bs 1 and 64, bf16 and int8 in
+# every case.
+EDGES = [0, 1, 127, 128, 129, 1024, 257, 640]
+DECODE_EDGE_CASES = (
+    ("edges", EDGES, 1024, 16, 8, 128, "bfloat16", None, (1, 16, 64)),
+    ("one-split", [0, 1, 127, 128], 128, 16, 8, 128, "bfloat16", 100,
+     (1, 16)),
+    ("window", [1024, 1000, 700, 300, 129, 128, 60, 1], 1024, 16, 8, 128,
+     "bfloat16", 200, (16,)),
+    ("window-long", [4096, 2000, 1023], 4096, 16, 8, 128, "bfloat16", 700,
+     (64,)),
+    ("G1-D64", EDGES, 1024, 8, 8, 64, "bfloat16", None, (16,)),
+    ("G4-D64", EDGES, 1024, 16, 4, 64, "bfloat16", None, (16,)),
+    ("G8-D64", EDGES, 1024, 16, 2, 64, "bfloat16", None, (16,)),
+    ("G1-D80", EDGES, 1024, 8, 8, 80, "bfloat16", None, (16,)),
+    ("G4-D80", EDGES, 1024, 16, 4, 80, "bfloat16", None, (16,)),
+    ("G8-D80", EDGES, 1024, 16, 2, 80, "bfloat16", None, (16,)),
+    ("f32-D33", [1, 5, 128, 129, 300], 300, 6, 2, 33, "float32", None,
+     (1, 16)),
+    ("f32-D128", [1, 130, 255, 256], 256, 6, 3, 128, "float32", 100, (16,)),
+    ("bf16-D35", [2, 128, 129, 200], 200, 6, 3, 35, "bfloat16", None,
+     (8,)),
+    ("G3-D128", [64, 384, 385], 512, 9, 3, 128, "bfloat16", None, (32,)))
+# Their limits, by the dtype of q and the output: float32 noise of the
+# summation order, and in bf16 one rounding step of the output (2^-7 of
+# it) above that.  Tight enough that dropping one position, the error a
+# chunk-edge slip makes, fails them even on a row of 1024 (checked on the
+# "edges" case against the plain version with each row one shorter).
+DECODE_EDGE_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+                   "bfloat16": dict(atol=1e-3, rtol=2 ** -7)}
+
+
+def paged_tables(rs, lengths_np, S, bs):
+    """Shuffled block tables (B, MB = ceil(S / bs)) with null-block (0)
+    tails over a pool of B * MB + 1 blocks; returns (tables, NB)."""
+    B, MB = len(lengths_np), -(-S // bs)
+    NB = B * MB + 1
+    ids = rs.permutation(np.arange(1, NB))
+    tables = np.zeros((B, MB), np.int32)
+    nxt = 0
+    for b, n in enumerate(lengths_np):
+        nb = -(-int(n) // bs)
+        tables[b, :nb] = ids[nxt:nxt + nb]
+        nxt += nb
+    return tables, NB
+
+
+def decode_edge_cases(torch, dev) -> dict:
+    """Every DECODE_EDGE_CASES case through both kernels (contiguous; paged
+    bf16 or float32, and int8, at each block size) against their plain
+    versions; returns the largest error of each wrapper."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.kvcache import quantize_kv
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    rs = np.random.RandomState(7)
+    errs = {"decode_attention": 0.0, "paged_decode_attention": 0.0}
+    for label, lens, S, H, Hkv, D, dtype, window, sizes in DECODE_EDGE_CASES:
+        tol = DECODE_EDGE_TOL[dtype]
+        kw = dict(dtype=getattr(torch, dtype), device=dev)
+        lengths_np = np.asarray(lens, np.int32)
+        B = len(lengths_np)
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        q = torch.randn(B, H, D, generator=g, device=dev).to(kw["dtype"])
+        k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).to(
+            kw["dtype"]) for _ in range(2))
+        out = da.decode_attention(q, k, v, lengths, window=window)
+        ref = da.decode_attention_plain(q, k, v, lengths, window=window)
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"decode_attention {label}: non-finite")
+        e = check_close(torch, f"decode_attention {label}", out, ref, tol)
+        errs["decode_attention"] = max(errs["decode_attention"], e)
+        msg = [f"contiguous {e:.2e}"]
+        if label == "edges":     # the limit sees one position go missing
+            short = da.decode_attention_plain(
+                q, k, v, (lengths - 1).clamp_min(0), window=window)
+            for b in np.flatnonzero(lengths_np > 0):
+                if torch.allclose(out[b].float(), short[b].float(), **tol):
+                    raise AssertionError(
+                        f"decode edge {label}: the limit {tol} does not "
+                        f"tell row {b} from the same row one shorter")
+            msg.append("every row told apart from itself one position shorter")
+        del k, v
+        for bs in sizes:
+            tables_np, NB = paged_tables(rs, lengths_np, S, bs)
+            tables = torch.from_numpy(tables_np).to(dev)
+            kp, vp = (torch.randn(NB, bs, Hkv, D, generator=g,
+                                  device=dev).to(kw["dtype"])
+                      for _ in range(2))
+            kq, ks = quantize_kv(kp, 2)
+            vq, vs = quantize_kv(vp, 2)
+            for mode, args, skw in (("", (kp, vp), {}),
+                                    ("-int8", (kq, vq),
+                                     dict(k_scale=ks, v_scale=vs))):
+                out = da.paged_decode_attention(q, *args, tables, lengths,
+                                                window=window, **skw)
+                ref = da.paged_decode_attention_plain(
+                    q, *args, tables, lengths, window=window, **skw)
+                if not torch.isfinite(out.float()).all():
+                    raise AssertionError(f"paged_decode_attention{mode} "
+                                         f"{label} bs {bs}: non-finite")
+                e = check_close(torch, f"paged_decode_attention{mode} "
+                                f"{label} bs {bs}", out, ref, tol)
+                errs["paged_decode_attention"] = max(
+                    errs["paged_decode_attention"], e)
+                msg.append(f"paged{mode} bs {bs} {e:.2e}")
+            del kp, vp, kq, vq, ks, vs
+        C, n = da.split_plan(S)
+        print(f"[kernels] decode edge {label} (lengths {lens}, S={S}, "
+              f"H={H}, Hkv={Hkv}, D={D}, {dtype}, window {window}; plan "
+              f"chunk={C} n_split={n} CTAs={B * Hkv * n}): max_abs_err "
+              + ", ".join(msg))
+    return errs
+
 
 def check_close(torch, name, got, ref, tol) -> float:
     err = float((got.float() - ref.float()).abs().max())
@@ -198,13 +327,16 @@ def phase_kernels(torch, dev, timer):
             q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
 
     def record(key, label, err, ms, plain_ms, lib_ms, n_bytes, n_ops,
-               dtype="bfloat16"):
+               dtype="bfloat16", note=""):
         b_ms, b_by = bound(n_bytes, n_ops, dtype)
         print(f"[kernels] {key} {label}: max_abs_err={err:.3e} "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+              f"{ms / b_ms:.1f}x){note}")
         r = rows.setdefault(key, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        r[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by)
         if label == "main":
             r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      bound_ms=b_ms, bound_by=b_by)
@@ -216,6 +348,10 @@ def phase_kernels(torch, dev, timer):
         q = torch.randn(B, H, D, **bf)
         qo_bytes = 2 * B * H * D * 2 + B * 4
         ops = 4 * H * D * live
+        C, n = da.split_plan(S)
+        plan = (f"; plan chunk={C} n_split={n} CTAs={B * Hkv * n}, live "
+                f"{Hkv * int(np.minimum(-(-lengths_np // C), n).sum())}, "
+                f"merge CTAs={B * H if n > 1 else 0}")
         # contiguous
         k = torch.randn(B, S, Hkv, D, **bf)
         v = torch.randn(B, S, Hkv, D, **bf)
@@ -227,18 +363,10 @@ def phase_kernels(torch, dev, timer):
                timer(lambda: da.decode_attention(q, k, v, lengths)),
                timer(lambda: da.decode_attention_plain(q, k, v, lengths)),
                timer(sdpa(q, k, v, lengths)),
-               live * Hkv * D * 2 * 2 + qo_bytes, ops)
+               live * Hkv * D * 2 * 2 + qo_bytes, ops, note=plan)
         del k, v
         # paged: shuffled tables, null-block tails
-        MB = S // bs
-        NB = B * MB + 1
-        ids = rs.permutation(np.arange(1, NB))
-        tables_np = np.zeros((B, MB), np.int32)
-        nxt = 0
-        for b, n in enumerate(lengths_np):
-            nb = -(-int(n) // bs)
-            tables_np[b, :nb] = ids[nxt:nxt + nb]
-            nxt += nb
+        tables_np, NB = paged_tables(rs, lengths_np, S, bs)
         tables = torch.from_numpy(tables_np).to(dev)
         kp = torch.randn(NB, bs, Hkv, D, **bf)
         vp = torch.randn(NB, bs, Hkv, D, **bf)
@@ -265,9 +393,11 @@ def phase_kernels(torch, dev, timer):
                    timer(sdpa(q, kg.to(torch.bfloat16),
                               vg.to(torch.bfloat16), lengths)),
                    live * Hkv * D * 2 * elem + extra + qo_bytes + tbl_bytes,
-                   ops)
+                   ops, note=plan)
             del kg, vg
         del kp, vp, kq, vq, ks, vs
+    for key, e in decode_edge_cases(torch, dev).items():
+        rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], e)
 
     # greedy sampling at the vocabularies of the three served models
     # (internlm2's is the timed one), planted ties: the kernel's tokens
@@ -1080,6 +1210,8 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "serve": serve,
+                   "decode_attention": rows["decode_attention"],
+                   "paged_decode_attention": rows["paged_decode_attention"],
                    "flash": rows["flash_attention"],
                    "rwkv6_scan": rows["rwkv6_scan"],
                    "mamba2_scan": rows["mamba2_scan"], "topk": rows["topk"],

@@ -1,0 +1,229 @@
+#!/usr/bin/env python3
+"""Where a served model's decode time goes on one H100.
+
+    python3 profile_step.py [--arch zamba2-2.7b|internlm2-1.8b]
+
+Builds the CUDA kernels, initialises the model at full width in bf16 with
+seeded random weights (as ``chip_smoke.py`` does), and runs
+``torch.profiler`` over a batched decode step of a full pool (8 slots at
+position 300):
+
+* zamba2-2.7b (the default): the plain decode step, and one prefill at
+  S 512;
+* internlm2-1.8b: the contiguous decode step through the decode attention
+  kernel (the index reset to 300 before each call, one fill), with decode
+  attention's share of the step's device time; then the device time of
+  decode attention's two passes (split and merge) at ``chip_smoke.py``'s
+  main and long shapes and with every row full, the L2 flushed before
+  each call as ``chip_smoke.py``'s timer does, and the split pass's rate
+  (live K/V bytes over its device time).
+
+For each it prints the wall time of a call, the device events per call,
+the device-busy time (the sum of their times), the idle share of the wall
+time, and the aten ops and device kernels with the most device time.
+Nothing is held to these numbers; they feed PERF.md's breakdown.  Needs a
+CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+import chip_smoke
+from chip_smoke import ARCH, ATTN_CASES, MAX_SEQ, SLOTS, ZAMBA_ARCH
+
+# device kernels of csrc/decode_attention.cu, by name
+DECODE_ATTN_KERNELS = ("decode_split_kernel", "decode_merge_kernel")
+
+
+def _dev_us(e):
+    """An event's own device time in us (self_cuda_time_total before torch
+    2.4)."""
+    t = getattr(e, "self_device_time_total", None)
+    return e.self_cuda_time_total if t is None else t
+
+
+def profile_calls(torch, fn, n: int = 3) -> dict:
+    """Wall time of one call (host clock around ``n`` calls that end in a
+    synchronize), then ``n`` calls under ``torch.profiler``: device events
+    (kernels and copies) per call, device-busy ms per call (the sum of
+    their times), the idle share of the wall time, and the aten ops and
+    the device kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    if not events:      # the profiler saw no device activity
+        return {"wall_ms": wall, "device_events": None,
+                "device_busy_ms": None, "idle_share": None, "top_ops": [],
+                "top_kernels": [], "decode_attention_ms": None}
+    busy = sum(_dev_us(e) for e in events) / n / 1e3
+    attn = sum(_dev_us(e) for e in events
+               if any(k in e.name for k in DECODE_ATTN_KERNELS)) / n / 1e3
+    ops = sorted(((k.key, _dev_us(k) / n / 1e3, k.count // n)
+                  for k in prof.key_averages() if k.key.startswith("aten::")
+                  and _dev_us(k) > 0), key=lambda t: -t[1])[:6]
+    by_name: dict = {}
+    for e in events:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + _dev_us(e), c + 1)
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"wall_ms": wall, "device_events": len(events) / n,
+            "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+            "decode_attention_ms": attn,
+            "top_ops": [{"op": o, "device_ms": t, "calls": c}
+                        for o, t, c in ops],
+            "top_kernels": [{"kernel": k[:60], "device_ms": t / n / 1e3,
+                             "calls": c // n} for k, (t, c) in kernels]}
+
+
+def profile_zamba2(torch, dev, model, params) -> dict:
+    """Where a decode step and a prefill of zamba2 spend their time: the
+    batched decode step of a full pool (8 slots at position 300) and one
+    prefill at S 512."""
+    cfg = model.cfg
+    pool = model.init_cache(SLOTS, MAX_SEQ, device=dev)
+    pool["index"] = torch.full((SLOTS,), 300, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    tok = torch.randint(0, cfg.vocab_size, (SLOTS, 1), device=dev,
+                        generator=g)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 512), device=dev,
+                           generator=g)
+    res = {"decode_step": profile_calls(
+               torch, lambda: model.decode_step(params, tok, pool)),
+           "prefill_512": profile_calls(
+               torch, lambda: model.prefill(params, prompt, model.init_cache(
+                   1, MAX_SEQ, device=dev)))}
+    report(res)
+    del pool
+    return res
+
+
+def profile_internlm2(torch, dev, model, params) -> dict:
+    """Where a contiguous decode step of internlm2 spends its time: the
+    kernel decode step of a full pool (8 slots at position 300), with
+    decode attention's share of the device time."""
+    pool = model.init_cache(SLOTS, MAX_SEQ, device=dev)
+    pool["index"] = torch.full((SLOTS,), 300, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    tok = torch.randint(0, model.cfg.vocab_size, (SLOTS, 1), device=dev,
+                        generator=g)
+
+    def step():
+        pool["index"].fill_(300)
+        return model.kernel_decode_step(params, tok, pool)
+    res = {"decode_step": profile_calls(torch, step)}
+    report(res)
+    r = res["decode_step"]
+    if r["device_events"] is not None:
+        print(f"[profile] decode_step: decode attention "
+              f"{r['decode_attention_ms']:.3f} ms of device time, share "
+              f"{r['decode_attention_ms'] / r['device_busy_ms']:.3f}")
+    del pool
+    res["decode_attention_passes"] = profile_decode_passes(torch, dev)
+    return res
+
+
+def profile_decode_passes(torch, dev, n: int = 20) -> dict:
+    """Device time of decode attention's split pass and merge pass at
+    chip_smoke's ATTN_CASES and with every row full (8 rows of 1024 and of
+    4096), H 16, Hkv 8, D 128, bf16; a 256 MB write flushes the L2 before
+    each call, as chip_smoke's Timer does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import decode_attention as da
+
+    H, Hkv, D = 16, 8, 128
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    cases = list(ATTN_CASES) + [(f"full{S}", np.full(8, S, np.int32), S)
+                                for S in (1024, 4096)]
+    cuda = torch.autograd.DeviceType.CUDA
+    res = {}
+    for label, lengths_np, S in cases:
+        B = len(lengths_np)
+        q, k, v = (torch.randn(*shape, generator=g, device=dev).to(
+            torch.bfloat16) for shape in ((B, H, D), (B, S, Hkv, D),
+                                          (B, S, Hkv, D)))
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        da.decode_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                da.decode_attention(q, k, v, lengths)
+            torch.cuda.synchronize()
+        t = {p: sum(_dev_us(e) for e in prof.events()
+                    if e.device_type == cuda and f"decode_{p}_kernel" in e.name)
+             / n / 1e3 for p in ("split", "merge")}
+        kv_bytes = int(np.minimum(lengths_np, S).sum()) * Hkv * D * 2 * 2
+        if not t["split"]:      # the profiler saw no device activity
+            print(f"[profile] decode attention {label}: device time not "
+                  f"measured (no device events)")
+            continue
+        rate = kv_bytes / (t["split"] * 1e-3) / 1e12
+        print(f"[profile] decode attention {label} (S={S}, {kv_bytes / 1e6:.1f}"
+              f" MB of live K/V): split pass {t['split']:.4f} ms "
+              f"({rate:.2f} TB/s), merge {t['merge']:.4f} ms")
+        res[label] = dict(split_ms=t["split"], merge_ms=t["merge"],
+                          kv_bytes=kv_bytes, split_tb_per_s=rate)
+        del q, k, v
+    return res
+
+
+def report(res: dict) -> None:
+    for name, r in res.items():
+        if r["device_events"] is None:
+            print(f"[profile] {name}: wall {r['wall_ms']:.2f} "
+                  f"ms; device time not measured (no device events)")
+            continue
+        top = ", ".join(f"{t['op']} {t['device_ms']:.3f} ms x{t['calls']}"
+                        for t in r["top_ops"])
+        kern = ", ".join(f"{t['kernel']} {t['device_ms']:.3f} ms "
+                         f"x{t['calls']}" for t in r["top_kernels"])
+        print(f"[profile] {name}: wall {r['wall_ms']:.2f} ms, "
+              f"{r['device_events']:.0f} device events, device busy "
+              f"{r['device_busy_ms']:.2f} ms (idle share "
+              f"{r['idle_share']:.3f}); most device time by op: {top}; by "
+              f"kernel: {kern}")
+
+
+PROFILES = {ZAMBA_ARCH: profile_zamba2, ARCH: profile_internlm2}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=tuple(PROFILES), default=ZAMBA_ARCH)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device; this script runs only on the "
+              "card", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    _build.build_all()
+    model, params = chip_smoke.build(torch, dev, args.arch)
+    PROFILES[args.arch](torch, dev, model, params)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

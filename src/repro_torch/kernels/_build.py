@@ -33,10 +33,9 @@ _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 # C signatures of every exported function, by source
 SIGNATURES = {
     "decode_attention": {
-        "decode_attention_contiguous": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _I, _I, _F, _I, _I, _P],
-        "decode_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        "decode_attention_contiguous": [_P] * 6 + [_I] * 8
+                                       + [_F, _I, _I, _P],
+        "decode_attention_paged": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P],
     },
     "greedy_sample": {
         "greedy_sample_launch": [_P, _P, _P, _I, _I, _P],

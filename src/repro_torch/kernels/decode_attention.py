@@ -10,7 +10,14 @@ those layouts in place.
 Dispatch is by the device of ``q``: a CPU tensor runs the plain PyTorch
 version, a CUDA tensor launches the kernel or raises, anything else
 raises.  There is no fallback from the kernel to the plain version.  Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+wrapper counts its calls that launch the kernels in ``<wrapper>.launches``
+(one per call: the split pass and the merge).
+
+The kernels split each row's positions into ``n_split`` chunks of
+``chunk`` (:func:`split_plan`, from shapes only), write per-split partials
+and merge them; :func:`decode_attention_partials_plain` and
+:func:`merge_partials_plain` are the plain versions of the two passes,
+which the tests hold to the unsplit plain version.
 """
 from __future__ import annotations
 
@@ -21,13 +28,32 @@ from repro_torch.kernels import _build
 NEG_INF = -1.0e30
 NO_WINDOW = 2 ** 30     # matches models.stacks.NO_WINDOW: never masks
 MAX_GROUP, MAX_HEAD_DIM = 8, 128   # the kernel's register/shared sizing
+SPLIT_CHUNK, MAX_SPLITS = 128, 64  # positions per CTA; splits per row
+LOG2E = 1.4426950408889634
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _lengths(lengths, B: int, device) -> torch.Tensor:
-    """Scalar or (B,) live lengths -> contiguous (B,) int32 on ``device``."""
+    """Scalar or (B,) live lengths -> contiguous (B,) int32 on ``device``;
+    a tensor that already is one is returned as it is (the engine's case:
+    no copy, no launch)."""
+    if isinstance(lengths, torch.Tensor) and lengths.dtype == torch.int32 \
+            and lengths.shape == (B,) and lengths.device == device \
+            and lengths.is_contiguous():
+        return lengths
     t = torch.as_tensor(lengths, dtype=torch.int32, device=device)
     return t.reshape(-1).expand(B).contiguous()
+
+
+def split_plan(seq_len: int) -> tuple[int, int]:
+    """``(chunk, n_split)`` for rows of ``seq_len`` positions (the stripe
+    length S, or MB * bs of a paged table): each (row, KV head) gets
+    ``n_split`` CTAs of ``chunk`` positions, ``chunk`` a multiple of
+    SPLIT_CHUNK grown past it only to keep ``n_split <= MAX_SPLITS``.  A
+    function of the shape alone: the live lengths are device data, and
+    reading them would cost a host sync per layer."""
+    chunk = SPLIT_CHUNK * max(1, -(-seq_len // (SPLIT_CHUNK * MAX_SPLITS)))
+    return chunk, max(1, -(-seq_len // chunk))
 
 
 def _window(window) -> int:
@@ -80,6 +106,56 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths,
         gather_view(v_pool, block_tables, v_scale), lengths, window=window)
 
 
+def decode_attention_partials_plain(q, k, v, lengths, chunk, n_split, *,
+                                    window=None):
+    """What the split pass writes, per query head and split s over
+    positions ``[s * chunk, (s + 1) * chunk)``: ``m (B, H, n_split)`` the
+    largest live score in base 2 (scores times log2 e), ``l`` the sum of
+    ``exp2(score - m)`` and ``acc (B, H, n_split, D)`` the same weights
+    times V, all float32.  A split with nothing live has ``l = 0`` (and
+    ``m = NEG_INF``, ``acc = 0``)."""
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G, P = H // Hkv, chunk * n_split
+    if P < S:
+        raise ValueError(f"{n_split} splits of {chunk} do not cover S={S}")
+    L = _lengths(lengths, B, q.device).long()[:, None]
+    pos = torch.arange(P, device=q.device)
+    valid = (pos < L) & (L - 1 - pos < _window(window)) & (pos < S)
+    valid = valid.reshape(B, 1, 1, n_split, chunk)
+    pad = (0, 0, 0, 0, 0, P - S)
+    kf = torch.nn.functional.pad(k.float(), pad).reshape(B, n_split, chunk,
+                                                          Hkv, D)
+    vf = torch.nn.functional.pad(v.float(), pad).reshape(B, n_split, chunk,
+                                                          Hkv, D)
+    s = torch.einsum("bhgd,bnchd->bhgnc", q.float().reshape(B, Hkv, G, D),
+                     kf) * (D ** -0.5 * LOG2E)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)
+    p = torch.where(valid, torch.exp2(s - m[..., None]), torch.zeros_like(s))
+    acc = torch.einsum("bhgnc,bnchd->bhgnd", p, vf)
+    return (m.reshape(B, H, n_split), p.sum(-1).reshape(B, H, n_split),
+            acc.reshape(B, H, n_split, D))
+
+
+def merge_partials_plain(m, l, acc, dtype=torch.float32):
+    """What the merge pass computes from the partials of
+    :func:`decode_attention_partials_plain`: split i weighed by
+    ``exp2(m_i - M)`` (M the largest m of a live split), splits with
+    ``l = 0`` skipped, divided by the weighed sum of l; a head with no
+    live split gives zeros.  Returns ``(B, H, D)`` in ``dtype``."""
+    live = l > 0
+    M = torch.where(live, m, torch.full_like(m, NEG_INF)).amax(
+        -1, keepdim=True)
+    w = torch.where(live, torch.exp2(m - M), torch.zeros_like(m))
+    total = (w * l).sum(-1, keepdim=True)
+    a = (w[..., None] * torch.where(live[..., None], acc,
+                                    torch.zeros_like(acc))).sum(-2)
+    out = torch.where(total > 0, a / total.clamp_min(1e-30),
+                      torch.zeros_like(a))
+    return out.to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -94,6 +170,17 @@ def _check_cuda(q, named: dict) -> None:
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q dtype {q.dtype} not in (float32, bfloat16)")
+
+
+def _workspace(q, n_split: int):
+    """The float32 partials ``m | l | acc`` of ``n_split`` splits."""
+    B, H, D = q.shape
+    return torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+                       device=q.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_heads(H: int, Hkv: int, D: int) -> None:
@@ -119,13 +206,14 @@ def decode_attention(q, k, v, lengths, *, window=None):
     _check_heads(H, Hkv, D)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"k/v dtype {k.dtype}/{v.dtype} != q dtype {q.dtype}")
-    out = torch.empty_like(q)
     lib = _build.load("decode_attention")
+    chunk, n_split = split_plan(S)
+    out, work = torch.empty_like(q), _workspace(q, n_split)
     err = lib.decode_attention_contiguous(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), B, H, Hkv, D, S, _window(window), D ** -0.5,
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), work.data_ptr(), B, H, Hkv, D, S, _window(window),
+        chunk, n_split, D ** -0.5, _DTYPE_CODES[q.dtype],
+        _DTYPE_CODES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", err, "decode_attention launch")
     decode_attention.launches += 1
     return out
@@ -174,15 +262,16 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
         raise TypeError("k_pool and v_pool dtypes differ")
     _check_cuda(q, named)
     _check_heads(H, Hkv, D)
-    out = torch.empty_like(q)
     lib = _build.load("decode_attention")
+    MB = block_tables.shape[1]
+    chunk, n_split = split_plan(MB * bs)
+    out, work = torch.empty_like(q), _workspace(q, n_split)
     err = lib.decode_attention_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr() if quant else None,
-        v_scale.data_ptr() if quant else None,
-        block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        B, H, Hkv, D, bs, block_tables.shape[1], _window(window),
-        D ** -0.5, _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
+        _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), work.data_ptr(), B, H, Hkv, D, bs,
+        MB, _window(window), chunk, n_split, D ** -0.5,
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", err, "paged_decode_attention launch")
     paged_decode_attention.launches += 1

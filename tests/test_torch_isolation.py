@@ -1,7 +1,7 @@
 """The port stands alone and never hides the card or a kernel.
 
 * No file of ``src/repro_torch`` (nor ``chip_smoke.py`` and
-  ``profile_zamba2.py``) imports ``jax`` or the JAX package ``repro``.
+  ``profile_step.py``) imports ``jax`` or the JAX package ``repro``.
 * Entry points called without ``device`` on a machine with no CUDA card
   raise instead of running on the CPU.
 * A kernel wrapper handed CUDA tensors with no CUDA toolchain present
@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_zamba2.py"]
+    ROOT / "chip_smoke.py", ROOT / "profile_step.py"]
 
 
 def _imported_modules(path: Path):

@@ -54,13 +54,23 @@ Phases, in order; any failure exits non-zero:
              to ``torch.sort``, which fixes no order between them), and
              timed against ``torch.topk``.  No entry point calls
              it (the JAX engine samples the whole vocabulary).
-3. flash   — the flash-attention kernel against its plain version at the
+3. flash   — the flash-attention kernel against its plain version,
+             output and log-sum-exp, untimed at the edge cases of
+             FLASH_EDGE_CASES in bf16 and float32 (S 1, 63, 64, 65, 130;
+             windows 5, 64, 100; G 1, 2, 4; every compiled D from 16 to
+             128; the internlm2 prefill's S 512; the long-S tiles from S
+             1024) and on strided q, k, v views, the bf16 output held
+             element by element to one bf16 rounding of each p and of the
+             output (shown to see one key missing from P V); then at the
              training shape (16 rows, S 143, H 16, Hkv 8, D 128, bf16), at
              S 4096 (2 rows) and at zamba2's shared-attention shape (1 row,
-             S 512, H = Hkv = 32, D 80); the gradients of ``FlashAttentionFn``
-             against autograd through the plain version; times of the
-             kernel, the plain version, ``scaled_dot_product_attention``
-             and the bound.
+             S 512, H = Hkv = 32, D 80), with the gradients of
+             ``FlashAttentionFn`` against autograd through the plain
+             version; times of the kernel, the plain version,
+             ``scaled_dot_product_attention`` and the bound, and of the
+             kernel and SDPA at twice the rows (a time that barely grows
+             says the kernel waits on its longest CTA, not on the card's
+             rates).
 4. serve   — internlm2-1.8b at full width (24 layers, d_model 2048, vocab
              92544) in bf16 with seeded random weights: 16 requests with
              prompts of 32-512 token ids, 8 slots, 128 new tokens, through
@@ -650,19 +660,170 @@ FLASH_CASES = (("main", 16, 16 + MAX_NEW - 1, 16, 8, 128),
                ("zamba2", 1, 512, 32, 32, 80))
 
 
+# (label, rows, positions, H, Hkv, D, window): held against the plain
+# version untimed, in bf16 and float32.  S at key-tile edges and a ragged
+# last tile; windows that end on a tile edge (64) and that empty a query
+# tile's leading key tiles (5, 100); G 1, 2, 4; every compiled D (16 to
+# 128 in steps of 16) at 32-key tiles (below S 256) and 64-key ones; the
+# internlm2 prefill's own shape (S 512, H 16, Hkv 8, D 128); from S 1024
+# at D 128 the warpgroup-MMA path (S 1030 leaves the last tile's second
+# warpgroup without a row).
+FLASH_EDGE_CASES = (
+    ("S1", 2, 1, 8, 4, 128, None),
+    ("S63", 2, 63, 8, 4, 128, None),
+    ("S64", 2, 64, 8, 4, 128, None),
+    ("S65", 2, 65, 8, 4, 128, None),
+    ("S130", 2, 130, 8, 4, 128, None),
+    ("window5", 1, 300, 8, 4, 128, 5),
+    ("window64", 1, 300, 8, 4, 128, 64),
+    ("window100", 1, 300, 8, 4, 128, 100),
+    ("prefill-S512", 1, 512, 16, 8, 128, None),
+    ("G1-D64", 2, 130, 4, 4, 64, None),
+    ("G4-D80", 2, 130, 8, 2, 80, 100),
+    ("G1-D80-S512", 1, 512, 4, 4, 80, 64),
+    ("D16", 2, 130, 4, 2, 16, None),
+    ("D16-S300", 1, 300, 4, 2, 16, 100),
+    ("D32", 2, 130, 4, 2, 32, None),
+    ("D32-S300", 1, 300, 4, 2, 32, None),
+    ("D48", 2, 130, 4, 2, 48, 64),
+    ("D48-S300", 1, 300, 4, 2, 48, None),
+    ("D96", 2, 130, 4, 2, 96, None),
+    ("D96-S300", 1, 300, 4, 2, 96, 100),
+    ("D112", 2, 130, 4, 2, 112, None),
+    ("D112-S300", 1, 300, 4, 2, 112, None),
+    ("long-window100", 1, 1100, 8, 4, 128, 100),
+    ("long-G4-S1030", 1, 1030, 8, 2, 128, None),
+    ("long-G1-D80", 1, 1500, 4, 4, 80, 64),
+    ("long-G2-D64", 1, 1030, 4, 2, 64, None),
+)
+# Output limits, element by element.  float32: summation-order noise.
+# bf16: the kernel rounds each p to bf16 before P V (relative error at
+# most 2^-8, so the sum moves by at most 2^-8 sum_j w_j |v_j|) and both
+# outputs round to bf16 (one step, at most 2^-7 of the value); 1 % over
+# both for the rounding of these terms themselves, 1e-5 for float32 noise.
+# On a row of 1000 keys, where outputs are about 0.05, the limit is about
+# 3.5e-3.  Log-sum-exp: absolute, by dtype.
+FLASH_LSE_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
+# the case, and the key, at which the smoke shows that the bf16 limit sees
+# one key go missing from P V on rows of 512 to 1030 keys
+FLASH_PLANTED = ("long-G4-S1030", 512)
+
+
+def flash_limit(torch, q, k, v, ref, window=None):
+    """The elementwise limit on |kernel - plain| for ``ref``, the plain
+    version's output on q, k, v (see the comment above FLASH_LSE_TOL)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    if q.dtype == torch.float32:
+        return 1e-4 + 1e-4 * ref.float().abs()
+    wv = fa.flash_attention_plain(q, k, v.abs(), window=window).float()
+    return 1.01 * (2 ** -8 * wv + 2 ** -7 * ref.float().abs()) + 1e-5
+
+
+def check_flash(torch, label, q, k, v, window=None) -> tuple:
+    """The kernel against the plain version on q, k, v: output within
+    flash_limit and log-sum-exp within FLASH_LSE_TOL; raises on a miss,
+    returns (output error, its largest share of the limit, log-sum-exp
+    error)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, window=window,
+                                            return_lse=True)
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError(f"flash_attention {label}: non-finite output")
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    share = float((diff / flash_limit(torch, q, k, v, ref, window)).max())
+    if not share <= 1.0:
+        raise AssertionError(f"flash_attention {label}: kernel disagrees "
+                             f"with its plain version (max abs err "
+                             f"{err:.3e}, {share:.2f} of the limit)")
+    lse_err = float((lse - ref_lse).abs().max())
+    lse_tol = FLASH_LSE_TOL[str(q.dtype).split(".")[-1]]
+    if not lse_err <= lse_tol:
+        raise AssertionError(f"flash_attention {label}: log-sum-exp off by "
+                             f"{lse_err:.3e} (limit {lse_tol})")
+    return err, share, lse_err
+
+
+def planted_miss(torch, q, k, v, key) -> float:
+    """The plain version with ``key`` dropped from P V (its v zeroed, its
+    weight kept in the sum) against the plain version: the largest share
+    of the bf16 limit; raises unless it exceeds the limit."""
+    from repro_torch.kernels import flash_attention as fa
+
+    ref = fa.flash_attention_plain(q, k, v)
+    v0 = v.clone()
+    v0[:, key] = 0
+    bad = fa.flash_attention_plain(q, k, v0)
+    share = float(((bad.float() - ref.float()).abs()
+                   / flash_limit(torch, q, k, v, ref)).max())
+    if not share > 1.0:
+        raise AssertionError(f"flash edge: the bf16 limit does not see key "
+                             f"{key} go missing from P V ({share:.2f})")
+    return share
+
+
+def flash_edge_cases(torch, dev) -> dict:
+    """Every FLASH_EDGE_CASES case in bf16 and float32, and q, k, v as
+    strided views (one fused (B, S, (H + 2 Hkv) D) projection, and a
+    (B, H, S, D) tensor transposed) at the training shape, against the
+    plain version; returns the largest errors by dtype: output, share of
+    the limit, log-sum-exp."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = {}
+
+    def note(dt, *errs):
+        w = worst.setdefault(dt, [0.0, 0.0, 0.0])
+        w[:] = [max(a, b) for a, b in zip(w, errs)]
+
+    for label, B, S, H, Hkv, D, window in FLASH_EDGE_CASES:
+        msg = []
+        for dt in ("bfloat16", "float32"):
+            q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev).to(
+                getattr(torch, dt)) for h in (H, Hkv, Hkv))
+            e, sh, el = check_flash(torch, f"edge {label} {dt}", q, k, v,
+                                    window)
+            note(dt, e, sh, el)
+            msg.append(f"{dt} {e:.2e} ({sh:.2f} of the limit; lse "
+                       f"{el:.2e})")
+            if (label, dt) == (FLASH_PLANTED[0], "bfloat16"):
+                key = FLASH_PLANTED[1]
+                msg.append(f"key {key} missing from P V: "
+                           f"{planted_miss(torch, q, k, v, key):.1f} of the "
+                           f"limit")
+        print(f"[flash] edge {label} (B={B}, S={S}, H={H}, Hkv={Hkv}, "
+              f"D={D}, window {window}): max_abs_err " + ", ".join(msg))
+    B, S, H, Hkv, D = 2, 16 + MAX_NEW - 1, 16, 8, 128
+    qkv = torch.randn(B, S, (H + 2 * Hkv) * D, generator=g,
+                      device=dev).to(torch.bfloat16)
+    views = {"fused-qkv": (qkv[..., :H * D].view(B, S, H, D),
+                           qkv[..., H * D:(H + Hkv) * D].view(B, S, Hkv, D),
+                           qkv[..., (H + Hkv) * D:].view(B, S, Hkv, D))}
+    bhsd = [torch.randn(B, h, S, D, generator=g, device=dev).to(
+        torch.bfloat16) for h in (H, Hkv, Hkv)]
+    views["transposed"] = tuple(t.transpose(1, 2) for t in bhsd)
+    for label, (q, k, v) in views.items():
+        assert not q.is_contiguous()
+        e, sh, el = check_flash(torch, f"strided {label}", q, k, v)
+        note("bfloat16", e, sh, el)
+        print(f"[flash] strided {label} q {tuple(q.stride())}: max_abs_err "
+              f"{e:.2e} ({sh:.2f} of the limit; lse {el:.2e})")
+    return worst
+
+
 def phase_flash(torch, dev, timer):
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
-    row = {"max_abs_err": 0.0}
+    row = {"max_abs_err": 0.0, "edge_max_err": flash_edge_cases(torch, dev)}
     for label, B, S, H, Hkv, D in FLASH_CASES:
         g = torch.Generator(device=dev).manual_seed(2)
         q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev,
                                dtype=torch.bfloat16) for h in (H, Hkv, Hkv))
-        err = check_close(torch, f"flash_attention {label}",
-                          fa.flash_attention(q, k, v),
-                          fa.flash_attention_plain(q, k, v), ATTN_TOL)
+        err, share, lse_err = check_flash(torch, label, q, k, v)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         # gradients: FlashAttentionFn against autograd through the plain
         dout = torch.randn(B, S, H, D, generator=g, device=dev,
@@ -685,19 +846,29 @@ def phase_flash(torch, dev, timer):
             qt, kt, vt, is_causal=True, enable_gqa=True))
         bwd_ms = timer(lambda: fa.flash_attention_backward_plain(
             q, k, v, out, lse, dout), iters=10)
+        q2, k2, v2 = (torch.cat([t, t]) for t in (q, k, v))
+        ms_2x = timer(lambda: fa.flash_attention(q2, k2, v2, return_lse=True))
+        lib_ms_2x = timer(lambda: F.scaled_dot_product_attention(
+            q2.transpose(1, 2), k2.transpose(1, 2), v2.transpose(1, 2),
+            is_causal=True, enable_gqa=True))
+        del q2, k2, v2
         n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 \
             + lse.numel() * 4
         n_ops = 4 * B * H * D * (S * (S + 1) // 2)     # causal pairs only
         b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
         print(f"[flash] {label} (B={B}, S={S}, H={H}, Hkv={Hkv}, D={D}): "
-              f"max_abs_err={err:.3e} "
+              f"max_abs_err={err:.3e} ({share:.2f} of the limit; lse "
+              f"{lse_err:.2e}) "
               f"grad max_abs_err {g_err} kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}); plain backward {bwd_ms:.4f} "
-              f"ms")
+              f"ms; at {2 * B} rows kernel {ms_2x:.4f} ms, library "
+              f"{lib_ms_2x:.4f} ms")
         row[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by,
-                          backward_plain_ms=bwd_ms, grad_err=g_err)
+                          backward_plain_ms=bwd_ms, grad_err=g_err,
+                          limit_share=share, lse_err=lse_err, ms_2x=ms_2x,
+                          library_ms_2x=lib_ms_2x)
         if label == "main":
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by)

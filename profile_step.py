@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where a served model's decode time goes on one H100.
+"""Where a served model's decode and prefill time goes on one H100.
 
     python3 profile_step.py [--arch zamba2-2.7b|internlm2-1.8b]
 
@@ -9,10 +9,12 @@ seeded random weights (as ``chip_smoke.py`` does), and runs
 position 300):
 
 * zamba2-2.7b (the default): the plain decode step, and one prefill at
-  S 512;
+  S 512 with flash attention's share of its device time (9 launches);
 * internlm2-1.8b: the contiguous decode step through the decode attention
   kernel (the index reset to 300 before each call, one fill), with decode
-  attention's share of the step's device time; then the device time of
+  attention's share of the step's device time; one prefill at S 512, with
+  flash attention's device time (24 launches) and its share of the
+  prefill's device time; then the device time of
   decode attention's two passes (split and merge) at ``chip_smoke.py``'s
   main and long shapes and with every row full, the L2 flushed before
   each call as ``chip_smoke.py``'s timer does, and the split pass's rate
@@ -35,8 +37,10 @@ import numpy as np
 import chip_smoke
 from chip_smoke import ARCH, ATTN_CASES, MAX_SEQ, SLOTS, ZAMBA_ARCH
 
-# device kernels of csrc/decode_attention.cu, by name
+# device kernels by name: csrc/decode_attention.cu's, and every forward
+# kernel of csrc/flash_attention.cu (flash_fwd_*)
 DECODE_ATTN_KERNELS = ("decode_split_kernel", "decode_merge_kernel")
+FLASH_KERNELS = ("flash_fwd",)
 
 
 def _dev_us(e):
@@ -46,12 +50,14 @@ def _dev_us(e):
     return e.self_cuda_time_total if t is None else t
 
 
-def profile_calls(torch, fn, n: int = 3) -> dict:
+def profile_calls(torch, fn, n: int = 3,
+                  match=DECODE_ATTN_KERNELS) -> dict:
     """Wall time of one call (host clock around ``n`` calls that end in a
     synchronize), then ``n`` calls under ``torch.profiler``: device events
     (kernels and copies) per call, device-busy ms per call (the sum of
-    their times), the idle share of the wall time, and the aten ops and
-    the device kernels with the most device time."""
+    their times), the device ms of the kernels whose names contain one of
+    ``match``, the idle share of the wall time, and the aten ops and the
+    device kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -72,10 +78,10 @@ def profile_calls(torch, fn, n: int = 3) -> dict:
     if not events:      # the profiler saw no device activity
         return {"wall_ms": wall, "device_events": None,
                 "device_busy_ms": None, "idle_share": None, "top_ops": [],
-                "top_kernels": [], "decode_attention_ms": None}
+                "top_kernels": [], "matched_ms": None}
     busy = sum(_dev_us(e) for e in events) / n / 1e3
-    attn = sum(_dev_us(e) for e in events
-               if any(k in e.name for k in DECODE_ATTN_KERNELS)) / n / 1e3
+    matched = sum(_dev_us(e) for e in events
+                  if any(k in e.name for k in match)) / n / 1e3
     ops = sorted(((k.key, _dev_us(k) / n / 1e3, k.count // n)
                   for k in prof.key_averages() if k.key.startswith("aten::")
                   and _dev_us(k) > 0), key=lambda t: -t[1])[:6]
@@ -86,7 +92,7 @@ def profile_calls(torch, fn, n: int = 3) -> dict:
     kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {"wall_ms": wall, "device_events": len(events) / n,
             "device_busy_ms": busy, "idle_share": 1 - busy / wall,
-            "decode_attention_ms": attn,
+            "matched_ms": matched,
             "top_ops": [{"op": o, "device_ms": t, "calls": c}
                         for o, t, c in ops],
             "top_kernels": [{"kernel": k[:60], "device_ms": t / n / 1e3,
@@ -109,16 +115,17 @@ def profile_zamba2(torch, dev, model, params) -> dict:
                torch, lambda: model.decode_step(params, tok, pool)),
            "prefill_512": profile_calls(
                torch, lambda: model.prefill(params, prompt, model.init_cache(
-                   1, MAX_SEQ, device=dev)))}
+                   1, MAX_SEQ, device=dev)), match=FLASH_KERNELS)}
     report(res)
+    report_share(res, "prefill_512", "flash attention")
     del pool
     return res
 
 
 def profile_internlm2(torch, dev, model, params) -> dict:
-    """Where a contiguous decode step of internlm2 spends its time: the
-    kernel decode step of a full pool (8 slots at position 300), with
-    decode attention's share of the device time."""
+    """Where internlm2 spends its time: the kernel decode step of a full
+    pool (8 slots at position 300), with decode attention's share of the
+    device time; one S 512 prefill, with flash attention's share."""
     pool = model.init_cache(SLOTS, MAX_SEQ, device=dev)
     pool["index"] = torch.full((SLOTS,), 300, dtype=torch.int32, device=dev)
     g = torch.Generator(device=dev).manual_seed(6)
@@ -128,13 +135,15 @@ def profile_internlm2(torch, dev, model, params) -> dict:
     def step():
         pool["index"].fill_(300)
         return model.kernel_decode_step(params, tok, pool)
-    res = {"decode_step": profile_calls(torch, step)}
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, 512), device=dev,
+                           generator=g)
+    res = {"decode_step": profile_calls(torch, step),
+           "prefill_512": profile_calls(
+               torch, lambda: model.prefill(params, prompt, model.init_cache(
+                   1, MAX_SEQ, device=dev)), match=FLASH_KERNELS)}
     report(res)
-    r = res["decode_step"]
-    if r["device_events"] is not None:
-        print(f"[profile] decode_step: decode attention "
-              f"{r['decode_attention_ms']:.3f} ms of device time, share "
-              f"{r['decode_attention_ms'] / r['device_busy_ms']:.3f}")
+    report_share(res, "decode_step", "decode attention")
+    report_share(res, "prefill_512", "flash attention")
     del pool
     res["decode_attention_passes"] = profile_decode_passes(torch, dev)
     return res
@@ -202,6 +211,15 @@ def report(res: dict) -> None:
               f"{r['device_busy_ms']:.2f} ms (idle share "
               f"{r['idle_share']:.3f}); most device time by op: {top}; by "
               f"kernel: {kern}")
+
+
+def report_share(res: dict, name: str, what: str) -> None:
+    """The matched kernels' device time in ``res[name]`` and its share of
+    the device-busy time."""
+    r = res[name]
+    if r["device_events"] is not None:
+        print(f"[profile] {name}: {what} {r['matched_ms']:.3f} ms of device "
+              f"time, share {r['matched_ms'] / r['device_busy_ms']:.3f}")
 
 
 PROFILES = {ZAMBA_ARCH: profile_zamba2, ARCH: profile_internlm2}

@@ -27,7 +27,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1.0e30
 NO_WINDOW = 2 ** 30     # matches models.stacks.NO_WINDOW: never masks
-MAX_HEAD_DIM = 128      # the kernel's shared-memory sizing
+MAX_HEAD_DIM = 128      # the largest of the kernels' head-dim instances
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

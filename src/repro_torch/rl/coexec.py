@@ -337,27 +337,3 @@ def run_sequential(job: GRPOJob, *, steps: Optional[int] = None,
         history.append(rec)
         _log(rec, log_every)
     return state, history, _report("off", rt, time.perf_counter() - t0)
-
-
-# ---------------------------------------------------------------------------
-# Executors
-# ---------------------------------------------------------------------------
-def run_sequential(job: GRPOJob, *, steps: Optional[int] = None,
-                   runtime: Optional[RollMuxRuntime] = None,
-                   log_every: int = 0):
-    """``--mux off``: the back-to-back baseline.  Phases run under permits
-    so the executed (bubbled) timeline is measured like the mux modes.
-    ``steps`` overrides the job's step count (e.g. a short warmup run)."""
-    rt = runtime or RollMuxRuntime()
-    state = job.init_state()
-    history = []
-    t0 = time.perf_counter()
-    for k in range(job.steps if steps is None else steps):
-        with rt.permit("rollout", f"{job.job_id}:roll"):
-            b, out = job.rollout_step(state["params"], k)
-        with rt.permit("train", f"{job.job_id}:train"):
-            state, rec = job.train_phase(state, b, out)
-        rec = {"step": k, **rec, "rollout_staleness": 0}
-        history.append(rec)
-        _log(rec, log_every)
-    return state, history, _report("off", rt, time.perf_counter() - t0)

@@ -2,6 +2,8 @@
 
 * No file of ``src/repro_torch`` (nor ``chip_smoke.py`` and
   ``profile_step.py``) imports ``jax`` or the JAX package ``repro``.
+* No module defines a top-level function or class twice (ruff's F811,
+  held here too so that the test suite catches it without ruff).
 * Entry points called without ``device`` on a machine with no CUDA card
   raise instead of running on the CPU.
 * A kernel wrapper handed CUDA tensors with no CUDA toolchain present
@@ -36,6 +38,26 @@ def test_port_imports_neither_jax_nor_repro(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), \
             f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def _defined_twice(source: str) -> list:
+    """Top-level function and class names defined more than once."""
+    seen, twice = set(), []
+    for node in ast.parse(source).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            if node.name in seen:
+                twice.append(f"{node.name} (line {node.lineno})")
+            seen.add(node.name)
+    return twice
+
+
+def test_no_top_level_name_defined_twice():
+    assert _defined_twice("def f():\n    pass\n\n\ndef g():\n    pass\n"
+                          "\n\ndef f():\n    pass\n") == ["f (line 9)"]
+    found = {str(p.relative_to(ROOT)): _defined_twice(p.read_text())
+             for p in PORT_FILES}
+    assert not {p: d for p, d in found.items() if d}
 
 
 def _no_cuda():

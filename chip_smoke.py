@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero:
              long row set up to 4096, hold each kernel against its plain
              PyTorch version and time kernel, plain version, one PyTorch
              library call, and the bound (bytes / 3.35 TB/s or operations /
-             peak rate, the larger).
+             peak rate, the larger).  ``Timer`` takes the median of 30
+             CUDA-event times, each after a 256 MB write that flushes the
+             L2 and a 1 ms device sleep, so the host has issued the whole
+             call before its start event fires.
              The split-K decode kernels print their split plan beside each
              timed row and are also held, untimed, where splitting is risky
              (DECODE_EDGE_CASES): lengths at chunk edges, at S, 1 and 0; a
@@ -37,23 +40,38 @@ Phases, in order; any failure exits non-zero:
              No single PyTorch call computes the recurrence, so it has no
              library time.
              The Mamba2 SSD scan kernel is held against its plain version
+             (y and state within 1e-3 in float32, y within 2e-2 in bf16)
              at zamba2-2.7b's prefill widths (B 1, H 80, N = hd = 64, r/k
              bf16 broadcasts of one (B, S, 1, N) slice, v float32): at S 512
              and S 200 with the model's decays (-exp(A_log) softplus(dt)
              of a seeded dt), at S 512 with weak decays (about -1e-3, so
              the state carries across all eight chunks) and with the JAX
              kernel test's decays, at one all-float32 shape with a partial
-             value slice, and at N = hd = 128 with v bf16; the bound is
-             operations (R K^T at r and k's rate, the rest at the float32
-             rate), no library time.
+             value block, and at N = hd = 128 with v bf16; untimed at the
+             edges of its chunk-parallel design (MAMBA_EDGE_CASES: S 1,
+             63, 64, 65, 129; B 2 at a ragged S; H 13, not a multiple of
+             the head group; r/k per head; decays down to -21 a step, cl
+             near -700 inside a chunk; float32 r/k per head; N 128 with v
+             float32; float32 r/k at N = hd = 128).  The plain version with
+             the state passing dropped (every chunk from zero) is shown to
+             miss the tolerance by a printed multiple.  The bound counts the
+             products at the bf16 rate as often as the kernel issues them
+             (its float32 operands in exact bf16 parts) and the rest at the
+             float32 rate; no library time.
              Top-k (values and mask) is held bit for bit against its plain
              version at the greedy kernel's shape (8 x 92544 float32) for
-             k 1, 50 and 64, with rows tied at the top and at the k-th
-             value and one whose k-th value is a zero of either sign (the
-             values compared with -0.0 read as +0.0: the two are one value
-             to ``torch.sort``, which fixes no order between them), and
-             timed against ``torch.topk``.  No entry point calls
-             it (the JAX engine samples the whole vocabulary).
+             k 1, 50, 64 and 1024, with rows tied at the top and at the
+             k-th value and one whose k-th value is a zero of either sign
+             (the values compared with -0.0 read as +0.0: the two are one
+             value to ``torch.sort``, which fixes no order between them);
+             untimed at TOPK_EDGE_CASES (V 65536, 32000 and 50001, k above
+             one CTA's slice of the row, B 1 and 16, ties straddling the
+             slice edges, a row of equal entries, a zero threshold, and V
+             420000, whose slices are read from device memory in every
+             pass); the plain version with one slice's candidates dropped
+             is shown to fail the bit check; timed against ``torch.topk``.
+             No entry point calls it (the JAX engine samples the whole
+             vocabulary).
 3. flash   — the flash-attention kernel against its plain version,
              output and log-sum-exp, untimed at the edge cases of
              FLASH_EDGE_CASES in bf16 and float32 (S 1, 63, 64, 65, 130;
@@ -120,6 +138,13 @@ is reported.
 Prints the card's name and power limit, a JSON line with every kernel's
 numbers, and as its last line ``{"ok": true, "device": {...}}``.  Needs a
 CUDA card; there is no CPU path.
+
+    python3 chip_smoke.py --kernels-only [--src DIR]
+
+builds, checks and times the kernels only (phases 1-3, no result line),
+with ``--src`` the kernels of another checkout's ``src`` (an unpacked
+parent commit) on this script's timer; it writes
+``chiprun_out/kernels_{tree,parent}.json``.
 """
 from __future__ import annotations
 
@@ -155,12 +180,26 @@ def bound(n_bytes: float, n_ops, dtype: str = None):
 
 
 class Timer:
-    """Median CUDA-event time of one call, with L2 flushed before each."""
+    """Median CUDA-event time of one call, with L2 flushed before each.
+
+    After the flush the device sleeps about 1 ms (``torch.cuda._sleep``)
+    before the start event, so the host has issued the whole call while
+    the device still sleeps: a wrapper's host work (a ctypes launch, its
+    allocations) stays out of the interval unless it takes longer."""
 
     def __init__(self, torch, dev):
         self.torch = torch
         self.flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
                                  device=dev)          # 256 MB > 50 MB L2
+        n = 10 ** 6           # the sleep's cycles per ms on this card
+        torch.cuda._sleep(n)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        torch.cuda._sleep(n)
+        e.record()
+        e.synchronize()
+        self.cycles = int(n / s.elapsed_time(e))
 
     def __call__(self, fn, iters: int = 30) -> float:
         torch = self.torch
@@ -170,6 +209,7 @@ class Timer:
         times = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.cycles)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -516,7 +556,7 @@ def phase_scan(torch, dev, timer):
 # (label, B, S, H, N, hd, r/k dtype, v dtype, decays): zamba2-2.7b's
 # prefill widths at the smoke's longest prompt and a ragged one with the
 # model's decays, weak decays, the JAX kernel test's decays, an all-float32
-# shape with a partial 32-column value slice, and N = hd = 128 with v bf16
+# shape with a partial 64-column value block, and N = hd = 128 with v bf16
 MAMBA_CASES = (
     ("main", 1, 512, 80, 64, 64, "bfloat16", "float32", "model"),
     ("ragged", 1, 200, 80, 64, 64, "bfloat16", "float32", "model"),
@@ -524,87 +564,255 @@ MAMBA_CASES = (
     ("jax-test", 1, 512, 80, 64, 64, "bfloat16", "float32", "normal"),
     ("f32", 2, 130, 4, 16, 40, "float32", "float32", "normal"),
     ("wide", 1, 100, 4, 128, 128, "bfloat16", "bfloat16", "normal"))
+# the cases the chunk-parallel design makes risky, untimed (label, B, S, H,
+# N, hd, r/k dtype, v dtype, decays, r/k broadcast over the heads): chunk
+# edges and a single chunk (S 1, 63, 64, 65, 129), B 2 at a ragged S, H
+# that is not a multiple of the head group, r and k per head (R K^T not
+# shared), strong decays (cl near -700 inside a chunk and across its
+# edges), float32 r/k per head with a partial value block, N 128 with
+# float32 v and two value blocks, and float32 r/k at N = hd = 128 (three
+# bf16 parts of r and k beside S_in's); the state carries (weak decays) in
+# most
+MAMBA_EDGE_CASES = (
+    ("S1", 1, 1, 80, 64, 64, "bfloat16", "float32", "weak", True),
+    ("S63", 1, 63, 80, 64, 64, "bfloat16", "float32", "weak", True),
+    ("S64", 1, 64, 80, 64, 64, "bfloat16", "float32", "weak", True),
+    ("S65", 1, 65, 80, 64, 64, "bfloat16", "float32", "weak", True),
+    ("S129", 1, 129, 80, 64, 64, "bfloat16", "float32", "model", True),
+    ("B2-ragged", 2, 300, 80, 64, 64, "bfloat16", "float32", "weak", True),
+    ("H13", 1, 200, 13, 64, 64, "bfloat16", "float32", "weak", True),
+    ("per-head-rk", 2, 150, 6, 64, 64, "bfloat16", "float32", "weak",
+     False),
+    ("strong", 1, 512, 80, 64, 64, "bfloat16", "float32", "strong", True),
+    ("f32-per-head", 1, 130, 3, 32, 48, "float32", "float32", "weak",
+     False),
+    ("N128-f32", 1, 200, 3, 128, 96, "bfloat16", "float32", "weak", True),
+    ("N128-f32-rk", 1, 200, 4, 128, 128, "float32", "float32", "weak",
+     True))
+MAMBA_F32_TOL = dict(atol=1e-3, rtol=1e-3)
 
 
-def mamba2_ops(B, S, H, N, hd, rk_dtype, c=SCAN_CHUNK):
-    """Operations of the chunked SSD scan, counted per chunk of the run's
-    length, by the type they run at: R K^T over s <= t takes r and k in
-    their own type (bf16 x bf16 with a float32 sum is exact on the tensor
-    cores); the decay weights (an exponential and a product each), A v over
-    s <= t, the decayed read r S and the state update run in float32."""
-    rk = rest = 0
-    for c0 in range(0, S, c):
+def mamba2_ops(B, S, H, N, hd, rk_dtype, v_dtype="float32", shared=True,
+               c=SCAN_CHUNK):
+    """Operations of the chunked SSD scan at the rates the kernel runs
+    them, counted per chunk of the run's length.  On the tensor cores, at
+    the bf16 rate, each product as often as it is issued: an operand in bf16
+    parts (1 for bf16, 3 for float32, exact) times another costs one
+    product per pair of parts i + j <= 2; R K^T over s <= t once per (b,
+    chunk) when r and k are broadcasts over the heads (else per head),
+    (G o L) V over s <= t (G o L in 3 parts), K^T (dk V) in every chunk
+    and R S_in in every chunk after the first (dk V and S_in in 3 parts).
+    On the CUDA cores, at the float32 rate: the decay weights (an
+    exponential and a product per s <= t), the scalings by exp(cl_t) and
+    dk_s, the state passing."""
+    def pairs_of(pa, pb):
+        return sum(i + j <= 2 for i in range(pa) for j in range(pb))
+    p_rk = 1 if rk_dtype == "bfloat16" else 3
+    p_v = 1 if v_dtype == "bfloat16" else 3
+    tc = f32 = 0
+    for i, c0 in enumerate(range(0, S, c)):
         m = min(c, S - c0)
-        rk += N * m * (m + 1)
-        rest += (m * (m + 1) + hd * m * (m + 1) + 2 * m * N * hd + m * hd
-                 + 2 * m * N * hd + N * hd)
-    ops = {rk_dtype: rk * B * H}
-    ops["float32"] = ops.get("float32", 0) + rest * B * H
-    return ops
+        pairs = m * (m + 1) // 2
+        tc += 2 * N * pairs * pairs_of(p_rk, p_rk) * (1 if shared else H)
+        tc += H * (2 * hd * pairs * pairs_of(3, p_v) + 2 * m * N * hd
+                   * pairs_of(p_rk, 3) * (2 if i else 1))
+        f32 += H * (2 * pairs + 2 * m * hd + 2 * N * hd)
+    return {"bfloat16": tc * B, "float32": f32 * B}
+
+
+def mamba2_inputs(torch, dev, B, S, H, N, hd, rk_dt, v_dt, decay,
+                  shared=True, seed=4):
+    """Seeded scan inputs as the model makes them: r and k of one dtype
+    (broadcasts of one (B, S, 1, N) slice over the heads, or per head), v
+    and log_w (the block's -exp(A_log) softplus(dt), weak decays of about
+    -1e-3, the JAX test's -exp(N(0, 1)), or strong ones of -1 to -21 a
+    step).  Returns (r, k, v, log_w, the tensors r and k are read from)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rkt, vt = getattr(torch, rk_dt), getattr(torch, v_dt)
+    r1, k1 = (torch.randn(B, S, 1 if shared else H, N, generator=g,
+                          device=dev).to(rkt) for _ in range(2))
+    r, k = r1.expand(B, S, H, N), k1.expand(B, S, H, N)
+    x = torch.randn(B, S, H, hd, generator=g, device=dev)
+    if decay == "model":
+        a_log = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
+        dt = F.softplus(torch.randn(B, S, H, generator=g, device=dev))
+        return r, k, (x.to(rkt).float() * dt[..., None]).to(vt), \
+            (-torch.exp(a_log) * dt)[..., None], (r1, k1)
+    if decay == "weak":
+        lw = -1e-3 * torch.exp(0.1 * torch.randn(B, S, H, 1, generator=g,
+                                                 device=dev))
+    elif decay == "normal":
+        lw = -torch.exp(torch.randn(B, S, H, 1, generator=g, device=dev))
+    else:
+        lw = -(torch.rand(B, S, H, 1, generator=g, device=dev) * 20 + 1)
+    return r, k, x.to(vt), lw, (r1, k1)
+
+
+def check_mamba2(torch, label, r, k, v, lw) -> tuple:
+    """The kernel against its plain version: y within 1e-3 (ATTN_TOL for
+    bf16 v), the state within 1e-3, both finite; returns the errors and
+    the plain version's y."""
+    from repro_torch.kernels import mamba2_scan as ms
+
+    y, st = ms.mamba2_scan(r, k, v, lw)
+    y0, st0 = ms.mamba2_scan_plain(r, k, v, lw)
+    y_tol = ATTN_TOL if v.dtype == torch.bfloat16 else MAMBA_F32_TOL
+    err = check_close(torch, f"mamba2_scan {label} y", y, y0, y_tol)
+    st_err = check_close(torch, f"mamba2_scan {label} state", st, st0,
+                         MAMBA_F32_TOL)
+    if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
+        raise AssertionError(f"mamba2_scan {label}: non-finite output")
+    return err, st_err, y0
+
+
+def mamba2_planted(torch, r, k, v, lw, y0) -> float:
+    """The plain version with the state passing dropped (every chunk from
+    a zero state) against the plain version: the largest multiple of the
+    float32 tolerance; raises unless the check would see it."""
+    from repro_torch.kernels import mamba2_scan as ms
+
+    S = r.shape[1]
+    bad = torch.cat([ms.mamba2_scan_plain(*(t[:, c:c + SCAN_CHUNK]
+                                            for t in (r, k, v, lw)))[0]
+                     for c in range(0, S, SCAN_CHUNK)], dim=1)
+    tol = MAMBA_F32_TOL
+    share = float(((bad - y0).abs() / (tol["atol"] + tol["rtol"]
+                                       * y0.abs())).max())
+    if not share > 1.0:
+        raise AssertionError(f"mamba2_scan: the check does not see the "
+                             f"state passing dropped ({share:.2f})")
+    return share
 
 
 def phase_mamba2_scan(torch, dev, timer):
-    import torch.nn.functional as F
-
     from repro_torch.kernels import mamba2_scan as ms
 
     row = {"max_abs_err": 0.0}
     for label, B, S, H, N, hd, rk_dt, v_dt, decay in MAMBA_CASES:
-        g = torch.Generator(device=dev).manual_seed(4)
-        rkt, vt = getattr(torch, rk_dt), getattr(torch, v_dt)
-        r1, k1 = (torch.randn(B, S, 1, N, generator=g, device=dev).to(rkt)
-                  for _ in range(2))
-        r, k = r1.expand(B, S, H, N), k1.expand(B, S, H, N)
-        x = torch.randn(B, S, H, hd, generator=g, device=dev)
-        if decay == "model":       # the block's: -exp(A_log) softplus(dt)
-            a_log = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
-            dt = F.softplus(torch.randn(B, S, H, generator=g, device=dev))
-            lw = (-torch.exp(a_log) * dt)[..., None]
-            v = (x.to(rkt).float() * dt[..., None]).to(vt)
-        else:
-            if decay == "weak":    # about -1e-3 per step
-                lw = -1e-3 * torch.exp(0.1 * torch.randn(
-                    B, S, H, 1, generator=g, device=dev))
-            else:                  # -exp(N(0, 1)), the JAX kernel test's
-                lw = -torch.exp(torch.randn(B, S, H, 1, generator=g,
-                                            device=dev))
-            v = x.to(vt)
-        y, st = ms.mamba2_scan(r, k, v, lw)
-        y0, st0 = ms.mamba2_scan_plain(r, k, v, lw)
-        y_tol = ATTN_TOL if v_dt == "bfloat16" else dict(atol=1e-3,
-                                                         rtol=1e-3)
-        err = check_close(torch, f"mamba2_scan {label} y", y, y0, y_tol)
-        st_err = check_close(torch, f"mamba2_scan {label} state", st, st0,
-                             dict(atol=1e-3, rtol=1e-3))
-        if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
-            raise AssertionError(f"mamba2_scan {label}: non-finite output")
+        r, k, v, lw, (r1, k1) = mamba2_inputs(torch, dev, B, S, H, N, hd,
+                                              rk_dt, v_dt, decay)
+        err, st_err, y0 = check_mamba2(torch, label, r, k, v, lw)
+        note = ""
+        if label == "weak":
+            share = mamba2_planted(torch, r, k, v, lw, y0)
+            row["planted_state_dropped"] = share
+            note = (f"; state passing dropped: {share:.1f} times the "
+                    f"tolerance")
         row["max_abs_err"] = max(row["max_abs_err"], err)
         ms_ = timer(lambda: ms.mamba2_scan(r, k, v, lw))
         plain_ms = timer(lambda: ms.mamba2_scan_plain(r, k, v, lw), iters=10)
         # each input read once: r and k are one (B, S, 1, N) slice each
         n_bytes = sum(t.numel() * t.element_size()
-                      for t in (r1, k1, v, lw, y, st))
-        b_ms, b_by = bound(n_bytes, mamba2_ops(B, S, H, N, hd, rk_dt))
+                      for t in (r1, k1, v, lw)) + B * S * H * hd \
+            * v.element_size() + B * H * N * hd * 4
+        b_ms, b_by = bound(n_bytes, mamba2_ops(B, S, H, N, hd, rk_dt, v_dt))
         print(f"[kernels] mamba2_scan {label} (B={B}, S={S}, H={H}, N={N}, "
               f"hd={hd}, r/k {rk_dt}, v {v_dt}, {decay} decays): "
               f"max_abs_err y={err:.3e} state={st_err:.3e} "
               f"kernel_ms={ms_:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by})")
+              f"bound_ms={b_ms:.4f} ({b_by}){note}")
         row[label] = dict(ms=ms_, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by, state_err=st_err)
         if label == "main":
             row.update(ms=ms_, plain_ms=plain_ms, library_ms=None,
                        bound_ms=b_ms, bound_by=b_by)
-        del r, k, r1, k1, x, v, lw, y, st, y0, st0
+        del r, k, r1, k1, v, lw, y0
+    for label, B, S, H, N, hd, rk_dt, v_dt, decay, shared in \
+            MAMBA_EDGE_CASES:
+        r, k, v, lw, _ = mamba2_inputs(torch, dev, B, S, H, N, hd, rk_dt,
+                                       v_dt, decay, shared, seed=11)
+        err, st_err, _ = check_mamba2(torch, f"edge {label}", r, k, v, lw)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        print(f"[kernels] mamba2_scan edge {label} (B={B}, S={S}, H={H}, "
+              f"N={N}, hd={hd}, r/k {rk_dt} "
+              f"{'broadcast' if shared else 'per head'}, v {v_dt}, {decay} "
+              f"decays): max_abs_err y={err:.3e} state={st_err:.3e}")
     return row
 
 
-TOPK_KS, TOPK_MAIN = (1, 50, 64), 50
+TOPK_KS, TOPK_MAIN = (1, 50, 64, 1024), 50
+# (label, B, V, ks): the vocabularies of the served models, one that is not
+# a multiple of the cluster (nor of 4: element loads), k above one slice,
+# one row and 16 rows, and one whose slices do not fit in shared memory (read
+# from device memory in every pass)
+TOPK_EDGE_CASES = (
+    ("V65536", 8, 65536, (50, 1024)),
+    ("V32000", 8, 32000, (50, 1024)),
+    ("V50001", 8, 50001, (1, 50, 1024)),
+    ("k>slice", 4, 1000, (130, 600, 1000)),
+    ("B1", 1, 92544, (50,)),
+    ("B16", 16, 92544, (50, 1024)),
+    ("V420000", 2, 420000, (50, 1024)))
+
+
+def topk_logits(torch, g, dev, B, V):
+    """Seeded rows with ties straddling the kernel's slice edges (at the
+    top, and at the row's maximum), a row of equal entries, and a row whose
+    k-th value is a zero of either sign for k from 31 up to thousands."""
+    from repro_torch.kernels import sampling
+
+    x = torch.randn(B, V, generator=g, device=dev)
+    sl = sampling.topk_slice(V)
+    edges = [i for e in range(sl, V, sl) for i in (e - 1, e)]
+    x[0, edges] = 6.0
+    x[0, edges[:3]] = 7.0
+    if B > 1:
+        x[1] = 1.5
+    if B > 2:
+        x[2] = -x[2].abs() - 1.0
+        x[2, edges[:2]] = 5.0
+        x[2, 100:128] = 5.0
+        x[2, 0::7] = 0.0
+        x[2, 3::7] = -0.0
+    if B > 3:
+        x[3, edges] = float(x[3].max())
+    return x
+
+
+def check_topk(torch, label, x, k) -> list:
+    """Values and mask against the plain version, bit for bit (values with
+    -0.0 read as +0.0); returns the entries kept per row."""
+    from repro_torch.kernels import sampling
+
+    def bits(t):
+        return (t + 0.0).view(torch.int32)
+    got, want = sampling.topk_values(x, k), sampling.topk_values_plain(x, k)
+    m_got, m_want = sampling.topk_mask(x, k), sampling.topk_mask_plain(x, k)
+    if not (torch.equal(bits(got), bits(want))
+            and torch.equal(m_got.view(torch.int32),
+                            m_want.view(torch.int32))):
+        raise AssertionError(f"topk {label} k={k}: kernel differs from its "
+                             f"plain version")
+    return (m_got > sampling.NEG_INF).sum(1).tolist()
+
+
+def topk_planted(torch, x, k) -> int:
+    """The plain version with one slice's candidates dropped (row 0's
+    entries above its k-th value in the slice of its maximum) against the
+    plain version: the places that differ; raises if the bit check would
+    not see it."""
+    from repro_torch.kernels import sampling
+
+    sl = sampling.topk_slice(x.shape[1])
+    want = sampling.topk_values_plain(x, k)
+    r = int(x[0].argmax()) // sl
+    bad = x.clone()
+    part = bad[0, r * sl:(r + 1) * sl]
+    part[part > want[0, k - 1]] = sampling.NEG_INF
+    got = sampling.topk_values_plain(bad, k)
+    n = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if n == 0:
+        raise AssertionError("topk: the bit check does not see one slice's "
+                             "candidates dropped")
+    return n
 
 
 def phase_topk(torch, dev, timer):
-    """Top-k at the greedy kernel's shape, bit for bit against the plain
-    version; k 50 (a common top-k sampling setting) is the timed case."""
+    """Top-k at the greedy kernel's shape and the edge cases, bit for bit
+    against the plain version; k 50 (a common top-k sampling setting) at
+    8 x 92544 is the timed case."""
     from repro_torch.kernels import sampling
 
     B, V = 8, 92544
@@ -617,24 +825,23 @@ def phase_topk(torch, dev, timer):
     x[2, 10:40] = 5.0                # 20 -0.0: the k-th value is a zero
     x[2, 40:60] = 0.0
     x[2, 60:80] = -0.0
-
-    def bits(t):                     # -0.0 read as +0.0
-        return (t + 0.0).view(torch.int32)
     row = {"max_abs_err": 0.0}
     for k in TOPK_KS:
-        got, want = sampling.topk_values(x, k), \
-            sampling.topk_values_plain(x, k)
-        m_got, m_want = sampling.topk_mask(x, k), \
-            sampling.topk_mask_plain(x, k)
-        if not (torch.equal(bits(got), bits(want))
-                and torch.equal(m_got.view(torch.int32),
-                                m_want.view(torch.int32))):
-            raise AssertionError(f"topk k={k}: kernel differs from its "
-                                 f"plain version")
-        kept = (m_got > sampling.NEG_INF).sum(1).tolist()
+        kept = check_topk(torch, "main", x, k)
         print(f"[kernels] topk k={k}: values and mask bit-identical to the "
               f"plain version (a zero's sign aside); entries kept per row "
               f"{kept}")
+    for label, Be, Ve, ks in TOPK_EDGE_CASES:
+        xe = topk_logits(torch, g, dev, Be, Ve)
+        kept = [check_topk(torch, label, xe, k) for k in ks]
+        print(f"[kernels] topk edge {label} (B={Be}, V={Ve}, slice "
+              f"{sampling.topk_slice(Ve)}): k {ks} bit-identical; entries "
+              f"kept in rows 0-3 {[kp[:4] for kp in kept]}")
+    n_bad = topk_planted(torch, x, TOPK_MAIN)
+    row["planted_slice_dropped"] = n_bad
+    print(f"[kernels] topk: one slice's candidates dropped from row 0 "
+          f"changes {n_bad} of its {TOPK_MAIN} values: the bit check sees "
+          f"it")
     k = TOPK_MAIN
     ms = timer(lambda: sampling.topk_values(x, k))
     plain_ms = timer(lambda: sampling.topk_values_plain(x, k))
@@ -1331,7 +1538,20 @@ SOURCES = {
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke of the port.")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, check and time the kernels, then stop "
+                         "(no model phases, no result line)")
+    ap.add_argument("--src", default=None,
+                    help="with --kernels-only: the src directory whose "
+                         "repro_torch to time (another checkout's)")
+    args = ap.parse_args(argv)
+    if args.src:
+        if not args.kernels_only:
+            ap.error("--src needs --kernels-only")
+        sys.path.insert(0, os.path.abspath(args.src))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1343,7 +1563,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"[build] {len(libs)} kernel libraries built for sm_90a in "
-          f"{time.perf_counter() - t0:.1f}s")
+          f"{time.perf_counter() - t0:.1f}s from {_build.CSRC}")
     timer = Timer(torch, dev)
     rows = phase_kernels(torch, dev, timer)
     rows["rwkv6_scan"] = phase_scan(torch, dev, timer)
@@ -1351,6 +1571,19 @@ def main() -> int:
     rows["topk"] = phase_topk(torch, dev, timer)
     rows["flash_attention"] = phase_flash(torch, dev, timer)
     del timer
+    if args.kernels_only:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        tag = "parent" if args.src else "tree"
+        with open(os.path.join(out_dir, f"kernels_{tag}.json"), "w") as f:
+            json.dump({"card": smi, "src": str(_build.CSRC), "rows": rows},
+                      f, indent=1, default=str)
+        print(smi)
+        return 0
     torch.cuda.empty_cache()
     model, params = build(torch, dev)
     launches, serve = phase_serve(torch, dev, model, params)

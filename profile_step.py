@@ -9,7 +9,9 @@ seeded random weights (as ``chip_smoke.py`` does), and runs
 position 300):
 
 * zamba2-2.7b (the default): the plain decode step, and one prefill at
-  S 512 with flash attention's share of its device time (9 launches);
+  S 512 with the device time and share of the SSD scan (54 calls, every
+  kernel of ``csrc/mamba2_scan.cu`` matched by name) and of flash
+  attention (9 launches);
 * internlm2-1.8b: the contiguous decode step through the decode attention
   kernel (the index reset to 300 before each call, one fill), with decode
   attention's share of the step's device time; one prefill at S 512, with
@@ -37,10 +39,14 @@ import numpy as np
 import chip_smoke
 from chip_smoke import ARCH, ATTN_CASES, MAX_SEQ, SLOTS, ZAMBA_ARCH
 
-# device kernels by name: csrc/decode_attention.cu's, and every forward
-# kernel of csrc/flash_attention.cu (flash_fwd_*)
-DECODE_ATTN_KERNELS = ("decode_split_kernel", "decode_merge_kernel")
-FLASH_KERNELS = ("flash_fwd",)
+# device kernels by name: csrc/decode_attention.cu's, every forward kernel
+# of csrc/flash_attention.cu (flash_fwd_*), and every kernel of
+# csrc/mamba2_scan.cu (mamba2_ssd_states, _pass and _output; the one
+# mamba2_scan_kernel before them)
+DECODE_ATTN = {"decode attention": ("decode_split_kernel",
+                                    "decode_merge_kernel")}
+FLASH = {"flash attention": ("flash_fwd",)}
+SSD_AND_FLASH = {"SSD scan": ("mamba2_",), **FLASH}
 
 
 def _dev_us(e):
@@ -50,13 +56,13 @@ def _dev_us(e):
     return e.self_cuda_time_total if t is None else t
 
 
-def profile_calls(torch, fn, n: int = 3,
-                  match=DECODE_ATTN_KERNELS) -> dict:
+def profile_calls(torch, fn, n: int = 3, match=DECODE_ATTN) -> dict:
     """Wall time of one call (host clock around ``n`` calls that end in a
     synchronize), then ``n`` calls under ``torch.profiler``: device events
     (kernels and copies) per call, device-busy ms per call (the sum of
-    their times), the device ms of the kernels whose names contain one of
-    ``match``, the idle share of the wall time, and the aten ops and the
+    their times), for each ``{label: names}`` of ``match`` the device ms
+    and the launches per call of the kernels whose names contain one of
+    ``names``, the idle share of the wall time, and the aten ops and the
     device kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -78,10 +84,13 @@ def profile_calls(torch, fn, n: int = 3,
     if not events:      # the profiler saw no device activity
         return {"wall_ms": wall, "device_events": None,
                 "device_busy_ms": None, "idle_share": None, "top_ops": [],
-                "top_kernels": [], "matched_ms": None}
+                "top_kernels": [], "matched": None}
     busy = sum(_dev_us(e) for e in events) / n / 1e3
-    matched = sum(_dev_us(e) for e in events
-                  if any(k in e.name for k in match)) / n / 1e3
+    matched = {}
+    for label, names in match.items():
+        hit = [e for e in events if any(k in e.name for k in names)]
+        matched[label] = {"ms": sum(_dev_us(e) for e in hit) / n / 1e3,
+                          "launches": len(hit) / n}
     ops = sorted(((k.key, _dev_us(k) / n / 1e3, k.count // n)
                   for k in prof.key_averages() if k.key.startswith("aten::")
                   and _dev_us(k) > 0), key=lambda t: -t[1])[:6]
@@ -92,7 +101,7 @@ def profile_calls(torch, fn, n: int = 3,
     kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {"wall_ms": wall, "device_events": len(events) / n,
             "device_busy_ms": busy, "idle_share": 1 - busy / wall,
-            "matched_ms": matched,
+            "matched": matched,
             "top_ops": [{"op": o, "device_ms": t, "calls": c}
                         for o, t, c in ops],
             "top_kernels": [{"kernel": k[:60], "device_ms": t / n / 1e3,
@@ -115,9 +124,9 @@ def profile_zamba2(torch, dev, model, params) -> dict:
                torch, lambda: model.decode_step(params, tok, pool)),
            "prefill_512": profile_calls(
                torch, lambda: model.prefill(params, prompt, model.init_cache(
-                   1, MAX_SEQ, device=dev)), match=FLASH_KERNELS)}
+                   1, MAX_SEQ, device=dev)), match=SSD_AND_FLASH)}
     report(res)
-    report_share(res, "prefill_512", "flash attention")
+    report_share(res, "prefill_512")
     del pool
     return res
 
@@ -140,10 +149,10 @@ def profile_internlm2(torch, dev, model, params) -> dict:
     res = {"decode_step": profile_calls(torch, step),
            "prefill_512": profile_calls(
                torch, lambda: model.prefill(params, prompt, model.init_cache(
-                   1, MAX_SEQ, device=dev)), match=FLASH_KERNELS)}
+                   1, MAX_SEQ, device=dev)), match=FLASH)}
     report(res)
-    report_share(res, "decode_step", "decode attention")
-    report_share(res, "prefill_512", "flash attention")
+    report_share(res, "decode_step")
+    report_share(res, "prefill_512")
     del pool
     res["decode_attention_passes"] = profile_decode_passes(torch, dev)
     return res
@@ -213,13 +222,16 @@ def report(res: dict) -> None:
               f"kernel: {kern}")
 
 
-def report_share(res: dict, name: str, what: str) -> None:
-    """The matched kernels' device time in ``res[name]`` and its share of
-    the device-busy time."""
+def report_share(res: dict, name: str) -> None:
+    """Each matched group's device time in ``res[name]``, its kernel
+    launches and its share of the device-busy time."""
     r = res[name]
-    if r["device_events"] is not None:
-        print(f"[profile] {name}: {what} {r['matched_ms']:.3f} ms of device "
-              f"time, share {r['matched_ms'] / r['device_busy_ms']:.3f}")
+    if r["device_events"] is None:
+        return
+    for what, m in r["matched"].items():
+        print(f"[profile] {name}: {what} {m['ms']:.3f} ms of device time "
+              f"in {m['launches']:.0f} kernel launches, share "
+              f"{m['ms'] / r['device_busy_ms']:.3f}")
 
 
 PROFILES = {ZAMBA_ARCH: profile_zamba2, ARCH: profile_internlm2}

@@ -48,7 +48,7 @@ SIGNATURES = {
         "rwkv6_scan_forward": [_P] * 7 + [_L] * 15 + [_I] * 6 + [_P],
     },
     "mamba2_scan": {
-        "mamba2_scan_forward": [_P] * 6 + [_L] * 15 + [_I] * 7 + [_P],
+        "mamba2_scan_forward": [_P] * 7 + [_L] * 16 + [_I] * 7 + [_P],
     },
     "topk": {
         "topk_launch": [_P, _P, _P, _I, _I, _I, _P],

@@ -2,8 +2,10 @@
 
 Counterpart of ``repro/kernels/mamba2_scan.py`` ``mamba2_scan`` (oracle
 ``repro/kernels/ref.py`` ``mamba2_scan_ref``).  The kernel is
-``csrc/mamba2_scan.cu``; its header says what bounds it on the H100 and how
-the design answers that.  Per batch row and head, from a zero state S::
+``csrc/mamba2_scan.cu``: the chunked SSD algorithm in three launches (each
+chunk's own state, the state passed from chunk to chunk, the output), its
+products on the tensor cores; its header says what bounds it on the H100 and
+how the design answers that.  Per batch row and head, from a zero state S::
 
     y_t = r_t^T (w_t S_{t-1} + k_t v_t^T)
     S_t = w_t S_{t-1} + k_t v_t^T,     w_t = exp(log_w_t), one per head
@@ -13,8 +15,8 @@ with ``r``/``k`` ``(B, S, H, N)``, ``v`` ``(B, S, H, hd)`` and ``log_w``
 state ``(B, H, N, hd)`` float32.
 
 :func:`mamba2_scan` dispatches by the device of ``r``: a CPU tensor runs the
-plain version, a CUDA tensor launches the kernel or raises.
-``mamba2_scan.launches`` counts kernel launches.
+plain version, a CUDA tensor launches the kernels or raises.
+``mamba2_scan.launches`` counts calls that launched them (one a call).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_DIM = 128           # N and hd: the kernel's shared-memory sizing
+CHUNK = 64              # the kernel's positions per chunk
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -77,10 +80,15 @@ def mamba2_scan(r, k, v, log_w):
                              f"must be contiguous")
     y = torch.empty((B, S, H, hd), dtype=v.dtype, device=r.device)
     state = torch.empty((B, H, N, hd), dtype=torch.float32, device=r.device)
-    lib = _build.load("mamba2_scan")
-    err = lib.mamba2_scan_forward(
+    # the kernel's scratch (its size checked there): every chunk's (D, D)
+    # state, then its decay
+    D = 64 if max(N, hd) <= 64 else 128
+    scratch = torch.empty((B * -(-S // CHUNK) * H * (D * D + 1),),
+                          dtype=torch.float32, device=r.device)
+    err = _build.load("mamba2_scan").mamba2_scan_forward(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-        y.data_ptr(), state.data_ptr(),
+        y.data_ptr(), state.data_ptr(), scratch.data_ptr(),
+        scratch.numel() * scratch.element_size(),
         *(s for t in (r, k, v, log_w, y) for s in t.stride()[:3]),
         B, S, H, N, hd, _DTYPE_CODES[r.dtype], _DTYPE_CODES[v.dtype],
         torch.cuda.current_stream(r.device).cuda_stream)

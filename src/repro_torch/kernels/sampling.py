@@ -24,6 +24,13 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1.0e30
 MAX_TOPK = 1024         # the kernel's shared-memory sizing
+TOPK_CLUSTER = 8        # CTAs per row: one thread-block cluster
+
+
+def topk_slice(V: int) -> int:
+    """Entries of a row each CTA of the top-k kernel's cluster holds: a
+    multiple of 4 (16-byte loads); the last slice may be shorter."""
+    return (-(-V // TOPK_CLUSTER) + 3) // 4 * 4
 
 
 def greedy_sample_plain(logits):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a served model's decode and prefill time goes on one H100.
 
-    python3 profile_step.py [--arch zamba2-2.7b|internlm2-1.8b]
+    python3 profile_step.py [--arch zamba2-2.7b|internlm2-1.8b|rwkv6-7b]
 
 Builds the CUDA kernels, initialises the model at full width in bf16 with
 seeded random weights (as ``chip_smoke.py`` does), and runs
@@ -12,6 +12,11 @@ position 300):
   S 512 with the device time and share of the SSD scan (54 calls, every
   kernel of ``csrc/mamba2_scan.cu`` matched by name) and of flash
   attention (9 launches);
+* rwkv6-7b: the plain decode step, and one prefill at S 512 with the
+  device time and share of the WKV scan (32 calls, every kernel of
+  ``csrc/rwkv6_scan.cu`` matched by name: ``wkv_states``, ``_pass`` and
+  ``_output``, or the one ``rwkv6_scan_kernel`` of the one-chunk-at-a-time
+  design before them);
 * internlm2-1.8b: the contiguous decode step through the decode attention
   kernel (the index reset to 300 before each call, one fill), with decode
   attention's share of the step's device time; one prefill at S 512, with
@@ -37,16 +42,19 @@ import time
 import numpy as np
 
 import chip_smoke
-from chip_smoke import ARCH, ATTN_CASES, MAX_SEQ, SLOTS, ZAMBA_ARCH
+from chip_smoke import (ARCH, ATTN_CASES, MAX_SEQ, RWKV_ARCH, SLOTS,
+                        ZAMBA_ARCH)
 
 # device kernels by name: csrc/decode_attention.cu's, every forward kernel
-# of csrc/flash_attention.cu (flash_fwd_*), and every kernel of
+# of csrc/flash_attention.cu (flash_fwd_*), every kernel of
 # csrc/mamba2_scan.cu (mamba2_ssd_states, _pass and _output; the one
-# mamba2_scan_kernel before them)
+# mamba2_scan_kernel before them) and of csrc/rwkv6_scan.cu (wkv_states,
+# _pass and _output; the one rwkv6_scan_kernel before them)
 DECODE_ATTN = {"decode attention": ("decode_split_kernel",
                                     "decode_merge_kernel")}
 FLASH = {"flash attention": ("flash_fwd",)}
 SSD_AND_FLASH = {"SSD scan": ("mamba2_",), **FLASH}
+WKV = {"WKV scan": ("wkv_", "rwkv6_scan_kernel")}
 
 
 def _dev_us(e):
@@ -108,10 +116,11 @@ def profile_calls(torch, fn, n: int = 3, match=DECODE_ATTN) -> dict:
                              "calls": c // n} for k, (t, c) in kernels]}
 
 
-def profile_zamba2(torch, dev, model, params) -> dict:
-    """Where a decode step and a prefill of zamba2 spend their time: the
-    batched decode step of a full pool (8 slots at position 300) and one
-    prefill at S 512."""
+def profile_recurrent(torch, dev, model, params, match) -> dict:
+    """Where a decode step and a prefill of a recurrent model (zamba2,
+    rwkv6) spend their time: the batched decode step of a full pool (8
+    slots at position 300) and one prefill at S 512, with the device time
+    of the kernels ``match`` names."""
     cfg = model.cfg
     pool = model.init_cache(SLOTS, MAX_SEQ, device=dev)
     pool["index"] = torch.full((SLOTS,), 300, dtype=torch.int32, device=dev)
@@ -124,11 +133,23 @@ def profile_zamba2(torch, dev, model, params) -> dict:
                torch, lambda: model.decode_step(params, tok, pool)),
            "prefill_512": profile_calls(
                torch, lambda: model.prefill(params, prompt, model.init_cache(
-                   1, MAX_SEQ, device=dev)), match=SSD_AND_FLASH)}
+                   1, MAX_SEQ, device=dev)), match=match)}
     report(res)
     report_share(res, "prefill_512")
     del pool
     return res
+
+
+def profile_zamba2(torch, dev, model, params) -> dict:
+    """zamba2's decode step and S 512 prefill, with the SSD scan's and
+    flash attention's device time in the prefill."""
+    return profile_recurrent(torch, dev, model, params, SSD_AND_FLASH)
+
+
+def profile_rwkv6(torch, dev, model, params) -> dict:
+    """rwkv6's decode step and S 512 prefill, with the WKV scan's device
+    time in the prefill."""
+    return profile_recurrent(torch, dev, model, params, WKV)
 
 
 def profile_internlm2(torch, dev, model, params) -> dict:
@@ -234,7 +255,8 @@ def report_share(res: dict, name: str) -> None:
               f"{m['ms'] / r['device_busy_ms']:.3f}")
 
 
-PROFILES = {ZAMBA_ARCH: profile_zamba2, ARCH: profile_internlm2}
+PROFILES = {ZAMBA_ARCH: profile_zamba2, ARCH: profile_internlm2,
+            RWKV_ARCH: profile_rwkv6}
 
 
 def main(argv=None) -> int:

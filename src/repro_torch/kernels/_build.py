@@ -38,14 +38,14 @@ SIGNATURES = {
         "decode_attention_paged": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P],
     },
     "greedy_sample": {
-        "greedy_sample_launch": [_P, _P, _P, _I, _I, _P],
+        "greedy_sample_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
         "flash_attention_forward": [_P] * 5 + [_L] * 12 + [_I] * 7
                                    + [_F, _I, _P],
     },
     "rwkv6_scan": {
-        "rwkv6_scan_forward": [_P] * 7 + [_L] * 15 + [_I] * 6 + [_P],
+        "rwkv6_scan_forward": [_P] * 8 + [_L] * 16 + [_I] * 6 + [_P],
     },
     "mamba2_scan": {
         "mamba2_scan_forward": [_P] * 7 + [_L] * 16 + [_I] * 7 + [_P],

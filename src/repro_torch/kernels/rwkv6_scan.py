@@ -2,8 +2,10 @@
 
 Counterpart of ``repro/kernels/rwkv6_scan.py`` ``rwkv6_scan`` (oracle
 ``repro/kernels/ref.py`` ``rwkv6_scan_ref``).  The kernel is
-``csrc/rwkv6_scan.cu``; its header says what bounds it on the H100 and how
-the design answers that.  Per batch row and head, from a zero state S::
+``csrc/rwkv6_scan.cu``, three launches a call (chunk states, state
+passing, output) with every chunk in parallel; its header says what
+bounds it on the H100 and how the design answers that.  Per batch row and
+head, from a zero state S::
 
     y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
     S_t = diag(exp(log_w_t)) S_{t-1} + k_t v_t^T
@@ -23,6 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_HEAD_DIM = 128      # the kernel's shared-memory sizing
+CHUNK = 64              # positions per chunk of the kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -83,10 +86,16 @@ def rwkv6_scan(r, k, v, log_w, u, *, initial_state=None):
     y = torch.empty((B, S, H, Dv), dtype=v.dtype, device=r.device)
     state = torch.empty((B, H, Dk, Dv), dtype=torch.float32,
                         device=r.device)
+    # the kernel's scratch (its size checked there): every chunk's (D, D)
+    # state, then its decay, a vector over the key dim
+    D = 64 if max(Dk, Dv) <= 64 else 128
+    scratch = torch.empty((B * -(-S // CHUNK) * H * D * (D + 1),),
+                          dtype=torch.float32, device=r.device)
     lib = _build.load("rwkv6_scan")
     err = lib.rwkv6_scan_forward(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-        u.data_ptr(), y.data_ptr(), state.data_ptr(),
+        u.data_ptr(), y.data_ptr(), state.data_ptr(), scratch.data_ptr(),
+        scratch.numel() * scratch.element_size(),
         *(s for t in (r, k, v, log_w, y) for s in t.stride()[:3]),
         B, S, H, Dk, Dv, _DTYPE_CODES[r.dtype],
         torch.cuda.current_stream(r.device).cuda_stream)

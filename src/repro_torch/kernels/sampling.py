@@ -25,6 +25,25 @@ from repro_torch.kernels import _build
 NEG_INF = -1.0e30
 MAX_TOPK = 1024         # the kernel's shared-memory sizing
 TOPK_CLUSTER = 8        # CTAs per row: one thread-block cluster
+GREEDY_MAX_CLUSTER = 16     # CTAs per row of the greedy kernel, at most
+SMS = 132                   # the H100's streaming multiprocessors
+
+
+def greedy_cluster(B: int) -> int:
+    """CTAs per row of the greedy kernel's cluster: the largest power of
+    two up to 16 that keeps ``B * cluster`` within the card's SMs (16 at
+    the engine's 8 rows), at least 1."""
+    c = GREEDY_MAX_CLUSTER
+    while c > 1 and B * c > SMS:
+        c //= 2
+    return c
+
+
+def greedy_slice(V: int, cluster: int) -> int:
+    """Entries of a row each CTA of the greedy kernel's cluster reduces: a
+    multiple of 4 (16-byte loads); the last slices may be shorter or
+    empty."""
+    return (-(-V // cluster) + 3) // 4 * 4
 
 
 def topk_slice(V: int) -> int:
@@ -42,9 +61,19 @@ def greedy_sample_plain(logits):
 
 
 def greedy_sample(logits):
-    """logits: (B, V) float32 -> (tokens (B,) int32, logprobs (B,) f32)."""
+    """logits: (B, V) float32 -> (tokens (B,) int32, logprobs (B,) f32).
+
+    On the card each row is split over a cluster of
+    :func:`greedy_cluster` CTAs."""
     if logits.device.type == "cpu":
         return greedy_sample_plain(logits)
+    out = _greedy_launch(logits, greedy_cluster(logits.shape[0]))
+    greedy_sample.launches += 1
+    return out
+
+
+def _greedy_launch(logits, cluster: int):
+    """One launch of the greedy kernel with ``cluster`` CTAs per row."""
     if logits.device.type != "cuda":
         raise ValueError(f"greedy_sample takes CPU or CUDA tensors, not "
                          f"{logits.device.type}")
@@ -57,9 +86,9 @@ def greedy_sample(logits):
     lib = _build.load("greedy_sample")
     err = lib.greedy_sample_launch(
         logits.data_ptr(), tokens.data_ptr(), logprobs.data_ptr(), B, V,
+        cluster, greedy_slice(V, cluster),
         torch.cuda.current_stream(logits.device).cuda_stream)
     _build.check("greedy_sample", err, "greedy_sample launch")
-    greedy_sample.launches += 1
     return tokens, logprobs
 
 

@@ -124,7 +124,27 @@ Phases, in order; any failure exits non-zero:
              sampling never; finite loss and gradient norm; the trainer's
              log-probabilities of the sampled tokens match the engine's
              (mean ratio within 1e-2 of 1); the weights move.
-6. serve-rwkv6 — internlm2's weights freed, rwkv6-7b at full width (32
+6. mux     — the phase-multiplexing executors at the train phase's full
+             width and shape, each from a copy of its initial weights:
+             ``run_sequential`` (2 iterations) as the reference;
+             ``run_pipelined`` at staleness 0 (2 iterations), whose
+             iteration 0 must give the reference's completions and
+             behaviour log-probabilities bit for bit and its loss within
+             1e-4 relative (iteration 1 is printed beside the reference's:
+             the embedding backward's atomics move the weights by ulps);
+             at staleness 1 (3 iterations), every rollout's staleness in
+             {0, 1}; ``run_coexec`` with jobs of seeds 0 and 1 (2
+             iterations each), each pool's intervals disjoint and its jobs
+             alternating, no cold start; ``run_streaming`` at staleness 1
+             with 2 reward workers (2 iterations).  Every run's ratio
+             diagnostics are finite and its launch counts, zeroed before
+             and read after it, exact across its threads: decode attention
+             layers x decode steps, flash attention layers x (prefills + 2
+             per train step).  Prints each run's rollout and train busy
+             time, overlap, back-to-back bubble and reclaimed fraction; for
+             coexec the host cache's bytes, each phase's switch time and
+             the peak device memory; for stream the reward pool's timeline.
+7. serve-rwkv6 — internlm2's weights freed, rwkv6-7b at full width (32
              layers, d_model 4096, 64 heads of 64, vocab 65536) in bf16 with
              seeded random weights: the same 16 prompt lengths, 8 slots, 128
              new tokens, contiguous, greedy.  The scan kernel must have run
@@ -138,7 +158,7 @@ Phases, in order; any failure exits non-zero:
              mean of exp(diff) is held within 0.1 of 1 and the 1e-2 measure
              of the train phase is held on a float32 run of 4 requests with
              the same weights upcast.
-7. serve-zamba2 — rwkv6's weights freed, zamba2-2.7b at full width (54
+8. serve-zamba2 — rwkv6's weights freed, zamba2-2.7b at full width (54
              Mamba2 layers, d_model 2560, 80 SSD heads of 64, the shared
              attention block after every 6th layer, vocab 32000) in bf16
              with seeded random weights: the same 16 prompt lengths, 8
@@ -150,7 +170,7 @@ Phases, in order; any failure exits non-zero:
              numbers beside it), float32 (4 requests, weights upcast)
              within 1e-2.
 
-In the float32 runs of phases 6 and 7 the engine's tokens are also held to
+In the float32 runs of phases 7 and 8 the engine's tokens are also held to
 the re-prefill's argmax (log-probability gap within 1e-2); in bf16 the gap
 is reported.
 
@@ -1500,6 +1520,226 @@ def phase_train(torch, dev, model, params):
                     "launches": counts}
 
 
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def mux_job(model, dev, init_params=None, jid="job0", seed=0, steps=2):
+    """A full-width GRPO job of the train phase's shape, from a copy of
+    ``init_params`` (the executors train their weights in place; None:
+    the model's init from ``seed``), that keeps each train step's rollout
+    arrays in ``job.seen``.  A subclass, not a patched method: a closure
+    over the job stored on the job would make a reference cycle that keeps
+    its weights on the card until the garbage collector runs."""
+    from repro_torch.rl.coexec import GRPOJob
+
+    class RecordingJob(GRPOJob):
+        def train_phase(self, state, b, out, rewards=None):
+            self.seen.append({k: out[k].detach().cpu() for k in
+                              ("completions", "behavior_logp", "mask")})
+            return super().train_phase(state, b, out, rewards)
+
+    params = None if init_params is None else _tree_map(
+        lambda t: t.clone(), init_params)
+    job = RecordingJob(jid, model=model, seed=seed, steps=steps, batch=4,
+                       group=4, max_new=MAX_NEW, temperature=1.0,
+                       reward_fn=token_share_reward(model.cfg.vocab_size),
+                       params=params, device=dev)
+    job.seen = []
+    return job
+
+
+def mux_launches(cfg, hists, counts, label):
+    """Every kernel's launches in a mux run must be what its histories
+    say, across the executor's threads: decode attention layers x decode
+    steps, flash layers x (prefills + 2 per train step), nothing else."""
+    want = {k: 0 for k in counts}
+    want["decode_attention"] = cfg.num_layers * sum(
+        r["decode_steps"] for h in hists for r in h)
+    want["flash_attention"] = cfg.num_layers * sum(
+        r["prefills"] + 2 * r.get("micro_steps", 1) for h in hists for r in h)
+    if counts != want:
+        raise AssertionError(f"mux {label}: launches {counts} != {want}")
+
+
+def mux_check_records(hists, label, stale=(0,)):
+    for h in hists:
+        for r in h:
+            diag = [r[k] for k in ("loss", "grad_norm", "entropy",
+                                   "ratio_mean", "ratio_max", "clip_frac")]
+            if not np.isfinite(diag).all() or r["tokens"] < 1:
+                raise AssertionError(f"mux {label}: iteration {r['step']} "
+                                     f"malformed: {r}")
+            if r["rollout_staleness"] not in stale:
+                raise AssertionError(f"mux {label}: iteration {r['step']} "
+                                     f"at staleness "
+                                     f"{r['rollout_staleness']}, not in "
+                                     f"{stale}")
+
+
+def mux_summary(report) -> dict:
+    s = report.summary()
+    s["timelines"] = report.timelines
+    return s
+
+
+def phase_mux(torch, dev, model, init_params):
+    """The mux executors at full width from ``init_params`` (the train
+    phase's initial weights): a sequential reference, the pipeline at
+    staleness 0 and 1, two co-executed jobs and the streaming executor.
+    Each run's launch counts are zeroed before it and read after it."""
+    from repro_torch.core import RollMuxRuntime
+    from repro_torch.rl.coexec import (run_coexec, run_pipelined,
+                                       run_sequential)
+    from repro_torch.rl.stream import run_streaming
+
+    cfg = model.cfg
+    card = card_line()
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+    results = {}
+
+    def counted(run):
+        """``run()``'s histories and report (its final states dropped at
+        once, so that they hold no device memory into the next run), its
+        launch counts and its wall time."""
+        for f in fns.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        _, hist, report = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in fns.items()}
+        for k in total:
+            total[k] += counts[k]
+        return (hist, report), counts, wall
+
+    def line(label, report, wall, counts):
+        s = report.summary()
+        print(f"[mux] {label}: wall {wall:.2f}s; rollout busy "
+              f"{s['total_rollout_s']:.3f}s, train busy "
+              f"{s['total_train_s']:.3f}s, reward busy "
+              f"{s['total_reward_s']:.3f}s; overlap {s['overlap_s']:.3f}s "
+              f"of a back-to-back bubble {s['bubble_back_to_back_s']:.3f}s "
+              f"(reclaimed {s['reclaimed_bubble_frac']:.4f}); launches "
+              f"{counts} ({card})")
+
+    # sequential reference and the pipeline at staleness 0, one seed
+    seq = mux_job(model, dev, init_params)
+    (h_seq, r_seq), c_seq, w_seq = counted(
+        lambda: run_sequential(seq))
+    mux_launches(cfg, [h_seq], c_seq, "off")
+    mux_check_records([h_seq], "off")
+    line("off", r_seq, w_seq, c_seq)
+    pipe0 = mux_job(model, dev, init_params)
+    (h_p0, r_p0), c_p0, w_p0 = counted(
+        lambda: run_pipelined(pipe0, max_staleness=0))
+    mux_launches(cfg, [h_p0], c_p0, "pipeline-0")
+    mux_check_records([h_p0], "pipeline-0")
+    line("pipeline staleness 0", r_p0, w_p0, c_p0)
+    # nothing overlaps at staleness 0: iteration 0 must be the sequential
+    # run's, token for token; a difference points at a stream hand-off
+    a, b = seq.seen[0], pipe0.seen[0]
+    for k in ("completions", "behavior_logp", "mask"):
+        if not torch.equal(a[k], b[k]):
+            raise AssertionError(f"mux pipeline-0: iteration 0 {k} differs "
+                                 f"from the sequential run's")
+    rel = abs(h_p0[0]["loss"] - h_seq[0]["loss"]) / max(
+        abs(h_seq[0]["loss"]), 1e-30)
+    if rel > 1e-4:
+        raise AssertionError(f"mux pipeline-0: iteration 0 loss "
+                             f"{h_p0[0]['loss']} vs {h_seq[0]['loss']} "
+                             f"(relative {rel:.3e} > 1e-4)")
+    same1 = {k: bool(torch.equal(seq.seen[1][k], pipe0.seen[1][k]))
+             for k in ("completions", "behavior_logp")}
+    for k, (r0, r1) in enumerate(zip(h_seq, h_p0)):
+        print(f"[mux] iteration {k}: sequential loss={r0['loss']:.8f} "
+              f"ratio_mean={r0['ratio_mean']:.6f} tokens={r0['tokens']} | "
+              f"pipeline-0 loss={r1['loss']:.8f} "
+              f"ratio_mean={r1['ratio_mean']:.6f} tokens={r1['tokens']}")
+    print(f"[mux] pipeline-0 iteration 0 identical to the sequential run "
+          f"(loss relative difference {rel:.3e}); iteration 1 identical: "
+          f"{same1}")
+    results["off"] = dict(mux_summary(r_seq), wall=w_seq, history=h_seq,
+                          launches=c_seq)
+    results["pipeline-0"] = dict(mux_summary(r_p0), wall=w_p0, history=h_p0,
+                                 launches=c_p0, iteration0_loss_rel=rel,
+                                 iteration1_identical=same1)
+    del seq, pipe0
+
+    pipe1 = mux_job(model, dev, init_params, steps=3)
+    (h_p1, r_p1), c_p1, w_p1 = counted(
+        lambda: run_pipelined(pipe1, max_staleness=1))
+    mux_launches(cfg, [h_p1], c_p1, "pipeline-1")
+    mux_check_records([h_p1], "pipeline-1", stale=(0, 1))
+    line("pipeline staleness 1", r_p1, w_p1, c_p1)
+    print(f"[mux] pipeline-1 staleness "
+          f"{[r['rollout_staleness'] for r in h_p1]}, ratio_mean "
+          f"{[round(r['ratio_mean'], 6) for r in h_p1]}, clip_frac "
+          f"{[r['clip_frac'] for r in h_p1]}")
+    results["pipeline-1"] = dict(mux_summary(r_p1), wall=w_p1, history=h_p1,
+                                 launches=c_p1)
+    del pipe1
+
+    # two jobs, each from its own seed's weights (job0's are init_params)
+    rt = RollMuxRuntime(host_cache_gb=64.0)
+    jobs = [mux_job(model, dev, None, f"job{seed}", seed) for seed in (0, 1)]
+    torch.cuda.reset_peak_memory_stats()
+    (h_co, r_co), c_co, w_co = counted(
+        lambda: run_coexec(jobs, runtime=rt))
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = rt.cache.used_bytes()
+    mux_launches(cfg, list(h_co.values()), c_co, "coexec")
+    mux_check_records(list(h_co.values()), "coexec")
+    for pool in ("rollout", "train"):
+        tl = sorted(r_co.timelines[pool], key=lambda e: e[1])
+        for (_, _, t1), (_, t0, _) in zip(tl, tl[1:]):
+            if t0 < t1:
+                raise AssertionError(f"mux coexec: {pool} intervals "
+                                     f"overlap: {tl}")
+        users = [who.split(":")[0] for who, _, _ in tl]
+        if len(tl) != 4 or any(u == v for u, v in zip(users[1:],
+                                                      users[2:])):
+            raise AssertionError(f"mux coexec: {pool} does not alternate: "
+                                 f"{users}")
+    if r_co.cache_stats["cold_misses"] != 0:
+        raise AssertionError(f"mux coexec: cold misses "
+                             f"{r_co.cache_stats}")
+    switch = {k: {"switch_time": st.switch_time, "run_time": st.run_time,
+                  "runs": st.runs, "warm_starts": st.warm_starts}
+              for k, st in sorted(rt.stats.items())}
+    line("coexec (2 jobs)", r_co, w_co, c_co)
+    print(f"[mux] coexec: host cache {cache_bytes} bytes "
+          f"({cache_bytes / 2 ** 30:.2f} GiB), cache {r_co.cache_stats}, "
+          f"peak device memory {peak / 2 ** 30:.2f} GiB; per phase "
+          + "; ".join(f"{k}: switch {v['switch_time']:.3f}s in "
+                      f"{v['runs']} runs, run {v['run_time']:.3f}s"
+                      for k, v in switch.items()))
+    results["coexec"] = dict(mux_summary(r_co), wall=w_co, history=h_co,
+                             launches=c_co, host_cache_bytes=cache_bytes,
+                             max_memory_allocated=peak, phases=switch)
+    del jobs, rt
+
+    stream = mux_job(model, dev, init_params)
+    (h_st, r_st), c_st, w_st = counted(
+        lambda: run_streaming(stream, max_staleness=1, reward_workers=2))
+    mux_launches(cfg, [h_st], c_st, "stream")
+    mux_check_records([h_st], "stream", stale=(0, 1))
+    line("stream staleness 1, 2 reward workers", r_st, w_st, c_st)
+    print(f"[mux] stream reward pool: "
+          + ", ".join(f"({t0:.3f}, {t1:.3f})"
+                      for _, t0, t1 in r_st.timelines["reward"]))
+    results["stream"] = dict(mux_summary(r_st), wall=w_st, history=h_st,
+                             launches=c_st)
+    del stream
+    results["card"] = card
+    return total, results
+
+
 # completion positions re-prefilled by the serve-rwkv6 phase
 RECHECK_AT = (0, 31, 63, 127)
 
@@ -1787,10 +2027,7 @@ def main(argv=None) -> int:
     rows["flash_attention"] = phase_flash(torch, dev, timer)
     del timer
     if args.kernels_only:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
+        smi = card_line()
         out_dir = os.path.join(ROOT, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)
         tag = "parent" if args.src else "tree"
@@ -1801,21 +2038,23 @@ def main(argv=None) -> int:
         return 0
     torch.cuda.empty_cache()
     model, params = build(torch, dev)
+    init_params = _tree_map(lambda t: t.clone(), params)
     launches, serve = phase_serve(torch, dev, model, params)
     train_launches, train = phase_train(torch, dev, model, params)
-    del model, params
+    del params
+    torch.cuda.empty_cache()
+    mux_launches_, mux = phase_mux(torch, dev, model, init_params)
+    del model, init_params
     torch.cuda.empty_cache()
     rwkv_launches, serve_rwkv6 = phase_serve_rwkv6(torch, dev)
     torch.cuda.empty_cache()
     zamba_launches, serve_zamba2 = phase_serve_zamba2(torch, dev)
-    for counts in (train_launches, rwkv_launches, zamba_launches):
+    for counts in (train_launches, mux_launches_, rwkv_launches,
+                   zamba_launches):
         for k, n in counts.items():
             launches[k] += n
     launches["topk"] = launches["topk_values"] + launches["topk_mask"]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = rows[name]
@@ -1834,7 +2073,7 @@ def main(argv=None) -> int:
                    "flash": rows["flash_attention"],
                    "rwkv6_scan": rows["rwkv6_scan"],
                    "mamba2_scan": rows["mamba2_scan"], "topk": rows["topk"],
-                   "train": train, "serve_rwkv6": serve_rwkv6,
+                   "train": train, "mux": mux, "serve_rwkv6": serve_rwkv6,
                    "serve_zamba2": serve_zamba2}, f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,7 @@
 from repro_torch.core.phase_control import (PermitPool, PhaseProfile,
-                                            PhaseStats, RollMuxRuntime)
+                                            PhaseStats, PhaseStreams,
+                                            RollMuxRuntime, hand_over,
+                                            sync_current_stream, take_over)
 
-__all__ = ["PermitPool", "PhaseProfile", "PhaseStats", "RollMuxRuntime"]
+__all__ = ["PermitPool", "PhaseProfile", "PhaseStats", "PhaseStreams",
+           "RollMuxRuntime", "hand_over", "sync_current_stream", "take_over"]

@@ -12,9 +12,15 @@ simulator consumes in place of modeled worst-case durations
 (``core.simulator.simulate_profiles``) — served, not modeled, phase times
 drive the multiplexing decisions.
 
-Counterpart of ``repro/core/phase_control.py``.  A phase ends with
-``torch.cuda.synchronize()`` on the state's card where the JAX package
-blocks until its arrays are ready.  Not ported yet: ``PhaseProfile.to_job``
+Counterpart of ``repro/core/phase_control.py``.  On the card each
+executor thread runs each pool's phases on a CUDA stream of its own
+(:class:`PhaseStreams`), so that one phase's kernels can fill the device
+time another phase leaves idle.  A phase ends by synchronising its own
+(the current) stream, where the JAX package blocks until its arrays are
+ready: ``torch.cuda.synchronize()`` would wait for every stream on the
+card, and so for the other thread's phase.  Tensors that cross from one
+stream to another go through :func:`hand_over` and :func:`take_over`.
+Not ported yet: ``PhaseProfile.to_job``
 (it feeds the co-execution simulator, ``core/job.py``) and
 ``RollMuxRuntime.metrics`` (the elastic controller's telemetry); both come
 with the slices that port those modules (ROADMAP).
@@ -35,11 +41,68 @@ from repro_torch.train.checkpoints import HostStateCache
 from repro_torch.train.optimizer import tree_leaves
 
 
+def _cuda_leaves(tree) -> list[torch.Tensor]:
+    return [t for t in tree_leaves(tree)
+            if isinstance(t, torch.Tensor) and t.is_cuda]
+
+
+def sync_current_stream(device) -> None:
+    """Wait for the work queued on the current stream of ``device`` (a
+    no-op on the CPU), and for nothing else on the card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def _synchronize(state) -> None:
-    """Wait for the card that holds ``state`` (a no-op on the CPU)."""
-    leaves = tree_leaves(state)
-    if leaves and leaves[0].device.type == "cuda":
-        torch.cuda.synchronize(leaves[0].device)
+    """Wait for the current stream of the card that holds ``state``."""
+    leaves = _cuda_leaves(state)
+    if leaves:
+        sync_current_stream(leaves[0].device)
+
+
+class PhaseStreams:
+    """One CUDA stream per pool for one executor thread; on the CPU every
+    scope is a no-op.  ``with streams("train"): ...`` runs the body on the
+    thread's train stream."""
+
+    def __init__(self, device, pools=("rollout", "train")):
+        device = torch.device(device)
+        self._streams = {p: (torch.cuda.Stream(device)
+                             if device.type == "cuda" else None)
+                         for p in pools}
+
+    def __call__(self, pool: str):
+        s = self._streams[pool]
+        return (contextlib.nullcontext() if s is None
+                else torch.cuda.stream(s))
+
+
+def hand_over(tree):
+    """Mark the CUDA tensors of ``tree`` as written on the current stream:
+    returns the event a consumer on another stream waits on in
+    :func:`take_over` (None when ``tree`` holds no CUDA tensor)."""
+    leaves = _cuda_leaves(tree)
+    if not leaves:
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(leaves[0].device))
+    return event
+
+
+def take_over(tree, event):
+    """Use ``tree``, handed over with ``event``, on the current stream: the
+    stream waits for the producer's work, and each CUDA tensor is recorded
+    as in use there, so that the caching allocator does not hand its
+    memory to the producer's stream while this one still reads it."""
+    if event is None:
+        return tree
+    leaves = _cuda_leaves(tree)
+    stream = torch.cuda.current_stream(leaves[0].device)
+    stream.wait_event(event)
+    for t in leaves:
+        t.record_stream(stream)
+    return tree
 
 
 class PermitPool:

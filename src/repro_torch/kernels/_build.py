@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -56,6 +57,8 @@ SIGNATURES = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -105,7 +108,11 @@ def build_all(names=SOURCES) -> list[Path]:
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` with its argument types set
     (building it first if needed)."""
-    if name not in _libs:
+    if name in _libs:
+        return _libs[name]
+    with _load_lock:              # executor threads may load it at once
+        if name in _libs:
+            return _libs[name]
         (path,) = build_all((name,))
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in SIGNATURES[name].items():
@@ -115,6 +122,15 @@ def load(name: str) -> ctypes.CDLL:
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         _libs[name] = lib
     return _libs[name]
+
+
+def count(wrapper) -> None:
+    """Add one to ``wrapper.launches``.  Under a lock: the mux executors
+    launch the same kernel from two threads (flash attention in a
+    rollout's prefill and in a train step), and ``+=`` on an attribute is
+    a read-modify-write that can lose an increment."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(name: str, err: int, what: str) -> None:

@@ -215,7 +215,7 @@ def decode_attention(q, k, v, lengths, *, window=None):
         chunk, n_split, D ** -0.5, _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", err, "decode_attention launch")
-    decode_attention.launches += 1
+    _build.count(decode_attention)
     return out
 
 
@@ -274,7 +274,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", err, "paged_decode_attention launch")
-    paged_decode_attention.launches += 1
+    _build.count(paged_decode_attention)
     return out
 
 

@@ -159,7 +159,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
         D ** -0.5, _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", err, "flash_attention launch")
-    flash_attention.launches += 1
+    _build.count(flash_attention)
     return (out, lse) if return_lse else out
 
 

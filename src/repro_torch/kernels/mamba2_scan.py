@@ -93,7 +93,7 @@ def mamba2_scan(r, k, v, log_w):
         B, S, H, N, hd, _DTYPE_CODES[r.dtype], _DTYPE_CODES[v.dtype],
         torch.cuda.current_stream(r.device).cuda_stream)
     _build.check("mamba2_scan", err, "mamba2_scan launch")
-    mamba2_scan.launches += 1
+    _build.count(mamba2_scan)
     return y, state
 
 

@@ -100,7 +100,7 @@ def rwkv6_scan(r, k, v, log_w, u, *, initial_state=None):
         B, S, H, Dk, Dv, _DTYPE_CODES[r.dtype],
         torch.cuda.current_stream(r.device).cuda_stream)
     _build.check("rwkv6_scan", err, "rwkv6_scan launch")
-    rwkv6_scan.launches += 1
+    _build.count(rwkv6_scan)
     return y, state
 
 

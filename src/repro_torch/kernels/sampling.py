@@ -68,7 +68,7 @@ def greedy_sample(logits):
     if logits.device.type == "cpu":
         return greedy_sample_plain(logits)
     out = _greedy_launch(logits, greedy_cluster(logits.shape[0]))
-    greedy_sample.launches += 1
+    _build.count(greedy_sample)
     return out
 
 
@@ -145,7 +145,7 @@ def topk_values(logits, k: int):
     if logits.device.type == "cpu":
         return topk_values_plain(logits, k)
     top, _ = _topk_launch(logits, k, with_mask=False)
-    topk_values.launches += 1
+    _build.count(topk_values)
     return top
 
 
@@ -157,7 +157,7 @@ def topk_mask(logits, k: int):
     if logits.device.type == "cpu":
         return topk_mask_plain(logits, k)
     _, mask = _topk_launch(logits, k, with_mask=True)
-    topk_mask.launches += 1
+    _build.count(topk_mask)
     return mask
 
 

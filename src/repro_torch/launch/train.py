@@ -1,7 +1,8 @@
 """End-to-end GRPO post-training driver on the port.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
-        --steps 2 --batch 4 --group 4 --max-new 128 [--kv paged]
+        --steps 2 --batch 4 --group 4 --max-new 128 [--kv paged] \
+        [--mux off|pipeline|coexec|stream]
 
 Runs the synchronous on-policy loop the paper schedules: rollout through
 the continuous-batching engine -> verifiable reward -> GRPO advantages ->
@@ -11,17 +12,36 @@ the architecture's full width with random weights from ``--seed``;
 ``--reduced --device cpu`` runs the smoke-test variant on the CPU with the
 kernels' plain versions.
 
-Only ``--mux off`` (rollout and training back-to-back, the
-standard-disaggregation baseline) is ported; the multiplexing executors
-come with the mux slice (ROADMAP).
+``--mux`` picks the phase-multiplexing executor (``rl.coexec``,
+``rl.stream``); on the card each executor thread runs its rollout and
+training phases on CUDA streams of their own:
+
+* ``off`` (default): rollout and training back-to-back, the
+  standard-disaggregation baseline.
+* ``pipeline``: the rollout of iteration ``k+1`` overlaps the training
+  step of iteration ``k``; ``--mux-staleness`` bounds how many optimizer
+  steps the rollout weights may lag (``0`` is bit-exact to ``off``).
+* ``coexec``: ``--jobs`` jobs (job ``i`` uses ``seed + i``) round-robin
+  over the shared rollout and train pools with warm-start switches from
+  the host cache; each job's losses are bit-exact to running it alone.
+* ``stream``: completed prompt groups flow to ``--reward-workers``
+  verifiers and to the trainer (``--micro-groups`` per step; default one
+  bit-exact full-batch step per iteration) while the engine still decodes
+  the stragglers, behind the same staleness guard.
+
+``--carry`` (partial-rollout continuation, which needs suspend/resume) and
+``--elastic`` (which needs the runtime's telemetry) are not ported yet
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-from repro_torch.rl.coexec import GRPOJob, MuxConfig, run_sequential
+from repro_torch.rl.coexec import (GRPOJob, MuxConfig, run_coexec,
+                                   run_pipelined, run_sequential)
 from repro_torch.rl.rewards import make_reward
+from repro_torch.rl.stream import run_streaming
 
 
 def run_training(arch: str = "internlm2-1.8b", *, reduced: bool = False,
@@ -33,36 +53,69 @@ def run_training(arch: str = "internlm2-1.8b", *, reduced: bool = False,
                  kv: str = "contiguous", kv_block_size: int = 16,
                  sched: str = "fifo", kv_dtype: str | None = None,
                  slo_bound: float = 2.0, mux: str = "off",
+                 mux_staleness: int = 1, jobs: int = 2,
                  reward: str = "arith", reward_latency: float = 0.0,
+                 reward_workers: int = 2, micro_groups: int | None = None,
+                 elastic: bool = False, carry: bool = False,
                  reward_fn=None, device=None, return_report: bool = False):
-    """GRPO post-training with rollout and training back-to-back.
+    """GRPO post-training through the phase-multiplexed executors.
 
     ``model``/``params`` default to ``arch`` (full width unless
     ``reduced``) with random weights from ``seed`` on ``device`` (the CUDA
-    card unless ``device="cpu"``).  ``reward_fn``, a row-wise verifier
-    ``fn(completions, mask, answers) -> (B,) float32``, replaces the named
-    ``reward``.  Returns ``(state, history)``, plus the
+    card unless ``device="cpu"``); the sequential, pipelined and
+    streaming executors train ``params`` in place.  ``reward_fn``, a
+    row-wise verifier ``fn(completions, mask, answers) -> (B,) float32``,
+    replaces the named ``reward``.  Returns ``(state, history)`` (for
+    ``mux="coexec"`` dicts of them keyed by job id), plus the
     :class:`~repro_torch.rl.coexec.MuxReport` when ``return_report``."""
-    cfg = MuxConfig(mode=mux)
-    if cfg.mode != "off":
+    cfg = MuxConfig(mode=mux, max_staleness=mux_staleness,
+                    reward_workers=reward_workers, micro_groups=micro_groups)
+    if carry:
         raise NotImplementedError(
-            f"--mux {cfg.mode} is not ported yet: the multiplexing "
-            f"executors (pipeline, coexec, stream) come with the mux slice "
-            f"(ROADMAP)")
-    job = GRPOJob(
-        "job0", model=model, arch=arch, reduced=reduced, seed=seed,
-        steps=steps, batch=batch, group=group, max_new=max_new, lr=lr,
-        temperature=temperature, rollout=rollout, num_slots=num_slots,
-        engine_block_size=engine_block_size, kv=kv,
-        kv_block_size=kv_block_size, sched=sched, kv_dtype=kv_dtype,
-        slo_bound=slo_bound,
-        reward_fn=reward_fn or make_reward(reward, latency_s=reward_latency,
-                                           seed=seed),
-        params=params, device=device)
-    state, hist, report = run_sequential(job, log_every=log_every)
-    if return_report:
-        return state, hist, report
-    return state, hist
+            "--carry (partial-rollout continuation) needs suspend/resume, "
+            "which is not ported to repro_torch yet (ROADMAP)")
+    if elastic:
+        raise NotImplementedError(
+            "--elastic needs the runtime's telemetry "
+            "(RollMuxRuntime.metrics), which is not ported to repro_torch "
+            "yet (ROADMAP)")
+    if cfg.mode == "coexec" and params is not None:
+        raise ValueError("--mux coexec: each job starts from its own "
+                         "seed's weights; params= names only one set")
+    reward_fn = reward_fn or make_reward(reward, latency_s=reward_latency,
+                                         seed=seed)
+
+    def make_job(jid: str, job_seed: int, job_params=None) -> GRPOJob:
+        return GRPOJob(
+            jid, model=model, arch=arch, reduced=reduced, seed=job_seed,
+            steps=steps, batch=batch, group=group, max_new=max_new, lr=lr,
+            temperature=temperature, rollout=rollout, num_slots=num_slots,
+            engine_block_size=engine_block_size, kv=kv,
+            kv_block_size=kv_block_size, sched=sched, kv_dtype=kv_dtype,
+            slo_bound=slo_bound, reward_fn=reward_fn, params=job_params,
+            device=device)
+
+    if cfg.mode == "off":
+        out = run_sequential(make_job("job0", seed, params),
+                             log_every=log_every)
+    elif cfg.mode == "pipeline":
+        out = run_pipelined(make_job("job0", seed, params),
+                            max_staleness=cfg.max_staleness,
+                            log_every=log_every)
+    elif cfg.mode == "stream":
+        out = run_streaming(make_job("job0", seed, params),
+                            max_staleness=cfg.max_staleness,
+                            reward_workers=cfg.reward_workers,
+                            micro_groups=cfg.micro_groups,
+                            log_every=log_every)
+    else:                                   # "coexec"
+        if jobs < 1:
+            raise ValueError("coexec needs >= 1 jobs")
+        out = run_coexec([make_job(f"job{i}", seed + i)
+                          for i in range(jobs)],
+                         host_cache_gb=cfg.host_cache_gb,
+                         log_every=log_every)
+    return out if return_report else out[:2]
 
 
 def _main():
@@ -100,13 +153,41 @@ def _main():
                     help="slowdown bound the slo policy enforces")
     ap.add_argument("--mux", choices=("off", "pipeline", "coexec", "stream"),
                     default="off",
-                    help="phase multiplexing (only 'off' is ported)")
+                    help="phase multiplexing: 'off' runs rollout and "
+                         "training back-to-back (baseline); 'pipeline' "
+                         "overlaps next-iteration rollout with the current "
+                         "training step behind the --mux-staleness guard; "
+                         "'coexec' round-robins --jobs jobs over the shared "
+                         "rollout/train pools with warm-start switches; "
+                         "'stream' pipelines at prompt-group granularity "
+                         "through the --reward-workers reward pool")
+    ap.add_argument("--mux-staleness", type=int, default=1,
+                    help="pipeline/stream modes: max optimizer iterations "
+                         "the rollout weights may lag (0 = force sync; "
+                         "bit-exact to --mux off but with no overlap)")
+    ap.add_argument("--carry", action="store_true",
+                    help="stream mode: partial-rollout continuation (not "
+                         "ported: needs suspend/resume; raises)")
+    ap.add_argument("--jobs", type=int, default=2,
+                    help="coexec mode: number of co-executing jobs "
+                         "(job i uses seed+i)")
     ap.add_argument("--reward", default="arith",
                     choices=("arith", "length", "format", "composite"),
                     help="verifier (rl.rewards)")
     ap.add_argument("--reward-latency", type=float, default=0.0,
                     help="wrap the verifier in the slow external-verifier "
-                         "stub with this mean latency (seconds)")
+                         "stub with this mean latency (seconds); --mux "
+                         "stream hides it on the reward pool")
+    ap.add_argument("--reward-workers", type=int, default=2,
+                    help="stream mode: reward permit-pool capacity "
+                         "(concurrent verifier calls)")
+    ap.add_argument("--micro-groups", type=int, default=None,
+                    help="stream mode: rewarded groups per train "
+                         "micro-step (default: all groups of an iteration "
+                         "in one bit-exact full-batch step)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="stream mode: retune the reward pool from the "
+                         "runtime's telemetry (not ported; raises)")
     args = ap.parse_args()
     t0 = time.time()
     _, hist, report = run_training(
@@ -115,14 +196,23 @@ def _main():
         rollout=args.rollout, temperature=args.temperature,
         num_slots=args.slots, kv=args.kv, kv_block_size=args.kv_block_size,
         sched=args.sched, kv_dtype=args.kv_dtype, slo_bound=args.slo_bound,
-        mux=args.mux, reward=args.reward,
-        reward_latency=args.reward_latency, device=args.device,
+        mux=args.mux, mux_staleness=args.mux_staleness, jobs=args.jobs,
+        reward=args.reward, reward_latency=args.reward_latency,
+        reward_workers=args.reward_workers, micro_groups=args.micro_groups,
+        elastic=args.elastic, carry=args.carry, device=args.device,
         return_report=True)
     wall = time.time() - t0
-    print(f"done in {wall:.1f}s; final reward {hist[-1]['reward']:.3f}")
+    if args.mux == "coexec":
+        finals = {jid: h[-1]["reward"] for jid, h in hist.items() if h}
+        print(f"done in {wall:.1f}s; final rewards "
+              + ", ".join(f"{j}={r:.3f}" for j, r in sorted(finals.items())))
+    else:
+        print(f"done in {wall:.1f}s; final reward {hist[-1]['reward']:.3f}")
     s = report.summary()
+    reward_part = (f"reward busy {s['total_reward_s']:.2f}s, "
+                   if s["total_reward_s"] else "")
     print(f"mux={report.mode}: rollout busy {s['total_rollout_s']:.2f}s, "
-          f"train busy {s['total_train_s']:.2f}s, "
+          f"train busy {s['total_train_s']:.2f}s, {reward_part}"
           f"overlap {s['overlap_s']:.2f}s "
           f"({s['reclaimed_bubble_frac']:.0%} of the back-to-back bubble "
           f"reclaimed)")

@@ -1,22 +1,40 @@
 """Phase-multiplexed GRPO execution: the jobs, the measured report and the
-back-to-back executor.
+executors.
 
 Counterpart of ``repro/rl/coexec.py``.  A :class:`GRPOJob` runs its rollout
-phase through the continuous-batching ``serve.Engine`` and its training
-phase through ``rl.train_step``; executors schedule the two under
+phase through a persistent continuous-batching ``serve.Engine`` (weights
+swapped in by ``Engine.reset`` every iteration) and its training phase
+through ``rl.train_step``; executors schedule the two under
 ``core.phase_control`` run permits and return a :class:`MuxReport` of the
-measured per-pool timelines.
+measured per-pool timelines.  Three executors live here (the fourth,
+``run_streaming``, in ``rl/stream.py``):
 
-Ported so far: :func:`run_sequential` (``--mux off``), the
-standard-disaggregation baseline, rollout and training back-to-back in one
-thread, with the phases under permits so the executed timeline (and the
-bubble a mux mode would reclaim) is measured the same way.  The pipelined,
-co-executing and streaming executors come with the mux slice, which needs
-``Engine.reset`` (ROADMAP).  The rollout takes the engine only: the static
-``generate`` scan needs ``stack_decode_step`` (ROADMAP).
+* :func:`run_sequential` (``--mux off``): the standard-disaggregation
+  baseline, rollout and training back-to-back in one thread.
+* :func:`run_pipelined` (``--mux pipeline``): one job, the rollout of
+  iteration ``k+1`` overlapping the training step of iteration ``k``
+  behind the on-policy staleness guard (``max_staleness=0`` is bit-exact
+  to ``off``).
+* :func:`run_coexec` (``--mux coexec``): several jobs round-robin over the
+  shared rollout and train pools, each job's state suspended to the host
+  cache between phases and warm-started back, so each job computes what it
+  would alone.
+
+On the card every executor thread runs each pool's phases on its own CUDA
+stream (``core.phase_control.PhaseStreams``), so that the kernels of one
+phase can fill the device time the other leaves idle; tensors that cross
+streams (rollout outputs to the trainer, weights to the rollout) go
+through ``hand_over``/``take_over``.  The port's AdamW updates the weights
+in place, where the JAX package makes new arrays: wherever a rollout may
+run while the optimizer steps, it is handed a snapshot of the weights (a
+clone on the train stream), never the live tensors.  The rollout takes
+the engine only: the static ``generate`` scan needs ``stack_decode_step``
+(ROADMAP).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -24,16 +42,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.phase_control import PhaseProfile, RollMuxRuntime
+from repro_torch.core.phase_control import (PhaseProfile, PhaseStreams,
+                                            RollMuxRuntime, hand_over,
+                                            sync_current_stream, take_over)
 from repro_torch.data import ArithmeticTask
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.rl.grpo import group_advantages
 from repro_torch.rl.rewards import arithmetic_reward
-from repro_torch.rl.rollout import SamplerConfig, generate_continuous
+from repro_torch.rl.rollout import (SamplerConfig, build_engine,
+                                   generate_continuous,
+                                   generate_continuous_stream)
 from repro_torch.rl.train_step import make_train_step
 from repro_torch.serve.sched import make_policy
-from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+from repro_torch.train.optimizer import (AdamWConfig, adamw_init, tree_map,
                                          warmup_cosine)
 
 
@@ -55,13 +77,26 @@ def build_train_batch(out, adv, prompt_len):
 
 @dataclass(frozen=True)
 class MuxConfig:
-    """Phase-multiplexing mode (``--mux``); only ``"off"`` runs so far.
-    The other modes' knobs come with their executors (mux slice)."""
+    """Phase-multiplexing knobs (``--mux`` and its flags)."""
     mode: str = "off"                 # "off" | "pipeline" | "coexec" | "stream"
+    max_staleness: int = 1            # pipeline/stream: optimizer steps the
+    #                                   rollout weights may lag (0 = sync,
+    #                                   bit-exact to the sequential path)
+    host_cache_gb: float = 8.0        # coexec actor-cache budget
+    reward_workers: int = 2           # stream: reward permit-pool capacity
+    micro_groups: Optional[int] = None    # stream: groups per train
+    #                                       micro-step (None = one full-batch
+    #                                       step per iteration, bit-exact)
 
     def __post_init__(self):
         if self.mode not in ("off", "pipeline", "coexec", "stream"):
             raise ValueError(f"unknown mux mode {self.mode!r}")
+        if self.max_staleness < 0:
+            raise ValueError("max_staleness must be >= 0")
+        if self.reward_workers < 1:
+            raise ValueError("reward_workers must be >= 1")
+        if self.micro_groups is not None and self.micro_groups < 1:
+            raise ValueError("micro_groups must be >= 1 (or None)")
 
 
 class GRPOJob:
@@ -69,13 +104,16 @@ class GRPOJob:
     train step, with its rollout phase served by the continuous-batching
     engine.
 
-    Executors drive :meth:`rollout_step` and :meth:`train_phase` in
-    iteration order.  Task batches are drawn from the job's numpy stream
-    (the JAX package's, prompt for prompt) and sampled tokens from the
-    job's ``torch.Generator`` on ``device``, both in call order.  A new
-    engine serves each iteration (``Engine.reset`` comes with the mux
-    slice).  ``params`` are the initial weights (default: the model's
-    random init from ``seed``)."""
+    Executors drive :meth:`rollout_step` (or :meth:`rollout_stream`) and
+    :meth:`train_phase` in iteration order.  Task batches are drawn from
+    the job's numpy stream (the JAX package's, prompt for prompt) and
+    sampled tokens from the job's ``torch.Generator`` on ``device``, both
+    in call order.  One persistent engine per shape serves every
+    iteration, its weights swapped in by ``Engine.reset``.  ``params`` are
+    the initial weights (default: the model's random init from ``seed``);
+    the sequential and pipelined executors train them in place.  ``carry``
+    (partial-rollout continuation) is refused by the streaming executor:
+    it needs suspend/resume."""
 
     def __init__(self, job_id: str, model=None, *,
                  arch: str = "internlm2-1.8b", reduced: bool = False,
@@ -87,7 +125,8 @@ class GRPOJob:
                  num_kv_blocks: Optional[int] = None, sched: str = "fifo",
                  kv_dtype: Optional[str] = None,
                  token_budget: Optional[int] = None, slo_bound: float = 2.0,
-                 reward_fn=None, params=None, device=None):
+                 reward_fn=None, params=None, device=None,
+                 carry: bool = False):
         if rollout == "static":
             raise NotImplementedError(
                 "rollout='static' (the generate scan) needs "
@@ -103,12 +142,7 @@ class GRPOJob:
         self.batch = batch
         self.group = group
         self.num_slots = num_slots
-        self.engine_block_size = engine_block_size
-        self.kv = kv
-        self.kv_block_size = kv_block_size
-        self.num_kv_blocks = num_kv_blocks
         self.sched = sched
-        self.kv_dtype = kv_dtype
         # per-job token budget for deadline/SLO admission: one full GRPO
         # iteration's rollout (batch * group members, max_new tokens each)
         self.token_budget = (token_budget if token_budget is not None
@@ -124,6 +158,14 @@ class GRPOJob:
             lr_schedule=warmup_cosine(self.opt_cfg.lr, 10, steps))
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.params = params
+        self.carry = carry
+        # the engine shape: builds the job's engines and is checked
+        # against a persistent one at every rollout
+        self._engine_kw = dict(
+            block_size=engine_block_size, kv_layout=kv,
+            kv_block_size=kv_block_size, num_kv_blocks=num_kv_blocks,
+            sched=sched, kv_dtype=kv_dtype)
+        self._engines: dict[int, object] = {}      # max_seq_len -> Engine
 
     def init_state(self) -> dict:
         """Optimizer state around the initial weights; also the initial
@@ -135,8 +177,9 @@ class GRPOJob:
         return {"params": params, "opt": adamw_init(params, self.opt_cfg)}
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for this phase's work: the current stream only, never the
+        other executor thread's."""
+        sync_current_stream(self.device)
 
     # ---- rollout phase -----------------------------------------------------
     def _make_policy(self):
@@ -150,23 +193,69 @@ class GRPOJob:
             kw["slowdown"] = self.slo_bound
         return make_policy(self.sched, **kw)
 
+    def _engine_for(self, params, num_slots: int, max_seq_len: int):
+        """The persistent engine of this shape (built on first use with
+        ``params``), reused across GRPO iterations through ``Engine.reset``:
+        the slot pool stays, the weights are swapped."""
+        eng = self._engines.get(max_seq_len)
+        if eng is None:
+            eng = build_engine(
+                self.model, params, max_seq_len=max_seq_len,
+                eos_id=self.sampler.eos_id,
+                temperature=self.sampler.temperature, num_slots=num_slots,
+                policy=self._make_policy(), device=self.device,
+                generator=self.generator, **self._engine_kw)
+            self._engines[max_seq_len] = eng
+        return eng
+
+    @contextlib.contextmanager
+    def _serving(self, params, prompts):
+        """The engine for ``prompts``; once its rollout ends the drained
+        engine lets go of the weights, so that a snapshot or a
+        warm-started copy is freed with its phase (the next ``reset``
+        swaps weights in again)."""
+        B, Sp = prompts.shape
+        eng = self._engine_for(params, self.num_slots or B,
+                               Sp + self.sampler.max_new_tokens)
+        try:
+            yield eng
+        finally:
+            eng.params = None
+
     def rollout_step(self, params, k: int):
         """Generate completions for iteration ``k`` with weights ``params``.
-        Returns ``(task_batch, rollout_out)``; waits for the card so permit
-        timelines measure real phase time."""
+        Returns ``(task_batch, rollout_out)``; waits for this phase's stream
+        so permit timelines measure real phase time."""
         b = self.task.sample_batch(self.batch)
         prompts = np.repeat(b.prompts, self.group, axis=0)
-        B = prompts.shape[0]
-        with torch.no_grad():
-            out = generate_continuous(
-                self.model, params, prompts, self.sampler,
-                generator=self.generator, num_slots=self.num_slots or B,
-                device=self.device, block_size=self.engine_block_size,
-                kv_layout=self.kv, kv_block_size=self.kv_block_size,
-                num_kv_blocks=self.num_kv_blocks, sched=self.sched,
-                kv_dtype=self.kv_dtype, policy=self._make_policy())
+        with torch.no_grad(), self._serving(params, prompts) as eng:
+            out = generate_continuous(self.model, params, prompts,
+                                      self.sampler, engine=eng,
+                                      **self._engine_kw)
         self._sync()
         return b, out
+
+    def rollout_stream(self, params, k: int, on_group, on_batch=None):
+        """Streaming rollout for iteration ``k``: ``on_group(gout)`` fires
+        the moment each GRPO prompt group finishes decoding, while the
+        engine keeps serving the stragglers.  The same task batch,
+        generator stream and engine computation as :meth:`rollout_step`,
+        so the streamed groups stacked by row are its output bit for bit.
+        ``on_batch(b)``, when given, receives the task batch before the
+        engine runs (reward workers need the answers first).  Returns
+        ``(task_batch, engine_stats)``, the latter this rollout's."""
+        b = self.task.sample_batch(self.batch)
+        if on_batch is not None:
+            on_batch(b)
+        prompts = np.repeat(b.prompts, self.group, axis=0)
+        with torch.no_grad(), self._serving(params, prompts) as eng:
+            for gout in generate_continuous_stream(
+                    self.model, params, prompts, self.sampler,
+                    group=self.group, engine=eng, **self._engine_kw):
+                on_group(gout)
+            stats = eng.stats
+        self._sync()
+        return b, stats
 
     # ---- reward phase ------------------------------------------------------
     def compute_rewards(self, b, out) -> np.ndarray:
@@ -175,20 +264,26 @@ class GRPOJob:
         return self.reward_fn(out["completions"].cpu().numpy(),
                               out["mask"].cpu().numpy(), answers)
 
+    def reward_group(self, b, gout) -> np.ndarray:
+        """Verify one streamed group on a reward worker.  Verifiers are
+        row-wise, so per-group verdicts concatenated in row order are
+        :meth:`compute_rewards` on the assembled batch, bit for bit."""
+        answers = [b.answers[gout["group_index"]]] * len(gout["rows"])
+        return self.reward_fn(gout["completions"], gout["mask"], answers)
+
     # ---- training phase ----------------------------------------------------
     def train_phase(self, state, b, out, rewards: Optional[np.ndarray] = None):
         """Reward (unless given) -> GRPO advantages -> one optimizer step,
         in place on ``state``.  Returns ``(state, rec)`` with the scalar
         metrics the history records (the JAX package's, plus the step's
-        ``grad_norm`` and the rollout's ``prefills`` and
-        ``decode_steps``)."""
+        ``grad_norm`` and, when ``out`` carries ``engine_stats``, the
+        rollout's ``prefills`` and ``decode_steps``)."""
         if rewards is None:
             rewards = self.compute_rewards(b, out)
         adv = group_advantages(rewards, self.group)
         tb = build_train_batch(out, adv, b.prompts.shape[1])
         state, metrics = self._train_step(state, tb)
         self._sync()
-        stats = out["engine_stats"]
         rec = {"reward": float(rewards.mean()),
                "acc": float((rewards >= 1.0).mean()),
                "loss": float(metrics["loss"]),
@@ -197,9 +292,14 @@ class GRPOJob:
                "ratio_mean": float(metrics["ratio_mean"]),
                "ratio_max": float(metrics["ratio_max"]),
                "grad_norm": float(metrics["grad_norm"]),
-               "tokens": int(out["mask"].sum()),
-               "prefills": stats.prefills, "decode_steps": stats.steps}
+               "tokens": int(out["mask"].sum())}
+        if "engine_stats" in out:
+            rec.update(_rollout_counts(out["engine_stats"]))
         return state, rec
+
+
+def _rollout_counts(stats) -> dict:
+    return {"prefills": stats.prefills, "decode_steps": stats.steps}
 
 
 # ---------------------------------------------------------------------------
@@ -337,3 +437,191 @@ def run_sequential(job: GRPOJob, *, steps: Optional[int] = None,
         history.append(rec)
         _log(rec, log_every)
     return state, history, _report("off", rt, time.perf_counter() - t0)
+
+
+def _weights_for_rollout(params, snapshot: bool):
+    """The weights a rollout thread is handed, with the event it waits on:
+    a clone made on the current (train) stream when a rollout may run
+    while the optimizer updates ``params`` in place, else ``params``
+    themselves."""
+    if snapshot:
+        params = tree_map(torch.clone, params)
+    return params, hand_over(params)
+
+
+def _raise_first(shared: dict) -> None:
+    if shared["err"] is not None:
+        raise shared["err"]
+
+
+def run_pipelined(job: GRPOJob, *, max_staleness: int = 1,
+                  runtime: Optional[RollMuxRuntime] = None,
+                  log_every: int = 0):
+    """``--mux pipeline``: overlap the rollout of iteration ``k+1`` with
+    the training step of iteration ``k`` (one job, two permit pools, two
+    threads, each on its own CUDA stream), behind the on-policy staleness
+    guard.
+
+    The rollout thread may generate for iteration ``k`` only once
+    ``trained >= k - max_staleness`` optimizer steps have completed, and
+    it takes the newest synced weights when the guard opens.
+    ``max_staleness=0`` therefore runs the sequential schedule (same
+    weights, same generator stream, bit-exact losses) and hands the
+    rollout the live weights, as no step runs beside it; ``>= 1`` buys
+    overlap at the price of a bounded, importance-corrected policy lag
+    (recorded per step as ``rollout_staleness``), and each weight sync is
+    a snapshot: at most two are alive, the newest and the one the rollout
+    serves with."""
+    if max_staleness < 0:
+        raise ValueError("max_staleness must be >= 0")
+    rt = runtime or RollMuxRuntime()
+    steps = job.steps
+    snapshot = max_staleness > 0
+    state = job.init_state()
+    cv = threading.Condition()
+    shared = {"sync": _weights_for_rollout(state["params"], snapshot),
+              "trained": 0, "err": None}
+    rollouts: dict[int, tuple] = {}
+    history = []
+    t0 = time.perf_counter()
+
+    def roll_loop():
+        streams = PhaseStreams(job.device, ("rollout",))
+        try:
+            with streams("rollout"):
+                for k in range(steps):
+                    with cv:
+                        while (shared["trained"] < k - max_staleness
+                               and shared["err"] is None):
+                            cv.wait()
+                        if shared["err"] is not None:
+                            return
+                        params, event = shared["sync"]   # newest weights
+                        version = shared["trained"]
+                    take_over(params, event)
+                    with rt.permit("rollout", f"{job.job_id}:roll"):
+                        b, out = job.rollout_step(params, k)
+                    event = hand_over(out)
+                    with cv:
+                        rollouts[k] = (b, out, version, event)
+                        cv.notify_all()
+        except BaseException as e:           # surface into the train loop
+            with cv:
+                shared["err"] = e
+                cv.notify_all()
+
+    t = threading.Thread(target=roll_loop, name=f"{job.job_id}-rollout")
+    t.start()
+    try:
+        with PhaseStreams(job.device, ("train",))("train"):
+            for k in range(steps):
+                with cv:
+                    while k not in rollouts and shared["err"] is None:
+                        cv.wait()
+                    _raise_first(shared)
+                    b, out, version, event = rollouts.pop(k)
+                take_over(out, event)
+                with rt.permit("train", f"{job.job_id}:train"):
+                    state, rec = job.train_phase(state, b, out)
+                del out
+                sync = (_weights_for_rollout(state["params"], snapshot)
+                        if k + 1 < steps else None)
+                with cv:
+                    if sync is not None:
+                        shared["sync"] = sync            # weight sync
+                    shared["trained"] = k + 1
+                    cv.notify_all()
+                del sync
+                rec = {"step": k, **rec, "rollout_staleness": k - version}
+                history.append(rec)
+                _log(rec, log_every)
+    except BaseException:
+        with cv:
+            if shared["err"] is None:
+                shared["err"] = RuntimeError("train loop aborted")
+            cv.notify_all()
+        raise
+    finally:
+        t.join()
+    return state, history, _report("pipeline", rt, time.perf_counter() - t0)
+
+
+def run_coexec(jobs: list[GRPOJob], *, host_cache_gb: float = 8.0,
+               runtime: Optional[RollMuxRuntime] = None, log_every: int = 0):
+    """``--mux coexec``: N logical jobs' GRPO loops time-multiplex the
+    shared ``rollout`` / ``train`` permit pools (intra-group FIFO =
+    round-robin once saturated), one thread per job with a CUDA stream per
+    pool.  While one job holds the train permit, another's rollout drains
+    through its engine.
+
+    Per-job state lives in the host actor cache between phases
+    (``RollMuxRuntime.phase`` offloads after, warm-starts before), and the
+    weight sync pushes freshly trained params into the job's rollout
+    entry, so each job computes exactly what it would alone: only the
+    schedule changes.  Every job is seeded from its ``init_state()``
+    before any phase runs; the phases work on restored copies, so the
+    weights a job was given are never updated.
+
+    Returns ``(states, histories, report)`` keyed by ``job_id``."""
+    rt = runtime or RollMuxRuntime(host_cache_gb=host_cache_gb)
+    rt.pool("rollout", 1)
+    rt.pool("train", 1)
+    for job in jobs:
+        state0 = job.init_state()
+        rt.seed_state(job.job_id, "train", state0)
+        rt.seed_state(job.job_id, "rollout", {"params": state0["params"]})
+        del state0
+    histories: dict[str, list] = {j.job_id: [] for j in jobs}
+    errors: dict[str, BaseException] = {}
+
+    def make_loop(job: GRPOJob):
+        jid = job.job_id
+
+        @rt.phase("rollout", name="roll")
+        def roll(rstate, k):
+            b, out = job.rollout_step(rstate["params"], k)
+            return rstate, (b, out)
+
+        @rt.phase("train", name="train")
+        def train(tstate, b, out):
+            tstate, rec = job.train_phase(tstate, b, out)
+            return tstate, (tstate["params"], rec)
+
+        def loop():
+            streams = PhaseStreams(job.device)
+            try:
+                for k in range(job.steps):
+                    with streams("rollout"):
+                        b, out = roll(jid, k)
+                        event = hand_over(out)
+                    with streams("train"):
+                        take_over(out, event)
+                        new_params, rec = train(jid, b, out)
+                        # weight sync: trained params -> this job's
+                        # rollout entry of the actor cache
+                        rt.cache.offload(f"{jid}/rollout",
+                                         {"params": new_params})
+                    del out, new_params
+                    rec = {"step": k, **rec, "rollout_staleness": 0}
+                    histories[jid].append(rec)
+                    _log(rec, log_every, jid)
+            except BaseException as e:
+                errors[jid] = e
+        return loop
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=make_loop(j), name=j.job_id)
+               for j in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        jid, e = next(iter(errors.items()))
+        raise RuntimeError(f"co-executed job {jid} failed") from e
+    wall = time.perf_counter() - t0
+    states = {}
+    for job in jobs:
+        state, _ = rt.cache.restore(f"{job.job_id}/train")
+        states[job.job_id] = state
+    return states, histories, _report("coexec", rt, wall)

@@ -1,9 +1,10 @@
 """Rollout phase served by the continuous-batching engine.
 
 Counterpart of ``repro/rl/rollout.py`` ``generate_continuous`` (greedy and
-sampled decoding) and ``completions_to_text``.  The engine shape is given
-as plain keyword arguments; the JAX package's ``RolloutSpec`` comes with
-the disaggregated-serving slice, the static ``generate`` scan with
+sampled decoding), ``generate_continuous_stream`` and
+``completions_to_text``.  The engine shape is given as plain keyword
+arguments; the JAX package's ``RolloutSpec`` comes with the
+disaggregated-serving slice, the static ``generate`` scan with
 ``stack_decode_step`` (ROADMAP).
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.data import tokenizer as tok
+from repro_torch.device import resolve_device
 from repro_torch.serve.engine import Engine, EngineConfig
 from repro_torch.serve.request import Request, RequestOutput
 
@@ -54,9 +56,73 @@ def run_requests(engine: Engine, requests) -> list[RequestOutput]:
     return [engine.finished[r] for r in sorted(engine.finished)]
 
 
+def _engine_session(model, params, prompts_np, sampler: SamplerConfig, *,
+                    engine, generator, num_slots, device, engine_kw):
+    """Shared engine setup of the batch and streaming rollouts: build the
+    engine the arguments describe, or check and ``reset`` a persistent
+    (drained) one with ``params`` and ``generator``; then the prompt rows
+    as the pending request deque."""
+    B, Sp = prompts_np.shape
+    T = sampler.max_new_tokens
+    if engine is None:
+        engine = build_engine(
+            model, params, max_seq_len=Sp + T, eos_id=sampler.eos_id,
+            temperature=sampler.temperature,
+            num_slots=B if num_slots is None else num_slots, device=device,
+            generator=generator, **engine_kw)
+    else:
+        cfg = engine.config
+        if cfg.max_seq_len < Sp + T:
+            raise ValueError(f"persistent engine max_seq_len "
+                             f"{cfg.max_seq_len} < prompt {Sp} + budget {T}")
+        # sampling, layout and KV dtype are fixed when the engine is
+        # built: a request that disagrees would be served the engine's own
+        # configuration, so refuse it
+        if (cfg.temperature, cfg.eos_id) != (sampler.temperature,
+                                             sampler.eos_id):
+            raise ValueError(
+                f"persistent engine serves temperature={cfg.temperature}, "
+                f"eos_id={cfg.eos_id} but the sampler asks for "
+                f"temperature={sampler.temperature}, eos_id={sampler.eos_id}")
+        layout = engine_kw.get("kv_layout", "contiguous")
+        if cfg.kv_layout != layout:
+            raise ValueError(f"persistent engine kv_layout="
+                             f"{cfg.kv_layout!r} != requested {layout!r}")
+        want, have = (None if d == "auto" else d for d in (
+            engine_kw.get("kv_dtype"), cfg.kv_dtype))
+        if have != want:
+            raise ValueError(f"persistent engine kv_dtype={have!r} != "
+                             f"requested {want!r}")
+        if device is not None and resolve_device(device) != engine.device:
+            raise ValueError(f"persistent engine runs on {engine.device}, "
+                             f"not {device}")
+        engine.reset(params, generator)
+    pending = deque(Request(rid=i, prompt=prompts_np[i], max_new_tokens=T)
+                    for i in range(B))
+    return engine, pending
+
+
+def _pack(outs, n_rows: int, T: int, eos_id: int, row_of):
+    """Completions (EOS-filled), behaviour logprobs, mask and per-token
+    weight versions (zero-filled, and -1 past each row's length) as
+    ``(n_rows, T)`` numpy arrays; ``row_of(o)`` places each output."""
+    completions = np.full((n_rows, T), eos_id, np.int32)
+    behavior_logp = np.zeros((n_rows, T), np.float32)
+    mask = np.zeros((n_rows, T), np.float32)
+    token_versions = np.full((n_rows, T), -1, np.int32)
+    for o in outs:
+        r, n = row_of(o), o.num_tokens
+        completions[r, :n] = o.tokens
+        behavior_logp[r, :n] = o.logprobs
+        mask[r, :n] = 1.0
+        token_versions[r, :n] = o.token_versions
+    return completions, behavior_logp, mask, token_versions
+
+
 def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
                         generator=None, num_slots: int | None = None,
-                        device=None, **engine_kw) -> dict:
+                        device=None, engine: Engine | None = None,
+                        **engine_kw) -> dict:
     """Serve each row of ``prompts (B, Sp)`` as one request through the
     engine (``num_slots`` KV slots, default one per row; fewer slots than
     rows queue and recycle).  Sampled decoding (``sampler.temperature >
@@ -66,29 +132,29 @@ def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
     ``kv_block_size``, ``num_kv_blocks``, ``sched``, ``policy``,
     ``kv_dtype``).
 
-    Returns the JAX package's output dict as tensors on ``device``:
-    ``completions``/``behavior_logp``/``mask`` ``(B, T)`` with T =
+    ``engine`` reuses a persistent, drained engine across calls (the mux
+    trainer's rollout actor): ``Engine.reset`` swaps in ``params`` (and
+    ``generator``, when given) and serves from the existing slot pool.  An
+    engine whose ``max_seq_len`` is too short, or whose sampling,
+    ``kv_layout`` or ``kv_dtype`` disagree with the request, is refused.
+
+    Returns the JAX package's output dict as tensors on the engine's
+    device: ``completions``/``behavior_logp``/``mask`` ``(B, T)`` with T =
     ``max_new_tokens`` (EOS-filled / zero past each row's length),
-    ``prompts``, ``tokens`` (prompt + completion) and ``engine_stats``."""
+    ``prompts``, ``tokens`` (prompt + completion), ``token_versions`` (a
+    numpy ``(B, T)`` array of the engine weight version each token was
+    sampled under, -1 past each row's length) and ``engine_stats``, this
+    call's :class:`~repro_torch.serve.engine.EngineStats`."""
     prompts_np = np.asarray(prompts, np.int32)
-    B, Sp = prompts_np.shape
+    B = prompts_np.shape[0]
     T = sampler.max_new_tokens
-    engine = build_engine(
-        model, params, max_seq_len=Sp + T, eos_id=sampler.eos_id,
-        temperature=sampler.temperature,
-        num_slots=B if num_slots is None else num_slots, device=device,
-        generator=generator, **engine_kw)
-    outs = run_requests(engine, (Request(rid=i, prompt=prompts_np[i],
-                                         max_new_tokens=T)
-                                 for i in range(B)))
-    completions = np.full((B, T), sampler.eos_id, np.int32)
-    behavior_logp = np.zeros((B, T), np.float32)
-    mask = np.zeros((B, T), np.float32)
-    for o in outs:
-        n = o.num_tokens
-        completions[o.rid, :n] = o.tokens
-        behavior_logp[o.rid, :n] = o.logprobs
-        mask[o.rid, :n] = 1.0
+    engine, pending = _engine_session(
+        model, params, prompts_np, sampler, engine=engine,
+        generator=generator, num_slots=num_slots, device=device,
+        engine_kw=engine_kw)
+    outs = run_requests(engine, pending)
+    completions, behavior_logp, mask, token_versions = _pack(
+        outs, B, T, sampler.eos_id, lambda o: o.rid)
     dev = engine.device
     prompts_t = torch.from_numpy(prompts_np).to(dev)
     completions_t = torch.from_numpy(completions).to(dev)
@@ -98,8 +164,73 @@ def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
         "tokens": torch.cat([prompts_t, completions_t], dim=1),
         "behavior_logp": torch.from_numpy(behavior_logp).to(dev),
         "mask": torch.from_numpy(mask).to(dev),
+        "token_versions": token_versions,
         "engine_stats": engine.stats,
     }
+
+
+def generate_continuous_stream(model, params, prompts,
+                               sampler: SamplerConfig, *,
+                               group: int | None = None, sync_params=None,
+                               generator=None, num_slots: int | None = None,
+                               device=None, engine: Engine | None = None,
+                               **engine_kw):
+    """Yield completed GRPO prompt groups (``group`` consecutive rows; each
+    row its own group when ``group`` is None or 1) the moment their last
+    member finishes decoding, while the engine keeps serving the
+    stragglers: the engine is drained through :meth:`Engine.harvest`
+    between scheduler ticks, never waited on.
+
+    The same engine computation as :func:`generate_continuous` (same
+    arguments): each yielded dict holds ``group_index`` (``rid //
+    group``), ``rows`` (the group's row indices, ascending) and numpy
+    ``(rows, T)`` arrays ``completions``, ``behavior_logp``, ``mask`` and
+    ``token_versions`` with the batch call's padding, so stacking the
+    groups by ``rows`` reproduces its arrays bit for bit.  Groups come in
+    completion order.  Per-call stats are the engine's ``stats`` once the
+    generator is exhausted.
+
+    ``sync_params`` (weights synced into the live engine mid-rollout,
+    ``Engine.reset(carry_live=True)``) needs suspend/resume, which is not
+    ported yet, and raises."""
+    if sync_params is not None:
+        raise NotImplementedError(
+            "sync_params (partial-rollout continuation) needs "
+            "Engine.reset(carry_live=True), which needs suspend/resume: "
+            "not ported to repro_torch yet (ROADMAP, modules to port)")
+    prompts_np = np.asarray(prompts, np.int32)
+    B = prompts_np.shape[0]
+    T = sampler.max_new_tokens
+    g = group or 1
+    engine, pending = _engine_session(
+        model, params, prompts_np, sampler, engine=engine,
+        generator=generator, num_slots=num_slots, device=device,
+        engine_kw=engine_kw)
+    sizes = [min(B, (gi + 1) * g) - gi * g for gi in range(-(-B // g))]
+    buckets: dict[int, list[RequestOutput]] = {}
+
+    def drain_finished():
+        for o in engine.harvest():
+            gi = o.rid // g
+            buckets.setdefault(gi, []).append(o)
+            if len(buckets[gi]) == sizes[gi]:
+                outs = sorted(buckets.pop(gi), key=lambda o: o.rid)
+                completions, behavior_logp, mask, token_versions = _pack(
+                    outs, len(outs), T, sampler.eos_id,
+                    lambda o: o.rid - gi * g)
+                yield {"group_index": gi, "rows": [o.rid for o in outs],
+                       "completions": completions,
+                       "behavior_logp": behavior_logp, "mask": mask,
+                       "token_versions": token_versions}
+
+    # backpressure-aware drive, harvesting between scheduler ticks
+    while pending or not engine.idle:
+        while pending and engine.submit(pending[0]):
+            pending.popleft()
+        if not engine.idle:
+            engine.step()
+        yield from drain_finished()
+    yield from drain_finished()
 
 
 def completions_to_text(completions, mask) -> list[str]:

@@ -1,0 +1,263 @@
+"""Streaming phase mux (``--mux stream``): group-level rollout -> reward ->
+train pipelining behind a reward permit pool.
+
+Counterpart of ``repro/rl/stream.py``.  The pipeline executor
+(:func:`repro_torch.rl.coexec.run_pipelined`) overlaps whole phases; this
+one pipelines inside an iteration:
+
+* **Group streaming**: the engine yields each GRPO prompt group the moment
+  its last member finishes decoding
+  (``rl.rollout.generate_continuous_stream`` over ``Engine.harvest``).
+* **Reward permit pool**: a third pool (capacity ``reward_workers``) runs
+  the verifiers on host threads, off the critical path; a group goes to a
+  reward worker as soon as it streams out of the engine.
+* **Micro-batched training**: by default one optimizer step per iteration
+  over the re-assembled batch (bit-exact to the pipeline and sequential
+  paths); ``micro_groups=m`` steps on every ``m`` rewarded groups in
+  completion order instead.
+* **Staleness**: the rollout of iteration ``k`` may start once ``trained
+  >= k - max_staleness``, on the newest synced weights; every record
+  carries ``rollout_staleness`` and the clipped importance-ratio
+  diagnostics.
+
+On the card the rollout thread and the train loop each run on their own
+CUDA stream; the reward workers stay on the host.  Wherever a rollout may
+run while the optimizer updates the weights in place (staleness >= 1, or
+micro-steps that start before the iteration's last group), each weight
+sync hands the rollout a snapshot.
+
+Not ported: ``elastic=True`` (it reads the runtime's telemetry,
+``RollMuxRuntime.metrics``) and a job with ``carry=True`` (partial-rollout
+continuation needs suspend/resume); both raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.phase_control import (PhaseStreams, RollMuxRuntime,
+                                            take_over)
+from repro_torch.rl.coexec import (GRPOJob, _log, _raise_first, _report,
+                                   _rollout_counts, _weights_for_rollout)
+
+__all__ = ["run_streaming"]
+
+
+def _assemble_out(b, gouts: list[dict], group: int, device) -> dict:
+    """Stack streamed group dicts into the batch rollout's output layout,
+    as tensors on ``device`` (made on the current stream).
+
+    ``gouts`` in row order reproduces ``generate_continuous``'s arrays bit
+    for bit; in completion order (micro-batching) the rows are permuted
+    and each group still lines up with its own advantages."""
+    rows = np.concatenate([np.asarray(g["rows"], np.int64) for g in gouts])
+    prompts = np.repeat(np.asarray(b.prompts, np.int32), group, axis=0)[rows]
+    out = {k: torch.from_numpy(np.concatenate([g[k] for g in gouts]))
+           .to(device) for k in ("completions", "behavior_logp", "mask")}
+    out["prompts"] = torch.from_numpy(prompts).to(device)
+    out["tokens"] = torch.cat([out["prompts"], out["completions"]], dim=1)
+    return out
+
+
+def _merge_recs(recs: list[dict]) -> dict:
+    """Collapse an iteration's micro-step records into one history row:
+    token-weighted means for rates, sums for counts, the largest
+    ``ratio_max`` and ``grad_norm``."""
+    if len(recs) == 1:
+        return dict(recs[0])
+    toks = np.asarray([max(r["tokens"], 1) for r in recs], np.float64)
+    w = toks / toks.sum()
+    out = {key: float(sum(wi * r[key] for wi, r in zip(w, recs)))
+           for key in ("reward", "acc", "loss", "entropy", "clip_frac",
+                       "ratio_mean")}
+    for key in ("ratio_max", "grad_norm"):
+        out[key] = float(max(r[key] for r in recs))
+    out["tokens"] = int(sum(r["tokens"] for r in recs))
+    return out
+
+
+def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
+                  reward_workers: int = 2,
+                  micro_groups: Optional[int] = None,
+                  runtime: Optional[RollMuxRuntime] = None,
+                  log_every: int = 0, elastic: bool = False):
+    """``--mux stream``: group-level rollout -> reward -> train pipelining.
+
+    * the **rollout thread** holds the ``rollout`` permit while the engine
+      streams completed prompt groups, each handed to a reward worker at
+      once (the engine keeps decoding);
+    * ``reward_workers`` **reward workers** verify groups under the
+      ``reward`` permit pool (capacity = worker count);
+    * the **train loop** (this thread) consumes rewarded groups under the
+      ``train`` permit: one optimizer step per iteration over the
+      re-assembled batch, or one every ``micro_groups`` rewarded groups.
+
+    With ``max_staleness=0``, instant rewards and the full-batch trainer
+    the losses and weights are bit-exact to the sequential run.  Returns
+    ``(state, history, report)``; the report's timelines include the
+    ``reward`` pool.  Each record carries ``rollout_staleness``,
+    ``micro_steps`` and the rollout's ``prefills`` and ``decode_steps``.
+    (The JAX package's records add the weight versions of a rollout that
+    carried live requests across a weight sync: not ported.)"""
+    if elastic:
+        raise NotImplementedError(
+            "elastic=True retunes the reward pool from the runtime's "
+            "telemetry (RollMuxRuntime.metrics), which is not ported to "
+            "repro_torch yet (ROADMAP, modules to port)")
+    if job.carry:
+        raise NotImplementedError(
+            "carry=True (partial-rollout continuation) needs "
+            "Engine.reset(carry_live=True), which needs suspend/resume: "
+            "not ported to repro_torch yet (ROADMAP, modules to port)")
+    if max_staleness < 0:
+        raise ValueError("max_staleness must be >= 0")
+    if reward_workers < 1:
+        raise ValueError("reward_workers must be >= 1")
+    if micro_groups is not None and micro_groups < 1:
+        raise ValueError("micro_groups must be >= 1 (or None)")
+    rt = runtime or RollMuxRuntime()
+    rt.pool("rollout", 1)
+    rt.pool("train", 1)
+    rt.pool("reward", reward_workers)
+    steps = job.steps
+    n_groups = job.batch                    # one GRPO group per task prompt
+    # a micro-step may start while the engine still decodes the
+    # iteration's stragglers, so it too needs the rollout on a snapshot
+    snapshot = max_staleness > 0 or micro_groups is not None
+    state = job.init_state()
+    cv = threading.Condition()
+    shared = {"sync": _weights_for_rollout(state["params"], snapshot),
+              "trained": 0, "err": None}
+    batches: dict[int, object] = {}         # k -> task batch (answers)
+    versions: dict[int, int] = {}           # k -> behaviour-weight version
+    rollout_stats: dict[int, object] = {}   # k -> the rollout's EngineStats
+    rewarded: dict[int, list] = {}          # k -> [(gout, rewards)] arrivals
+    history = []
+    pool = ThreadPoolExecutor(max_workers=reward_workers,
+                              thread_name_prefix=f"{job.job_id}-reward")
+    t0 = time.perf_counter()
+
+    def fail(e: BaseException) -> None:
+        with cv:
+            if shared["err"] is None:
+                shared["err"] = e
+            cv.notify_all()
+
+    def reward_task(k: int, gout: dict) -> None:
+        try:
+            with rt.permit("reward", f"{job.job_id}:reward",
+                           capacity=reward_workers):
+                r = job.reward_group(batches[k], gout)
+            with cv:
+                rewarded.setdefault(k, []).append((gout, r))
+                cv.notify_all()
+        except BaseException as e:          # surface into the train loop
+            fail(e)
+
+    def roll_loop():
+        streams = PhaseStreams(job.device, ("rollout",))
+        try:
+            with streams("rollout"):
+                for k in range(steps):
+                    with cv:
+                        while (shared["trained"] < k - max_staleness
+                               and shared["err"] is None):
+                            cv.wait()
+                        if shared["err"] is not None:
+                            return
+                        params, event = shared["sync"]   # newest weights
+                        versions[k] = shared["trained"]
+                    take_over(params, event)
+
+                    def publish(b, k=k):
+                        with cv:
+                            batches[k] = b
+                    with rt.permit("rollout", f"{job.job_id}:roll"):
+                        _, stats = job.rollout_stream(
+                            params, k,
+                            on_group=lambda g, k=k: pool.submit(
+                                reward_task, k, g),
+                            on_batch=publish)
+                    with cv:
+                        rollout_stats[k] = stats
+                        cv.notify_all()
+        except BaseException as e:
+            fail(e)
+
+    roll_thread = threading.Thread(target=roll_loop,
+                                   name=f"{job.job_id}-rollout")
+    try:
+        roll_thread.start()
+        with PhaseStreams(job.device, ("train",))("train"):
+            for k in range(steps):
+                recs: list[dict] = []
+                consumed = 0
+                pending_gouts: list[dict] = []
+                pending_rewards: list[np.ndarray] = []
+                want = micro_groups if micro_groups is not None \
+                    else n_groups
+                while consumed < n_groups:
+                    with cv:
+                        while not rewarded.get(k) and shared["err"] is None:
+                            cv.wait()
+                        _raise_first(shared)
+                        take, rewarded[k] = rewarded[k], []
+                    pending_gouts += [g for g, _ in take]
+                    pending_rewards += [r for _, r in take]
+                    consumed += len(take)
+                    while (len(pending_gouts) >= want
+                           or (consumed == n_groups and pending_gouts)):
+                        m = min(want, len(pending_gouts))
+                        gouts, rs = pending_gouts[:m], pending_rewards[:m]
+                        del pending_gouts[:m], pending_rewards[:m]
+                        if micro_groups is None:
+                            # full batch: restore row order, bit-exact
+                            order = np.argsort([g["group_index"]
+                                                for g in gouts])
+                            gouts = [gouts[i] for i in order]
+                            rs = [rs[i] for i in order]
+                        b = batches[k]
+                        out = _assemble_out(b, gouts, job.group, job.device)
+                        rewards = np.concatenate(rs).astype(np.float32)
+                        # advantages normalise within each GRPO group, so
+                        # a micro-step computes what the full batch would
+                        # on the same rows
+                        with rt.permit("train", f"{job.job_id}:train"):
+                            state, rec = job.train_phase(state, b, out,
+                                                         rewards=rewards)
+                        recs.append(rec)
+                        done = consumed == n_groups and not pending_gouts
+                        sync = None if done and k + 1 == steps else \
+                            _weights_for_rollout(state["params"], snapshot)
+                        with cv:
+                            if sync is not None:
+                                shared["sync"] = sync    # weight sync
+                            if done:    # with its weights, atomically
+                                shared["trained"] = k + 1
+                            cv.notify_all()
+                        del sync
+                with cv:
+                    while k not in rollout_stats and shared["err"] is None:
+                        cv.wait()
+                    _raise_first(shared)
+                    stats = rollout_stats.pop(k)
+                    rewarded.pop(k, None)
+                    batches.pop(k, None)
+                rec = {"step": k, **_merge_recs(recs),
+                       **_rollout_counts(stats),
+                       "rollout_staleness": k - versions[k],
+                       "micro_steps": len(recs)}
+                history.append(rec)
+                _log(rec, log_every)
+    except BaseException:
+        fail(RuntimeError("train loop aborted"))
+        raise
+    finally:
+        roll_thread.join()
+        pool.shutdown(wait=True)
+    return state, history, _report("stream", rt, time.perf_counter() - t0)

@@ -21,9 +21,14 @@ paged layouts are not ported and raise ``NotImplementedError``).  The model's fa
 kernels run, on CPU tensors their plain versions.  Admission prefills one
 request at a time and never samples.
 
+:meth:`Engine.reset` readies a drained engine for the next batch: a
+training driver swaps freshly synced weights (and a generator) into the
+same slot pool every GRPO iteration; each swap bumps ``weight_version``,
+which every generated token records in ``RequestOutput.token_versions``.
+
 Not ported yet, and refused with ``NotImplementedError``: radix prefix
-sharing, stop-token suspension and resume, disaggregated adoption,
-``reset`` and ``export_state``.
+sharing, stop-token suspension and resume (and with them
+``reset(carry_live=True)``), disaggregated adoption and ``export_state``.
 """
 from __future__ import annotations
 
@@ -177,6 +182,9 @@ class Engine:
         self.finished: dict[int, RequestOutput] = {}
         self._unharvested: list[RequestOutput] = []
         self.stats = EngineStats()
+        # weights swapped in by reset(params=...) bump the version; every
+        # recorded token carries the version it was sampled under
+        self.weight_version = 0
 
     # ---- submission --------------------------------------------------------
     def submit(self, req: Request) -> bool:
@@ -343,21 +351,64 @@ class Engine:
             if n_rec:
                 o.tokens.extend(int(t) for t in toks[rec_col, slot])
                 o.logprobs.extend(float(x) for x in logps[rec_col, slot])
+                o.token_versions.extend([self.weight_version] * n_rec)
                 self.stats.recorded_tokens += n_rec
             if (not alive[slot]) or remaining[slot] <= 0:
                 self._finalize(slot)
         return K
 
-    def run(self, *, max_ticks: Optional[int] = None) -> list[RequestOutput]:
+    def run(self, *, max_ticks: Optional[int] = None,
+            should_yield=None) -> list[RequestOutput]:
         """Drive the engine until queue and slots are empty; outputs by
-        rid.  ``max_ticks`` bounds the scheduler iterations."""
+        rid.  ``max_ticks`` bounds the scheduler iterations and
+        ``should_yield()``, checked between ticks, lets a driver preempt
+        the engine cooperatively; either may return with work still in
+        flight (``idle`` False): call ``run`` again to continue."""
         ticks = 0
         while not self.idle:
             if max_ticks is not None and ticks >= max_ticks:
                 break
+            if should_yield is not None and ticks and should_yield():
+                break
             self.step()
             ticks += 1
         return [self.finished[r] for r in sorted(self.finished)]
+
+    def reset(self, params=None, generator: Optional[torch.Generator] = None,
+              *, carry_live: bool = False) -> None:
+        """Ready a drained engine for its next batch of requests: swap in
+        freshly synced ``params`` (bumping ``weight_version``) and, when
+        given, a new ``generator``, and drop the previous batch's outputs.
+        :attr:`stats` restart from zero, so they count one batch.  The
+        slot pool stays; this is how a training driver reuses one engine
+        across GRPO iterations.  Raises on a live engine or a non-empty
+        queue.  ``carry_live=True`` (partial-rollout continuation) suspends
+        and resumes live generations, which is not ported yet."""
+        if carry_live:
+            raise NotImplementedError(
+                "reset(carry_live=True) (partial-rollout continuation) "
+                "needs suspend/resume, which is not ported to repro_torch "
+                "yet (ROADMAP, modules to port)")
+        if self._active or self.queue:
+            raise RuntimeError("reset() on a live engine; drain it first")
+        if params is not None:
+            if params["embed"].device != self.device:
+                raise ValueError(f"params live on {params['embed'].device}, "
+                                 f"the engine on {self.device}")
+            self.params = params
+            self.weight_version += 1
+        if generator is not None:
+            self.generator = generator
+        # rids repeat across batches: per-request bookkeeping goes, the
+        # measured service time stays
+        self.policy.on_reset()
+        if self.paged:
+            # an idle engine holds no block: a dangling one here is a leak
+            # that would compound across iterations
+            self.slots.alloc.assert_clean(context="Engine.reset")
+        self.finished.clear()
+        self._unharvested.clear()
+        self.stats = EngineStats()
 
     # ---- not ported yet ----------------------------------------------------
     def suspend(self, rid: int):
@@ -368,9 +419,6 @@ class Engine:
 
     def admit_prefilled(self, req: Request, logits, one) -> int:
         raise _not_ported("admit_prefilled (disaggregated adoption)")
-
-    def reset(self, params=None, **kw) -> None:
-        raise _not_ported("reset")
 
     def export_state(self) -> dict:
         raise _not_ported("export_state")

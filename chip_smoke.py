@@ -133,17 +133,44 @@ Phases, in order; any failure exits non-zero:
              1e-4 relative (iteration 1 is printed beside the reference's:
              the embedding backward's atomics move the weights by ulps);
              at staleness 1 (3 iterations), every rollout's staleness in
-             {0, 1}; ``run_coexec`` with jobs of seeds 0 and 1 (2
-             iterations each), each pool's intervals disjoint and its jobs
-             alternating, no cold start; ``run_streaming`` at staleness 1
-             with 2 reward workers (2 iterations).  Every run's ratio
+             {0, 1}; the pinned host cache alone: a round trip of a
+             2 GB tree (bf16 and float32, odd shapes, 0-d and empty
+             leaves) bit for bit on one stream and across two (an offload
+             issued at once after a restore queued on another stream must
+             wait for it) and from a cache collected while the restore
+             was still queued, one buffer for every offload of the key,
+             its pinned bytes the tree's plus alignment, a new layout a
+             new buffer, nothing pinned after ``evict``;
+             ``run_coexec`` with jobs of seeds 0 and 1 (2
+             iterations each; job0 from the sequential run's weights)
+             through that cache: each pool's intervals disjoint and its
+             jobs alternating, no cold start, every later offload of a key
+             into its first pinned buffer, job0's iteration 0 (its
+             rollout weights back through the cache) the sequential run's
+             bit for bit; each copy's event time, bytes and GB/s per kind
+             and pool, and the host memory available before and after;
+             the port's planner on coexec's measured phase profiles, each
+             phase's time less its restore's copy (``to_job``,
+             ``simulate_profiles`` with the mean restore as the warm
+             switch beside each job's measured seconds per
+             iteration, ``InterGroupScheduler`` admitting both at SLO 2.0,
+             its ``slo_contract`` and ``SLOPolicy.from_contract`` with the
+             job's measured decode step), its keys the job ids and its
+             times finite and positive (predicted against measured is
+             printed, not gated); ``run_coexec`` again, 1 iteration a
+             job, without ``runtime=`` (it builds its own and drops it,
+             cache and all): each returned state, by :func:`fingerprint`,
+             the job's last train phase's bit for bit, no cold start,
+             job0's iteration 0 the sequential run's; ``run_streaming`` at
+             staleness 1 with 2
+             reward workers (2 iterations).  Every run's ratio
              diagnostics are finite and its launch counts, zeroed before
              and read after it, exact across its threads: decode attention
              layers x decode steps, flash attention layers x (prefills + 2
              per train step).  Prints each run's rollout and train busy
              time, overlap, back-to-back bubble and reclaimed fraction; for
-             coexec the host cache's bytes, each phase's switch time and
-             the peak device memory; for stream the reward pool's timeline.
+             coexec the pinned bytes, each phase's switch time and the
+             peak device memory; for stream the reward pool's timeline.
 7. serve-rwkv6 — internlm2's weights freed, rwkv6-7b at full width (32
              layers, d_model 4096, 64 heads of 64, vocab 65536) in bf16 with
              seeded random weights: the same 16 prompt lengths, 8 slots, 128
@@ -188,6 +215,7 @@ parent commit) on this script's timer; it writes
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -1532,7 +1560,9 @@ def mux_job(model, dev, init_params=None, jid="job0", seed=0, steps=2):
     """A full-width GRPO job of the train phase's shape, from a copy of
     ``init_params`` (the executors train their weights in place; None:
     the model's init from ``seed``), that keeps each train step's rollout
-    arrays in ``job.seen``.  A subclass, not a patched method: a closure
+    arrays in ``job.seen`` and, where ``job.fingerprints`` is a list, the
+    :func:`fingerprint` of each train step's new state.  A subclass, not a
+    patched method: a closure
     over the job stored on the job would make a reference cycle that keeps
     its weights on the card until the garbage collector runs."""
     from repro_torch.rl.coexec import GRPOJob
@@ -1541,7 +1571,13 @@ def mux_job(model, dev, init_params=None, jid="job0", seed=0, steps=2):
         def train_phase(self, state, b, out, rewards=None):
             self.seen.append({k: out[k].detach().cpu() for k in
                               ("completions", "behavior_logp", "mask")})
-            return super().train_phase(state, b, out, rewards)
+            stats = out.get("engine_stats")   # the streaming run has none
+            if stats is not None:
+                self.decode.append((stats.decode_time_s, stats.steps))
+            state, rec = super().train_phase(state, b, out, rewards)
+            if self.fingerprints is not None:
+                self.fingerprints.append(fingerprint(state))
+            return state, rec
 
     params = None if init_params is None else _tree_map(
         lambda t: t.clone(), init_params)
@@ -1549,8 +1585,28 @@ def mux_job(model, dev, init_params=None, jid="job0", seed=0, steps=2):
                        group=4, max_new=MAX_NEW, temperature=1.0,
                        reward_fn=token_share_reward(model.cfg.vocab_size),
                        params=params, device=dev)
-    job.seen = []
+    job.seen, job.decode, job.fingerprints = [], [], None
     return job
+
+
+def fingerprint(tree) -> list:
+    """Per leaf: its shape, dtype and two int64 sums of its bits (plain and
+    weighted by position), exact and independent of the order of addition,
+    so that two states on the card can be held bit for bit without a
+    second copy of either.  Runs on the current stream."""
+    import torch
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for x in _leaves(tree):
+        bits = x.detach().reshape(-1).view(ints[x.element_size()])
+        sums = torch.zeros(2, dtype=torch.int64, device=x.device)
+        for i in range(0, bits.numel(), 1 << 26):
+            c = bits[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=x.device) % 65521 + 1
+            sums[0] += c.sum()
+            sums[1] += (c * w).sum()
+        out.append((tuple(x.shape), str(x.dtype), sums.tolist()))
+    return out
 
 
 def mux_launches(cfg, hists, counts, label):
@@ -1585,6 +1641,285 @@ def mux_summary(report) -> dict:
     s = report.summary()
     s["timelines"] = report.timelines
     return s
+
+
+def host_mem_available() -> int:
+    """The machine's available host memory in bytes (``MemAvailable``)."""
+    with open("/proc/meminfo") as f:
+        for ln in f:
+            if ln.startswith("MemAvailable:"):
+                return int(ln.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def recording_cache(capacity_bytes: int):
+    """A host cache that keeps every CUDA copy's key, kind, bytes and
+    timing events, and each offload's buffer address and pinned state.  A
+    subclass, as ``mux_job``'s job is."""
+    from repro_torch.train.checkpoints import HostStateCache
+
+    class RecordingCache(HostStateCache):
+        def __init__(self, capacity):
+            super().__init__(capacity)
+            self.copies, self.offload_s = [], []
+
+        def offload(self, key, tree):
+            first = not self.resident(key)
+            s = super().offload(key, tree)
+            self.offload_s.append({"key": key, "first": first, "s": s})
+            return s
+
+        def _copied(self, key, kind, nbytes, start, end):
+            rec = {"key": key, "kind": kind, "bytes": nbytes,
+                   "events": (start, end)}
+            if kind == "offload":
+                with self._lock:
+                    leaves = self._store[key].leaves
+                rec["ptr"] = leaves[0].data_ptr()
+                rec["pinned"] = all(h.is_pinned() for h in leaves)
+            self.copies.append(rec)
+
+        def timings(self) -> list:
+            """The copies with seconds and GB/s (their events must have
+            completed)."""
+            out = []
+            for c in self.copies:
+                start, end = c["events"]
+                s = start.elapsed_time(end) / 1e3
+                out.append({**{k: v for k, v in c.items() if k != "events"},
+                            "s": s, "gb_s": c["bytes"] / max(s, 1e-12) / 1e9})
+            return out
+
+    return RecordingCache(capacity_bytes)
+
+
+def copy_summary(copies) -> dict:
+    """Per kind and pool: count, bytes, mean and max seconds, GB/s."""
+    out = {}
+    for c in copies:
+        pool = c["key"].split("/")[-1]
+        out.setdefault(f"{c['kind']} {pool}", []).append(c)
+    return {k: {"n": len(v), "bytes": v[0]["bytes"],
+                "mean_s": float(np.mean([c["s"] for c in v])),
+                "max_s": max(c["s"] for c in v),
+                "mean_gb_s": float(np.mean([c["gb_s"] for c in v]))}
+            for k, v in sorted(out.items())}
+
+
+def phase_host_cache(torch, dev) -> dict:
+    """A standalone round trip through the pinned host cache: a tree of
+    about 2 GB (bf16 and float32 leaves, odd shapes, a 0-d and an empty
+    leaf) offloaded on one stream and restored on it and on another, bit
+    for bit; an offload that follows at once a restore still queued on
+    another stream waits for it; every offload of the key reuses its
+    buffer; a new layout under the key gets a buffer of its own size; a
+    cache collected while a restore from it is still queued leaves that
+    restore whole."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    tree = {"w": torch.randn(512 << 20, generator=g, device=dev,
+                             dtype=torch.bfloat16),
+            "m": {"a": torch.randn(256 << 20, generator=g, device=dev),
+                  "b": torch.randn(3, 5, 7, generator=g, device=dev)},
+            "layers": [{"k": torch.randn(1000, 333, generator=g, device=dev,
+                                         dtype=torch.bfloat16)}
+                       for _ in range(3)],
+            "step": torch.tensor(11, dtype=torch.int32, device=dev),
+            "empty": torch.empty(0, 4, device=dev)}
+    want = _tree_map(lambda x: x.clone(), tree)
+    nbytes = sum(x.numel() * x.element_size() for x in _leaves(tree))
+    cache = recording_cache(1 << 40)
+    s1, s2 = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    issue = []                              # each restore's host seconds
+
+    def check(label, got):
+        torch.cuda.synchronize()
+        for a, b in zip(_leaves(got), _leaves(want)):
+            if a.dtype != b.dtype or a.shape != b.shape or \
+                    not torch.equal(a, b):
+                raise AssertionError(f"host cache round trip {label}: a "
+                                     f"leaf of shape {tuple(b.shape)} "
+                                     f"differs")
+
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        cache.offload("rt/train", tree)
+        got, s = cache.restore("rt/train")
+        issue.append(s)
+    check("same stream", got)
+    del got
+    with torch.cuda.stream(s1):            # change the state, offload again
+        for x in _leaves(tree):
+            x.mul_(2)
+        cache.offload("rt/train", tree)
+    want = _tree_map(lambda x: x.clone(), tree)
+    with torch.cuda.stream(s2):
+        got, s = cache.restore("rt/train")
+        issue.append(s)
+    check("restored on another stream", got)
+    used = cache.used_bytes()
+    del got
+    # a restore held back on s2, then at once an offload of the key on s1:
+    # the offload must wait for the restore's copy before it overwrites the
+    # buffer that copy reads
+    with torch.cuda.stream(s2):
+        torch.cuda._sleep(100_000_000)     # about 50 ms of the card's clock
+        got, s = cache.restore("rt/train")
+        issue.append(s)
+    with torch.cuda.stream(s1):
+        new = _tree_map(lambda x: x.neg(), tree)
+        cache.offload("rt/train", new)
+    check("restored on s2 while s1 offloaded over it", got)
+    want = _tree_map(lambda x: x.clone(), new)
+    with torch.cuda.stream(s1):
+        back, s = cache.restore("rt/train")
+        issue.append(s)
+    check("the offload after it", back)
+    del got, back, new
+    offs = [c for c in cache.copies if c["kind"] == "offload"]
+    if len({c["ptr"] for c in offs}) != 1 or not all(c["pinned"]
+                                                       for c in offs):
+        raise AssertionError(f"host cache: offloads of one key did not "
+                             f"reuse one pinned buffer: {offs}")
+    if not nbytes <= used < nbytes + 256 * len(list(_leaves(tree))):
+        raise AssertionError(f"host cache: {used} bytes pinned for a "
+                             f"{nbytes}-byte state")
+    small = {"w": torch.ones(1000, device=dev)}
+    cache.offload("rt/train", small)       # a new layout: a new buffer
+    if cache.used_bytes() != 4096:
+        raise AssertionError(f"host cache: {cache.used_bytes()} bytes after "
+                             f"a 4000-byte state replaced the key")
+    torch.cuda.synchronize()
+    copies = cache.timings()
+    cache.evict("rt/train")
+    if cache.used_bytes() != 0:
+        raise AssertionError("host cache: evict left bytes pinned")
+    # a cache dropped with a restore still queued behind a sleep: its
+    # buffer may be unpinned and freed only once the copy has read it
+    lost = recording_cache(1 << 40)
+    with torch.cuda.stream(s1):
+        lost.offload("rt/train", tree)
+    want = _tree_map(lambda x: x.clone(), tree)
+    with torch.cuda.stream(s2):
+        torch.cuda._sleep(100_000_000)
+        got, _ = lost.restore("rt/train")
+    del lost
+    gc.collect()
+    check("restored while its cache was collected", got)
+    del tree, want, cache, small, got
+    torch.cuda.empty_cache()
+    big = [c for c in copies if c["bytes"] == used]
+    res = {"bytes": nbytes, "pinned_bytes": used, "copies": big,
+           "summary": copy_summary(big), "restore_issue_s": issue}
+    print(f"[mux] host cache round trip: {nbytes} bytes ({used} pinned), "
+          f"bit for bit on one stream, across two and from a cache "
+          f"collected with the restore in flight, one buffer for "
+          f"{len(offs)} offloads; "
+          + "; ".join(f"{c['kind']} {c['s']:.4f}s {c['gb_s']:.2f} GB/s"
+                      for c in big)
+          + f"; each restore returned after {max(issue) * 1e3:.2f} ms at most")
+    return res
+
+
+def measured_iteration_s(report, jid: str) -> float:
+    """A job's seconds per iteration in a mux run: from the start of its
+    first rollout to the end of its last train step, over its
+    iterations."""
+    roll = [iv for iv in report.timelines["rollout"]
+            if iv[0].startswith(f"{jid}:")]
+    train = [iv for iv in report.timelines["train"]
+             if iv[0].startswith(f"{jid}:")]
+    return (max(t1 for _, _, t1 in train)
+            - min(t0 for _, t0, _ in roll)) / len(train)
+
+
+def plan_on_profiles(report, jobs, copies) -> dict:
+    """The port's planner on the phase profiles coexec measured on the
+    card: each profile's ``RLJob``, the intra-group DES with the measured
+    warm-start time, the inter-group scheduler admitting both jobs at SLO
+    2.0, its contract and the engine policy it gives each job.
+
+    A restore returns once its copies are queued, so each copy's device
+    time lies inside its phase's measured run time.  The planner is given
+    the phase times less their restores' copies, and the mean of those
+    copies as the warm switch, so that it charges each switch once."""
+    from repro_torch.core import (GPUS_PER_NODE, InterGroupScheduler,
+                                  NodeAllocator, SwitchCosts,
+                                  simulate_profiles)
+    from repro_torch.serve.sched import SLOPolicy
+
+    restores = {}
+    for c in copies:
+        if c["kind"] == "restore":
+            restores.setdefault(c["key"], []).append(c["s"])
+    profiles, switches = {}, []
+    for jid, p in report.profiles.items():
+        less = {}
+        for pool, xs in (("rollout", p.rollout_s), ("train", p.train_s)):
+            r = restores.get(f"{jid}/{pool}", [])[:len(xs)]
+            if len(r) != len(xs):
+                raise AssertionError(f"planner: {jid} has {len(xs)} {pool} "
+                                     f"phases but {len(r)} restores")
+            less[f"{pool}_s"] = tuple(x - y for x, y in zip(xs, r))
+            switches += r
+        profiles[jid] = dataclasses.replace(p, **less)
+    warm = float(np.mean(switches))
+    rl_jobs = {jid: p.to_job() for jid, p in profiles.items()}
+    sim = simulate_profiles(list(profiles.values()),
+                            switch=SwitchCosts(warm_s=warm))
+    measured = {jid: measured_iteration_s(report, jid) for jid in profiles}
+    sched = InterGroupScheduler(NodeAllocator(n_rollout_gpus=GPUS_PER_NODE,
+                                              n_train_gpus=GPUS_PER_NODE))
+    decisions = {}
+    for jid, p in profiles.items():
+        d = sched.schedule(p.to_job(slo=2.0))
+        decisions[jid] = {"group": d.group.gid, "strategy": d.strategy,
+                          "delta_cost": d.delta_cost,
+                          "rollout_nodes": list(d.placement.rollout_node_ids),
+                          "latency_s": d.latency_s}
+    contract = sched.slo_contract()
+    policies = {}
+    for job in jobs:
+        dt, steps = map(sum, zip(*job.decode))
+        policy = SLOPolicy.from_contract(contract, job.job_id,
+                                         time_per_token=dt / steps)
+        policies[job.job_id] = {"slowdown": policy.slowdown,
+                                "time_per_token": policy.time_per_token}
+    keys = set(profiles)
+    for name, d in (("to_job", rl_jobs), ("iter_time", sim.iter_time),
+                    ("decisions", decisions), ("contract", contract),
+                    ("policies", policies)):
+        if set(d) != keys:
+            raise AssertionError(f"planner: {name} keys {sorted(d)} are not "
+                                 f"the jobs {sorted(keys)}")
+    nums = [warm, *sim.iter_time.values(), *contract.values(),
+            *(p["time_per_token"] for p in policies.values()),
+            *(p["slowdown"] for p in policies.values()),
+            *(j.t_roll for j in rl_jobs.values()),
+            *(p.t_roll - profiles[jid].t_roll
+              for jid, p in report.profiles.items()),
+            *(j.t_train for j in rl_jobs.values())]
+    if not all(np.isfinite(x) and x > 0 for x in nums):
+        raise AssertionError(f"planner: a time is not finite and positive: "
+                             f"{nums}")
+    for jid, j in rl_jobs.items():
+        raw = report.profiles[jid]
+        print(f"[plan] {jid}.to_job() on its phases less their restores: "
+              f"t_roll {j.t_roll:.3f}s (measured {raw.t_roll:.3f}s), "
+              f"t_train {j.t_train:.3f}s (measured {raw.t_train:.3f}s), "
+              f"runtime_scale "
+              f"({j.runtime_scale[0]:.3f}, 1.0); simulated iteration "
+              f"{sim.iter_time[jid]:.3f}s with warm_s {warm:.3f}s, measured "
+              f"{measured[jid]:.3f}s; decision {decisions[jid]}; contract "
+              f"{contract[jid]:.4f}; SLOPolicy slowdown "
+              f"{policies[jid]['slowdown']:.4f}, time_per_token "
+              f"{policies[jid]['time_per_token'] * 1e3:.2f} ms")
+    print(f"[plan] simulated utilisation: rollout {sim.rollout_util:.3f}, "
+          f"train {sim.train_util:.3f}, makespan {sim.makespan:.3f}s")
+    return {"warm_s": warm,
+            "to_job": {k: dataclasses.asdict(v) for k, v in rl_jobs.items()},
+            "sim": dataclasses.asdict(sim), "measured_iter_s": measured,
+            "decisions": decisions, "contract": contract,
+            "policies": policies}
 
 
 def phase_mux(torch, dev, model, init_params):
@@ -1669,6 +2004,7 @@ def phase_mux(torch, dev, model, init_params):
     results["pipeline-0"] = dict(mux_summary(r_p0), wall=w_p0, history=h_p0,
                                  launches=c_p0, iteration0_loss_rel=rel,
                                  iteration1_identical=same1)
+    seq_seen0 = seq.seen[0]
     del seq, pipe0
 
     pipe1 = mux_job(model, dev, init_params, steps=3)
@@ -1685,14 +2021,27 @@ def phase_mux(torch, dev, model, init_params):
                                  launches=c_p1)
     del pipe1
 
-    # two jobs, each from its own seed's weights (job0's are init_params)
+    # the pinned host cache alone, then two jobs through it, each from its
+    # own seed's weights (job0's are init_params, as the sequential run's)
+    round_trip = phase_host_cache(torch, dev)
     rt = RollMuxRuntime(host_cache_gb=64.0)
-    jobs = [mux_job(model, dev, None, f"job{seed}", seed) for seed in (0, 1)]
+    rt.cache = recording_cache(rt.cache.capacity)
+    jobs = [mux_job(model, dev, init_params if seed == 0 else None,
+                    f"job{seed}", seed) for seed in (0, 1)]
+    mem_before = host_mem_available()
+    print(f"[mux] coexec: host memory available {mem_before} bytes "
+          f"({mem_before / 2 ** 30:.2f} GiB)")
     torch.cuda.reset_peak_memory_stats()
+    alloc_keys = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+    stats0 = torch.cuda.memory_stats()
     (h_co, r_co), c_co, w_co = counted(
         lambda: run_coexec(jobs, runtime=rt))
     peak = torch.cuda.max_memory_allocated()
+    stats1 = torch.cuda.memory_stats()
+    allocs = {k: stats1.get(k, 0) - stats0.get(k, 0) for k in alloc_keys}
+    allocs["peak_reserved"] = torch.cuda.max_memory_reserved()
     cache_bytes = rt.cache.used_bytes()
+    mem_after = host_mem_available()
     mux_launches(cfg, list(h_co.values()), c_co, "coexec")
     mux_check_records(list(h_co.values()), "coexec")
     for pool in ("rollout", "train"):
@@ -1709,20 +2058,110 @@ def phase_mux(torch, dev, model, init_params):
     if r_co.cache_stats["cold_misses"] != 0:
         raise AssertionError(f"mux coexec: cold misses "
                              f"{r_co.cache_stats}")
+    # job0's first rollout ran on weights that came back through the
+    # pinned cache: it must be the sequential run's, bit for bit
+    for k in ("completions", "behavior_logp", "mask"):
+        if not torch.equal(jobs[0].seen[0][k], seq_seen0[k]):
+            raise AssertionError(f"mux coexec: job0 iteration 0 {k} differs "
+                                 f"from the sequential run's")
+    copies = rt.cache.timings()
+    reuse = {}
+    for c in copies:
+        if c["kind"] == "offload":
+            reuse.setdefault(c["key"], []).append(c)
+    for key, offs in reuse.items():
+        if len({c["ptr"] for c in offs}) != 1 or not all(
+                c["pinned"] for c in offs):
+            raise AssertionError(f"mux coexec: offloads of {key} did not "
+                                 f"reuse one pinned buffer")
     switch = {k: {"switch_time": st.switch_time, "run_time": st.run_time,
                   "runs": st.runs, "warm_starts": st.warm_starts}
               for k, st in sorted(rt.stats.items())}
+    summary = copy_summary(copies)
+    firsts = {}
+    for o in rt.cache.offload_s:
+        firsts.setdefault((o["key"].split("/")[-1], o["first"]),
+                          []).append(o["s"])
     line("coexec (2 jobs)", r_co, w_co, c_co)
-    print(f"[mux] coexec: host cache {cache_bytes} bytes "
-          f"({cache_bytes / 2 ** 30:.2f} GiB), cache {r_co.cache_stats}, "
-          f"peak device memory {peak / 2 ** 30:.2f} GiB; per phase "
+    print(f"[mux] coexec: executor wall {r_co.wall_s:.2f}s (the rest of "
+          f"{w_co:.2f}s: seeding the cache, the jobs' initial states and "
+          f"the final restores); offload host seconds, first into a new "
+          f"pinned buffer / later: "
+          + "; ".join(f"{pool} {'first' if first else 'later'} "
+                      f"{np.mean(v):.3f}s (n {len(v)})"
+                      for (pool, first), v in sorted(firsts.items()))
+          + f"; device allocator during the run {allocs}")
+    print(f"[mux] coexec: host cache {cache_bytes} bytes pinned "
+          f"({cache_bytes / 2 ** 30:.2f} GiB; host memory available "
+          f"{mem_before} -> {mem_after} bytes after the run), cache "
+          f"{r_co.cache_stats}, every later offload of a key into its "
+          f"first buffer ({len(reuse)} keys), peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; job0 iteration 0 identical to the "
+          f"sequential run's; per phase "
           + "; ".join(f"{k}: switch {v['switch_time']:.3f}s in "
                       f"{v['runs']} runs, run {v['run_time']:.3f}s"
                       for k, v in switch.items()))
+    for k, v in summary.items():
+        print(f"[mux] coexec {k}: {v['n']} copies of {v['bytes']} bytes, "
+              f"mean {v['mean_s']:.4f}s (max {v['max_s']:.4f}s), "
+              f"{v['mean_gb_s']:.2f} GB/s ({card})")
+    plan = plan_on_profiles(r_co, jobs, copies)
     results["coexec"] = dict(mux_summary(r_co), wall=w_co, history=h_co,
                              launches=c_co, host_cache_bytes=cache_bytes,
-                             max_memory_allocated=peak, phases=switch)
+                             host_mem_available=[mem_before, mem_after],
+                             max_memory_allocated=peak, phases=switch,
+                             copies=copies, copy_summary=summary,
+                             offload_host_s=rt.cache.offload_s,
+                             allocator=allocs,
+                             iteration0_identical=True)
+    results["host_cache"] = round_trip
+    results["plan"] = plan
+    for key in reuse:                      # unpin the two jobs' states
+        rt.cache.evict(key)
     del jobs, rt
+
+    # run_coexec as a user calls it, without a runtime: it makes its own
+    # and drops it on return, the host cache with it.  The states it
+    # returns must be those the jobs' last train phases gave, bit for bit,
+    # also once that cache has been collected.
+    jobs = [mux_job(model, dev, init_params if seed == 0 else None,
+                    f"job{seed}", seed, steps=1) for seed in (0, 1)]
+    for job in jobs:
+        job.fingerprints = []
+    finals = {}
+
+    def own_runtime():
+        states, hist, report = run_coexec(jobs, host_cache_gb=64.0)
+        gc.collect()
+        finals.update({k: fingerprint(v) for k, v in states.items()})
+        return None, hist, report
+
+    (h_own, r_own), c_own, w_own = counted(own_runtime)
+    mux_launches(cfg, list(h_own.values()), c_own, "coexec, own runtime")
+    mux_check_records(list(h_own.values()), "coexec, own runtime")
+    if r_own.cache_stats["cold_misses"] != 0:
+        raise AssertionError(f"mux coexec, own runtime: cold misses "
+                             f"{r_own.cache_stats}")
+    for job in jobs:
+        if finals[job.job_id] != job.fingerprints[-1]:
+            raise AssertionError(f"mux coexec, own runtime: {job.job_id}'s "
+                                 f"returned state is not its last train "
+                                 f"phase's")
+    for k in ("completions", "behavior_logp", "mask"):
+        if not torch.equal(jobs[0].seen[0][k], seq_seen0[k]):
+            raise AssertionError(f"mux coexec, own runtime: job0 iteration "
+                                 f"0 {k} differs from the sequential run's")
+    line("coexec (2 jobs, 1 iteration, its own runtime)", r_own, w_own,
+         c_own)
+    print(f"[mux] coexec, own runtime: each job's returned state is its "
+          f"last train phase's bit for bit "
+          f"({len(finals['job0'])} leaves each) after the runtime's cache "
+          f"was collected; job0 iteration 0 identical to the sequential "
+          f"run's")
+    results["coexec_own_runtime"] = dict(
+        mux_summary(r_own), wall=w_own, history=h_own, launches=c_own,
+        final_state_identical=True)
+    del jobs, finals
 
     stream = mux_job(model, dev, init_params)
     (h_st, r_st), c_st, w_st = counted(

@@ -15,15 +15,16 @@ drive the multiplexing decisions.
 Counterpart of ``repro/core/phase_control.py``.  On the card each
 executor thread runs each pool's phases on a CUDA stream of its own
 (:class:`PhaseStreams`), so that one phase's kernels can fill the device
-time another phase leaves idle.  A phase ends by synchronising its own
-(the current) stream, where the JAX package blocks until its arrays are
-ready: ``torch.cuda.synchronize()`` would wait for every stream on the
-card, and so for the other thread's phase.  Tensors that cross from one
-stream to another go through :func:`hand_over` and :func:`take_over`.
-Not ported yet: ``PhaseProfile.to_job``
-(it feeds the co-execution simulator, ``core/job.py``) and
-``RollMuxRuntime.metrics`` (the elastic controller's telemetry); both come
-with the slices that port those modules (ROADMAP).
+time another phase leaves idle.  The state a phase leaves goes to the
+host cache on the phase's stream and comes back on the next phase's
+(``train/checkpoints.py``: one page-locked buffer per cache key on the
+card).  A phase ends when that offload has completed, which waits for its
+own (the current) stream only, where the JAX package blocks until its
+arrays are ready: ``torch.cuda.synchronize()`` would wait for every
+stream on the card, and so for the other thread's phase.  Tensors that
+cross from one stream to another go through :func:`hand_over` and
+:func:`take_over`.  :meth:`PhaseProfile.to_job` turns a measured profile
+into the planner's ``RLJob`` (``core/job.py``).
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core.job import RLJob
+from repro_torch.core.telemetry import MetricsSnapshot
 from repro_torch.train.checkpoints import HostStateCache
 from repro_torch.train.optimizer import tree_leaves
 
@@ -52,13 +55,6 @@ def sync_current_stream(device) -> None:
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
-
-
-def _synchronize(state) -> None:
-    """Wait for the current stream of the card that holds ``state``."""
-    leaves = _cuda_leaves(state)
-    if leaves:
-        sync_current_stream(leaves[0].device)
 
 
 class PhaseStreams:
@@ -237,6 +233,23 @@ class PhaseProfile:
     def iterations(self) -> int:
         return min(len(self.rollout_s), len(self.train_s))
 
+    def to_job(self, **overrides):
+        """Build the ``core.job.RLJob`` this measured profile implies.
+
+        Worst-case phase durations are the observed maxima; the stochastic
+        runtime scale spans the observed min/max ratio, so the simulator's
+        common-random-number draws reproduce the measured spread."""
+        lo = 1.0
+        if self.rollout_s and self.train_s:
+            lo = min(min(self.rollout_s) / max(self.t_roll, 1e-9),
+                     min(self.train_s) / max(self.t_train, 1e-9))
+        kw = dict(job_id=self.job_id,
+                  t_roll=self.t_roll + self.t_transfer,
+                  t_train=self.t_train, t_reward=self.t_reward,
+                  runtime_scale=(min(lo, 1.0), 1.0))
+        kw.update(overrides)
+        return RLJob(**kw)
+
 
 class RollMuxRuntime:
     """In-process execution plane shared by the co-executing jobs."""
@@ -252,6 +265,20 @@ class RollMuxRuntime:
         if name not in self.pools:
             self.pools[name] = PermitPool(name, capacity)
         return self.pools[name]
+
+    def metrics(self) -> MetricsSnapshot:
+        """Unified :class:`~repro_torch.core.telemetry.MetricsSnapshot` of
+        the execution plane: per-pool busy fractions (pool busy time over
+        runtime elapsed — the elastic controller's permit-retuning
+        signal) and capacities.  Merges cleanly with other components'
+        snapshots (dict fields union)."""
+        elapsed = max(time.perf_counter() - self._t0, 1e-9)
+        return MetricsSnapshot(
+            source="runtime",
+            pool_busy_frac={name: min(p.busy_time / elapsed, 1.0)
+                            for name, p in self.pools.items()},
+            pool_capacity={name: p.capacity
+                           for name, p in self.pools.items()})
 
     def runtime_hook(self, fn: Callable) -> Callable:
         """@rollmux.runtime_hook — called as fn(job_id, phase, event)."""
@@ -299,8 +326,9 @@ class RollMuxRuntime:
                         st.warm_starts += 1
                     st.switch_time += sw
                     state, out = fn(state, *args, **kwargs)
-                    _synchronize(state)
-                    self.cache.offload(key, state)  # suspend: data plane out
+                    # suspend: data plane out; returns once the copy, and so
+                    # the phase's work on this stream, has completed
+                    self.cache.offload(key, state)
                     t_end = time.perf_counter()
                     st.run_time += t_end - t_start
                     st.runs += 1

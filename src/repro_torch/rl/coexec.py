@@ -624,4 +624,7 @@ def run_coexec(jobs: list[GRPOJob], *, host_cache_gb: float = 8.0,
     for job in jobs:
         state, _ = rt.cache.restore(f"{job.job_id}/train")
         states[job.job_id] = state
+        # the restore returns with its copies queued: finish them, so that
+        # the states are whole on any stream and the cache may go
+        sync_current_stream(job.device)
     return states, histories, _report("coexec", rt, wall)

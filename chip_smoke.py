@@ -115,7 +115,24 @@ Phases, in order; any failure exits non-zero:
              Kernel launch counts are zeroed before and read after each
              run; every decode kernel must have run layers x decode steps
              times, greedy sampling once per decode step, flash attention
-             once per layer and prefill.
+             once per layer and prefill.  Each tick's decode block is one
+             CUDA graph replay (the engine's first tick runs it eagerly);
+             each run prints its ms per decode step, captures and their
+             seconds.
+   graph   — the CUDA graph against the engine's eager block
+             (``eager_engine``), both on engines of the serve shape with
+             the first GRAPH_REQ prompts at GRAPH_NEW new tokens: tokens
+             and log-probabilities bit for bit at temperature 0 on
+             contiguous, paged and paged-int8 KV, at temperature 1 (seed
+             0) tokens; the same launch counts (a replay adds what its
+             capture recorded); one capture.  Then ``reset(params=...)``
+             to another seed's weights captures again and serves what a
+             new engine on them serves.
+   trace   — ``run_trace(realtime=True)`` over the 16 serve prompts at 128
+             new tokens, contiguous, 8 slots, Poisson arrivals from
+             ``RandomState(0)`` at half the closed-loop contiguous run's
+             request rate: throughput, TTFT and latency (mean, p50, p95,
+             p99), every request's stamps in order.
 5. train   — two GRPO iterations at full width through ``run_training``
              (batch 4 x group 4, 128 new tokens, temperature 1, engine
              rollout, ``--mux off``): decode attention layers x decode
@@ -168,7 +185,8 @@ Phases, in order; any failure exits non-zero:
              and read after it, exact across its threads: decode attention
              layers x decode steps, flash attention layers x (prefills + 2
              per train step).  Prints each run's rollout and train busy
-             time, overlap, back-to-back bubble and reclaimed fraction; for
+             time, overlap, back-to-back bubble and reclaimed fraction,
+             ms per decode step and its engines' CUDA graph captures; for
              coexec the pinned bytes, each phase's switch time and the
              peak device memory; for stream the reward pool's timeline.
 7. serve-rwkv6 — internlm2's weights freed, rwkv6-7b at full width (32
@@ -184,7 +202,8 @@ Phases, in order; any failure exits non-zero:
              plain scan in place of the kernel does the same), so the bf16
              mean of exp(diff) is held within 0.1 of 1 and the 1e-2 measure
              of the train phase is held on a float32 run of 4 requests with
-             the same weights upcast.
+             the same weights upcast.  The CUDA graph is held against the
+             eager block as in the graph phase (temperature 0).
 8. serve-zamba2 — rwkv6's weights freed, zamba2-2.7b at full width (54
              Mamba2 layers, d_model 2560, 80 SSD heads of 64, the shared
              attention block after every 6th layer, vocab 32000) in bf16
@@ -195,7 +214,7 @@ Phases, in order; any failure exits non-zero:
              decode attention kernel.  Prefill and decode are held to each
              other as for rwkv6: bf16 within 0.1 (with the plain scan's
              numbers beside it), float32 (4 requests, weights upcast)
-             within 1e-2.
+             within 1e-2; the CUDA graph against the eager block.
 
 In the float32 runs of phases 7 and 8 the engine's tokens are also held to
 the re-prefill's argmax (log-probability gap within 1e-2); in bf16 the gap
@@ -1435,14 +1454,18 @@ def phase_serve(torch, dev, model, params):
         step_ms = rep["decode_time_s"] / max(steps, 1) * 1e3
         print(f"[serve] {run}: {N_REQ} requests, {rep['tokens']} tokens, "
               f"{steps} decode steps in {rep['wall_s']:.2f}s = "
-              f"{rep['tok_per_s']:.1f} tok/s; {step_ms:.2f} ms per decode "
+              f"{rep['tok_per_s']:.1f} tok/s; {step_ms:.3f} ms per decode "
               f"step, {rep['wall_s'] - rep['decode_time_s']:.2f}s outside "
-              f"decode (prefill, admission); launches {counts}")
+              f"decode (prefill, admission, {rep['captures']} CUDA graph "
+              f"capture(s) in {rep['capture_s']:.3f}s); launches {counts}")
         if kv == "paged":
             recheck_pool(torch, dev, da, rep["engine"], run)
         reports[run] = {"tokens": rep["tokens"], "decode_steps": steps,
                         "wall_s": rep["wall_s"],
                         "decode_time_s": rep["decode_time_s"],
+                        "ms_per_decode_step": step_ms,
+                        "captures": rep["captures"],
+                        "capture_s": rep["capture_s"],
                         "tok_per_s": rep["tok_per_s"], "launches": counts}
         del rep
     if not firsts["contiguous"] == firsts["paged"] == firsts["paged-int8"]:
@@ -1458,6 +1481,190 @@ def phase_serve(torch, dev, model, params):
         reports[run]["token_agreement_with_contiguous"] = same / max(total,
                                                                     1)
     return launches, reports
+
+
+GRAPH_REQ, GRAPH_NEW = 4, 32     # the graph-against-eager workload
+
+
+def eager_engine(*args, **kw):
+    """An engine whose ticks all run the decode block eagerly (its
+    private ``_decode_block``): the reference a CUDA graph replay is held
+    to.  A subclass made here, not a switch of the engine."""
+    from repro_torch.serve.engine import Engine
+
+    class EagerEngine(Engine):
+        def _graph_for_tick(self):
+            return None
+    return EagerEngine(*args, **kw)
+
+
+def serve_short(torch, dev, model, params, *, eager=False, kv="contiguous",
+                kv_dtype=None, temperature=0.0, seed=0, engine=None):
+    """The first GRAPH_REQ serve prompts at GRAPH_NEW new tokens through
+    an engine of the serve phase's shape (``engine``, reset with
+    ``params``, or a new one, eager or not); returns the outputs, the
+    engine, the launch counts, ms per decode step and the wall time."""
+    from repro_torch.rl.rollout import run_requests
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = EngineConfig(num_slots=SLOTS, max_seq_len=MAX_SEQ,
+                       temperature=temperature, kv_layout=kv,
+                       kv_dtype=kv_dtype)
+    gen = (torch.Generator(device=dev).manual_seed(seed)
+           if temperature > 0 else None)
+    if engine is None:
+        engine = (eager_engine if eager else Engine)(
+            model, params, cfg, device=dev, generator=gen)
+    else:
+        engine.reset(params, gen)
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    prompts = serve_prompts(model.cfg.vocab_size)[:GRAPH_REQ]
+    t0 = time.perf_counter()
+    outs = run_requests(engine, (Request(rid=i, prompt=p,
+                                         max_new_tokens=GRAPH_NEW)
+                                 for i, p in enumerate(prompts)))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = engine.metrics()
+    return {"outputs": outs, "engine": engine, "wall_s": wall,
+            "launches": {k: f.launches for k, f in fns.items()},
+            "steps": m.steps,
+            "ms_per_step": m.decode_time_s / max(m.steps, 1) * 1e3}
+
+
+def same_outputs(a, b, logprobs=True) -> bool:
+    """Tokens (and log-probabilities) of two runs equal bit for bit."""
+    return len(a) == len(b) and all(
+        x.tokens == y.tokens and (not logprobs or np.array_equal(
+            np.asarray(x.logprobs, np.float32),
+            np.asarray(y.logprobs, np.float32)))
+        for x, y in zip(a, b))
+
+
+def graph_vs_eager(torch, dev, model, params, phase, run, **kw) -> dict:
+    """The engine's CUDA-graph decode block against its eager block on the
+    same workload: at temperature 0 tokens and log-probabilities equal
+    bit for bit, above it (same seed) tokens; the same kernel launches
+    (a replay adds what its capture recorded); one capture, none eager."""
+    g = serve_short(torch, dev, model, params, **kw)
+    e = serve_short(torch, dev, model, params, eager=True, **kw)
+    sampled = kw.get("temperature", 0.0) > 0
+    lp_equal = same_outputs(g["outputs"], e["outputs"])
+    if not same_outputs(g["outputs"], e["outputs"], logprobs=not sampled):
+        raise AssertionError(f"{phase} {run}: the CUDA graph's outputs "
+                             f"differ from the eager block's")
+    if g["launches"] != e["launches"] or g["steps"] != e["steps"]:
+        raise AssertionError(f"{phase} {run}: launches {g['launches']} "
+                             f"(graph) != {e['launches']} (eager)")
+    ge, ee = g["engine"], e["engine"]
+    if ge.captures != 1 or ee.captures != 0:
+        raise AssertionError(f"{phase} {run}: {ge.captures} captures "
+                             f"(graph), {ee.captures} (eager)")
+    print(f"[{phase}] {run} graph vs eager ({GRAPH_REQ} requests, "
+          f"{GRAPH_NEW} new tokens, {g['steps']} decode steps): "
+          f"{'tokens and logprobs' if lp_equal else 'tokens'} identical; "
+          f"{g['ms_per_step']:.3f} ms per decode step (graph; 1 capture in "
+          f"{ge.capture_s:.3f}s) against {e['ms_per_step']:.3f} (eager); "
+          f"launches {g['launches']}")
+    res = {"identical_logprobs": lp_equal, "steps": g["steps"],
+           "graph_ms_per_step": g["ms_per_step"],
+           "eager_ms_per_step": e["ms_per_step"],
+           "capture_s": ge.capture_s, "graph_wall_s": g["wall_s"],
+           "eager_wall_s": e["wall_s"], "launches": g["launches"]}
+    del g, e, ge, ee
+    return res
+
+
+def phase_graph(torch, dev, model, params) -> dict:
+    """internlm2 through the CUDA graph against the eager block: greedy on
+    contiguous, paged and paged-int8 KV, sampled (temperature 1, seed 0)
+    on contiguous; then ``reset(params=...)`` to another seed's weights
+    must serve what a new engine on those weights serves."""
+    res = {}
+    for kv, kv_dtype in (("contiguous", None), ("paged", None),
+                         ("paged", "int8")):
+        run = kv + ("-int8" if kv_dtype else "")
+        res[run] = graph_vs_eager(torch, dev, model, params, "graph", run,
+                                  kv=kv, kv_dtype=kv_dtype)
+    res["contiguous-t1"] = graph_vs_eager(
+        torch, dev, model, params, "graph", "contiguous, temperature 1",
+        temperature=1.0)
+    other = model.init(torch.Generator(device=dev).manual_seed(1))
+    a = serve_short(torch, dev, model, params)
+    eng = a["engine"]
+    b = serve_short(torch, dev, model, other, engine=eng)
+    fresh = serve_short(torch, dev, model, other)
+    if not same_outputs(b["outputs"], fresh["outputs"]):
+        raise AssertionError("graph: after reset(params=...) the engine "
+                             "does not serve what a new engine on those "
+                             "weights serves")
+    if same_outputs(a["outputs"], b["outputs"], logprobs=False) \
+            or eng.captures != 2:
+        raise AssertionError(f"graph: reset(params=...) did not swap the "
+                             f"weights into a new capture ({eng.captures} "
+                             f"captures)")
+    print(f"[graph] reset(params=<seed 1>): a new capture "
+          f"({eng.captures} in {eng.capture_s:.3f}s), outputs identical to "
+          f"a new engine's on those weights")
+    res["reset"] = {"captures": eng.captures, "capture_s": eng.capture_s}
+    del a, b, fresh, eng, other
+    return res
+
+
+def phase_trace(torch, dev, model, params, closed_rate: float) -> dict:
+    """``run_trace`` in real time: the serve prompts at MAX_NEW new tokens
+    through a contiguous engine of SLOTS slots, arriving as a Poisson
+    process (``RandomState(0)``) at half ``closed_rate``, the request rate
+    of the closed-loop contiguous serve run.  Every request finishes
+    well formed with ``0 <= arrival < first token <= finish``; prints
+    throughput, TTFT and latency (p50 and p99 computed here)."""
+    from repro_torch.serve import Engine, EngineConfig, Request, run_trace
+
+    rate = closed_rate / 2
+    rs = np.random.RandomState(0)
+    arrivals = np.cumsum(rs.exponential(1 / rate, N_REQ))
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=MAX_NEW,
+                    arrival_time=float(t))
+            for i, (p, t) in enumerate(zip(serve_prompts(model.cfg.vocab_size),
+                                           arrivals))]
+    eng = Engine(model, params, EngineConfig(num_slots=SLOTS,
+                                             max_seq_len=MAX_SEQ),
+                 device=dev)
+    rep = run_trace(eng, reqs, realtime=True)
+    outs = rep["outputs"]
+    check_outputs("trace", outs)
+    for o in outs:
+        if not 0 <= o.arrival_time < o.first_token_time <= o.finish_time:
+            raise AssertionError(f"trace: rid {o.rid} stamps out of order")
+    lat = np.array([o.finish_time - o.arrival_time for o in outs])
+    ttft = np.array([o.first_token_time - o.arrival_time for o in outs])
+    m = eng.metrics()
+    res = {k: rep[k] for k in ("makespan_s", "tokens", "tok_per_s",
+                               "ttft_mean_s", "latency_mean_s",
+                               "latency_p95_s", "slot_utilization",
+                               "peak_active")}
+    res.update(rate_per_s=rate, arrivals=arrivals.tolist(),
+               latency_p50_s=float(np.quantile(lat, 0.5)),
+               latency_p99_s=float(np.quantile(lat, 0.99)),
+               ttft_p50_s=float(np.quantile(ttft, 0.5)),
+               ttft_p99_s=float(np.quantile(ttft, 0.99)),
+               ms_per_step=m.decode_time_s / max(m.steps, 1) * 1e3,
+               captures=eng.captures, capture_s=eng.capture_s)
+    print(f"[trace] {ARCH} contiguous, {SLOTS} slots: {N_REQ} requests at "
+          f"{rate:.3f}/s (half the closed loop's {closed_rate:.3f}/s), "
+          f"{MAX_NEW} new tokens: {res['tokens']} tokens in "
+          f"{res['makespan_s']:.2f}s = {res['tok_per_s']:.1f} tok/s; TTFT "
+          f"mean {res['ttft_mean_s'] * 1e3:.1f} ms (p50 "
+          f"{res['ttft_p50_s'] * 1e3:.1f}, p99 {res['ttft_p99_s'] * 1e3:.1f});"
+          f" latency mean {res['latency_mean_s']:.3f}s, p50 "
+          f"{res['latency_p50_s']:.3f}, p95 {res['latency_p95_s']:.3f}, p99 "
+          f"{res['latency_p99_s']:.3f}; {res['ms_per_step']:.3f} ms per "
+          f"decode step, {eng.captures} capture(s) in {eng.capture_s:.3f}s")
+    del eng, rep, outs
+    return res
 
 
 def token_share_reward(vocab_size: int):
@@ -1953,15 +2160,26 @@ def phase_mux(torch, dev, model, init_params):
             total[k] += counts[k]
         return (hist, report), counts, wall
 
-    def line(label, report, wall, counts):
+    def line(label, report, wall, counts, jobs):
+        """Print a run's numbers; returns its jobs' decode-block CUDA
+        graph captures: count, host seconds, ms per decode step."""
         s = report.summary()
+        engines = [e for j in jobs for e in j._engines.values()]
+        caps = {"captures": sum(e.captures for e in engines),
+                "capture_s": sum(e.capture_s for e in engines),
+                "ms_per_decode_step": 1e3 * sum(t for j in jobs
+                                                for t, _ in j.decode)
+                / max(sum(n for j in jobs for _, n in j.decode), 1)}
         print(f"[mux] {label}: wall {wall:.2f}s; rollout busy "
               f"{s['total_rollout_s']:.3f}s, train busy "
               f"{s['total_train_s']:.3f}s, reward busy "
               f"{s['total_reward_s']:.3f}s; overlap {s['overlap_s']:.3f}s "
               f"of a back-to-back bubble {s['bubble_back_to_back_s']:.3f}s "
-              f"(reclaimed {s['reclaimed_bubble_frac']:.4f}); launches "
-              f"{counts} ({card})")
+              f"(reclaimed {s['reclaimed_bubble_frac']:.4f}); "
+              f"{caps['ms_per_decode_step']:.3f} ms per decode step, "
+              f"{caps['captures']} CUDA graph captures in "
+              f"{caps['capture_s']:.3f}s; launches {counts} ({card})")
+        return caps
 
     # sequential reference and the pipeline at staleness 0, one seed
     seq = mux_job(model, dev, init_params)
@@ -1969,13 +2187,13 @@ def phase_mux(torch, dev, model, init_params):
         lambda: run_sequential(seq))
     mux_launches(cfg, [h_seq], c_seq, "off")
     mux_check_records([h_seq], "off")
-    line("off", r_seq, w_seq, c_seq)
+    g_seq = line("off", r_seq, w_seq, c_seq, [seq])
     pipe0 = mux_job(model, dev, init_params)
     (h_p0, r_p0), c_p0, w_p0 = counted(
         lambda: run_pipelined(pipe0, max_staleness=0))
     mux_launches(cfg, [h_p0], c_p0, "pipeline-0")
     mux_check_records([h_p0], "pipeline-0")
-    line("pipeline staleness 0", r_p0, w_p0, c_p0)
+    g_p0 = line("pipeline staleness 0", r_p0, w_p0, c_p0, [pipe0])
     # nothing overlaps at staleness 0: iteration 0 must be the sequential
     # run's, token for token; a difference points at a stream hand-off
     a, b = seq.seen[0], pipe0.seen[0]
@@ -2000,10 +2218,10 @@ def phase_mux(torch, dev, model, init_params):
           f"(loss relative difference {rel:.3e}); iteration 1 identical: "
           f"{same1}")
     results["off"] = dict(mux_summary(r_seq), wall=w_seq, history=h_seq,
-                          launches=c_seq)
+                          launches=c_seq, graph=g_seq)
     results["pipeline-0"] = dict(mux_summary(r_p0), wall=w_p0, history=h_p0,
                                  launches=c_p0, iteration0_loss_rel=rel,
-                                 iteration1_identical=same1)
+                                 iteration1_identical=same1, graph=g_p0)
     seq_seen0 = seq.seen[0]
     del seq, pipe0
 
@@ -2012,13 +2230,13 @@ def phase_mux(torch, dev, model, init_params):
         lambda: run_pipelined(pipe1, max_staleness=1))
     mux_launches(cfg, [h_p1], c_p1, "pipeline-1")
     mux_check_records([h_p1], "pipeline-1", stale=(0, 1))
-    line("pipeline staleness 1", r_p1, w_p1, c_p1)
+    g_p1 = line("pipeline staleness 1", r_p1, w_p1, c_p1, [pipe1])
     print(f"[mux] pipeline-1 staleness "
           f"{[r['rollout_staleness'] for r in h_p1]}, ratio_mean "
           f"{[round(r['ratio_mean'], 6) for r in h_p1]}, clip_frac "
           f"{[r['clip_frac'] for r in h_p1]}")
     results["pipeline-1"] = dict(mux_summary(r_p1), wall=w_p1, history=h_p1,
-                                 launches=c_p1)
+                                 launches=c_p1, graph=g_p1)
     del pipe1
 
     # the pinned host cache alone, then two jobs through it, each from its
@@ -2082,7 +2300,7 @@ def phase_mux(torch, dev, model, init_params):
     for o in rt.cache.offload_s:
         firsts.setdefault((o["key"].split("/")[-1], o["first"]),
                           []).append(o["s"])
-    line("coexec (2 jobs)", r_co, w_co, c_co)
+    g_co = line("coexec (2 jobs)", r_co, w_co, c_co, jobs)
     print(f"[mux] coexec: executor wall {r_co.wall_s:.2f}s (the rest of "
           f"{w_co:.2f}s: seeding the cache, the jobs' initial states and "
           f"the final restores); offload host seconds, first into a new "
@@ -2107,7 +2325,8 @@ def phase_mux(torch, dev, model, init_params):
               f"{v['mean_gb_s']:.2f} GB/s ({card})")
     plan = plan_on_profiles(r_co, jobs, copies)
     results["coexec"] = dict(mux_summary(r_co), wall=w_co, history=h_co,
-                             launches=c_co, host_cache_bytes=cache_bytes,
+                             launches=c_co, graph=g_co,
+                             host_cache_bytes=cache_bytes,
                              host_mem_available=[mem_before, mem_after],
                              max_memory_allocated=peak, phases=switch,
                              copies=copies, copy_summary=summary,
@@ -2151,8 +2370,8 @@ def phase_mux(torch, dev, model, init_params):
         if not torch.equal(jobs[0].seen[0][k], seq_seen0[k]):
             raise AssertionError(f"mux coexec, own runtime: job0 iteration "
                                  f"0 {k} differs from the sequential run's")
-    line("coexec (2 jobs, 1 iteration, its own runtime)", r_own, w_own,
-         c_own)
+    g_own = line("coexec (2 jobs, 1 iteration, its own runtime)", r_own,
+                 w_own, c_own, jobs)
     print(f"[mux] coexec, own runtime: each job's returned state is its "
           f"last train phase's bit for bit "
           f"({len(finals['job0'])} leaves each) after the runtime's cache "
@@ -2160,7 +2379,7 @@ def phase_mux(torch, dev, model, init_params):
           f"run's")
     results["coexec_own_runtime"] = dict(
         mux_summary(r_own), wall=w_own, history=h_own, launches=c_own,
-        final_state_identical=True)
+        final_state_identical=True, graph=g_own)
     del jobs, finals
 
     stream = mux_job(model, dev, init_params)
@@ -2168,12 +2387,13 @@ def phase_mux(torch, dev, model, init_params):
         lambda: run_streaming(stream, max_staleness=1, reward_workers=2))
     mux_launches(cfg, [h_st], c_st, "stream")
     mux_check_records([h_st], "stream", stale=(0, 1))
-    line("stream staleness 1, 2 reward workers", r_st, w_st, c_st)
+    g_st = line("stream staleness 1, 2 reward workers", r_st, w_st, c_st,
+                [stream])
     print(f"[mux] stream reward pool: "
           + ", ".join(f"({t0:.3f}, {t1:.3f})"
                       for _, t0, t1 in r_st.timelines["reward"]))
     results["stream"] = dict(mux_summary(r_st), wall=w_st, history=h_st,
-                             launches=c_st)
+                             launches=c_st, graph=g_st)
     del stream
     results["card"] = card
     return total, results
@@ -2212,10 +2432,13 @@ def phase_serve_rwkv6(torch, dev):
     step_ms = rep["decode_time_s"] / max(steps, 1) * 1e3
     print(f"[serve-rwkv6] {RWKV_ARCH}: {N_REQ} requests, {rep['tokens']} "
           f"tokens, {steps} decode steps in {rep['wall_s']:.2f}s = "
-          f"{rep['tok_per_s']:.1f} tok/s; {step_ms:.2f} ms per decode step, "
-          f"{rep['wall_s'] - rep['decode_time_s']:.2f}s outside decode "
-          f"(prefill, admission); peak memory {peak / 2 ** 30:.2f} GiB; "
-          f"launches {counts}")
+          f"{rep['tok_per_s']:.1f} tok/s; {step_ms:.3f} ms per decode "
+          f"step, {rep['wall_s'] - rep['decode_time_s']:.2f}s outside decode "
+          f"(prefill, admission, {rep['captures']} CUDA graph capture(s) "
+          f"in {rep['capture_s']:.3f}s); peak memory {peak / 2 ** 30:.2f} "
+          f"GiB; launches {counts}")
+    graph = graph_vs_eager(torch, dev, model, params, "serve-rwkv6",
+                           "contiguous")
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
     from repro_torch.models import rwkv6 as rw
 
@@ -2236,6 +2459,8 @@ def phase_serve_rwkv6(torch, dev):
               "prefills": rep["prefills"], "wall_s": rep["wall_s"],
               "decode_time_s": rep["decode_time_s"],
               "tok_per_s": rep["tok_per_s"], "ms_per_decode_step": step_ms,
+              "captures": rep["captures"], "capture_s": rep["capture_s"],
+              "graph_vs_eager": graph,
               "max_memory_allocated": peak, "launches": counts,
               "prefill_decode_bf16": bf, "prefill_decode_float32": f32}
     del rep, rep32, model, params
@@ -2342,10 +2567,13 @@ def phase_serve_zamba2(torch, dev):
     step_ms = rep["decode_time_s"] / max(steps, 1) * 1e3
     print(f"[serve-zamba2] {ZAMBA_ARCH}: {N_REQ} requests, {rep['tokens']} "
           f"tokens, {steps} decode steps in {rep['wall_s']:.2f}s = "
-          f"{rep['tok_per_s']:.1f} tok/s; {step_ms:.2f} ms per decode step, "
-          f"{rep['wall_s'] - rep['decode_time_s']:.2f}s outside decode "
-          f"(prefill, admission); peak memory {peak / 2 ** 30:.2f} GiB; "
-          f"launches {counts}")
+          f"{rep['tok_per_s']:.1f} tok/s; {step_ms:.3f} ms per decode "
+          f"step, {rep['wall_s'] - rep['decode_time_s']:.2f}s outside decode "
+          f"(prefill, admission, {rep['captures']} CUDA graph capture(s) "
+          f"in {rep['capture_s']:.3f}s); peak memory {peak / 2 ** 30:.2f} "
+          f"GiB; launches {counts}")
+    graph = graph_vs_eager(torch, dev, model, params, "serve-zamba2",
+                           "contiguous")
     bf = prefill_decode_check(torch, dev, model, params, outs,
                               "serve-zamba2", "bf16", 0.1,
                               plain=(mb, "mamba2_scan", mamba2_scan_plain))
@@ -2363,6 +2591,8 @@ def phase_serve_zamba2(torch, dev):
               "prefills": rep["prefills"], "wall_s": rep["wall_s"],
               "decode_time_s": rep["decode_time_s"],
               "tok_per_s": rep["tok_per_s"], "ms_per_decode_step": step_ms,
+              "captures": rep["captures"], "capture_s": rep["capture_s"],
+              "graph_vs_eager": graph,
               "max_memory_allocated": peak, "launches": counts,
               "prefill_decode_bf16": bf,
               "prefill_decode_float32": f32}
@@ -2479,6 +2709,10 @@ def main(argv=None) -> int:
     model, params = build(torch, dev)
     init_params = _tree_map(lambda t: t.clone(), params)
     launches, serve = phase_serve(torch, dev, model, params)
+    graph = phase_graph(torch, dev, model, params)
+    trace = phase_trace(torch, dev, model, params,
+                        N_REQ / serve["contiguous"]["wall_s"])
+    torch.cuda.empty_cache()
     train_launches, train = phase_train(torch, dev, model, params)
     del params
     torch.cuda.empty_cache()
@@ -2494,6 +2728,8 @@ def main(argv=None) -> int:
             launches[k] += n
     launches["topk"] = launches["topk_values"] + launches["topk_mask"]
     smi = card_line()
+    total_s = time.perf_counter() - t0
+    print(f"[smoke] every phase passed in {total_s:.1f}s ({smi})")
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = rows[name]
@@ -2512,6 +2748,8 @@ def main(argv=None) -> int:
                    "flash": rows["flash_attention"],
                    "rwkv6_scan": rows["rwkv6_scan"],
                    "mamba2_scan": rows["mamba2_scan"], "topk": rows["topk"],
+                   "graph": graph, "trace": trace,
+                   "total_s": total_s,
                    "train": train, "mux": mux, "serve_rwkv6": serve_rwkv6,
                    "serve_zamba2": serve_zamba2}, f, indent=1, default=str)
     print(smi)

@@ -27,6 +27,13 @@ position 300):
   each call as ``chip_smoke.py``'s timer does, and the split pass's rate
   (live K/V bytes over its device time).
 
+Then, for every KV layout the architecture serves (internlm2:
+contiguous, paged, paged-int8; rwkv6 and zamba2: contiguous), one engine
+tick of 8 live slots from position 300 (``Engine.step``: the decode
+block, its copy to the host and the scheduler's bookkeeping), once with
+the decode block run eagerly and once as the CUDA graph replay the
+engine captures, on engines of the same shape.
+
 For each it prints the wall time of a call, the device events per call,
 the device-busy time (the sum of their times), the idle share of the wall
 time, and the aten ops and device kernels with the most device time.
@@ -116,6 +123,39 @@ def profile_calls(torch, fn, n: int = 3, match=DECODE_ATTN) -> dict:
                              "calls": c // n} for k, (t, c) in kernels]}
 
 
+def profile_ticks(torch, dev, model, params, layouts=(("contiguous", None),),
+                  match=None, n: int = 5) -> dict:
+    """One engine tick of ``SLOTS`` live slots from position 300, for each
+    ``(kv_layout, kv_dtype)`` of ``layouts``: through the eager decode
+    block (``chip_smoke.eager_engine``) and through the CUDA graph, each
+    on its own engine after two warm ticks (the first runs eagerly, the
+    second is the graph's first replay)."""
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    res = {}
+    for kv, kv_dtype in layouts:
+        run = kv + ("-int8" if kv_dtype else "")
+        for name, make in (("eager", chip_smoke.eager_engine),
+                           ("graph", Engine)):
+            eng = make(model, params, EngineConfig(
+                num_slots=SLOTS, max_seq_len=MAX_SEQ, kv_layout=kv,
+                kv_dtype=kv_dtype), device=dev)
+            rs = np.random.RandomState(6)
+            for i in range(SLOTS):
+                eng.submit(Request(rid=i, prompt=rs.randint(
+                    0, model.cfg.vocab_size, 300).astype(np.int32),
+                    max_new_tokens=4 + 2 * n))
+            eng.step()
+            eng.step()
+            key = f"tick {run} {name}"
+            res[key] = profile_calls(torch, eng.step, n=n,
+                                     match=match or {})
+            res[key]["captures"] = eng.captures
+            del eng
+    report(res)
+    return res
+
+
 def profile_recurrent(torch, dev, model, params, match) -> dict:
     """Where a decode step and a prefill of a recurrent model (zamba2,
     rwkv6) spend their time: the batched decode step of a full pool (8
@@ -137,6 +177,7 @@ def profile_recurrent(torch, dev, model, params, match) -> dict:
     report(res)
     report_share(res, "prefill_512")
     del pool
+    res.update(profile_ticks(torch, dev, model, params))
     return res
 
 
@@ -176,6 +217,13 @@ def profile_internlm2(torch, dev, model, params) -> dict:
     report_share(res, "prefill_512")
     del pool
     res["decode_attention_passes"] = profile_decode_passes(torch, dev)
+    ticks = profile_ticks(
+        torch, dev, model, params,
+        (("contiguous", None), ("paged", None), ("paged", "int8")),
+        match={"decode attention": DECODE_ATTN["decode attention"]})
+    for name in ticks:
+        report_share(ticks, name)
+    res.update(ticks)
     return res
 
 

@@ -14,6 +14,7 @@ this machine needs neither ``nvcc`` nor a card until a kernel launches.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -59,6 +60,7 @@ SIGNATURES = {
 _libs: dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
 _count_lock = threading.Lock()
+_recorder = threading.local()      # .counts: this thread's recording
 
 
 def nvcc() -> str:
@@ -124,13 +126,44 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def count(wrapper) -> None:
-    """Add one to ``wrapper.launches``.  Under a lock: the mux executors
+def count(wrapper, n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.launches``.  Under a lock: the mux executors
     launch the same kernel from two threads (flash attention in a
     rollout's prefill and in a train step), and ``+=`` on an attribute is
-    a read-modify-write that can lose an increment."""
+    a read-modify-write that can lose an increment.
+
+    While this thread runs inside :func:`recording` (a CUDA graph capture:
+    the wrapper's kernel is recorded, not launched) the count goes to the
+    recording instead; the graph's owner adds it on every replay."""
+    rec = getattr(_recorder, "counts", None)
+    if rec is not None:
+        rec[wrapper] = rec.get(wrapper, 0) + n
+        return
     with _count_lock:
-        wrapper.launches += 1
+        wrapper.launches += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect this thread's :func:`count` calls into the yielded dict
+    (wrapper -> launches) instead of the wrappers' counters.  Other
+    threads keep counting into the wrappers, so a capture on one executor
+    thread records exactly its own calls while the other thread
+    launches."""
+    if getattr(_recorder, "counts", None) is not None:
+        raise RuntimeError("recording() does not nest")
+    _recorder.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _recorder.counts = None
+
+
+def add_counts(counts: dict) -> None:
+    """Add a :func:`recording` to the wrappers' counters: what one replay
+    of the graph it was recorded for launches."""
+    for wrapper, n in counts.items():
+        count(wrapper, n)
 
 
 def check(name: str, err: int, what: str) -> None:

@@ -40,8 +40,9 @@ def serve_continuous(arch: str, prompts, *, reduced: bool = False,
     ``device`` (the CUDA card unless ``device="cpu"``).
 
     Returns a report: ``outputs`` (``RequestOutput`` by rid), ``texts``,
-    ``wall_s``, ``tokens``, ``tok_per_s``, engine counters, and the
-    drained ``engine`` itself."""
+    ``wall_s``, ``tokens``, ``tok_per_s``, engine counters (from
+    ``Engine.metrics()``), the CUDA graph captures and their host seconds,
+    and the drained ``engine`` itself."""
     dev = resolve_device(device)
     if model is None:
         model = build_model(arch, reduced=reduced)
@@ -64,7 +65,7 @@ def serve_continuous(arch: str, prompts, *, reduced: bool = False,
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     n_tok = sum(o.num_tokens for o in outs)
-    s = engine.stats
+    s = engine.metrics()
     return {"outputs": outs,
             "texts": [tok.decode(t for t in o.tokens if t != tok.EOS)
                       for o in outs],
@@ -75,6 +76,7 @@ def serve_continuous(arch: str, prompts, *, reduced: bool = False,
             "decode_time_s": s.decode_time_s,
             "peak_active": s.peak_active,
             "peak_kv_blocks": s.peak_kv_blocks,
+            "captures": engine.captures, "capture_s": engine.capture_s,
             "engine": engine}
 
 

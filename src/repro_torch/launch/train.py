@@ -27,11 +27,12 @@ training phases on CUDA streams of their own:
 * ``stream``: completed prompt groups flow to ``--reward-workers``
   verifiers and to the trainer (``--micro-groups`` per step; default one
   bit-exact full-batch step per iteration) while the engine still decodes
-  the stragglers, behind the same staleness guard.
+  the stragglers, behind the same staleness guard; ``--elastic`` retunes
+  the reward permit pool between iterations from the runtime's
+  telemetry.
 
-``--carry`` (partial-rollout continuation, which needs suspend/resume) and
-``--elastic`` (which needs the runtime's telemetry) are not ported yet
-and raise ``NotImplementedError``.
+``--carry`` (partial-rollout continuation, which needs suspend/resume) is
+not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -74,11 +75,6 @@ def run_training(arch: str = "internlm2-1.8b", *, reduced: bool = False,
         raise NotImplementedError(
             "--carry (partial-rollout continuation) needs suspend/resume, "
             "which is not ported to repro_torch yet (ROADMAP)")
-    if elastic:
-        raise NotImplementedError(
-            "--elastic needs the runtime's telemetry "
-            "(RollMuxRuntime.metrics), which is not ported to repro_torch "
-            "yet (ROADMAP)")
     if cfg.mode == "coexec" and params is not None:
         raise ValueError("--mux coexec: each job starts from its own "
                          "seed's weights; params= names only one set")
@@ -107,7 +103,7 @@ def run_training(arch: str = "internlm2-1.8b", *, reduced: bool = False,
                             max_staleness=cfg.max_staleness,
                             reward_workers=cfg.reward_workers,
                             micro_groups=cfg.micro_groups,
-                            log_every=log_every)
+                            log_every=log_every, elastic=elastic)
     else:                                   # "coexec"
         if jobs < 1:
             raise ValueError("coexec needs >= 1 jobs")
@@ -186,8 +182,10 @@ def _main():
                          "micro-step (default: all groups of an iteration "
                          "in one bit-exact full-batch step)")
     ap.add_argument("--elastic", action="store_true",
-                    help="stream mode: retune the reward pool from the "
-                         "runtime's telemetry (not ported; raises)")
+                    help="stream mode: retune the reward permit pool "
+                         "between iterations from the runtime's telemetry "
+                         "(grow toward --reward-workers while verifiers "
+                         "queue, shrink while the pool idles)")
     args = ap.parse_args()
     t0 = time.time()
     _, hist, report = run_training(

@@ -89,8 +89,9 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # a Python base, not a tensor made from it: no host-to-device copy, so
+    # a CUDA graph can capture the decode step (the same float32 pow)
+    return 1.0 / torch.pow(float(theta), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -243,7 +243,8 @@ class GRPOJob:
         so the streamed groups stacked by row are its output bit for bit.
         ``on_batch(b)``, when given, receives the task batch before the
         engine runs (reward workers need the answers first).  Returns
-        ``(task_batch, engine_stats)``, the latter this rollout's."""
+        ``(task_batch, engine_stats)``, the latter this rollout's
+        ``Engine.metrics()``."""
         b = self.task.sample_batch(self.batch)
         if on_batch is not None:
             on_batch(b)
@@ -253,7 +254,7 @@ class GRPOJob:
                     self.model, params, prompts, self.sampler,
                     group=self.group, engine=eng, **self._engine_kw):
                 on_group(gout)
-            stats = eng.stats
+            stats = eng.metrics()
         self._sync()
         return b, stats
 

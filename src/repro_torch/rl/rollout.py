@@ -143,8 +143,9 @@ def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
     ``max_new_tokens`` (EOS-filled / zero past each row's length),
     ``prompts``, ``tokens`` (prompt + completion), ``token_versions`` (a
     numpy ``(B, T)`` array of the engine weight version each token was
-    sampled under, -1 past each row's length) and ``engine_stats``, this
-    call's :class:`~repro_torch.serve.engine.EngineStats`."""
+    sampled under, -1 past each row's length) and ``engine_stats``, the
+    engine's :meth:`~repro_torch.serve.engine.Engine.metrics` after this
+    call (a ``core.telemetry.MetricsSnapshot`` of its work only)."""
     prompts_np = np.asarray(prompts, np.int32)
     B = prompts_np.shape[0]
     T = sampler.max_new_tokens
@@ -165,7 +166,7 @@ def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
         "behavior_logp": torch.from_numpy(behavior_logp).to(dev),
         "mask": torch.from_numpy(mask).to(dev),
         "token_versions": token_versions,
-        "engine_stats": engine.stats,
+        "engine_stats": engine.metrics(),
     }
 
 
@@ -187,8 +188,8 @@ def generate_continuous_stream(model, params, prompts,
     ``(rows, T)`` arrays ``completions``, ``behavior_logp``, ``mask`` and
     ``token_versions`` with the batch call's padding, so stacking the
     groups by ``rows`` reproduces its arrays bit for bit.  Groups come in
-    completion order.  Per-call stats are the engine's ``stats`` once the
-    generator is exhausted.
+    completion order.  Per-call telemetry is the engine's ``metrics()``
+    once the generator is exhausted.
 
     ``sync_params`` (weights synced into the live engine mid-rollout,
     ``Engine.reset(carry_live=True)``) needs suspend/resume, which is not

@@ -26,9 +26,12 @@ run while the optimizer updates the weights in place (staleness >= 1, or
 micro-steps that start before the iteration's last group), each weight
 sync hands the rollout a snapshot.
 
-Not ported: ``elastic=True`` (it reads the runtime's telemetry,
-``RollMuxRuntime.metrics``) and a job with ``carry=True`` (partial-rollout
-continuation needs suspend/resume); both raise ``NotImplementedError``.
+* **Elastic reward pool** (``elastic=True``): between iterations the
+  runtime's telemetry retunes the reward permit count within ``[1,
+  reward_workers]``.
+
+Not ported: a job with ``carry=True`` (partial-rollout continuation needs
+suspend/resume) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -103,12 +106,17 @@ def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
     ``reward`` pool.  Each record carries ``rollout_staleness``,
     ``micro_steps`` and the rollout's ``prefills`` and ``decode_steps``.
     (The JAX package's records add the weight versions of a rollout that
-    carried live requests across a weight sync: not ported.)"""
-    if elastic:
-        raise NotImplementedError(
-            "elastic=True retunes the reward pool from the runtime's "
-            "telemetry (RollMuxRuntime.metrics), which is not ported to "
-            "repro_torch yet (ROADMAP, modules to port)")
+    carried live requests across a weight sync: not ported.)
+
+    ``elastic=True`` closes the capacity loop on the reward pool, as the
+    JAX package's executor does: after each iteration, queued reward work
+    (the pool's ``waiting`` gauge) grows the permit count by one toward
+    ``reward_workers``, and a pool busy less than 0.2 of the run so far
+    (``rt.metrics().pool_busy_frac``) with nothing waiting shrinks it by
+    one, never below 1 (:meth:`PermitPool.resize`).  The worker threads
+    stay ``reward_workers``; only the permit bound moves, so the losses
+    are those of the run without it.  Each record then carries
+    ``reward_permits``."""
     if job.carry:
         raise NotImplementedError(
             "carry=True (partial-rollout continuation) needs "
@@ -135,7 +143,7 @@ def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
               "trained": 0, "err": None}
     batches: dict[int, object] = {}         # k -> task batch (answers)
     versions: dict[int, int] = {}           # k -> behaviour-weight version
-    rollout_stats: dict[int, object] = {}   # k -> the rollout's EngineStats
+    rollout_stats: dict[int, object] = {}   # k -> the rollout's metrics()
     rewarded: dict[int, list] = {}          # k -> [(gout, rewards)] arrivals
     history = []
     pool = ThreadPoolExecutor(max_workers=reward_workers,
@@ -248,10 +256,19 @@ def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
                     stats = rollout_stats.pop(k)
                     rewarded.pop(k, None)
                     batches.pop(k, None)
+                if elastic:
+                    rp = rt.pools["reward"]
+                    busy = rt.metrics().pool_busy_frac.get("reward", 0.0)
+                    if rp.waiting and rp.capacity < reward_workers:
+                        rp.resize(rp.capacity + 1)
+                    elif busy < 0.2 and rp.capacity > 1 and not rp.waiting:
+                        rp.resize(rp.capacity - 1)
                 rec = {"step": k, **_merge_recs(recs),
                        **_rollout_counts(stats),
                        "rollout_staleness": k - versions[k],
                        "micro_steps": len(recs)}
+                if elastic:
+                    rec["reward_permits"] = rt.pools["reward"].capacity
                 history.append(rec)
                 _log(rec, log_every)
     except BaseException:

@@ -139,7 +139,12 @@ class PagedSlotManager:
         self.events: list[tuple] = []
         self.tables = np.zeros((num_slots, self.max_blocks), np.int32)
         self.nblocks = [0] * num_slots     # materialized blocks per slot
-        self._tables_dev = torch.from_numpy(self.tables.copy()).to(device)
+        # one device buffer for the manager's lifetime (a CUDA graph of
+        # the decode block reads it by address), staged through a host
+        # buffer of its own
+        self._tables_host = torch.zeros(self.tables.shape, dtype=torch.int32)
+        self._tables_dev = torch.zeros(self.tables.shape, dtype=torch.int32,
+                                       device=device)
         self._dirty = False
 
     @property
@@ -206,17 +211,19 @@ class PagedSlotManager:
         self.events.append(("release", rid, slot))
 
     def device_tables(self) -> torch.Tensor:
-        """Device copy of the block tables (re-uploaded only when changed).
+        """The block tables on the device: one ``(N, MB)`` int32 buffer,
+        the same tensor on every call, refreshed in place when the host
+        tables changed since the last call.
 
-        The upload snapshots ``self.tables`` (``.copy()``) before
-        ``torch.from_numpy``: ``from_numpy`` aliases the host buffer, which
-        keeps mutating in place, so without the snapshot a CPU "upload"
-        would be the live array itself and a later row zeroing (a slot
-        released right after its admit) would rewrite tables already handed
-        to a scatter or a decode step."""
+        The refresh snapshots ``self.tables`` into a host buffer and copies
+        that: the live array keeps mutating in place, so a copy read from
+        it (on the CPU, or asynchronously on the card) would let a later
+        row zeroing (a slot released right after its admit) rewrite
+        tables already handed to a scatter or a decode step.  Until the
+        next call the buffer keeps what it was given."""
         if self._dirty:
-            self._tables_dev = torch.from_numpy(self.tables.copy()).to(
-                self.device)
+            np.copyto(self._tables_host.numpy(), self.tables)
+            self._tables_dev.copy_(self._tables_host, non_blocking=True)
             self._dirty = False
         return self._tables_dev
 

@@ -25,7 +25,9 @@ from repro.rl.rollout import \
     generate_continuous as jax_generate_continuous  # noqa: E402
 from repro.serve import RolloutSpec  # noqa: E402
 from repro_torch.convert import from_jax_params  # noqa: E402
+from repro_torch.core.telemetry import MetricsSnapshot  # noqa: E402
 from repro_torch.data import tokenizer as tok  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.rl import SamplerConfig, generate_continuous  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig, Request  # noqa: E402
@@ -70,7 +72,8 @@ def test_generate_continuous_matches_jax_pallas(pair, layout, kv_dtype):
                                np.asarray(ref["behavior_logp"]),
                                atol=1e-4 if kv_dtype is None else 2e-3,
                                rtol=0)
-    stats = got["engine_stats"]
+    stats = got["engine_stats"]               # Engine.metrics(), as the JAX
+    assert isinstance(stats, MetricsSnapshot)  # package returns
     assert stats.prefills == len(prompts)
     assert stats.peak_active == 2            # queued and recycled
 
@@ -144,3 +147,93 @@ def test_engine_refuses_what_is_not_ported(pair):
             call()
     with pytest.raises(ValueError, match="params live on"):
         Engine(tm, tp, EngineConfig(), device="meta")
+
+
+def test_static_device_tables(pair):
+    """``device_tables()`` is one buffer for the manager's lifetime,
+    refreshed in place: after every assign, ensure and release it holds
+    the host tables, and until the next call it keeps what it was given
+    (a row zeroed later does not rewrite a table handed out earlier)."""
+    _, _, tm, tp = pair
+    eng = Engine(tm, tp, EngineConfig(num_slots=3, max_seq_len=24,
+                                      kv_layout="paged", kv_block_size=4),
+                 device="cpu")
+    sl = eng.slots
+    buf = sl.device_tables()
+    assert buf.dtype == torch.int32 and tuple(buf.shape) == sl.tables.shape
+
+    def same():
+        t = sl.device_tables()
+        assert t is buf
+        np.testing.assert_array_equal(t.numpy(), sl.tables)
+
+    a = sl.assign(10, prompt_len=5, total_budget=12)
+    same()
+    b = sl.assign(11, prompt_len=9, total_budget=20)
+    same()
+    sl.ensure(a, 11)
+    same()
+    handed = buf[b].clone()
+    sl.release(b)
+    assert torch.equal(buf[b], handed) and not sl.tables[b].any()
+    same()
+    assert not buf[b].any()
+    sl.release(a)
+    same()
+    sl.check()
+
+
+def test_graph_key_tracks_what_a_capture_reads(pair):
+    """On the CPU the block runs eagerly and nothing is captured; the key
+    a capture would be held to moves with the weights (``reset(params=)``,
+    ``params = None``) and the generator, and with nothing else."""
+    _, _, tm, tp = pair
+    eng = Engine(tm, tp, EngineConfig(num_slots=2, max_seq_len=24,
+                                      kv_layout="paged", kv_block_size=4,
+                                      temperature=1.0), device="cpu")
+    eng.submit(Request(rid=0, prompt=_prompts()[0], max_new_tokens=3))
+    eng.run()
+    assert eng._graph_for_tick() is None and eng.captures == 0
+    k0 = eng._graph_key()
+    eng.reset()
+    assert eng._graph_key() == k0                 # no new weights
+    tp2 = {k: v for k, v in tp.items()}
+    tp2["lm_head"] = tp["lm_head"].clone()
+    eng.reset(params=tp2)
+    k1 = eng._graph_key()
+    assert k1 != k0 and k1[1:] == k0[1:]          # only the weights moved
+    eng.params = None                             # a drained job's engine
+    assert eng._graph_key()[0] is None
+    eng.reset(params=tp2, generator=torch.Generator().manual_seed(3))
+    assert eng._graph_key()[:2] == k1[:2] and eng._graph_key() != k1
+
+
+def test_replays_count_the_launches_recorded_at_capture():
+    """A capture records each wrapper's launches on its own thread only
+    (another thread keeps counting into the wrappers); every replay adds
+    the recording."""
+    import threading
+
+    def a():
+        pass
+
+    def b():
+        pass
+    a.launches = b.launches = 0
+    with _build.recording() as rec:
+        _build.count(a)
+        _build.count(a)
+        _build.count(b, 3)
+        t = threading.Thread(target=lambda: _build.count(b))
+        t.start()
+        t.join()
+        with pytest.raises(RuntimeError, match="nest"):
+            with _build.recording():
+                pass
+    assert rec == {a: 2, b: 3}
+    assert (a.launches, b.launches) == (0, 1)     # the other thread's
+    for _ in range(4):                            # four replays
+        _build.add_counts(rec)
+    assert (a.launches, b.launches) == (8, 13)
+    _build.count(a)                               # recording over
+    assert a.launches == 9

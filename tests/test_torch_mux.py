@@ -281,6 +281,45 @@ def test_executors_match_jax_sequential(model, jax_runs, mode):
                                            rtol=1e-4, err_msg=k)
 
 
+def test_stream_elastic_retunes_permits_without_changing_math(
+        model, jax_runs, monkeypatch, capsys):
+    """``run_streaming(elastic=True)`` moves only the reward permit bound
+    (tests/test_elastic.py on the JAX package): its losses are those of
+    the run without it, bit for bit, and those of the JAX package's
+    ``run_streaming(elastic=True)`` at temperature 0 within 1e-4; every
+    record carries ``reward_permits`` within [1, reward_workers], and no
+    record without elastic does.  The CLI's ``--mux stream --elastic``
+    runs."""
+    from repro.rl.stream import run_streaming as jax_run_streaming
+
+    def job():
+        return GRPOJob("job0", model=model, seed=0, reward_fn=toy_reward,
+                       device="cpu", params=jax_runs[0][0], **JAX_KW)
+    _, h_ref, _ = run_streaming(job(), max_staleness=0, reward_workers=3)
+    _, h_el, _ = run_streaming(job(), max_staleness=0, reward_workers=3,
+                               elastic=True)
+    jjob = jcoexec.GRPOJob("job0", model=jax_build(ARCH, reduced=True),
+                           seed=0, rollout="engine", kernel_backend="pallas",
+                           reward_fn=toy_reward, **JAX_KW)
+    _, h_jax, _ = jax_run_streaming(jjob, max_staleness=0, reward_workers=3,
+                                    elastic=True)
+    assert [r["loss"] for r in h_ref] == [r["loss"] for r in h_el]
+    assert all(1 <= r["reward_permits"] <= 3 for r in h_el + h_jax)
+    assert all("reward_permits" not in r for r in h_ref)
+    assert len(h_el) == len(h_jax) == JAX_KW["steps"]
+    for r, jr in zip(h_el, h_jax):
+        assert (r["reward"], r["tokens"]) == (jr["reward"], jr["tokens"])
+        for k in DIAG:
+            np.testing.assert_allclose(r[k], jr[k], atol=1e-4, rtol=1e-4,
+                                       err_msg=k)
+    monkeypatch.setattr(sys, "argv", [
+        "train", "--reduced", "--device", "cpu", "--mux", "stream",
+        "--elastic", "--steps", "2", "--batch", "2", "--group", "2",
+        "--max-new", "4"])
+    train_cli._main()
+    assert "mux=stream" in capsys.readouterr().out
+
+
 # ---------------------------------------------------------------------------
 # (f): the streamed groups are the batch rollout's arrays
 # ---------------------------------------------------------------------------
@@ -377,7 +416,7 @@ def test_persistent_engine_matches_a_new_engine_per_call(model, layout):
         assert (b["token_versions"][m] == i + 1).all()
         assert (b["token_versions"][~m] == -1).all()
         assert (a["token_versions"][m] == 0).all()
-    assert eng.stats is reused[1]["engine_stats"]
+    assert reused[1]["engine_stats"] == eng.metrics()
     bad = [dict(kw, kv_layout="contiguous" if layout == "paged"
                 else "paged"),
            dict(kw, kv_dtype="int8")]
@@ -422,17 +461,13 @@ def test_what_needs_unported_modules_is_refused_by_name(model, monkeypatch):
         device="cpu")
     with pytest.raises(NotImplementedError, match="carry_live"):
         next(stream)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        run_streaming(make_job(model), elastic=True)
     with pytest.raises(NotImplementedError, match="suspend/resume"):
         run_streaming(make_job(model, carry=True))
-    for flag, what in (("--carry", "suspend/resume"),
-                       ("--elastic", "telemetry")):
-        monkeypatch.setattr(sys, "argv", [
-            "train", "--reduced", "--device", "cpu", "--mux", "stream",
-            flag])
-        with pytest.raises(NotImplementedError, match=what):
-            train_cli._main()
+    monkeypatch.setattr(sys, "argv", [
+        "train", "--reduced", "--device", "cpu", "--mux", "stream",
+        "--carry"])
+    with pytest.raises(NotImplementedError, match="suspend/resume"):
+        train_cli._main()
     with pytest.raises(ValueError, match="coexec"):
         train_cli.run_training(ARCH, reduced=True, mux="coexec",
                                params=params, device="cpu")

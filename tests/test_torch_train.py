@@ -450,14 +450,16 @@ def test_run_training_on_cpu_and_what_is_not_ported():
     assert len(report.timelines["rollout"]) == len(
         report.timelines["train"]) == 2
     assert set(report.profiles) == {"job0"}
-    # the mux modes run (tests/test_torch_mux.py); what they need from
-    # modules not ported yet is refused by name
+    # the mux modes run (tests/test_torch_mux.py), the elastic reward
+    # pool too; what they need from modules not ported yet is refused by
+    # name
     with pytest.raises(NotImplementedError, match="suspend/resume"):
         run_training(ARCH, reduced=True, mux="stream", carry=True,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        run_training(ARCH, reduced=True, mux="stream", elastic=True,
-                     device="cpu")
+    _, hist = run_training(ARCH, reduced=True, mux="stream", elastic=True,
+                           steps=2, batch=2, group=2, max_new=4,
+                           reward_workers=2, log_every=0, device="cpu")
+    assert all(1 <= r["reward_permits"] <= 2 for r in hist)
     with pytest.raises(ValueError, match="unknown mux"):
         run_training(ARCH, reduced=True, mux="bogus", device="cpu")
     with pytest.raises(NotImplementedError, match="stack_decode_step"):

@@ -133,12 +133,53 @@ Phases, in order; any failure exits non-zero:
              ``RandomState(0)`` at half the closed-loop contiguous run's
              request rate: throughput, TTFT and latency (mean, p50, p95,
              p99), every request's stamps in order.
+   suspend — the 16 serve prompts, 8 slots, 128 new tokens, on
+             contiguous, paged and paged-int8 KV at block sizes 1 and 4:
+             each request's stop token is the first token its
+             uninterrupted run emits new at position 40 or later (at block
+             size 4 even rids at a block's last step, odd rids inside a
+             block); each handle waits HOLD_TICKS ticks, its pinned blocks
+             are then held to their contents at suspension, and it is
+             resumed with no tool tokens.  Tokens identical to the
+             uninterrupted run; logprobs bit for bit where the boundary
+             logits were carried (INT8_TOL on int8), within REPLAY_TOL
+             where the boundary was replayed at batch 1; launches exact
+             (the layout's decode kernel once a layer per forced token
+             too); one decode capture per engine across every cycle;
+             host ms of a suspend and a resume beside the tick's.  Paged:
+             dropped handles keep conservation and leave the pool clean.
+             A planted fault (one handle resumed with its index off by
+             one) must fail the check.  float32 (weights upcast, 4
+             requests, contiguous and paged): 16 tool tokens injected at
+             resume, the log-softmax after them held to a prefill of
+             history + tool within INJECT_TOL, argmax equal.
+   agentic — ``run_episodes`` on a paged pool of 8 slots: 32 episodes of
+             32-128 ids, ``CountdownToolEnv`` (each prompt's third greedy
+             token a boundary, 2 tool calls of 16 tokens), 128 new tokens
+             an episode, tool latency 16 ticks; the suspend, hold and ideal
+             arms token-identical, suspend's ticks at most hold's; ticks,
+             wall, tok/s and the reclaimed fraction (hold - suspend) /
+             (hold - ideal); launches exact.
+   carry   — ``reset(params2, carry_live=True)`` after 16 ticks of 8
+             requests: tokens before the swap the old weights' run bit for
+             bit, versions {0, 1} monotone per row, two runs identical,
+             one capture after the reset; then ``run_streaming`` with a
+             carry job (what ``run_training(mux="stream", carry=True)``
+             runs), staleness 1, a weight sync after every group: tokens
+             older than their iteration's newest weights.
+   static  — ``generate`` (greedy) over 16 prompts of 128 ids x 128
+             tokens against the engine's contiguous run: first tokens
+             identical, on the agreeing prefix mean exp(diff) within 1e-2
+             of 1 and max |diff| within REPLAY_TOL; exact launches; then
+             two GRPO iterations with ``rollout="static"`` (rollout and
+             train seconds).
 5. train   — two GRPO iterations at full width through ``run_training``
              (batch 4 x group 4, 128 new tokens, temperature 1, engine
              rollout, ``--mux off``): decode attention layers x decode
              steps times, flash attention layers x (prefills + 2) times per
              iteration (the forward and its recompute under remat), greedy
-             sampling never; finite loss and gradient norm; the trainer's
+             sampling never (``rollout="engine"`` given: the default is
+             the static batch); finite loss and gradient norm; the trainer's
              log-probabilities of the sampled tokens match the engine's
              (mean ratio within 1e-2 of 1); the weights move.
 6. mux     — the phase-multiplexing executors at the train phase's full
@@ -203,7 +244,10 @@ Phases, in order; any failure exits non-zero:
              mean of exp(diff) is held within 0.1 of 1 and the 1e-2 measure
              of the train phase is held on a float32 run of 4 requests with
              the same weights upcast.  The CUDA graph is held against the
-             eager block as in the graph phase (temperature 0).
+             eager block as in the graph phase (temperature 0).  4
+             requests x 32 tokens suspended and resumed at block size 1
+             equal the uninterrupted run bit for bit; block size 4 with
+             stop tokens is refused.
 8. serve-zamba2 — rwkv6's weights freed, zamba2-2.7b at full width (54
              Mamba2 layers, d_model 2560, 80 SSD heads of 64, the shared
              attention block after every 6th layer, vocab 32000) in bf16
@@ -214,7 +258,8 @@ Phases, in order; any failure exits non-zero:
              decode attention kernel.  Prefill and decode are held to each
              other as for rwkv6: bf16 within 0.1 (with the plain scan's
              numbers beside it), float32 (4 requests, weights upcast)
-             within 1e-2; the CUDA graph against the eager block.
+             within 1e-2; the CUDA graph against the eager block; suspend
+             and resume at block size 1 as for rwkv6.
 
 In the float32 runs of phases 7 and 8 the engine's tokens are also held to
 the re-prefill's argmax (log-probability gap within 1e-2); in bf16 the gap
@@ -1696,7 +1741,7 @@ def phase_train(torch, dev, model, params):
     t0 = time.perf_counter()
     state, hist, report = run_training(
         ARCH, model=model, params=params, steps=2, batch=4, group=4,
-        max_new=MAX_NEW, temperature=1.0,
+        max_new=MAX_NEW, temperature=1.0, rollout="engine",
         reward_fn=token_share_reward(cfg.vocab_size),
         device=dev, log_every=1, return_report=True)
     torch.cuda.synchronize()
@@ -1755,6 +1800,707 @@ def phase_train(torch, dev, model, params):
                     "launches": counts}
 
 
+# ---------------------------------------------------------------------------
+# suspend/resume, agentic episodes, partial-rollout carry, static generate
+# ---------------------------------------------------------------------------
+STOP_FROM = 40         # a request's stop token: new in its run from here on
+HOLD_TICKS = 8         # ticks a handle stays suspended before its resume
+TOOL_LEN = 16          # tokens of a tool's reply
+REPLAY_TOL = 5e-2      # |logprob| drift of a tail resumed from a replayed
+#                        boundary (batch-1 products round unlike batch 8's)
+INT8_TOL = 2e-3        # int8: the tail block quantized again
+INJECT_TOL = 1e-3      # float32: logits after injection against a prefill
+AGENT_EPISODES, AGENT_TURNS = 32, 2
+CARRY_REQ, CARRY_NEW, CARRY_TICKS = 8, 64, 16
+RECURRENT_REQ, RECURRENT_NEW = 4, 32
+
+
+def timed_engine(*args, **kw):
+    """An engine that records the host seconds of each suspension in
+    ``suspend_s`` (a subclass made here, as :func:`eager_engine`)."""
+    from repro_torch.serve.engine import Engine
+
+    class TimedEngine(Engine):
+        def _suspend_slot(self, slot, **kws):
+            t0 = time.perf_counter()
+            try:
+                return super()._suspend_slot(slot, **kws)
+            finally:
+                self.suspend_s.append(time.perf_counter() - t0)
+    eng = TimedEngine(*args, **kw)
+    eng.suspend_s = []
+    return eng
+
+
+def pick_stops(outs, block_size, start=None):
+    """Per rid, ``(token, position)``: the first token at ``position >=
+    start`` that the request's uninterrupted run has not emitted before
+    (so the suspension fires there), with a token after it.  At
+    ``block_size > 1`` even rids stop at a decode block's last step (the
+    boundary logits are carried) and odd rids inside a block (they are
+    replayed at resume)."""
+    start = STOP_FROM if start is None else start
+    stops = {}
+    for o in outs:
+        for j in range(start, o.num_tokens - 1):
+            t = o.tokens[j]
+            if t in o.tokens[:j]:
+                continue
+            if block_size > 1 and ((j + 1) % block_size == 0) != \
+                    (o.rid % 2 == 0):
+                continue
+            stops[o.rid] = (t, j)
+            break
+    return stops
+
+
+def pinned_copy(torch, eng, sreq):
+    """The contents of a paged handle's pinned blocks (and int8 scales)."""
+    ids = torch.as_tensor(list(sreq.block_ids), dtype=torch.long,
+                          device=eng.device)
+    return {name: leaf.index_select(1, ids).clone()
+            for name, leaf in eng.slots.cache.items() if name != "index"}
+
+
+def drive_suspended(torch, eng, reqs, *, tool=None, plant=None,
+                    max_new=None):
+    """Serve ``reqs`` (with stop tokens) through ``eng``: each suspended
+    handle sits HOLD_TICKS loop passes (engine ticks while work is live), its
+    pinned blocks are then held to their contents at suspension, and it is
+    resumed with ``tool(sreq)`` tokens (none by default), no stop tokens
+    and the rest of its budget, as rid ``1000 + rid``.  ``plant`` names a
+    rid whose handle is resumed with its index off by one (the planted
+    fault).  Returns ``{rid: (tokens, logprobs, logits_valid or None)}``
+    over both turns, the resume host seconds and ``(logits after
+    injection, history + tool)`` per resumed rid."""
+    from collections import deque
+
+    max_new = MAX_NEW if max_new is None else max_new
+    pending = deque(reqs)
+    held, first, done, resume_s, injected = [], {}, {}, [], {}
+    moved = []
+    while pending or not eng.idle or held:
+        while pending and eng.submit(pending[0]):
+            pending.popleft()
+        if not eng.idle:
+            eng.step()
+        for h in eng.harvest_suspended():
+            snap = pinned_copy(torch, eng, h) if eng.paged else None
+            held.append([HOLD_TICKS, h, snap])
+        for o in eng.harvest():
+            done[o.rid] = o
+        still = []
+        for item in held:
+            item[0] -= 1
+            h, snap = item[1], item[2]
+            n0 = len(h.out.tokens)
+            tt = np.zeros((0,), np.int32) if tool is None else tool(h)
+            if item[0] > 0 or not eng.can_resume(
+                    h, tt, max_new_tokens=max_new - n0):
+                still.append(item)
+                continue
+            if snap is not None:
+                now = pinned_copy(torch, eng, h)
+                moved += [name for name in snap
+                          if not torch.equal(snap[name], now[name])]
+            if h.req.rid == plant:
+                h.index -= 1
+            rid = h.req.rid
+            first[rid] = (h.out.tokens, h.out.logprobs, h.logits_valid,
+                          h.history)
+            t0 = time.perf_counter()
+            slot = eng.resume(h, tt, max_new_tokens=max_new - n0,
+                              rid=1000 + rid, stop_tokens=())
+            resume_s.append(time.perf_counter() - t0)
+            if tool is not None:
+                injected[rid] = (eng._last_logits[slot].clone(),
+                                 np.concatenate([first[rid][3], tt]))
+        held = still
+    if moved:
+        raise AssertionError(f"suspend: pinned blocks of suspended handles "
+                             f"changed while they waited: {moved}")
+    outs = {}
+    for rid, o in done.items():
+        if rid >= 1000:
+            toks, lps, valid, _ = first[rid - 1000]
+            outs[rid - 1000] = (toks + o.tokens, list(lps) + o.logprobs,
+                                valid)
+        elif rid not in first:
+            outs[rid] = (o.tokens, o.logprobs, None)
+    return outs, resume_s, injected
+
+
+def resume_mismatches(ref, outs, int8) -> tuple:
+    """Hold each request's two turns to its uninterrupted run: tokens
+    identical; logprobs bit for bit where the boundary logits were carried
+    on a float pool, within INT8_TOL on int8, within REPLAY_TOL where the
+    boundary was replayed.  Returns (the rids that fail, max |diff| over
+    the replayed and the carried requests)."""
+    bad, worst = [], {"replayed": 0.0, "carried": 0.0}
+    for rid, (toks, lps, valid) in outs.items():
+        r = ref[rid]
+        a = np.asarray(lps, np.float32)
+        b = np.asarray(r.logprobs, np.float32)
+        if toks != r.tokens or len(a) != len(b):
+            n = next((i for i, (x, y) in enumerate(zip(toks, r.tokens))
+                      if x != y), min(len(toks), len(r.tokens)))
+            print(f"  rid {rid} ({'replayed' if valid is False else 'carried'}"
+                  f"): tokens differ from position {n}")
+            bad.append(rid)
+            continue
+        d = float(np.abs(a - b).max()) if len(a) else 0.0
+        kind = "replayed" if valid is False else "carried"
+        worst[kind] = max(worst[kind], d)
+        tol = (REPLAY_TOL if valid is False else
+               INT8_TOL if int8 else 0.0)
+        if d > tol:
+            print(f"  rid {rid} ({kind}): max |diff| {d:.3e} at position "
+                  f"{int(np.abs(a - b).argmax())} (held to {tol})")
+            bad.append(rid)
+    return bad, worst
+
+
+def stop_requests(prompts, stops, max_new=None):
+    from repro_torch.serve import Request
+    max_new = MAX_NEW if max_new is None else max_new
+    return [Request(rid=i, prompt=p, max_new_tokens=max_new,
+                    stop_tokens=(stops[i][0],) if i in stops else ())
+            for i, p in enumerate(prompts)]
+
+
+def expected_launches(cfg, counts, m, kv, replays, injected_tokens=0):
+    """What a suspended run must have launched: its layout's decode kernel
+    once a layer per decode step and per forced token at batch 1 (a
+    replayed boundary token, a tool's reply: on a paged pool in the slot,
+    on a contiguous one on the cache before it is adopted), greedy once a
+    decode step, flash once a layer per prefill (an adoption runs none)."""
+    want = {k: 0 for k in counts}
+    attn = "decode_attention" if kv == "contiguous" \
+        else "paged_decode_attention"
+    want[attn] = cfg.num_layers * (m.steps + replays + injected_tokens)
+    want["greedy_sample"] = m.steps
+    want["flash_attention"] = cfg.num_layers * (m.prefills - m.adoptions)
+    return want
+
+
+def phase_suspend(torch, dev, model, params):
+    """internlm2 at full width: the 16 serve prompts suspended near
+    position 40 and resumed, on contiguous, paged and paged-int8 KV at
+    block sizes 1 and 4, held to the uninterrupted runs; a planted
+    off-by-one resume; tool injection in float32 against a prefill;
+    dropped handles and conservation; captures across cycles."""
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = model.cfg
+    prompts = serve_prompts(cfg.vocab_size)
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+    res = {}
+    planted = None
+    for kv, kv_dtype in (("contiguous", None), ("paged", None),
+                         ("paged", "int8")):
+        for K in (1, 4):
+            run = kv + ("-int8" if kv_dtype else "") + f" block {K}"
+            ecfg = EngineConfig(num_slots=SLOTS, max_seq_len=MAX_SEQ,
+                                kv_layout=kv, kv_dtype=kv_dtype,
+                                block_size=K)
+            ref_eng = Engine(model, params, ecfg, device=dev)
+            for i, p in enumerate(prompts):
+                ref_eng.submit(Request(rid=i, prompt=p,
+                                       max_new_tokens=MAX_NEW))
+            ref = {o.rid: o for o in ref_eng.run()}
+            del ref_eng
+            stops = pick_stops(ref.values(), K)
+            if len(stops) < N_REQ - 4:
+                raise AssertionError(f"suspend {run}: only {len(stops)} "
+                                     f"requests have a stop token")
+            for f in fns.values():
+                f.launches = 0
+            eng = timed_engine(model, params, ecfg, device=dev)
+            t0 = time.perf_counter()
+            outs, resume_s, _ = drive_suspended(
+                torch, eng, stop_requests(prompts, stops))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: f.launches for k, f in fns.items()}
+            m = eng.metrics()
+            replays = sum(v[2] is False for v in outs.values())
+            want = expected_launches(cfg, counts, m, kv, replays)
+            if counts != want:
+                raise AssertionError(f"suspend {run}: launches {counts} != "
+                                     f"{want}")
+            for k in total:
+                total[k] += counts[k]
+            bad, worst = resume_mismatches(ref, outs, kv_dtype == "int8")
+            if bad or sorted(outs) != list(range(N_REQ)):
+                raise AssertionError(f"suspend {run}: rids {bad} resumed "
+                                     f"unlike the uninterrupted run "
+                                     f"(max |diff| {worst})")
+            if m.suspends != len(stops) or m.resumes != len(stops) \
+                    or m.suspended:
+                raise AssertionError(f"suspend {run}: {m.suspends} "
+                                     f"suspends, {m.resumes} resumes for "
+                                     f"{len(stops)} stops")
+            if eng.captures != int(dev.type == "cuda"):
+                raise AssertionError(f"suspend {run}: {eng.captures} "
+                                     f"decode-block captures across "
+                                     f"suspend/resume cycles (want 1)")
+            if eng.paged:
+                eng.slots.check()
+                eng.slots.alloc.assert_clean(context=f"suspend {run}")
+            sus_ms = 1e3 * np.asarray(eng.suspend_s)
+            res_ms = 1e3 * np.asarray(resume_s)
+            tick_ms = 1e3 * m.decode_time_s / max(m.steps // K, 1)
+            carried = sum(v[2] is True for v in outs.values())
+            print(f"[suspend] {run}: {len(stops)} of {N_REQ} requests "
+                  f"suspended near position {STOP_FROM} and resumed "
+                  f"({carried} with carried logits, {replays} replayed) "
+                  f"after {HOLD_TICKS} ticks: tokens identical to the "
+                  f"uninterrupted run, logprobs max |diff| carried "
+                  f"{worst['carried']:.3e}, replayed "
+                  f"{worst['replayed']:.3e}; suspend host ms mean "
+                  f"{sus_ms.mean():.3f} max {sus_ms.max():.3f}, resume "
+                  f"host ms mean {res_ms.mean():.3f} max "
+                  f"{res_ms.max():.3f}, tick {tick_ms:.3f} ms; "
+                  f"{eng.captures} decode capture(s), "
+                  f"{eng.inject_captures} injection capture(s); wall "
+                  f"{wall:.2f}s; launches {counts}")
+            res[run] = {"stops": len(stops), "carried": carried,
+                        "replayed": replays, "max_diff": worst,
+                        "suspend_ms": sus_ms.tolist(),
+                        "resume_ms": res_ms.tolist(), "tick_ms": tick_ms,
+                        "captures": eng.captures,
+                        "inject_captures": eng.inject_captures,
+                        "wall_s": wall, "launches": counts}
+            if kv == "paged":
+                drop_check(torch, eng, prompts, stops, run)
+            if run == "contiguous block 1":
+                planted = (ref, stops, ecfg)
+            del eng, outs
+    # the planted fault: one handle resumed with its index off by one
+    ref, stops, ecfg = planted
+    rid = min(r for r in stops if r < GRAPH_REQ)
+    eng = Engine(model, params, ecfg, device=dev)
+    outs, _, _ = drive_suspended(
+        torch, eng, stop_requests(prompts[:GRAPH_REQ], stops), plant=rid)
+    bad, _ = resume_mismatches(ref, outs, False)
+    if bad != [rid]:
+        raise AssertionError(f"suspend: the planted off-by-one resume of "
+                             f"rid {rid} was not caught (failing rids "
+                             f"{bad})")
+    print(f"[suspend] planted fault: rid {rid} resumed with its index off "
+          f"by one fails the check (failing rids {bad})")
+    del eng, outs
+    # tool injection in float32: logits after 16 injected tokens against
+    # a fresh prefill of history + tool
+    params32 = _tree_map(lambda t: t.float(), params)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    torch.cuda.empty_cache()
+    res["inject"] = {}
+    for kv in ("contiguous", "paged"):
+        for f in fns.values():
+            f.launches = 0
+        ecfg = EngineConfig(num_slots=GRAPH_REQ, max_seq_len=MAX_SEQ,
+                            kv_layout=kv)
+        eng = Engine(model32, params32, ecfg, device=dev)
+        for i, p in enumerate(prompts[:GRAPH_REQ]):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=STOP_FROM + 8))
+        ref = {o.rid: o for o in eng.run()}
+        stops = pick_stops(ref.values(), 1)
+        rs = np.random.RandomState(5)
+        tools = {rid: rs.randint(0, cfg.vocab_size, size=TOOL_LEN).astype(
+            np.int32) for rid in stops}
+        eng = Engine(model32, params32, ecfg, device=dev)
+        outs, _, injected = drive_suspended(
+            torch, eng, stop_requests(prompts[:GRAPH_REQ], stops,
+                                      STOP_FROM + 8),
+            tool=lambda h: tools[h.req.rid], max_new=STOP_FROM + 8)
+        gaps = []
+        for rid, (logits, seq) in injected.items():
+            pre, _ = model32.prefill(
+                params32, torch.from_numpy(seq).to(dev)[None],
+                model32.init_cache(1, MAX_SEQ, device=dev))
+            a = torch.log_softmax(logits.float(), -1)
+            b = torch.log_softmax(pre[0].float(), -1)
+            gaps.append(float((a - b).abs().max()))
+            if int(a.argmax()) != int(b.argmax()):
+                raise AssertionError(f"suspend inject {kv}: rid {rid}'s "
+                                     f"next token after injection differs "
+                                     f"from the prefill's")
+        counts = {k: f.launches for k, f in fns.items()}
+        for k in total:
+            total[k] += counts[k]
+        if len(injected) < 2 or max(gaps) > INJECT_TOL:
+            raise AssertionError(f"suspend inject {kv}: {len(injected)} "
+                                 f"injections, max |log-softmax diff| "
+                                 f"{gaps} (held to {INJECT_TOL})")
+        print(f"[suspend] float32 {kv}: {len(injected)} requests resumed "
+              f"with {TOOL_LEN} tool tokens; log-softmax after injection "
+              f"against a prefill of history + tool: max |diff| "
+              f"{max(gaps):.3e} (held to {INJECT_TOL}), argmax equal; "
+              f"{eng.inject_captures} injection capture(s)")
+        res["inject"][kv] = {"requests": len(injected), "max_diff": gaps}
+        del eng
+    del params32, model32
+    torch.cuda.empty_cache()
+    return total, res
+
+
+def drop_check(torch, eng, prompts, stops, run):
+    """Handles dropped instead of resumed: conservation holds with their
+    pins, and once released the pool is clean."""
+    eng.reset()
+    reqs = stop_requests(prompts[:GRAPH_REQ], stops)
+    for r in reqs:
+        eng.submit(r)
+    handles = []
+    while not eng.idle:
+        eng.step()
+        handles += eng.harvest_suspended()
+    pins = [b for h in handles for b in h.block_ids]
+    eng.slots.check(extra_pins=pins)
+    if eng.metrics().suspended != len(handles) or not handles:
+        raise AssertionError(f"suspend {run}: {len(handles)} handles")
+    for h in handles:
+        h.release()
+    eng.slots.check()
+    eng.slots.alloc.assert_clean(context=f"suspend {run}, dropped handles")
+    print(f"[suspend] {run}: {len(handles)} handles dropped ({len(pins)} "
+          f"pinned blocks): conservation held, the pool is clean")
+
+
+def phase_agentic(torch, dev, model, params):
+    """``run_episodes`` at full width on a paged pool of 8 slots: 32
+    episodes, 2 tool calls each of 16 tokens at 16 ticks' latency, 128
+    new tokens a budget; the suspend, hold and ideal arms of the JAX
+    package's bench (``benchmarks/train_mux.py``)."""
+    from repro_torch.rl import CountdownToolEnv, run_episodes
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = model.cfg
+    rs = np.random.RandomState(1)
+    lens = rs.randint(32, 129, size=AGENT_EPISODES)
+    prompts = [rs.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+    ecfg = EngineConfig(num_slots=SLOTS, max_seq_len=MAX_SEQ,
+                        kv_layout="paged")
+    # the tool-call boundary: each prompt's third greedy token
+    probe = Engine(model, params, ecfg, device=dev)
+    for i, p in enumerate(prompts):
+        probe.submit(Request(rid=i, prompt=p, max_new_tokens=4))
+    stops = sorted({o.tokens[2] for o in probe.run() if o.num_tokens > 2}
+                   - {probe.config.eos_id})
+    del probe
+    env = CountdownToolEnv(tuple(stops), vocab=cfg.vocab_size,
+                           turns=AGENT_TURNS, tool_len=TOOL_LEN)
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+    runs = {}
+    for name, latency, hold in (("suspend", TOOL_LEN, False),
+                                ("hold", TOOL_LEN, True),
+                                ("ideal", 0, False)):
+        for f in fns.values():
+            f.launches = 0
+        eng = Engine(model, params, ecfg, device=dev)
+        t0 = time.perf_counter()
+        eps, stats = run_episodes(eng, env, prompts, max_new_tokens=MAX_NEW,
+                                  tool_latency_ticks=latency,
+                                  hold_slots=hold)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in fns.items()}
+        m = eng.metrics()
+        want = expected_launches(cfg, counts, m, "paged", 0,
+                                 stats["tool_calls"] * TOOL_LEN)
+        if counts != want:
+            raise AssertionError(f"agentic {name}: launches {counts} != "
+                                 f"{want}")
+        for k in total:
+            total[k] += counts[k]
+        eng.slots.alloc.assert_clean(context=f"agentic {name}")
+        gen = sum(len(e.gen_tokens) for e in eps)
+        runs[name] = {"episodes": eps, "ticks": stats["ticks"],
+                      "turns": stats["turns"],
+                      "tool_calls": stats["tool_calls"], "wall_s": wall,
+                      "gen_tokens": gen, "tok_per_s": gen / wall,
+                      "captures": eng.captures,
+                      "inject_captures": eng.inject_captures,
+                      "launches": counts}
+        print(f"[agentic] {name}: {AGENT_EPISODES} episodes, "
+              f"{stats['turns']} turns, {stats['tool_calls']} tool calls, "
+              f"{stats['ticks']} ticks in {wall:.2f}s, {gen} generated "
+              f"tokens = {gen / wall:.1f} tok/s; {eng.captures} decode "
+              f"capture(s), {eng.inject_captures} injection capture(s); "
+              f"launches {counts}")
+        del eng
+    for other in ("hold", "ideal"):
+        for a, b in zip(runs["suspend"]["episodes"],
+                        runs[other]["episodes"]):
+            if a.full_completion != b.full_completion \
+                    or a.action_mask != b.action_mask \
+                    or a.finish_reason != b.finish_reason:
+                raise AssertionError(f"agentic: episode {a.index} differs "
+                                     f"between suspend and {other}")
+    sus, hol, ide = (runs[k]["ticks"] for k in ("suspend", "hold", "ideal"))
+    if runs["suspend"]["tool_calls"] < AGENT_EPISODES // 2 or sus > hol:
+        raise AssertionError(f"agentic: {runs['suspend']['tool_calls']} "
+                             f"tool calls, ticks suspend {sus} hold {hol}")
+    frac = (hol - sus) / max(hol - ide, 1)
+    print(f"[agentic] tokens identical across the three arms; ticks "
+          f"suspend {sus}, hold {hol}, ideal {ide}: reclaimed fraction "
+          f"(hold - suspend) / (hold - ideal) = {frac:.4f}")
+    for r in runs.values():
+        del r["episodes"]
+    return total, {"arms": runs, "reclaimed_frac": frac,
+                   "stop_tokens": len(stops)}
+
+
+def phase_carry(torch, dev, model, params, init_params):
+    """Partial-rollout carry at full width: ``reset(params2,
+    carry_live=True)`` on 8 live requests (held to the old weights' run
+    and to itself), then the streaming executor with a carry job (what
+    ``run_training(mux="stream", carry=True)`` runs) at staleness 1 with a
+    weight sync after every group, so that syncs land mid-rollout."""
+    from repro_torch.rl.coexec import GRPOJob
+    from repro_torch.rl.stream import run_streaming
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = model.cfg
+    params2 = model.init(torch.Generator(device=dev).manual_seed(1))
+    prompts = serve_prompts(cfg.vocab_size)[:CARRY_REQ]
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+
+    def run(new_params):
+        eng = Engine(model, params, EngineConfig(
+            num_slots=SLOTS, max_seq_len=MAX_SEQ, kv_layout="paged"),
+            device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=CARRY_NEW))
+        for _ in range(CARRY_TICKS):
+            eng.step()
+        before = eng.captures
+        if new_params is not None:
+            eng.reset(new_params, carry_live=True)
+        outs = {o.rid: o for o in eng.run()}
+        return outs, eng.captures - before
+
+    for f in fns.values():
+        f.launches = 0
+    ref, _ = run(None)
+    a, caps = run(params2)
+    b, _ = run(params2)
+    for k, f in fns.items():
+        total[k] += f.launches
+    n_old = []
+    for rid, o in a.items():
+        vers = list(o.token_versions)
+        n = vers.count(0)
+        n_old.append(n)
+        if set(vers) != {0, 1} or vers != sorted(vers):
+            raise AssertionError(f"carry: rid {rid} versions {vers}")
+        r = ref[rid]
+        if o.tokens[:n] != r.tokens[:n] or not np.array_equal(
+                np.asarray(o.logprobs[:n], np.float32),
+                np.asarray(r.logprobs[:n], np.float32)):
+            raise AssertionError(f"carry: rid {rid}'s tokens before the "
+                                 f"swap differ from the old weights' run")
+        if (o.tokens, o.logprobs, o.token_versions) != (
+                b[rid].tokens, b[rid].logprobs, b[rid].token_versions):
+            raise AssertionError(f"carry: rid {rid} differs between two "
+                                 f"runs")
+    if caps != int(dev.type == "cuda"):
+        raise AssertionError(f"carry: {caps} captures followed the reset")
+    print(f"[carry] reset(params2, carry_live=True) after {CARRY_TICKS} "
+          f"ticks on {CARRY_REQ} live requests: tokens before the swap the "
+          f"old weights' bit for bit ({min(n_old)}-{max(n_old)} per row), "
+          f"versions {{0, 1}} monotone, two runs identical, one capture "
+          f"after the reset")
+    del ref, a, b, params2
+    torch.cuda.empty_cache()
+
+    class VersionJob(GRPOJob):
+        """Keeps each streamed group's token versions, by iteration."""
+        def reward_group(self, b, gout):
+            self.versions.setdefault(id(b), []).append(
+                (gout["token_versions"].copy(), gout["mask"].copy()))
+            return super().reward_group(b, gout)
+    job = VersionJob("job0", model=model, seed=0, steps=3, batch=4,
+                     group=4, max_new=MAX_NEW, temperature=1.0,
+                     rollout="engine", carry=True,
+                     reward_fn=token_share_reward(cfg.vocab_size),
+                     params=_tree_map(lambda t: t.clone(), init_params),
+                     device=dev)
+    job.versions = {}
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    state, hist, report = run_streaming(job, max_staleness=1,
+                                        micro_groups=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k, f in fns.items():
+        total[k] += f.launches
+    del state
+    if not all(np.isfinite(r["loss"]) for r in hist):
+        raise AssertionError(f"carry: non-finite loss {hist}")
+    stale, tokens = [], []
+    for groups in job.versions.values():
+        v = np.concatenate([g[0][g[1] > 0] for g in groups])
+        stale.append(int((v < v.max()).sum()))
+        tokens.append(int(v.size))
+    del job
+    carried = [r["carried_rows"] for r in hist]
+    s = report.summary()
+    print(f"[carry] run_streaming(carry=True, max_staleness=1, "
+          f"micro_groups=1), 3 iterations in {wall:.2f}s: tokens of a "
+          f"version older than the iteration's newest {stale} of "
+          f"{tokens}, rows mixing versions {carried}, behaviour versions "
+          f"{[r['behavior_versions'] for r in hist]}; rollout busy "
+          f"{s['total_rollout_s']:.2f}s, train busy "
+          f"{s['total_train_s']:.2f}s")
+    return total, {"tokens_before_swap": n_old, "captures_after": caps,
+                   "stream": {"wall_s": wall, "carried_rows": carried,
+                              "stale_tokens": stale, "tokens": tokens,
+                              "history": hist}}
+
+
+def phase_static(torch, dev, model, params, init_params):
+    """Static ``generate`` at full width: 16 equal-length prompts x 128
+    tokens, greedy, against the engine's contiguous run; then two GRPO
+    iterations with ``rollout="static"``."""
+    from repro_torch.launch.train import run_training
+    from repro_torch.rl import SamplerConfig, generate, generate_continuous
+
+    cfg = model.cfg
+    rs = np.random.RandomState(2)
+    prompts = rs.randint(0, cfg.vocab_size, size=(N_REQ, 128)).astype(
+        np.int32)
+    sampler = SamplerConfig(max_new_tokens=MAX_NEW)
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = generate(model, params, prompts, sampler)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in fns.items()}
+    want = {k: 0 for k in counts}
+    want["decode_attention"] = cfg.num_layers * MAX_NEW
+    want["greedy_sample"] = MAX_NEW
+    want["flash_attention"] = cfg.num_layers
+    if counts != want:
+        raise AssertionError(f"static: launches {counts} != {want}")
+    for k in total:
+        total[k] += counts[k]
+    t1 = time.perf_counter()
+    eng = generate_continuous(model, params, prompts, sampler,
+                              num_slots=N_REQ, device=dev)
+    torch.cuda.synchronize()
+    eng_wall = time.perf_counter() - t1
+    for k, f in fns.items():
+        total[k] += f.launches - counts[k]
+    st, et = out["completions"].cpu().numpy(), eng["completions"].cpu().numpy()
+    sl, el = (out["behavior_logp"].cpu().numpy(),
+              eng["behavior_logp"].cpu().numpy())
+    agree = st == et
+    prefix = np.cumprod(agree, axis=1).astype(bool)   # before a divergence
+    diff = np.abs(sl - el)[prefix]
+    ratio = float(np.exp(sl[prefix] - el[prefix]).mean())
+    if not agree[:, 0].all() or abs(ratio - 1) > 1e-2 \
+            or diff.max() > REPLAY_TOL:
+        raise AssertionError(f"static: against the engine first tokens "
+                             f"{agree[:, 0].sum()}/{N_REQ}, mean exp(diff) "
+                             f"{ratio}, max |diff| {diff.max()}")
+    print(f"[static] generate, {N_REQ} prompts of 128 ids x {MAX_NEW} "
+          f"tokens greedy: {wall:.2f}s ({N_REQ * MAX_NEW / wall:.1f} tok/s) "
+          f"against the engine's contiguous run {eng_wall:.2f}s; tokens "
+          f"agree {agree.mean():.4f}, first tokens all; on the agreeing "
+          f"prefix mean exp(diff) {ratio:.6f} (held within 1e-2 of 1), max "
+          f"|diff| {diff.max():.3e} (held to {REPLAY_TOL}); launches "
+          f"{counts}")
+    del out, eng
+    job_params = _tree_map(lambda t: t.clone(), init_params)
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    state, hist, report = run_training(
+        ARCH, model=model, params=job_params, steps=2, batch=4, group=4,
+        max_new=MAX_NEW, temperature=1.0, rollout="static",
+        reward_fn=token_share_reward(cfg.vocab_size), device=dev,
+        log_every=0, return_report=True)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in fns.items()}
+    want = {k: 0 for k in counts}
+    want["decode_attention"] = cfg.num_layers * MAX_NEW * 2
+    want["flash_attention"] = cfg.num_layers * 3 * 2
+    if counts != want:
+        raise AssertionError(f"static GRPO: launches {counts} != {want}")
+    for k in total:
+        total[k] += counts[k]
+    for r in hist:
+        if not np.isfinite(r["loss"]) or r["grad_norm"] <= 0 \
+                or abs(r["ratio_mean"] - 1) > 1e-2:
+            raise AssertionError(f"static GRPO: iteration {r}")
+    roll = [t1_ - t0_ for _, t0_, t1_ in report.timelines["rollout"]]
+    train = [t1_ - t0_ for _, t0_, t1_ in report.timelines["train"]]
+    print(f"[static] 2 GRPO iterations with rollout='static' in "
+          f"{train_wall:.2f}s: rollout s {[round(x, 3) for x in roll]}, "
+          f"train s {[round(x, 3) for x in train]}, ratio_mean "
+          f"{[round(r['ratio_mean'], 6) for r in hist]}; launches {counts}")
+    del state, job_params
+    return total, {"generate_s": wall, "engine_s": eng_wall,
+                   "token_agreement": float(agree.mean()),
+                   "ratio_mean": ratio, "max_diff": float(diff.max()),
+                   "grpo": {"wall_s": train_wall, "rollout_s": roll,
+                            "train_s": train, "history": hist}}
+
+
+def recurrent_suspend_check(torch, dev, model, params, phase) -> dict:
+    """4 requests x 32 tokens at block size 1: suspended and resumed
+    equal to the uninterrupted run, bit for bit; block size 4 with stop
+    tokens refused."""
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    prompts = serve_prompts(model.cfg.vocab_size)[:RECURRENT_REQ]
+    ecfg = EngineConfig(num_slots=RECURRENT_REQ, max_seq_len=MAX_SEQ)
+    eng = Engine(model, params, ecfg, device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=RECURRENT_NEW))
+    ref = {o.rid: o for o in eng.run()}
+    stops = pick_stops(ref.values(), 1, start=4)
+    eng = Engine(model, params, ecfg, device=dev)
+    outs, resume_s, _ = drive_suspended(
+        torch, eng, stop_requests(prompts, stops, RECURRENT_NEW),
+        max_new=RECURRENT_NEW)
+    bad, _ = resume_mismatches(ref, outs, False)
+    if bad or not stops or eng.metrics().resumes != len(stops):
+        raise AssertionError(f"{phase}: suspend/resume at block 1: rids "
+                             f"{bad} differ ({len(stops)} stops)")
+    fused = Engine(model, params, dataclasses.replace(ecfg, block_size=4),
+                   device=dev)
+    stop = next(iter(stops.values()))[0]
+    try:
+        fused.submit(Request(rid=0, prompt=prompts[0],
+                             max_new_tokens=RECURRENT_NEW,
+                             stop_tokens=(stop,)))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"{phase}: stop tokens at block_size 4 were "
+                             f"accepted")
+    print(f"[{phase}] {len(stops)} of {RECURRENT_REQ} requests suspended "
+          f"and resumed at block size 1: tokens and logprobs the "
+          f"uninterrupted run's bit for bit; resume host ms mean "
+          f"{1e3 * np.mean(resume_s):.3f}; block size 4 refused "
+          f"({refused[:60]}...)")
+    return {"stops": len(stops), "resume_ms": (1e3 * np.asarray(
+        resume_s)).tolist()}
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` prints them."""
     return subprocess.run(
@@ -1790,6 +2536,7 @@ def mux_job(model, dev, init_params=None, jid="job0", seed=0, steps=2):
         lambda t: t.clone(), init_params)
     job = RecordingJob(jid, model=model, seed=seed, steps=steps, batch=4,
                        group=4, max_new=MAX_NEW, temperature=1.0,
+                       rollout="engine",
                        reward_fn=token_share_reward(model.cfg.vocab_size),
                        params=params, device=dev)
     job.seen, job.decode, job.fingerprints = [], [], None
@@ -2439,6 +3186,12 @@ def phase_serve_rwkv6(torch, dev):
           f"GiB; launches {counts}")
     graph = graph_vs_eager(torch, dev, model, params, "serve-rwkv6",
                            "contiguous")
+    for f in fns.values():
+        f.launches = 0
+    suspend = recurrent_suspend_check(torch, dev, model, params,
+                                      "serve-rwkv6")
+    for k, f in fns.items():
+        counts[k] += f.launches
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
     from repro_torch.models import rwkv6 as rw
 
@@ -2460,7 +3213,7 @@ def phase_serve_rwkv6(torch, dev):
               "decode_time_s": rep["decode_time_s"],
               "tok_per_s": rep["tok_per_s"], "ms_per_decode_step": step_ms,
               "captures": rep["captures"], "capture_s": rep["capture_s"],
-              "graph_vs_eager": graph,
+              "graph_vs_eager": graph, "suspend": suspend,
               "max_memory_allocated": peak, "launches": counts,
               "prefill_decode_bf16": bf, "prefill_decode_float32": f32}
     del rep, rep32, model, params
@@ -2574,6 +3327,12 @@ def phase_serve_zamba2(torch, dev):
           f"GiB; launches {counts}")
     graph = graph_vs_eager(torch, dev, model, params, "serve-zamba2",
                            "contiguous")
+    for f in fns.values():
+        f.launches = 0
+    suspend = recurrent_suspend_check(torch, dev, model, params,
+                                      "serve-zamba2")
+    for k, f in fns.items():
+        counts[k] += f.launches
     bf = prefill_decode_check(torch, dev, model, params, outs,
                               "serve-zamba2", "bf16", 0.1,
                               plain=(mb, "mamba2_scan", mamba2_scan_plain))
@@ -2592,7 +3351,7 @@ def phase_serve_zamba2(torch, dev):
               "decode_time_s": rep["decode_time_s"],
               "tok_per_s": rep["tok_per_s"], "ms_per_decode_step": step_ms,
               "captures": rep["captures"], "capture_s": rep["capture_s"],
-              "graph_vs_eager": graph,
+              "graph_vs_eager": graph, "suspend": suspend,
               "max_memory_allocated": peak, "launches": counts,
               "prefill_decode_bf16": bf,
               "prefill_decode_float32": f32}
@@ -2713,6 +3472,15 @@ def main(argv=None) -> int:
     trace = phase_trace(torch, dev, model, params,
                         N_REQ / serve["contiguous"]["wall_s"])
     torch.cuda.empty_cache()
+    suspend_launches, suspend = phase_suspend(torch, dev, model, params)
+    agentic_launches, agentic = phase_agentic(torch, dev, model, params)
+    torch.cuda.empty_cache()
+    carry_launches, carry = phase_carry(torch, dev, model, params,
+                                        init_params)
+    torch.cuda.empty_cache()
+    static_launches, static = phase_static(torch, dev, model, params,
+                                           init_params)
+    torch.cuda.empty_cache()
     train_launches, train = phase_train(torch, dev, model, params)
     del params
     torch.cuda.empty_cache()
@@ -2722,8 +3490,9 @@ def main(argv=None) -> int:
     rwkv_launches, serve_rwkv6 = phase_serve_rwkv6(torch, dev)
     torch.cuda.empty_cache()
     zamba_launches, serve_zamba2 = phase_serve_zamba2(torch, dev)
-    for counts in (train_launches, mux_launches_, rwkv_launches,
-                   zamba_launches):
+    for counts in (suspend_launches, agentic_launches, carry_launches,
+                   static_launches, train_launches, mux_launches_,
+                   rwkv_launches, zamba_launches):
         for k, n in counts.items():
             launches[k] += n
     launches["topk"] = launches["topk_values"] + launches["topk_mask"]
@@ -2749,7 +3518,8 @@ def main(argv=None) -> int:
                    "rwkv6_scan": rows["rwkv6_scan"],
                    "mamba2_scan": rows["mamba2_scan"], "topk": rows["topk"],
                    "graph": graph, "trace": trace,
-                   "total_s": total_s,
+                   "suspend": suspend, "agentic": agentic, "carry": carry,
+                   "static": static, "total_s": total_s,
                    "train": train, "mux": mux, "serve_rwkv6": serve_rwkv6,
                    "serve_zamba2": serve_zamba2}, f, indent=1, default=str)
     print(smi)

@@ -4,8 +4,10 @@
         --steps 2 --batch 4 --group 4 --max-new 128 [--kv paged] \
         [--mux off|pipeline|coexec|stream]
 
-Runs the synchronous on-policy loop the paper schedules: rollout through
-the continuous-batching engine -> verifiable reward -> GRPO advantages ->
+Runs the synchronous on-policy loop the paper schedules: rollout (the
+static ``generate`` batch by default, as in the JAX package, or with
+``--rollout engine`` the continuous-batching engine) -> verifiable
+reward -> GRPO advantages ->
 training step (forward through the flash-attention kernel, backward,
 AdamW) -> the trained weights serve the next rollout.  On the CUDA card at
 the architecture's full width with random weights from ``--seed``;
@@ -31,8 +33,9 @@ training phases on CUDA streams of their own:
   the reward permit pool between iterations from the runtime's
   telemetry.
 
-``--carry`` (partial-rollout continuation, which needs suspend/resume) is
-not ported yet and raises ``NotImplementedError``.
+``--carry`` (``--mux stream --rollout engine``) is partial-rollout
+continuation: each weight sync is swapped into the live engine, whose
+in-flight generations are suspended and resumed under the new weights.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ def run_training(arch: str = "internlm2-1.8b", *, reduced: bool = False,
                  steps: int = 50, batch: int = 8, group: int = 4,
                  max_new: int = 8, lr: float = 3e-4, seed: int = 0,
                  log_every: int = 5, model=None, params=None,
-                 rollout: str = "engine", temperature: float = 1.0,
+                 rollout: str = "static", temperature: float = 1.0,
                  num_slots: int | None = None, engine_block_size: int = 1,
                  kv: str = "contiguous", kv_block_size: int = 16,
                  sched: str = "fifo", kv_dtype: str | None = None,
@@ -71,10 +74,9 @@ def run_training(arch: str = "internlm2-1.8b", *, reduced: bool = False,
     :class:`~repro_torch.rl.coexec.MuxReport` when ``return_report``."""
     cfg = MuxConfig(mode=mux, max_staleness=mux_staleness,
                     reward_workers=reward_workers, micro_groups=micro_groups)
-    if carry:
-        raise NotImplementedError(
-            "--carry (partial-rollout continuation) needs suspend/resume, "
-            "which is not ported to repro_torch yet (ROADMAP)")
+    if carry and rollout != "engine":
+        raise ValueError("--carry swaps weights into a live engine: it "
+                         "needs --rollout engine")
     if cfg.mode == "coexec" and params is not None:
         raise ValueError("--mux coexec: each job starts from its own "
                          "seed's weights; params= names only one set")
@@ -89,7 +91,7 @@ def run_training(arch: str = "internlm2-1.8b", *, reduced: bool = False,
             engine_block_size=engine_block_size, kv=kv,
             kv_block_size=kv_block_size, sched=sched, kv_dtype=kv_dtype,
             slo_bound=slo_bound, reward_fn=reward_fn, params=job_params,
-            device=device)
+            device=device, carry=carry)
 
     if cfg.mode == "off":
         out = run_sequential(make_job("job0", seed, params),
@@ -133,9 +135,9 @@ def _main():
     ap.add_argument("--temperature", type=float, default=1.0,
                     help="rollout sampling temperature (0 = greedy)")
     ap.add_argument("--rollout", choices=("static", "engine"),
-                    default="engine",
-                    help="rollout backend (only the continuous-batching "
-                         "engine is ported)")
+                    default="static",
+                    help="rollout backend: the static generate batch or "
+                         "the continuous-batching engine")
     ap.add_argument("--slots", type=int, default=None,
                     help="engine KV slots (default = batch * group)")
     ap.add_argument("--kv", choices=("contiguous", "paged"),
@@ -162,8 +164,10 @@ def _main():
                          "the rollout weights may lag (0 = force sync; "
                          "bit-exact to --mux off but with no overlap)")
     ap.add_argument("--carry", action="store_true",
-                    help="stream mode: partial-rollout continuation (not "
-                         "ported: needs suspend/resume; raises)")
+                    help="stream mode, engine rollout: partial-rollout "
+                         "continuation (each weight sync is swapped into "
+                         "the live engine; in-flight generations carry "
+                         "over)")
     ap.add_argument("--jobs", type=int, default=2,
                     help="coexec mode: number of co-executing jobs "
                          "(job i uses seed+i)")

@@ -129,13 +129,13 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, max_len: int, *,
     if cfg.family == "ssm":
         raise NotImplementedError(
             "the paged layout for the ssm family (rwkv6) is not ported yet: "
-            "it comes with paged, radix and suspend for ssm (ROADMAP, "
-            "modules to port); serve it with kv_layout='contiguous'")
+            "it comes with paged and radix for ssm (ROADMAP, modules to "
+            "port); serve it with kv_layout='contiguous'")
     if cfg.family == "hybrid":
         raise NotImplementedError(
             "the paged layout for the hybrid family (zamba2) is not ported "
-            "yet: it comes with paged, radix and suspend for the hybrid "
-            "family (ROADMAP, modules to port); serve it with "
+            "yet: it comes with paged and radix for the hybrid family "
+            "(ROADMAP, modules to port); serve it with "
             "kv_layout='contiguous'")
     int8 = kv_dtype == "int8"
     pool = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,

@@ -1,5 +1,5 @@
 """Model facade: one object per architecture exposing init, the training
-forward, caches, prefill and the batched decode steps (through the decode
+forward, caches, prefill and the one-token decode steps (through the decode
 attention kernels for GQA stacks, plain for rwkv6 and zamba2).
 Counterpart of ``repro/models/model.py``."""
 from __future__ import annotations
@@ -50,8 +50,10 @@ class Model:
         return stack_prefill(params, self.cfg, tokens, cache)
 
     def decode_step(self, params, token, cache, *, ring: bool = False):
-        """Batched one-token decode over a whole contiguous slot pool in
-        plain PyTorch (the ssm and hybrid families); ``ring`` is refused."""
+        """One-token decode over a contiguous cache of any batch (a slot
+        pool, a batch=1 view, the static ``generate`` batch): the dense
+        family through the decode attention kernel, ssm and hybrid in
+        plain PyTorch; ``ring`` is refused."""
         return stack_decode_step(params, self.cfg, token, cache, ring=ring)
 
     def kernel_supported(self) -> bool:

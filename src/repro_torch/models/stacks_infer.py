@@ -4,10 +4,11 @@
 Counterpart of ``repro/models/stacks_infer.py``: :func:`stack_prefill`
 (dense, ssm and hybrid branches) fills a contiguous cache;
 :func:`stack_kernel_decode_step` decodes one token for every slot of the
-serving pool through the decode attention kernels (dense GQA);
-:func:`stack_decode_step` decodes one token for every slot of the pool in
-plain PyTorch (ssm and hybrid: the recurrent state has no sequence axis
-for a decode kernel, and the JAX engine refuses its kernel backend for the
+serving pool through the decode attention kernels (dense GQA, contiguous
+or paged); :func:`stack_decode_step` decodes one token for every row of a
+contiguous cache of any batch (dense through the kernel step; ssm and
+hybrid in plain PyTorch: the recurrent state has no sequence axis for a
+decode kernel, and the JAX engine refuses its kernel backend for the
 hybrid family).  Caches are updated in place (slice assignment and
 ``index_put_``) where the JAX package rebuilds them with ``.at[].set``.
 """
@@ -119,28 +120,40 @@ def kernel_supported(cfg: ModelConfig) -> bool:
 
 def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
                       cache: dict, *, ring: bool = False):
-    """One-token decode for every slot of the pool, plain PyTorch (ssm and
-    hybrid).
+    """One-token decode for every row of a contiguous cache.
 
-    token: ``(N, 1)`` integer.  cache: ``index`` ``(N,)`` and the family's
-    leaves — ssm: ``att_x``/``ffn_x`` ``(L, N, d)``, ``wkv`` ``(L, N, H, hd,
-    hd)`` float32; hybrid: ``conv`` ``(L, N, W-1, C)``, ``ssm`` ``(L, N, nh,
-    N_state, hd)`` float32, ``attn_k``/``attn_v`` ``(n_attn, N, S, Hkv,
-    hd)``.  The JAX engine vmaps a batch-1 step over the slots; the rows
-    here are as independent, so one batched step computes the same thing
-    (the shared attention block writes and reads each row at its own
-    ``index``).  The cache is updated in place (``index`` advances by one);
-    returns ``(logits (N, V) f32, cache)``.  ``ring`` (the sliding-window
-    ring buffer of the long-context cells) is not ported."""
+    token: ``(N, 1)`` integer.  cache: ``index`` ``(N,)``, or a scalar
+    that every row shares (a batch=1 view, or the static ``generate``
+    batch, as in the JAX package), and the family's leaves — dense:
+    ``k``/``v`` ``(L, N, S, Hkv, hd)``; ssm: ``att_x``/``ffn_x`` ``(L, N,
+    d)``, ``wkv`` ``(L, N, H, hd, hd)`` float32; hybrid: ``conv`` ``(L, N,
+    W-1, C)``, ``ssm`` ``(L, N, nh, N_state, hd)`` float32,
+    ``attn_k``/``attn_v`` ``(n_attn, N, S, Hkv, hd)``.
+
+    The dense family runs :func:`stack_kernel_decode_step` (the decode
+    attention kernel on the card, its plain version on the CPU); ssm and
+    hybrid step their recurrences in plain PyTorch (the recurrent state
+    has no sequence axis for a decode kernel, and the JAX engine refuses
+    its kernel backend for the hybrid family).  The JAX engine vmaps a
+    batch-1 step over the slots; the rows here are as independent, so one
+    batched step computes the same thing.  The cache is updated in place
+    (``index`` advances by one); returns ``(logits (N, V) f32, cache)``.
+    ``ring`` (the sliding-window ring buffer of the long-context cells) is
+    not ported."""
     if ring:
         raise NotImplementedError(
             "ring decode (the sliding-window ring-buffer cache of the "
             "long-context cells) is not ported yet")
-    if cfg.family not in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"stack_decode_step for family {cfg.family!r} is not ported "
-            f"yet: the dense family decodes through "
-            f"stack_kernel_decode_step")
+    index = cache["index"]
+    if index.dim() == 0:
+        # one position for every row: step a per-row copy, then advance
+        # the shared one
+        rows = dict(cache, index=index.expand(token.shape[0]).clone())
+        logits, _ = stack_decode_step(p, cfg, token, rows)
+        index.add_(1)
+        return logits, cache
+    if cfg.family == "dense":
+        return stack_kernel_decode_step(p, cfg, token, cache)
     x = _embed_tokens(p, cfg, token)                         # (N, 1, d)
     if cfg.family == "hybrid":
         x = _hybrid_decode(p, cfg, x, cache)

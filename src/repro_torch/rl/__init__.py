@@ -1,6 +1,10 @@
+from repro_torch.rl.agentic import (CountdownToolEnv, Environment, Episode,
+                                   Turn, run_episodes)
 from repro_torch.rl.rollout import (SamplerConfig, build_engine,
-                                   completions_to_text, generate_continuous,
-                                   run_requests)
+                                   completions_to_text, generate,
+                                   generate_continuous, run_requests)
 
 __all__ = ["SamplerConfig", "build_engine", "completions_to_text",
-           "generate_continuous", "run_requests"]
+           "generate", "generate_continuous", "run_requests",
+           "CountdownToolEnv", "Environment", "Episode", "Turn",
+           "run_episodes"]

@@ -2,9 +2,10 @@
 executors.
 
 Counterpart of ``repro/rl/coexec.py``.  A :class:`GRPOJob` runs its rollout
-phase through a persistent continuous-batching ``serve.Engine`` (weights
-swapped in by ``Engine.reset`` every iteration) and its training phase
-through ``rl.train_step``; executors schedule the two under
+phase through the static ``rl.rollout.generate`` batch (the default, as in
+the JAX package) or a persistent continuous-batching ``serve.Engine``
+(weights swapped in by ``Engine.reset`` every iteration), and its training
+phase through ``rl.train_step``; executors schedule the two under
 ``core.phase_control`` run permits and return a :class:`MuxReport` of the
 measured per-pool timelines.  Three executors live here (the fourth,
 ``run_streaming``, in ``rl/stream.py``):
@@ -27,9 +28,7 @@ streams (rollout outputs to the trainer, weights to the rollout) go
 through ``hand_over``/``take_over``.  The port's AdamW updates the weights
 in place, where the JAX package makes new arrays: wherever a rollout may
 run while the optimizer steps, it is handed a snapshot of the weights (a
-clone on the train stream), never the live tensors.  The rollout takes
-the engine only: the static ``generate`` scan needs ``stack_decode_step``
-(ROADMAP).
+clone on the train stream), never the live tensors.
 """
 from __future__ import annotations
 
@@ -50,7 +49,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.rl.grpo import group_advantages
 from repro_torch.rl.rewards import arithmetic_reward
-from repro_torch.rl.rollout import (SamplerConfig, build_engine,
+from repro_torch.rl.rollout import (SamplerConfig, build_engine, generate,
                                    generate_continuous,
                                    generate_continuous_stream)
 from repro_torch.rl.train_step import make_train_step
@@ -101,25 +100,26 @@ class MuxConfig:
 
 class GRPOJob:
     """One logical RL post-training job: model, task stream, sampler and
-    train step, with its rollout phase served by the continuous-batching
-    engine.
+    train step, with its rollout phase routed through the static
+    ``generate`` batch (``rollout="static"``, the default) or the
+    continuous-batching engine (``rollout="engine"``).
 
     Executors drive :meth:`rollout_step` (or :meth:`rollout_stream`) and
     :meth:`train_phase` in iteration order.  Task batches are drawn from
     the job's numpy stream (the JAX package's, prompt for prompt) and
     sampled tokens from the job's ``torch.Generator`` on ``device``, both
-    in call order.  One persistent engine per shape serves every
-    iteration, its weights swapped in by ``Engine.reset``.  ``params`` are
-    the initial weights (default: the model's random init from ``seed``);
-    the sequential and pipelined executors train them in place.  ``carry``
-    (partial-rollout continuation) is refused by the streaming executor:
-    it needs suspend/resume."""
+    in call order.  On the engine, one persistent engine per shape serves
+    every iteration, its weights swapped in by ``Engine.reset``.
+    ``params`` are the initial weights (default: the model's random init
+    from ``seed``); the sequential and pipelined executors train them in
+    place.  ``carry`` (partial-rollout continuation, engine rollout) lets
+    the streaming executor swap each weight sync into the live engine."""
 
     def __init__(self, job_id: str, model=None, *,
                  arch: str = "internlm2-1.8b", reduced: bool = False,
                  seed: int = 0, steps: int = 50, batch: int = 8,
                  group: int = 4, max_new: int = 8, lr: float = 3e-4,
-                 temperature: float = 1.0, rollout: str = "engine",
+                 temperature: float = 1.0, rollout: str = "static",
                  num_slots: Optional[int] = None, engine_block_size: int = 1,
                  kv: str = "contiguous", kv_block_size: int = 16,
                  num_kv_blocks: Optional[int] = None, sched: str = "fifo",
@@ -127,14 +127,10 @@ class GRPOJob:
                  token_budget: Optional[int] = None, slo_bound: float = 2.0,
                  reward_fn=None, params=None, device=None,
                  carry: bool = False):
-        if rollout == "static":
-            raise NotImplementedError(
-                "rollout='static' (the generate scan) needs "
-                "stack_decode_step, which is not ported yet (ROADMAP, "
-                "modules to port); use rollout='engine'")
-        if rollout != "engine":
+        if rollout not in ("static", "engine"):
             raise ValueError(f"unknown rollout backend {rollout!r}")
         self.job_id = job_id
+        self.rollout = rollout
         self.device = resolve_device(device)
         self.model = model or build_model(arch, reduced=reduced)
         self.seed = seed
@@ -228,31 +224,54 @@ class GRPOJob:
         so permit timelines measure real phase time."""
         b = self.task.sample_batch(self.batch)
         prompts = np.repeat(b.prompts, self.group, axis=0)
-        with torch.no_grad(), self._serving(params, prompts) as eng:
-            out = generate_continuous(self.model, params, prompts,
-                                      self.sampler, engine=eng,
-                                      **self._engine_kw)
+        if self.rollout == "static":
+            out = generate(self.model, params, prompts, self.sampler,
+                           generator=self.generator)
+        else:
+            with torch.no_grad(), self._serving(params, prompts) as eng:
+                out = generate_continuous(self.model, params, prompts,
+                                          self.sampler, engine=eng,
+                                          **self._engine_kw)
         self._sync()
         return b, out
 
-    def rollout_stream(self, params, k: int, on_group, on_batch=None):
+    def rollout_stream(self, params, k: int, on_group, on_batch=None,
+                       sync_params=None):
         """Streaming rollout for iteration ``k``: ``on_group(gout)`` fires
         the moment each GRPO prompt group finishes decoding, while the
         engine keeps serving the stragglers.  The same task batch,
-        generator stream and engine computation as :meth:`rollout_step`,
-        so the streamed groups stacked by row are its output bit for bit.
+        generator stream and computation as :meth:`rollout_step`, so the
+        streamed groups stacked by row are its output bit for bit.
         ``on_batch(b)``, when given, receives the task batch before the
-        engine runs (reward workers need the answers first).  Returns
-        ``(task_batch, engine_stats)``, the latter this rollout's
-        ``Engine.metrics()``."""
+        rollout runs (reward workers need the answers first).
+        ``sync_params`` (engine rollout) is the newest-weights poll the
+        engine swaps in live mid-rollout
+        (:func:`~repro_torch.rl.rollout.generate_continuous_stream`).
+        Returns ``(task_batch, engine_stats)``, the latter this rollout's
+        ``Engine.metrics()``.  The static rollout has no group to hand out
+        early: it generates the whole batch, then emits the groups in row
+        order, with ``engine_stats`` None."""
         b = self.task.sample_batch(self.batch)
         if on_batch is not None:
             on_batch(b)
         prompts = np.repeat(b.prompts, self.group, axis=0)
+        if self.rollout == "static":
+            out = generate(self.model, params, prompts, self.sampler,
+                           generator=self.generator)
+            arrays = {k: out[k].cpu().numpy()
+                      for k in ("completions", "behavior_logp", "mask")}
+            g = self.group
+            for gi in range(prompts.shape[0] // g):
+                rows = list(range(gi * g, (gi + 1) * g))
+                on_group({"group_index": gi, "rows": rows,
+                          **{k: a[rows] for k, a in arrays.items()}})
+            self._sync()
+            return b, None
         with torch.no_grad(), self._serving(params, prompts) as eng:
             for gout in generate_continuous_stream(
                     self.model, params, prompts, self.sampler,
-                    group=self.group, engine=eng, **self._engine_kw):
+                    group=self.group, engine=eng, sync_params=sync_params,
+                    **self._engine_kw):
                 on_group(gout)
             stats = eng.metrics()
         self._sync()
@@ -300,6 +319,10 @@ class GRPOJob:
 
 
 def _rollout_counts(stats) -> dict:
+    """The engine rollout's prefills and decode steps (none for the
+    static rollout)."""
+    if stats is None:
+        return {}
     return {"prefills": stats.prefills, "decode_steps": stats.steps}
 
 

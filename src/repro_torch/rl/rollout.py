@@ -1,11 +1,13 @@
-"""Rollout phase served by the continuous-batching engine.
+"""Rollout phase: the static batch :func:`generate` and the rollouts
+served by the continuous-batching engine.
 
-Counterpart of ``repro/rl/rollout.py`` ``generate_continuous`` (greedy and
-sampled decoding), ``generate_continuous_stream`` and
+Counterpart of ``repro/rl/rollout.py``: ``generate`` (prefill once, then
+one decode step of the whole batch per token), ``generate_continuous``
+(greedy and sampled decoding), ``generate_continuous_stream`` (with
+``sync_params``, partial-rollout continuation across weight syncs) and
 ``completions_to_text``.  The engine shape is given as plain keyword
 arguments; the JAX package's ``RolloutSpec`` comes with the
-disaggregated-serving slice, the static ``generate`` scan with
-``stack_decode_step`` (ROADMAP).
+disaggregated-serving slice.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.data import tokenizer as tok
 from repro_torch.device import resolve_device
-from repro_torch.serve.engine import Engine, EngineConfig
+from repro_torch.serve.engine import Engine, EngineConfig, sample_logp
 from repro_torch.serve.request import Request, RequestOutput
 
 
@@ -26,6 +28,47 @@ class SamplerConfig:
     max_new_tokens: int = 16
     temperature: float = 0.0          # 0 => greedy (the JAX default is 1.0)
     eos_id: int = tok.EOS
+
+
+@torch.no_grad()
+def generate(model, params, prompts, sampler: SamplerConfig, *,
+             generator=None) -> dict:
+    """prompts ``(B, Sp)`` int -> the JAX package's ``generate`` dict on
+    the weights' device: ``prompts``, ``completions`` and
+    ``behavior_logp`` ``(B, T)`` (T = ``max_new_tokens``), ``tokens``
+    (prompt + completion) and ``mask`` ``(B, T)`` float32, 1 up to and
+    including each row's first EOS.
+
+    The static rollout: one prefill of the whole batch, then T decode
+    steps of every row (``Model.decode_step`` over a contiguous cache
+    with one shared position; the decode attention kernel on the card).
+    A row runs its full T tokens whatever it samples; the mask keeps
+    what a fixed-budget rollout records.  Sampling is :func:`sample_logp`
+    (the engine's): the greedy kernel at temperature 0, above it a
+    Gumbel-max draw from ``generator`` (a ``torch.Generator`` on the
+    weights' device), where the JAX package takes a key."""
+    dev = params["embed"].device
+    prompts_t = torch.as_tensor(np.asarray(prompts, np.int32)).to(dev)
+    B, Sp = prompts_t.shape
+    T = sampler.max_new_tokens
+    cache = model.init_cache(B, Sp + T, device=dev)
+    logits, cache = model.prefill(params, prompts_t, cache)
+    alive = torch.ones((B,), dtype=torch.bool, device=dev)
+    toks, logps, masks = [], [], []
+    for _ in range(T):
+        nxt, logp = sample_logp(logits, sampler.temperature,
+                                generator=generator)
+        logits, cache = model.decode_step(params, nxt[:, None], cache)
+        masks.append(alive.float())
+        alive = alive & (nxt != sampler.eos_id)
+        toks.append(nxt)
+        logps.append(logp)
+    completions = torch.stack(toks, dim=1)
+    return {"prompts": prompts_t,
+            "completions": completions,
+            "tokens": torch.cat([prompts_t, completions], dim=1),
+            "behavior_logp": torch.stack(logps, dim=1),
+            "mask": torch.stack(masks, dim=1)}
 
 
 def build_engine(model, params, *, max_seq_len: int, eos_id: int = tok.EOS,
@@ -191,14 +234,14 @@ def generate_continuous_stream(model, params, prompts,
     completion order.  Per-call telemetry is the engine's ``metrics()``
     once the generator is exhausted.
 
-    ``sync_params`` (weights synced into the live engine mid-rollout,
-    ``Engine.reset(carry_live=True)``) needs suspend/resume, which is not
-    ported yet, and raises."""
-    if sync_params is not None:
-        raise NotImplementedError(
-            "sync_params (partial-rollout continuation) needs "
-            "Engine.reset(carry_live=True), which needs suspend/resume: "
-            "not ported to repro_torch yet (ROADMAP, modules to port)")
+    ``sync_params`` is partial-rollout continuation across weight syncs:
+    a callable returning ``(params, version)``, the newest synced weights,
+    polled between scheduler ticks.  When the version moves mid-rollout
+    the engine swaps them in live (``Engine.reset(carry_live=True)``:
+    every in-flight generation is suspended, the weights swapped, the
+    generations resumed with their outputs carried), so the stragglers
+    finish on the new weights; ``token_versions`` says which weights
+    sampled each token."""
     prompts_np = np.asarray(prompts, np.int32)
     B = prompts_np.shape[0]
     T = sampler.max_new_tokens
@@ -207,6 +250,9 @@ def generate_continuous_stream(model, params, prompts,
         model, params, prompts_np, sampler, engine=engine,
         generator=generator, num_slots=num_slots, device=device,
         engine_kw=engine_kw)
+    synced_version = None
+    if sync_params is not None:
+        _, synced_version = sync_params()   # the session's baseline
     sizes = [min(B, (gi + 1) * g) - gi * g for gi in range(-(-B // g))]
     buckets: dict[int, list[RequestOutput]] = {}
 
@@ -224,6 +270,15 @@ def generate_continuous_stream(model, params, prompts,
                        "behavior_logp": behavior_logp, "mask": mask,
                        "token_versions": token_versions}
 
+    def maybe_carry_sync():
+        nonlocal synced_version
+        if sync_params is None:
+            return
+        new_params, version = sync_params()
+        if version != synced_version:
+            synced_version = version
+            engine.reset(new_params, carry_live=True)
+
     # backpressure-aware drive, harvesting between scheduler ticks
     while pending or not engine.idle:
         while pending and engine.submit(pending[0]):
@@ -231,6 +286,7 @@ def generate_continuous_stream(model, params, prompts,
         if not engine.idle:
             engine.step()
         yield from drain_finished()
+        maybe_carry_sync()
     yield from drain_finished()
 
 

@@ -29,9 +29,11 @@ sync hands the rollout a snapshot.
 * **Elastic reward pool** (``elastic=True``): between iterations the
   runtime's telemetry retunes the reward permit count within ``[1,
   reward_workers]``.
-
-Not ported: a job with ``carry=True`` (partial-rollout continuation needs
-suspend/resume) raises ``NotImplementedError``.
+* **Partial-rollout carry** (a job with ``carry=True``, engine rollout):
+  the rollout polls the newest synced weights between engine ticks and
+  swaps them into the live engine (``Engine.reset(carry_live=True)``), so
+  the stragglers finish on them; each record counts the rows whose tokens
+  mix weight versions.
 """
 from __future__ import annotations
 
@@ -104,9 +106,16 @@ def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
     the losses and weights are bit-exact to the sequential run.  Returns
     ``(state, history, report)``; the report's timelines include the
     ``reward`` pool.  Each record carries ``rollout_staleness``,
-    ``micro_steps`` and the rollout's ``prefills`` and ``decode_steps``.
-    (The JAX package's records add the weight versions of a rollout that
-    carried live requests across a weight sync: not ported.)
+    ``micro_steps``, the engine rollout's ``prefills`` and
+    ``decode_steps``, and, as the JAX package's, ``carried_rows`` (rows
+    whose tokens mix weight versions) and ``behavior_versions`` (the
+    distinct weight versions that sampled the iteration's batch).
+
+    ``job.carry`` (engine rollout) wires partial-rollout continuation:
+    the rollout polls the weight version, which every optimizer step's
+    sync advances, between engine ticks, and when it moved swaps the newest
+    weights into the live engine (``Engine.reset(carry_live=True)``) on the
+    rollout thread's stream.
 
     ``elastic=True`` closes the capacity loop on the reward pool, as the
     JAX package's executor does: after each iteration, queued reward work
@@ -117,11 +126,6 @@ def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
     stay ``reward_workers``; only the permit bound moves, so the losses
     are those of the run without it.  Each record then carries
     ``reward_permits``."""
-    if job.carry:
-        raise NotImplementedError(
-            "carry=True (partial-rollout continuation) needs "
-            "Engine.reset(carry_live=True), which needs suspend/resume: "
-            "not ported to repro_torch yet (ROADMAP, modules to port)")
     if max_staleness < 0:
         raise ValueError("max_staleness must be >= 0")
     if reward_workers < 1:
@@ -139,8 +143,10 @@ def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
     snapshot = max_staleness > 0 or micro_groups is not None
     state = job.init_state()
     cv = threading.Condition()
+    # "version" counts weight syncs (optimizer steps), finer than
+    # "trained" (iterations): the carry path polls it mid-rollout
     shared = {"sync": _weights_for_rollout(state["params"], snapshot),
-              "trained": 0, "err": None}
+              "trained": 0, "version": 0, "err": None}
     batches: dict[int, object] = {}         # k -> task batch (answers)
     versions: dict[int, int] = {}           # k -> behaviour-weight version
     rollout_stats: dict[int, object] = {}   # k -> the rollout's metrics()
@@ -167,6 +173,20 @@ def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
         except BaseException as e:          # surface into the train loop
             fail(e)
 
+    taken_version = None
+
+    def sync_fn():
+        """The newest synced weights and their version, polled by the
+        engine rollout between ticks (``job.carry`` only), taken over on
+        the rollout thread's stream when the version moved."""
+        nonlocal taken_version
+        with cv:
+            (params, event), version = shared["sync"], shared["version"]
+        if version != taken_version:
+            take_over(params, event)
+            taken_version = version
+        return params, version
+
     def roll_loop():
         streams = PhaseStreams(job.device, ("rollout",))
         try:
@@ -190,7 +210,8 @@ def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
                             params, k,
                             on_group=lambda g, k=k: pool.submit(
                                 reward_task, k, g),
-                            on_batch=publish)
+                            on_batch=publish,
+                            sync_params=sync_fn if job.carry else None)
                     with cv:
                         rollout_stats[k] = stats
                         cv.notify_all()
@@ -207,6 +228,8 @@ def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
                 consumed = 0
                 pending_gouts: list[dict] = []
                 pending_rewards: list[np.ndarray] = []
+                carried_rows = 0            # rows with mixed weight versions
+                vers_seen: set[int] = set()     # versions that sampled them
                 want = micro_groups if micro_groups is not None \
                     else n_groups
                 while consumed < n_groups:
@@ -215,6 +238,17 @@ def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
                             cv.wait()
                         _raise_first(shared)
                         take, rewarded[k] = rewarded[k], []
+                    for gout, _ in take:
+                        tv = gout.get("token_versions")
+                        if tv is None:
+                            continue
+                        msk = np.asarray(gout["mask"]) > 0
+                        for row in range(tv.shape[0]):
+                            vs = tv[row][msk[row]]
+                            if vs.size:
+                                vers_seen.update(int(v)
+                                                 for v in np.unique(vs))
+                                carried_rows += int(vs.min() != vs.max())
                     pending_gouts += [g for g, _ in take]
                     pending_rewards += [r for _, r in take]
                     consumed += len(take)
@@ -245,6 +279,7 @@ def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
                         with cv:
                             if sync is not None:
                                 shared["sync"] = sync    # weight sync
+                                shared["version"] += 1
                             if done:    # with its weights, atomically
                                 shared["trained"] = k + 1
                             cv.notify_all()
@@ -266,7 +301,9 @@ def run_streaming(job: GRPOJob, *, max_staleness: int = 1,
                 rec = {"step": k, **_merge_recs(recs),
                        **_rollout_counts(stats),
                        "rollout_staleness": k - versions[k],
-                       "micro_steps": len(recs)}
+                       "micro_steps": len(recs),
+                       "carried_rows": carried_rows,
+                       "behavior_versions": max(len(vers_seen), 1)}
                 if elastic:
                     rec["reward_permits"] = rt.pools["reward"].capacity
                 history.append(rec)

@@ -40,13 +40,27 @@ training driver swaps freshly synced weights (and a generator) into the
 same slot pool every GRPO iteration; each swap bumps ``weight_version``,
 which every generated token records in ``RequestOutput.token_versions``.
 
+Suspend and resume are the JAX engine's: a request whose ``stop_tokens``
+it samples (a tool-call boundary), or one :meth:`Engine.suspend` names,
+leaves its slot as a :class:`SuspendedRequest` (a paged slot's full
+blocks pinned in place, its partial last block, a contiguous slot's
+stripe and the boundary logits copied), and :meth:`Engine.resume`
+adopts it into a free slot through :meth:`Engine.admit_prefilled`,
+feeding tool tokens through the model's own decode step first.
+``reset(carry_live=True)`` carries live generations across a weight
+swap that way, and :meth:`Engine.export_state` /
+:meth:`Engine.import_state` checkpoint a live engine.  On the card
+every one of these writes the engine's buffers in place, so that the
+decode block's CUDA graph stays valid: only new weights capture anew.
+
 Not ported yet, and refused with ``NotImplementedError``: radix prefix
-sharing, stop-token suspension and resume (and with them
-``reset(carry_live=True)``), disaggregated adoption, ``export_state`` and
-``run_trace``'s elastic ``controller``.
+sharing, disaggregated adoption from a ``PrefillEngine`` (its handles
+come with the disaggregated slice) and ``run_trace``'s elastic
+``controller``.
 """
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -59,11 +73,13 @@ from repro_torch.data import tokenizer as tok
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.sampling import greedy_sample
+from repro_torch.models.kvcache import SCALE_SUFFIX
 from repro_torch.serve.queue import RequestQueue
 from repro_torch.serve.request import Request, RequestOutput
 from repro_torch.serve.sched import make_policy
 from repro_torch.serve.slots import (PagedSlotManager, SlotManager,
-                                     insert_cache, insert_paged)
+                                     extract_cache, insert_cache,
+                                     insert_paged)
 
 
 @dataclass(frozen=True)
@@ -108,8 +124,8 @@ _warned_legacy = [False]
 
 @dataclass
 class EngineStats:
-    """The JAX engine's counter record.  The prefix-sharing, adoption and
-    suspend/resume counters stay 0 until those features are ported."""
+    """The JAX engine's counter record.  The prefix-sharing counters stay
+    0 until radix sharing is ported."""
     steps: int = 0                    # decode steps executed (all slots)
     blocks: int = 0                   # scheduler ticks that ran a decode
     prefills: int = 0
@@ -121,8 +137,10 @@ class EngineStats:
     prefix_partial_hits: int = 0      # admits that shared blocks but prefilled
     blocks_saved: int = 0             # KV blocks pinned instead of allocated
     decode_time_s: float = 0.0        # wall time inside decode dispatch+sync
-    adoptions: int = 0                # admits fed by a KV transfer handle
-    suspends: int = 0                 # requests suspended
+    adoptions: int = 0                # admits of a prefilled cache
+    #                                   (admit_prefilled, every resume)
+    suspends: int = 0                 # requests suspended (tool boundary or
+    #                                   carry_live weight sync)
     resumes: int = 0                  # suspended requests re-admitted
 
     @property
@@ -178,7 +196,76 @@ def _addresses(tree, out: list) -> list:
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP, modules to "
-        f"port: radix, suspend/resume, disagg and elastic)")
+        f"port: radix, disaggregated adoption and elastic)")
+
+
+def _clone_tree(tree):
+    """Copies of a nested dict's tensors (None stays None)."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return None if tree is None else tree.clone()
+
+
+def _as_device(tree, device):
+    """A nested dict of tensors or numpy arrays (an exported state back
+    from a host cache) as tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _as_device(v, device) for k, v in tree.items()}
+    return (None if tree is None
+            else torch.as_tensor(tree).to(device, copy=True))
+
+
+class SuspendedRequest:
+    """A live generation taken out of its slot at a stop-token boundary
+    (or a weight sync), waiting to be resumed: the JAX engine's handle.
+
+    A paged engine pins the sequence's full KV blocks in its pool (one
+    ``incref`` each, no copy) and keeps a copy of the partial last block
+    in ``tail`` (int8 dequantized); a contiguous engine keeps a copy of
+    the slot's whole stripe in ``one``.  ``logits`` is a copy of the
+    slot's last logits row.  Copies, never views: the engine's buffers and
+    pool are rewritten in place by every later decode step and admit.  The
+    slot itself is released at suspension.
+
+    ``history`` is the token sequence behind ``index`` (prompt and the
+    tokens generated so far); :meth:`Engine.resume` adopts it, with any
+    tool tokens, as the prompt of a new request through
+    :meth:`Engine.admit_prefilled`.  ``logits`` is usable
+    (``logits_valid``) only when the stop token was the last step of its
+    decode block; a stop cut out of a ``block_size > 1`` block recomputes
+    the boundary logits at resume.  :meth:`release` drops the pins exactly
+    once."""
+
+    __slots__ = ("req", "out", "history", "index", "remaining", "logits",
+                 "logits_valid", "block_ids", "tail", "one", "source",
+                 "weight_version", "released")
+
+    def __init__(self, req: Request, out: RequestOutput, history, index: int,
+                 remaining: int, logits, *, source, logits_valid: bool = True,
+                 block_ids=(), tail=None, one=None, weight_version: int = 0):
+        self.req = req
+        self.out = out
+        self.history = np.asarray(history, np.int32).reshape(-1)
+        self.index = int(index)
+        self.remaining = int(remaining)
+        self.logits = logits
+        self.logits_valid = logits_valid
+        self.block_ids = tuple(int(b) for b in block_ids)
+        self.tail = tail if tail is not None else {}
+        self.one = one                      # contiguous: the batch=1 stripe
+        self.source = source                # the Engine holding the pins
+        self.weight_version = weight_version
+        self.released = False
+
+    def release(self) -> None:
+        """Drop this handle's pins in the source pool (idempotent)."""
+        if self.released:
+            return
+        self.released = True
+        self.source._release_suspended(self)
+        self.one = None
+        self.tail = {}
+        self.logits = None
 
 
 class Engine:
@@ -191,8 +278,10 @@ class Engine:
     default: one seeded with 0, as the JAX engine defaults to
     ``PRNGKey(0)``).
 
-    ``captures`` and ``capture_s`` count the CUDA graphs this engine
-    captured and the host seconds the captures took, over its lifetime."""
+    ``captures`` counts the CUDA graphs of the decode block this engine
+    captured, ``inject_captures`` those of its batch=1 injection
+    (:meth:`resume`), and ``capture_s`` the host seconds all of them took,
+    over its lifetime."""
 
     def __init__(self, model, params, config: EngineConfig, *, device=None,
                  policy=None, generator: Optional[torch.Generator] = None):
@@ -246,9 +335,24 @@ class Engine:
         self._unharvested: list[RequestOutput] = []
         self._stats = EngineStats()
         self.clock = None             # optional wall clock (run_trace's)
-        # weights swapped in by reset(params=...) bump the version; every
-        # recorded token carries the version it was sampled under
+        # weights swapped in by reset(params=...) bump the version; each
+        # slot remembers the version its last-logits row was computed
+        # under, which the next token it samples records
         self.weight_version = 0
+        self._slot_version = [0] * N
+        # a resumed output with continue_output carries earlier tokens:
+        # how many, per slot, so that index = prompt + tokens of this slot
+        self._seed_tokens: dict[int, int] = {}
+        self.suspended: dict[int, SuspendedRequest] = {}    # by rid
+        self._newly_suspended: list[SuspendedRequest] = []
+        # cutting a block's outputs at a stop token rolls the slot back,
+        # which only sequence-shaped leaves allow (attention masks
+        # positions >= index): recurrent state cannot rewind, so those
+        # families suspend at block_size 1 only
+        paged_names = set(model.paged_cache_names())
+        self._rollback_safe = all(
+            k == "index" or k in paged_names or k.endswith(SCALE_SUFFIX)
+            for k in self.slots.cache)
         # the CUDA graph of the decode block (see _graph_for_tick)
         self._warm = False            # a tick has run the block eagerly
         self._graph = None
@@ -257,13 +361,20 @@ class Engine:
         self._capture_stream = None
         self.captures = 0
         self.capture_s = 0.0
+        # the batch=1 decode of forced tokens on the card (_inject,
+        # _inject_in_slot): buffers whose addresses the graphs hold, and a
+        # graph per kind and token count
+        self._inject_one = None
+        self._inject_toks = None
+        self._inject_row = self._inject_index = None
+        self._inject_graphs: dict = {}
+        self._inject_warm: set = set()
+        self.inject_captures = 0
 
     # ---- submission --------------------------------------------------------
     def submit(self, req: Request) -> bool:
         """Enqueue a request.  Malformed requests raise; a full queue
         returns ``False`` (backpressure: retry after the engine drains)."""
-        if req.stop_tokens:
-            raise _not_ported("stop_tokens (suspension at a tool boundary)")
         if req.frontend is not None:
             raise NotImplementedError(
                 "frontend embeddings come with the vlm/audio architectures")
@@ -278,7 +389,22 @@ class Engine:
                 raise ValueError(
                     f"request {req.rid}: needs {need} KV blocks but the "
                     f"pool has {self.slots.alloc.num_blocks}")
+        self._validate_stop_tokens(req)
         return self.queue.push(req)
+
+    def _validate_stop_tokens(self, req: Request) -> None:
+        if not req.stop_tokens:
+            return
+        if self.config.eos_id in req.stop_tokens:
+            raise ValueError(
+                f"request {req.rid}: stop_tokens contain eos_id "
+                f"{self.config.eos_id} — EOS finishes, it cannot suspend")
+        if self.config.block_size > 1 and not self._rollback_safe:
+            raise ValueError(
+                f"request {req.rid}: stop-token suspension on family "
+                f"{self.model.cfg.family!r} needs block_size=1 — its "
+                f"recurrent cache state cannot be rolled back past a "
+                f"mid-block stop boundary")
 
     @property
     def num_active(self) -> int:
@@ -303,8 +429,8 @@ class Engine:
     def metrics(self) -> MetricsSnapshot:
         """One :class:`~repro_torch.core.telemetry.MetricsSnapshot` of this
         engine: queue and slot occupancy, decode counters, KV block
-        occupancy, and the prefix-sharing and suspend/resume counters
-        (0 until those are ported)."""
+        occupancy, suspend/resume traffic and the prefix-sharing counters
+        (0 until radix sharing is ported)."""
         s = self._stats
         snap = MetricsSnapshot(
             source="engine",
@@ -326,6 +452,7 @@ class Engine:
             adoptions=s.adoptions,
             suspends=s.suspends,
             resumes=s.resumes,
+            suspended=len(self.suspended),
             weight_version=self.weight_version)
         if self.paged:
             snap.kv_blocks_total = self.slots.alloc.num_blocks
@@ -384,6 +511,8 @@ class Engine:
         self._alive[slot] = True
         self._remaining[slot] = req.max_new_tokens
         self._host_index[slot] = req.prompt_len
+        self._slot_version[slot] = self.weight_version
+        self._seed_tokens[slot] = 0
         out = RequestOutput(rid=req.rid, prompt=req.prompt,
                             prefill_step=self._stats.steps,
                             arrival_time=req.arrival_time,
@@ -402,6 +531,7 @@ class Engine:
         self.finished[req.rid] = out
         self._unharvested.append(out)
         del self._active[slot]
+        self._seed_tokens.pop(slot, None)
         self.slots.release(slot)
         self.policy.observe_finish(out)
 
@@ -487,15 +617,7 @@ class Engine:
         *Sampled decoding.*  The engine's generator is registered with the
         graph, so that every replay draws what the eager block would
         (same seed, same tokens) and advances the generator as it would.
-        *Threads.*  The mux executors run a rollout and a train phase on
-        two threads and streams at once: the capture uses
-        ``capture_error_mode="thread_local"`` on this thread's current
-        stream (a side stream when that is the default stream, which
-        cannot be captured), so that the other thread may allocate, launch
-        and synchronize meanwhile.
-        *Launch counts.*  A replay calls no kernel wrapper, so the
-        wrappers' counts made while capturing (this thread's only) are
-        kept and added on every replay."""
+        *Threads and launch counts:* :meth:`_record_graph`."""
         if self._graph is not None:
             self._graph.reset()
             self._graph = self._graph_key_at = None
@@ -507,20 +629,41 @@ class Engine:
                 f"CUDAGraph.register_generator_state, which PyTorch "
                 f"{torch.__version__} lacks")
         t0 = time.perf_counter()
+        tables = self.slots.device_tables() if self.paged else None
+        graph, _, counts = self._record_graph(
+            lambda: self._decode_block(tables),
+            self.generator if sampled else None)
+        self._graph, self._graph_key_at = graph, key
+        self._graph_counts = counts
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+
+    def _record_graph(self, fn, generator=None):
+        """``fn()`` captured into a new CUDA graph: ``(graph, what fn
+        returned, the kernel launches one replay makes)``.
+
+        *Threads.*  The mux executors run a rollout and a train phase on
+        two threads and streams at once: the capture uses
+        ``capture_error_mode="thread_local"`` on this thread's current
+        stream (a side stream when that is the default stream, which
+        cannot be captured), so that the other thread may allocate, launch
+        and synchronize meanwhile.
+        *Launch counts.*  A replay calls no kernel wrapper, so the
+        wrappers' counts made while capturing (this thread's only) are
+        kept and added on every replay."""
         cur = torch.cuda.current_stream(self.device)
         stream = cur
         if cur == torch.cuda.default_stream(self.device):
             if self._capture_stream is None:
                 self._capture_stream = torch.cuda.Stream(self.device)
             stream = self._capture_stream
-        tables = self.slots.device_tables() if self.paged else None
         graph = torch.cuda.CUDAGraph()
-        if sampled:
-            graph.register_generator_state(self.generator)
+        if generator is not None:
+            graph.register_generator_state(generator)
         with torch.cuda.stream(stream), _build.recording() as counts:
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                self._decode_block(tables)
+                out = fn()
             except BaseException:
                 try:
                     graph.capture_end()
@@ -528,10 +671,7 @@ class Engine:
                     pass                # the block's own error is the one
                 raise
             graph.capture_end()
-        self._graph, self._graph_key_at = graph, key
-        self._graph_counts = counts
-        self.captures += 1
-        self.capture_s += time.perf_counter() - t0
+        return graph, out, counts
 
     def step(self) -> int:
         """One scheduler iteration: admit waiting requests, then run
@@ -577,17 +717,42 @@ class Engine:
         self._stats.blocks += 1
         self._stats.slot_steps += K * self.config.num_slots
         for slot in list(self._active):
-            _, o = self._active[slot]
+            req, o = self._active[slot]
             rec_col = recs[:, slot]
             n_rec = int(rec_col.sum())
+            stop_at = None                  # position of a stop trigger
             if n_rec:
                 if not o.tokens and self.clock is not None:
                     o.first_token_time = self.clock()  # first token on host
-                o.tokens.extend(int(t) for t in toks[rec_col, slot])
-                o.logprobs.extend(float(x) for x in logps[rec_col, slot])
-                o.token_versions.extend([self.weight_version] * n_rec)
-                self._stats.recorded_tokens += n_rec
-            if (not alive[slot]) or remaining[slot] <= 0:
+                new_toks = [int(t) for t in toks[rec_col, slot]]
+                if req.stop_tokens:
+                    for j, t in enumerate(new_toks):
+                        if t in req.stop_tokens:
+                            stop_at = j
+                            break
+                # a stop trigger is recorded like EOS; what the block ran
+                # past it is cut (its KV lies past the rolled-back index,
+                # where attention masks it)
+                keep = n_rec if stop_at is None else stop_at + 1
+                o.tokens.extend(new_toks[:keep])
+                o.logprobs.extend(
+                    float(x) for x in logps[rec_col, slot][:keep])
+                # the block's first token was sampled from the slot's
+                # remembered logits (stale across a carried weight swap),
+                # the later ones from logits this block computed
+                o.token_versions.extend(
+                    [self._slot_version[slot]]
+                    + [self.weight_version] * (keep - 1))
+                self._slot_version[slot] = self.weight_version
+                self._stats.recorded_tokens += keep
+            if stop_at is not None:
+                # a tool boundary before EOS or the budget: suspend and
+                # free the slot; the boundary logits are live only when
+                # the trigger was the block's last step
+                o.finish_reason = "stop"
+                self._newly_suspended.append(self._suspend_slot(
+                    slot, logits_valid=(stop_at + 1 == K)))
+            elif (not alive[slot]) or remaining[slot] <= 0:
                 self._finalize(slot)
         return K
 
@@ -608,6 +773,346 @@ class Engine:
             ticks += 1
         return [self.finished[r] for r in sorted(self.finished)]
 
+    # ---- suspend / resume --------------------------------------------------
+    def harvest_suspended(self) -> list[SuspendedRequest]:
+        """Pop the requests that hit a stop-token boundary since the last
+        call (the agentic driver's pickup point, :meth:`harvest`'s twin).
+        Handles stay in :attr:`suspended` until resumed or released."""
+        out, self._newly_suspended = self._newly_suspended, []
+        return out
+
+    def suspend(self, rid: int) -> SuspendedRequest:
+        """Suspend a live request by rid, at a block boundary (so its
+        boundary logits are valid), freeing its slot.  Returns the handle,
+        also kept in :attr:`suspended` until resumed or released."""
+        for slot, (req, _) in self._active.items():
+            if req.rid == rid:
+                return self._suspend_slot(slot)
+        raise KeyError(f"rid {rid} is not live")
+
+    def _suspend_slot(self, slot: int, *,
+                      logits_valid: bool = True) -> SuspendedRequest:
+        """Take slot ``slot``'s generation out into a handle and release
+        the slot.  Paged: pin the sequence's full blocks, copy its partial
+        last block.  Contiguous: copy the stripe.  The slot's device rows
+        stay as they are: a freed slot keeps decoding in the block, into
+        its own stripe or, through its zeroed table row, the null block."""
+        req, out = self._active.pop(slot)
+        seed = self._seed_tokens.pop(slot, 0)
+        produced = len(out.tokens) - seed   # tokens of this slot's lifetime
+        idx = req.prompt_len + produced     # the rolled-back position
+        self._host_index[slot] = idx
+        history = np.concatenate(
+            [req.prompt, np.asarray(out.tokens[seed:], np.int32)])
+        kwargs = dict(source=self, logits_valid=logits_valid,
+                      weight_version=self._slot_version[slot])
+        logits = self._last_logits[slot].clone()
+        if not self.paged:
+            one = extract_cache(self.slots.cache, slot)
+            one["index"].fill_(idx)
+            sreq = SuspendedRequest(
+                req, out, history, idx, req.max_new_tokens - produced,
+                logits, one=one, **kwargs)
+        else:
+            bs = self.config.kv_block_size
+            n_full = idx // bs
+            pinned = self.slots.pin_prefix(slot, n_full)
+            # the copy is queued before the release lets an admit reuse
+            # the block, on the same stream
+            tail = (self.slots.copy_block(int(self.slots.tables[slot,
+                                                                n_full]))
+                    if idx % bs else {})
+            sreq = SuspendedRequest(
+                req, out, history, idx, req.max_new_tokens - produced,
+                logits, block_ids=pinned, tail=tail, **kwargs)
+        self.slots.release(slot)
+        self.suspended[req.rid] = sreq
+        self._stats.suspends += 1
+        return sreq
+
+    def _materialize(self, sreq: SuspendedRequest) -> dict:
+        """A batch=1 contiguous cache of a handle suspended from this
+        engine: the stripe's copy itself (contiguous; a resume consumes
+        it), or the pinned blocks gathered with the tail spliced on (paged,
+        :meth:`PagedSlotManager.fetch`)."""
+        if sreq.released:
+            raise RuntimeError(
+                f"suspended rid {sreq.req.rid} was already released")
+        if not self.paged:
+            one = dict(sreq.one)
+            one["index"] = torch.tensor(sreq.index, dtype=torch.int32,
+                                        device=self.device)
+            return one
+        return self.slots.fetch(sreq.block_ids, sreq.tail, sreq.index)
+
+    def _release_suspended(self, sreq: SuspendedRequest) -> None:
+        if self.paged:
+            for bid in sreq.block_ids:
+                self.slots.alloc.decref(bid)
+        if self.suspended.get(sreq.req.rid) is sreq:
+            del self.suspended[sreq.req.rid]
+
+    def _forced_decode(self, kind: str, n: int, key: tuple, fn):
+        """``fn()``, ``n`` forced decode steps at batch 1 on buffers this
+        engine owns, on the card: the counterpart of the JAX engine's
+        jitted ``inject`` scan, which specialises on the token count too.
+        The first call of a ``kind`` runs eagerly and loads its kernels;
+        later ones replay a CUDA graph per ``(kind, n)``, captured anew
+        when ``key`` (the addresses ``fn`` reads and writes) moved."""
+        if kind not in self._inject_warm:
+            self._inject_warm.add(kind)
+            return fn()
+        entry = self._inject_graphs.get((kind, n))
+        if entry is None or entry[0] != key:
+            if entry is not None:
+                entry[1].reset()
+            t0 = time.perf_counter()
+            graph, out, counts = self._record_graph(fn)
+            entry = self._inject_graphs[(kind, n)] = (key, graph, out,
+                                                      counts)
+            self.inject_captures += 1
+            self.capture_s += time.perf_counter() - t0
+        _, graph, out, counts = entry
+        graph.replay()
+        _build.add_counts(counts)
+        return out
+
+    def _forced_tokens(self, tokens: np.ndarray) -> torch.Tensor:
+        """``tokens`` on the card, in the engine's token buffer (the graph
+        of :meth:`_forced_decode` reads them there)."""
+        toks = torch.from_numpy(tokens.astype(np.int32)).to(self.device)
+        if self.device.type != "cuda":
+            return toks
+        if self._inject_toks is None:
+            self._inject_toks = torch.zeros((self.config.max_seq_len,),
+                                            dtype=torch.int32,
+                                            device=self.device)
+        self._inject_toks[:toks.shape[0]].copy_(toks)
+        return self._inject_toks[:toks.shape[0]]
+
+    def _inject(self, tokens: np.ndarray, one: dict):
+        """Feed forced tokens (a tool's reply, or the replayed last token
+        of a cut block) through the model's own decode step at batch 1 on
+        the batch=1 cache ``one``, before it is adopted (contiguous
+        pools); returns the logits after the last token, which predict
+        the next one, and the advanced cache.  On the card ``one`` is
+        copied into a cache buffer of the engine's first, whose steps
+        :meth:`_forced_decode` runs; both results stay in engine buffers
+        until the next injection (:meth:`admit_prefilled` copies them into
+        the slot at once).  On the CPU the steps advance ``one`` itself."""
+        toks = self._forced_tokens(tokens)
+        if self.device.type != "cuda":
+            return self._decode_steps(toks, one)
+        buf = self._inject_one
+        if buf is None or any(buf[k].shape != v.shape
+                              for k, v in one.items()):
+            buf = self._inject_one = {k: torch.empty_like(v)
+                                      for k, v in one.items()}
+        for k, v in one.items():
+            buf[k].copy_(v)
+        key = (tuple(_addresses(self.params, [])),
+               tuple(_addresses([buf, toks], [])))
+        return self._forced_decode(
+            "copy", toks.shape[0], key, lambda: self._decode_steps(toks, buf))
+
+    def _decode_steps(self, toks: torch.Tensor, one: dict):
+        for i in range(toks.shape[0]):
+            logits, one = self.model.decode_step(self.params,
+                                                 toks[i:i + 1, None], one)
+        return logits[0], one
+
+    def _inject_in_slot(self, tokens: np.ndarray, slot: int):
+        """Feed forced tokens through the pool's own batch-1 decode step
+        in slot ``slot``, already admitted (paged pools): the kernel reads
+        and writes the pool through the slot's table row, so an int8 pool
+        stays int8 where a dequantized copy would round every K/V element
+        to the model dtype.  Returns the logits after the last token.  On
+        the card the row and the slot's index go through buffers of the
+        engine's (the graph's addresses), the index back into the pool
+        after the steps."""
+        toks = self._forced_tokens(tokens)
+        pool = self.slots.cache
+        row = self.slots.device_tables()[slot:slot + 1]
+        if self.device.type != "cuda":
+            view = dict(pool, index=pool["index"][slot:slot + 1])
+            return self._pool_steps(toks, view, row)
+        if self._inject_row is None:
+            self._inject_row = torch.zeros_like(row)
+            self._inject_index = torch.zeros((1,), dtype=torch.int32,
+                                             device=self.device)
+        self._inject_row.copy_(row)
+        self._inject_index.copy_(pool["index"][slot:slot + 1])
+        view = dict(pool, index=self._inject_index)
+        key = (tuple(_addresses(self.params, [])),
+               tuple(_addresses([view, self._inject_row, toks], [])))
+        logits = self._forced_decode(
+            "slot", toks.shape[0], key,
+            lambda: self._pool_steps(toks, view, self._inject_row))
+        pool["index"][slot:slot + 1].copy_(self._inject_index)
+        return logits
+
+    def _pool_steps(self, toks: torch.Tensor, view: dict,
+                    row: torch.Tensor):
+        for i in range(toks.shape[0]):
+            logits, _ = self.model.kernel_decode_step(
+                self.params, toks[i:i + 1, None], view, tables=row)
+        return logits[0]
+
+    def can_resume(self, sreq: SuspendedRequest, tool_tokens=(), *,
+                   max_new_tokens: Optional[int] = None) -> bool:
+        """Re-admission gate for a handle: a free slot and (paged) blocks
+        for the continued sequence's worst-case budget."""
+        if not self.slots.num_free:
+            return False
+        if not self.paged:
+            return True
+        budget = (max_new_tokens if max_new_tokens is not None
+                  else max(sreq.remaining, 1))
+        return self.slots.can_admit(sreq.index + len(tool_tokens) + budget)
+
+    def resume(self, sreq: SuspendedRequest, tool_tokens=(), *,
+               max_new_tokens: Optional[int] = None,
+               rid: Optional[int] = None,
+               stop_tokens: Optional[tuple] = None,
+               continue_output: bool = False) -> int:
+        """Adopt a suspended generation into a free slot, feeding
+        ``tool_tokens`` (the environment's reply) through the model first.
+
+        The adoption is :meth:`admit_prefilled` of a request whose prompt
+        is the handle's history (and the tool tokens), so a handle resumes
+        on any engine of the same serving shape (``sreq.source`` holds the
+        pins until it is materialized here).  With no tool tokens and the
+        boundary logits carried, every tensor decode restarts from is moved
+        by copies: greedy continuation equals the uninterrupted run bit for
+        bit on float pools.  int8 pools quantize the dequantized tail
+        again, which moves a scale by an ulp.  A boundary cut out of a
+        ``block_size > 1`` block replays the last history token, and tool
+        tokens run, through a decode step at batch 1, whose products may
+        round unlike the batched block's: on a paged pool in the adopted
+        slot through the pool's own kernel (:meth:`_inject_in_slot`), on a
+        contiguous one on the cache before it is adopted
+        (:meth:`_inject`).
+
+        ``continue_output=True`` (carrying a generation across a weight
+        swap) continues the handle's :class:`RequestOutput`: tokens,
+        behaviour logprobs and per-token weight versions accumulate.
+        ``max_new_tokens`` grants a fresh budget (default: the handle's
+        remaining one) and ``stop_tokens`` replaces the request's (``()``
+        lets a final turn run to EOS; ``None`` inherits).  A resume
+        consumes the handle.  Returns the slot."""
+        if sreq.released:
+            raise RuntimeError(
+                f"suspended rid {sreq.req.rid} was already released")
+        tool = np.asarray(tool_tokens, np.int32).reshape(-1)
+        if tool.size == 0 and not sreq.logits_valid \
+                and not self._rollback_safe:
+            raise RuntimeError(
+                f"rid {sreq.req.rid} was cut out of a fused decode block "
+                f"and family {self.model.cfg.family!r} cannot replay past "
+                f"recurrent state; resume with tool tokens")
+        budget = (max_new_tokens if max_new_tokens is not None
+                  else max(sreq.remaining, 1))
+        prompt = (np.concatenate([sreq.history, tool])
+                  if tool.size else sreq.history)
+        src = sreq.req
+        req = Request(rid=src.rid if rid is None else rid, prompt=prompt,
+                      max_new_tokens=budget, arrival_time=src.arrival_time,
+                      frontend=src.frontend, priority=src.priority,
+                      deadline=src.deadline, job_id=src.job_id,
+                      stop_tokens=(src.stop_tokens if stop_tokens is None
+                                   else stop_tokens))
+        if req.total_budget > self.config.max_seq_len:
+            raise ValueError(
+                f"resume of rid {req.rid}: history {sreq.index} + tool "
+                f"{tool.size} + budget {budget} exceeds max_seq_len "
+                f"{self.config.max_seq_len}")
+        if not self.slots.num_free:
+            raise RuntimeError("no free slot: gate resume on can_resume")
+        one = sreq.source._materialize(sreq)
+        forced = tool
+        if not tool.size and not sreq.logits_valid:
+            # the boundary logits were cut out of a fused block: replay
+            # the last history token one position back, an overwrite of
+            # the same KV position (attention masks by index)
+            forced = sreq.history[-1:]
+            one["index"] = torch.tensor(sreq.index - 1, dtype=torch.int32,
+                                        device=self.device)
+        if not forced.size:
+            # the first resumed token samples from the carried boundary
+            # row, stale across a carried weight swap: its version says so
+            slot = self.admit_prefilled(req, sreq.logits, one)
+            version = sreq.weight_version
+        elif self.paged:
+            slot = self.admit_prefilled(req, sreq.logits, one)
+            self._last_logits[slot].copy_(self._inject_in_slot(forced, slot))
+            version = self.weight_version
+        else:
+            logits, one = self._inject(forced, one)
+            slot = self.admit_prefilled(req, logits, one)
+            version = self.weight_version
+        self._slot_version[slot] = version
+        if continue_output:
+            prev = sreq.out
+            _, out = self._active[slot]
+            out.prompt = prev.prompt
+            out.tokens = list(prev.tokens)
+            out.logprobs = list(prev.logprobs)
+            out.token_versions = list(prev.token_versions)
+            out.finish_reason = ""
+            out.prefill_step = prev.prefill_step
+            out.arrival_time = prev.arrival_time
+            out.first_token_time = prev.first_token_time
+            out.prefix_shared_blocks = prev.prefix_shared_blocks
+            self._seed_tokens[slot] = len(out.tokens)
+        sreq.release()
+        self._stats.resumes += 1
+        return slot
+
+    def can_admit_prefilled(self, req: Request) -> bool:
+        """Adoption gate for a prefilled cache: a free slot and (paged)
+        enough uncommitted blocks for the request's worst-case budget."""
+        if not self.slots.num_free:
+            return False
+        return not self.paged or self.slots.can_admit(req.total_budget)
+
+    def admit_prefilled(self, req: Request, logits, one) -> int:
+        """Adopt a prefilled request into a free slot, without running the
+        model.  ``one`` is a batch=1 contiguous cache holding the prompt's
+        state (``index`` = prompt length) and ``logits`` the logits after
+        it.  The cache is written through the same in-place splice the
+        admit path uses (:func:`insert_cache` / :func:`insert_paged`) and
+        the row's logits, liveness and budget are copied into the engine's
+        buffers, so the decode block's CUDA graph stays valid.  Returns the
+        slot; gate on :meth:`can_admit_prefilled`, a full pool raises."""
+        self._validate_stop_tokens(req)
+        if not self.paged:
+            slot = self.slots.assign(req.rid)
+            insert_cache(self.slots.cache, one, slot)
+        else:
+            slot = self.slots.assign(req.rid, prompt_len=req.prompt_len,
+                                     total_budget=req.total_budget)
+            insert_paged(self.slots.cache, one,
+                         self.slots.device_tables()[slot], slot)
+            self._stats.peak_kv_blocks = max(self._stats.peak_kv_blocks,
+                                             self.slots.blocks_in_use)
+        self._last_logits[slot].copy_(logits)
+        self._alive[slot] = True
+        self._remaining[slot] = req.max_new_tokens
+        self._host_index[slot] = req.prompt_len
+        self._slot_version[slot] = self.weight_version
+        self._seed_tokens[slot] = 0
+        out = RequestOutput(rid=req.rid, prompt=req.prompt,
+                            prefill_step=self._stats.steps,
+                            arrival_time=req.arrival_time,
+                            priority=req.priority, deadline=req.deadline,
+                            job_id=req.job_id)
+        self._active[slot] = (req, out)
+        self._stats.prefills += 1
+        self._stats.adoptions += 1
+        self._stats.peak_active = max(self._stats.peak_active,
+                                      len(self._active))
+        return slot
+
     def reset(self, params=None, generator: Optional[torch.Generator] = None,
               *, carry_live: bool = False) -> None:
         """Ready a drained engine for its next batch of requests: swap in
@@ -615,20 +1120,32 @@ class Engine:
         given, a new ``generator``, and drop the previous batch's outputs.
         :attr:`stats` restart from zero, so they count one batch.  The
         slot pool stays; this is how a training driver reuses one engine
-        across GRPO iterations.  Raises on a live engine or a non-empty
-        queue.  ``carry_live=True`` (partial-rollout continuation) suspends
-        and resumes live generations, which is not ported yet."""
+        across GRPO iterations.  Raises on a live engine, a non-empty
+        queue or suspended handles still pinning the pool.
+
+        ``carry_live=True`` is partial-rollout continuation: every live
+        generation is suspended, the weights swapped, and the generations
+        resumed under the new weights with their outputs carried forward
+        (each token's version says which weights sampled it).  Queued
+        requests stay queued and the stats keep counting the batch;
+        harvest finished outputs first, the reset drops them.  New weights
+        capture the decode block's graph anew, once."""
+        if params is not None and params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"the engine on {self.device}")
+        carried: list[SuspendedRequest] = []
         if carry_live:
-            raise NotImplementedError(
-                "reset(carry_live=True) (partial-rollout continuation) "
-                "needs suspend/resume, which is not ported to repro_torch "
-                "yet (ROADMAP, modules to port)")
-        if self._active or self.queue:
+            for slot in sorted(self._active):
+                carried.append(self._suspend_slot(slot))
+        if self._active or (self.queue and not carry_live):
             raise RuntimeError("reset() on a live engine; drain it first")
+        if self.suspended and not carry_live:
+            raise RuntimeError(
+                f"reset() with {len(self.suspended)} suspended request(s) "
+                f"still pinning the pool (rids "
+                f"{sorted(self.suspended)!r}); resume or release them, or "
+                f"reset(carry_live=True)")
         if params is not None:
-            if params["embed"].device != self.device:
-                raise ValueError(f"params live on {params['embed'].device}, "
-                                 f"the engine on {self.device}")
             self.params = params
             self.weight_version += 1
         if generator is not None:
@@ -637,25 +1154,135 @@ class Engine:
         # measured service time stays
         self.policy.on_reset()
         if self.paged:
-            # an idle engine holds no block: a dangling one here is a leak
-            # that would compound across iterations
-            self.slots.alloc.assert_clean(context="Engine.reset")
+            pins = [b for s in self.suspended.values() for b in s.block_ids]
+            if pins:
+                # suspended handles hold blocks: conservation against
+                # their pins instead of an empty pool
+                self.slots.check(extra_pins=pins)
+            else:
+                # an idle engine holds no block: a dangling one here is a
+                # leak that would compound across iterations
+                self.slots.alloc.assert_clean(context="Engine.reset")
         self.finished.clear()
         self._unharvested.clear()
-        self._stats = EngineStats()
+        if not carry_live:
+            self._stats = EngineStats()
+        for sreq in carried:
+            self.resume(sreq, continue_output=True)
 
-    # ---- not ported yet ----------------------------------------------------
-    def suspend(self, rid: int):
-        raise _not_ported("suspend")
-
-    def resume(self, sreq, tool_tokens=(), **kw):
-        raise _not_ported("resume")
-
-    def admit_prefilled(self, req: Request, logits, one) -> int:
-        raise _not_ported("admit_prefilled (disaggregated adoption)")
-
+    # ---- checkpoints -------------------------------------------------------
     def export_state(self) -> dict:
-        raise _not_ported("export_state")
+        """Checkpoint the live serving state mid-flight: ``{"device":
+        <tensor tree>, "host": <bookkeeping>}``.  The device part is
+        copies (the engine's buffers keep changing in place), the host
+        part a deep copy, so the snapshot stays valid however the engine
+        runs on; :meth:`import_state` on an engine of the same model and
+        config continues token for token."""
+        device = {"cache": _clone_tree(self.slots.cache),
+                  "last_logits": self._last_logits.clone(),
+                  "alive": self._alive.clone(),
+                  "remaining": self._remaining.clone()}
+        if self.suspended:
+            # the handles' tensors travel in the device section, their
+            # metadata in the host one; their pins are in the alloc state
+            device["suspended"] = {
+                rid: {"logits": s.logits.clone(), "one": _clone_tree(s.one),
+                      "tail": _clone_tree(s.tail)}
+                for rid, s in self.suspended.items()}
+        slots: dict = {"owner": list(self.slots.owner),
+                       "free": list(self.slots.free),
+                       "events": list(self.slots.events)}
+        if self.paged:
+            a = self.slots.alloc
+            slots.update(
+                tables=self.slots.tables.copy(),
+                nblocks=list(self.slots.nblocks),
+                alloc={"free": list(a.free),
+                       "refcount": dict(a.refcount),
+                       "quota": dict(a.quota),
+                       "owned": {k: list(v) for k, v in a.owned.items()},
+                       "events": list(a.events)})
+        host = copy.deepcopy({
+            "host_index": list(self._host_index),
+            "active": dict(self._active),
+            "queue": list(self.queue._q),
+            "finished": dict(self.finished),
+            "unharvested_rids": [o.rid for o in self._unharvested],
+            "stats": self._stats,
+            "slots": slots,
+            "weight_version": self.weight_version,
+            "slot_version": list(self._slot_version),
+            "seed_tokens": dict(self._seed_tokens),
+            "generator": (None if self.generator is None
+                          else self.generator.get_state()),
+            "suspended": {
+                rid: {"req": s.req, "out": s.out, "history": s.history,
+                      "index": s.index, "remaining": s.remaining,
+                      "block_ids": s.block_ids,
+                      "weight_version": s.weight_version,
+                      "logits_valid": s.logits_valid}
+                for rid, s in self.suspended.items()},
+            "newly_suspended": [s.req.rid for s in self._newly_suspended],
+        })
+        return {"device": device, "host": host}
+
+    def import_state(self, state: dict) -> None:
+        """Restore an :meth:`export_state` snapshot (device leaves may come
+        back as numpy arrays from a host cache).  Everything is copied into
+        the engine's own buffers, in place: the decode block's CUDA graph
+        keeps its addresses and is not captured anew."""
+        dev = state["device"]
+        for name, leaf in self.slots.cache.items():
+            leaf.copy_(torch.as_tensor(dev["cache"][name]))
+        for buf, key in ((self._last_logits, "last_logits"),
+                         (self._alive, "alive"),
+                         (self._remaining, "remaining")):
+            buf.copy_(torch.as_tensor(dev[key]))
+        host = copy.deepcopy(state["host"])
+        if host["generator"] is not None and self.generator is not None:
+            self.generator.set_state(host["generator"])
+        self._host_index = list(host["host_index"])
+        self._active = dict(host["active"])
+        self.queue._q.clear()
+        self.queue._q.extend(host["queue"])
+        self.finished = dict(host["finished"])
+        self._unharvested = [self.finished[r]
+                             for r in host["unharvested_rids"]
+                             if r in self.finished]
+        self._stats = host["stats"]
+        self.weight_version = host["weight_version"]
+        self._slot_version = list(host["slot_version"])
+        self._seed_tokens = {int(k): int(v)
+                             for k, v in host["seed_tokens"].items()}
+        dev_susp = dev.get("suspended", {})
+        self.suspended = {}
+        for rid, m in host["suspended"].items():
+            d = dev_susp[rid]
+            self.suspended[int(rid)] = SuspendedRequest(
+                m["req"], m["out"], m["history"], m["index"],
+                m["remaining"], _as_device(d["logits"], self.device),
+                source=self, logits_valid=m["logits_valid"],
+                block_ids=m["block_ids"],
+                tail=_as_device(d["tail"], self.device),
+                one=_as_device(d["one"], self.device),
+                weight_version=m["weight_version"])
+        self._newly_suspended = [self.suspended[r]
+                                 for r in host["newly_suspended"]
+                                 if r in self.suspended]
+        sl = host["slots"]
+        self.slots.owner = list(sl["owner"])
+        self.slots.free = list(sl["free"])
+        self.slots.events = list(sl["events"])
+        if self.paged:
+            self.slots.tables = sl["tables"].copy()
+            self.slots.nblocks = list(sl["nblocks"])
+            self.slots._dirty = True
+            a = self.slots.alloc
+            a.free = list(sl["alloc"]["free"])
+            a.refcount = dict(sl["alloc"]["refcount"])
+            a.quota = dict(sl["alloc"]["quota"])
+            a.owned = {k: list(v) for k, v in sl["alloc"]["owned"].items()}
+            a.events = list(sl["alloc"]["events"])
 
 
 def run_trace(engine: Engine, requests: list[Request], *,

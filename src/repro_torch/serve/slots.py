@@ -18,8 +18,13 @@ point at the null block 0.  :func:`insert_paged` writes a prefilled cache
 through a table row.
 
 Both write the pool tensors in place (slice assignment / ``index_put_``)
-where the JAX package rebuilds them with ``.at[].set``.  Prefix sharing
-(``assign_shared``, ``pin_prefix``) comes with the radix slice.
+where the JAX package rebuilds them with ``.at[].set``.
+
+Suspension reads a slot back out: :func:`extract_cache` copies a
+contiguous slot's stripe into a batch=1 cache, and
+:meth:`PagedSlotManager.pin_prefix` pins a paged slot's full blocks in
+place, so that they outlive the slot's release.  Prefix sharing
+(``assign_shared``) comes with the radix slice.
 """
 from __future__ import annotations
 
@@ -28,7 +33,10 @@ from typing import Optional
 import torch
 import numpy as np
 
-from repro_torch.models.kvcache import SCALE_SUFFIX, quantize_kv
+from repro_torch.models.attention import gather_blocks
+from repro_torch.models.common import torch_dtype
+from repro_torch.models.kvcache import (SCALE_SUFFIX, dequantize_kv,
+                                        quantize_kv)
 from repro_torch.serve.blocks import BlockAllocator, blocks_for
 
 
@@ -41,6 +49,17 @@ def insert_cache(pool: dict, one: dict, slot: int) -> dict:
         else:
             leaf[:, slot] = one[name][:, 0]
     return pool
+
+
+def extract_cache(pool: dict, slot: int) -> dict:
+    """Slot ``slot`` of a contiguous ``pool`` as a batch=1 cache: the
+    inverse of :func:`insert_cache`.  Every leaf is a copy, never a view:
+    the pool is written in place by later decode steps (a CUDA graph's
+    replays among them) and admits, and the copy must keep what the slot
+    held when it was taken."""
+    return {name: (leaf[slot] if name == "index" else
+                   leaf[:, slot:slot + 1]).clone()
+            for name, leaf in pool.items()}
 
 
 def insert_paged(pool: dict, one: dict, table_row: torch.Tensor,
@@ -197,8 +216,70 @@ class PagedSlotManager:
             self.nblocks[slot] += 1
             self._dirty = True
 
+    def pin_prefix(self, slot: int, n: int) -> list[int]:
+        """Incref the slot's first ``n`` table entries (full blocks that no
+        decode step writes again) for a holder outside the slot, such as a
+        suspended request, and return their ids.  The pins survive
+        :meth:`release` of the slot: the blocks stay where they are,
+        uncopied, until the holder decrefs them."""
+        rid = self.owner[slot]
+        if rid is None:
+            raise AssertionError(f"pin_prefix on free slot {slot}")
+        if n > self.nblocks[slot]:
+            raise AssertionError(
+                f"pin_prefix: {n} blocks requested but slot {slot} has "
+                f"only {self.nblocks[slot]} materialized")
+        ids = [int(b) for b in self.tables[slot, :n]]
+        for bid in ids:
+            self.alloc.incref(bid)
+        return ids
+
+    def copy_block(self, pid: int) -> dict:
+        """Block ``pid`` of every paged leaf, ``(L, bs, Hkv, hd)``, as a
+        copy in the model dtype (int8 dequantized): a suspended sequence's
+        partial last block, which the slot's release hands back to the
+        allocator."""
+        dt = torch_dtype(self.model.cfg.dtype)
+        out = {}
+        for name in self.model.paged_cache_names():
+            blk = self.cache[name][:, pid]
+            if name + SCALE_SUFFIX in self.cache:
+                out[name] = dequantize_kv(
+                    blk, self.cache[name + SCALE_SUFFIX][:, pid], dt)
+            else:
+                out[name] = blk.clone()
+        return out
+
+    def fetch(self, block_ids, tail: dict, index: int) -> dict:
+        """A batch=1 contiguous cache of a sequence whose full blocks are
+        ``block_ids`` of this pool (pinned) and whose partial last block
+        is ``tail`` (:meth:`copy_block`'s copy, or empty): the blocks
+        gathered through a null-padded table row, int8 dequantized to the
+        model dtype, the tail spliced after them, ``index`` its length.
+        Positions past ``index`` hold what the null block holds; a decode
+        step writes a position before anything reads it.  The port's copy
+        of the JAX package's handle fetch (``serve/disagg.py``
+        ``_transfer_fns``)."""
+        bs, n_full = self.block_size, len(block_ids)
+        row = torch.zeros((self.max_blocks,), dtype=torch.int32)
+        row[:n_full] = torch.as_tensor(list(block_ids), dtype=torch.int32)
+        row = row.to(self.device)
+        dt = torch_dtype(self.model.cfg.dtype)
+        out = {"index": torch.tensor(index, dtype=torch.int32,
+                                     device=self.device)}
+        for name in self.model.paged_cache_names():
+            seq = gather_blocks(self.cache[name], row, axis=1)
+            if name + SCALE_SUFFIX in self.cache:
+                seq = dequantize_kv(seq, gather_blocks(
+                    self.cache[name + SCALE_SUFFIX], row, axis=1), dt)
+            if name in tail:
+                seq[:, n_full * bs:(n_full + 1) * bs] = tail[name]
+            out[name] = seq[:, None]          # re-grow the batch=1 axis
+        return out
+
     def release(self, slot: int) -> None:
-        """Recycle a finished slot: free its blocks, zero its table row."""
+        """Recycle a finished slot: free its blocks (pinned ones stay live
+        until their holder lets go), zero its table row."""
         rid = self.owner[slot]
         if rid is None:
             raise AssertionError(f"slot {slot} is already free")
@@ -227,9 +308,11 @@ class PagedSlotManager:
             self._dirty = False
         return self._tables_dev
 
-    def check(self) -> None:
+    def check(self, extra_pins=()) -> None:
         """Cross-structure invariants: released rows zeroed, live rows
-        disjoint and in sync with the allocator."""
+        disjoint and, with ``extra_pins`` (block ids held by pins outside
+        the slots, such as suspended requests'), in sync with the
+        allocator."""
         self.alloc.check()
         flat = []
         for s in range(self.num_slots):
@@ -241,5 +324,8 @@ class PagedSlotManager:
             flat += [int(b) for b in row[:self.nblocks[s]]]
         assert 0 not in flat, "live table row points at the null block"
         assert len(set(flat)) == len(flat), "block shared across slots"
-        assert set(flat) == set(self.alloc.refcount), \
-            "materialized blocks out of sync with tables"
+        live = set(flat) | set(extra_pins)
+        assert live == set(self.alloc.refcount), \
+            "materialized blocks out of sync with tables/pins"
+        for bid in extra_pins:
+            assert self.alloc.refcount.get(bid, 0) >= 1

@@ -136,15 +136,23 @@ def test_engine_refuses_what_is_not_ported(pair):
                device="cpu")
     eng = Engine(tm, tp, EngineConfig(num_slots=1, max_seq_len=16),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="stop_tokens"):
-        eng.submit(Request(rid=0, prompt=[tok.BOS], max_new_tokens=2,
-                           stop_tokens=(5,)))
-    # reset is ported (tests/test_torch_mux.py); carrying live requests
-    # across it needs suspend/resume
-    for call in (lambda: eng.reset(carry_live=True),
-                 lambda: eng.export_state(), lambda: eng.suspend(0)):
-        with pytest.raises(NotImplementedError):
-            call()
+    # stop tokens, suspend/resume, carry_live and checkpoints are ported
+    # (tests/test_torch_suspend.py): they run here
+    assert eng.submit(Request(rid=0, prompt=[tok.BOS], max_new_tokens=2,
+                              stop_tokens=(5,)))
+    with pytest.raises(ValueError, match="eos_id"):
+        eng.submit(Request(rid=1, prompt=[tok.BOS], max_new_tokens=2,
+                           stop_tokens=(tok.EOS,)))
+    eng.step()
+    [sreq] = eng.harvest_suspended() or [eng.suspend(0)]
+    eng.reset(carry_live=True)             # the handle stays pinned
+    state = eng.export_state()
+    Engine(tm, tp, EngineConfig(num_slots=1, max_seq_len=16),
+           device="cpu").import_state(state)
+    eng.resume(sreq, stop_tokens=())
+    assert [o.rid for o in eng.run()] == [0]
+    with pytest.raises(KeyError, match="not live"):
+        eng.suspend(99)
     with pytest.raises(ValueError, match="params live on"):
         Engine(tm, tp, EngineConfig(), device="meta")
 

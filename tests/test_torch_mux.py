@@ -51,7 +51,8 @@ from repro_torch.train.optimizer import (AdamWConfig, tree_leaves,  # noqa: E402
                                          tree_map)
 
 ARCH = "internlm2-1.8b"
-KW = dict(steps=3, batch=3, group=2, max_new=6, temperature=1.0)
+KW = dict(steps=3, batch=3, group=2, max_new=6, temperature=1.0,
+          rollout="engine")
 DIAG = ("loss", "entropy", "clip_frac", "ratio_mean", "ratio_max")
 
 
@@ -253,7 +254,7 @@ def jax_runs():
 def test_executors_match_jax_sequential(model, jax_runs, mode):
     def job(seed):
         j = GRPOJob(f"job{seed}", model=model, seed=seed,
-                    reward_fn=toy_reward, device="cpu",
+                    reward_fn=toy_reward, device="cpu", rollout="engine",
                     params=jax_runs[seed][0], **JAX_KW)
         return j, record_train_inputs(j)
     if mode == "coexec":
@@ -294,7 +295,8 @@ def test_stream_elastic_retunes_permits_without_changing_math(
 
     def job():
         return GRPOJob("job0", model=model, seed=0, reward_fn=toy_reward,
-                       device="cpu", params=jax_runs[0][0], **JAX_KW)
+                       device="cpu", rollout="engine",
+                       params=jax_runs[0][0], **JAX_KW)
     _, h_ref, _ = run_streaming(job(), max_staleness=0, reward_workers=3)
     _, h_el, _ = run_streaming(job(), max_staleness=0, reward_workers=3,
                                elastic=True)
@@ -450,24 +452,39 @@ def test_mux_config_validates():
 
 
 def test_what_needs_unported_modules_is_refused_by_name(model, monkeypatch):
+    """Suspend/resume is ported, so what waited on it runs: ``reset(
+    carry_live=True)``, ``sync_params``, a carry job and the CLI's
+    ``--carry``.  What stays malformed is refused by name: ``--carry``
+    without the engine rollout, coexec with one set of ``params``."""
     params = model.init(torch.Generator().manual_seed(0))
     eng = Engine(model, params, EngineConfig(num_slots=1, max_seq_len=16),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="suspend/resume"):
-        eng.reset(carry_live=True)
-    stream = generate_continuous_stream(
+    eng.reset(carry_live=True)             # nothing live: a plain reset
+    assert eng.idle and eng.weight_version == 0
+    polls = []
+
+    def sync_params():
+        polls.append(1)
+        return params, int(len(polls) > 2)  # the version moves once
+    gouts = list(generate_continuous_stream(
         model, params, np.zeros((2, 3), np.int32),
-        SamplerConfig(max_new_tokens=2), sync_params=lambda: (params, 1),
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="carry_live"):
-        next(stream)
-    with pytest.raises(NotImplementedError, match="suspend/resume"):
-        run_streaming(make_job(model, carry=True))
+        SamplerConfig(max_new_tokens=4), sync_params=sync_params,
+        num_slots=1, device="cpu"))
+    assert len(polls) > 2
+    assert sorted(r for g in gouts for r in g["rows"]) == [0, 1]
+    tv = np.concatenate([g["token_versions"] for g in gouts])
+    assert set(tv[tv >= 0].tolist()) == {0, 1}
+    _, hist, _ = run_streaming(make_job(model, carry=True))
+    assert all(r["behavior_versions"] >= 1 and r["carried_rows"] >= 0
+               for r in hist)
     monkeypatch.setattr(sys, "argv", [
         "train", "--reduced", "--device", "cpu", "--mux", "stream",
-        "--carry"])
-    with pytest.raises(NotImplementedError, match="suspend/resume"):
-        train_cli._main()
+        "--carry", "--rollout", "engine", "--steps", "2", "--batch", "2",
+        "--group", "2", "--max-new", "4"])
+    train_cli._main()
+    with pytest.raises(ValueError, match="rollout engine"):
+        train_cli.run_training(ARCH, reduced=True, mux="stream", carry=True,
+                               device="cpu")
     with pytest.raises(ValueError, match="coexec"):
         train_cli.run_training(ARCH, reduced=True, mux="coexec",
                                params=params, device="cpu")

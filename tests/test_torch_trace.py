@@ -134,6 +134,22 @@ def test_stats_warn_once_and_time_per_token(pair):
     assert s.time_per_token == s.decode_time_s / s.steps
     assert eng.metrics().time_per_token == s.time_per_token
     assert s.prefix_hits == s.adoptions == s.suspends == s.resumes == 0
+    # the suspend/resume counters count: one suspension, one resume (an
+    # adoption), and the gauge of live handles between them
+    o = eng.finished[0]
+    stop = next(t for t in o.tokens if t != eng.config.eos_id)
+    eng.reset()
+    eng.submit(Request(rid=0, prompt=o.prompt, max_new_tokens=4,
+                       stop_tokens=(stop,)))
+    eng.run()
+    [h] = eng.harvest_suspended()
+    m = eng.metrics()
+    assert (m.suspends, m.resumes, m.adoptions, m.suspended) == (1, 0, 0, 1)
+    eng.resume(h, stop_tokens=())
+    eng.run()
+    m = eng.metrics()
+    assert (m.suspends, m.resumes, m.adoptions, m.suspended) == (1, 1, 1, 0)
+    assert m.prefix_hits == 0
 
 
 def _counting_clock():

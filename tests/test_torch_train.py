@@ -414,7 +414,8 @@ def test_greedy_grpo_iteration_matches_jax(pair):
     kw = dict(seed=0, steps=4, batch=2, group=2, max_new=6, temperature=0.0)
     jjob = jcoexec.GRPOJob("job0", model=jm, rollout="engine",
                            kernel_backend="pallas", **kw)
-    tjob = coexec.GRPOJob("job0", model=tm, device="cpu", **kw)
+    tjob = coexec.GRPOJob("job0", model=tm, device="cpu", rollout="engine",
+                          **kw)
     jstate = jjob.init_state()
     tstate = from_jax_train_state(_np_tree(jstate))
     jb, jout = jjob.rollout_step(jstate["params"], 0)
@@ -440,8 +441,8 @@ def test_greedy_grpo_iteration_matches_jax(pair):
 def test_run_training_on_cpu_and_what_is_not_ported():
     state, hist, report = run_training(
         ARCH, reduced=True, steps=2, batch=2, group=2, max_new=4, seed=1,
-        kv="paged", kv_block_size=4, log_every=0, device="cpu",
-        return_report=True)
+        rollout="engine", kv="paged", kv_block_size=4, log_every=0,
+        device="cpu", return_report=True)
     assert [r["step"] for r in hist] == [0, 1]
     assert all(np.isfinite(r["loss"]) and r["prefills"] == 4 for r in hist)
     assert int(state["opt"]["step"]) == 2
@@ -451,19 +452,22 @@ def test_run_training_on_cpu_and_what_is_not_ported():
         report.timelines["train"]) == 2
     assert set(report.profiles) == {"job0"}
     # the mux modes run (tests/test_torch_mux.py), the elastic reward
-    # pool too; what they need from modules not ported yet is refused by
-    # name
-    with pytest.raises(NotImplementedError, match="suspend/resume"):
-        run_training(ARCH, reduced=True, mux="stream", carry=True,
-                     device="cpu")
+    # pool and partial-rollout carry too; the static generate rollout is
+    # the default, as in the JAX package
+    _, hist = run_training(ARCH, reduced=True, mux="stream", carry=True,
+                           rollout="engine", steps=2, batch=2, group=2,
+                           max_new=4, log_every=0, device="cpu")
+    assert all(r["behavior_versions"] >= 1 for r in hist)
     _, hist = run_training(ARCH, reduced=True, mux="stream", elastic=True,
                            steps=2, batch=2, group=2, max_new=4,
                            reward_workers=2, log_every=0, device="cpu")
     assert all(1 <= r["reward_permits"] <= 2 for r in hist)
     with pytest.raises(ValueError, match="unknown mux"):
         run_training(ARCH, reduced=True, mux="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="stack_decode_step"):
-        coexec.GRPOJob("j", reduced=True, rollout="static", device="cpu")
+    job = coexec.GRPOJob("j", reduced=True, rollout="static", device="cpu")
+    assert job.rollout == "static"
+    with pytest.raises(ValueError, match="rollout backend"):
+        coexec.GRPOJob("j", reduced=True, rollout="bogus", device="cpu")
 
 
 # ---------------------------------------------------------------------------

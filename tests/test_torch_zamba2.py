@@ -374,7 +374,7 @@ def test_hybrid_refusals(pair):
     jm, jp, tm, tp = pair
     with pytest.raises(NotImplementedError, match="zamba2 training"):
         stack_forward(tp, tm.cfg, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="paged, radix and suspend"):
+    with pytest.raises(NotImplementedError, match="paged and radix"):
         Engine(tm, tp, EngineConfig(num_slots=2, max_seq_len=32,
                                     kv_layout="paged"), device="cpu")
     pool = tm.init_cache(2, 8, device="cpu")

@@ -173,6 +173,39 @@ Phases, in order; any failure exits non-zero:
              of 1 and max |diff| within REPLAY_TOL; exact launches; then
              two GRPO iterations with ``rollout="static"`` (rollout and
              train seconds).
+   prefix  — radix prefix sharing, 8 paged slots, 128 new tokens:
+             GRPO-shaped traffic (the first 4 serve prompts x GROUP 4) on
+             bf16 and int8 pools against the same engine with sharing off,
+             tokens and log-probabilities bit for bit, misses 4, hits 12,
+             partial 0, 4 model prefills (flash layers x 4), the tree's
+             blocks after the first tick re-read unchanged after the run;
+             preamble-shaped traffic (a PREAMBLE-id preamble, distinct
+             suffixes: 1 miss, 15 partial hits) bit for bit or, past a
+             first divergence, within PARTIAL_TOL before it, and in
+             float32 (4 requests) tokens identical within PARTIAL32_TOL;
+             16 distinct prompts on a pool of two requests' need (nodes
+             evicted, ``check(extra_pins=)`` after the run, a clean pool
+             after ``reset``); a planted exact hit with its tail block
+             left unseeded must leave the unshared run.  One decode
+             capture an engine; launches exact; blocks_saved, wall, tok/s,
+             mean TTFT and the host ms of a share-admit both ways.
+   disagg  — a ``DisaggRouter`` of PD_PREFILL prefill and PD_DECODE
+             decode slots on contiguous, paged and paged-int8 KV, sharing
+             off (the 16 serve prompts) and on (GRPO-shaped), against a
+             monolithic engine of PD_DECODE slots bit for bit: transfers,
+             host ms per adoption, ``transfer_overhead_frac``, tok/s and
+             mean TTFT both ways; the int8 run again through the JAX
+             package's dequantized handle (reported); two prefill engines
+             under ``kv_aware`` routing, the group leaders first: every
+             member on its prefix's engine.  One decode capture per decode
+             engine, every handle released, both pools clean after
+             ``reset``.
+   train-prefix — two GRPO iterations (batch 4 x group 4, temperature 1,
+             engine rollout, paged) from the same initial weights with
+             sharing on and off: losses, rewards and the trained weights'
+             ``fingerprint`` bit for bit; model prefills per iteration
+             (the task batch's distinct prompts against 16); rollout
+             seconds both ways.
 5. train   — two GRPO iterations at full width through ``run_training``
              (batch 4 x group 4, 128 new tokens, temperature 1, engine
              rollout, ``--mux off``): decode attention layers x decode
@@ -188,8 +221,8 @@ Phases, in order; any failure exits non-zero:
              ``run_pipelined`` at staleness 0 (2 iterations), whose
              iteration 0 must give the reference's completions and
              behaviour log-probabilities bit for bit and its loss within
-             1e-4 relative (iteration 1 is printed beside the reference's:
-             the embedding backward's atomics move the weights by ulps);
+             1e-4 relative (iteration 1 is printed beside the
+             reference's);
              at staleness 1 (3 iterations), every rollout's staleness in
              {0, 1}; the pinned host cache alone: a round trip of a
              2 GB tree (bf16 and float32, odd shapes, 0-d and empty
@@ -1856,10 +1889,7 @@ def pick_stops(outs, block_size, start=None):
 
 def pinned_copy(torch, eng, sreq):
     """The contents of a paged handle's pinned blocks (and int8 scales)."""
-    ids = torch.as_tensor(list(sreq.block_ids), dtype=torch.long,
-                          device=eng.device)
-    return {name: leaf.index_select(1, ids).clone()
-            for name, leaf in eng.slots.cache.items() if name != "index"}
+    return blocks_copy(torch, eng, sreq.block_ids)
 
 
 def drive_suspended(torch, eng, reqs, *, tool=None, plant=None,
@@ -2457,6 +2487,550 @@ def phase_static(torch, dev, model, params, init_params):
                    "ratio_mean": ratio, "max_diff": float(diff.max()),
                    "grpo": {"wall_s": train_wall, "rollout_s": roll,
                             "train_s": train, "history": hist}}
+
+
+# ---------------------------------------------------------------------------
+# radix prefix sharing, disaggregated prefill/decode, GRPO with sharing
+# ---------------------------------------------------------------------------
+GROUP = 4              # GRPO group size of the sharing phases
+PREAMBLE = 256         # ids of the preamble-shaped traffic's common prefix
+PARTIAL_TOL = 2e-2     # |logprob| of a partial hit off the unshared run, bf16
+PARTIAL32_TOL = 1e-4   # the same in float32
+PD_PREFILL, PD_DECODE = 2, 6    # the router's prefill and decode slots
+
+
+def grpo_prompts(vocab_size):
+    """GROUP copies of each of the first N_REQ / GROUP serve prompts,
+    group by group: GRPO's rollout shape."""
+    return [p for p in serve_prompts(vocab_size)[:N_REQ // GROUP]
+            for _ in range(GROUP)]
+
+
+def preamble_prompts(vocab_size, n=N_REQ):
+    """``n`` prompts sharing one PREAMBLE-id preamble (16 full blocks),
+    each with a distinct suffix of 32-256 ids, from ``RandomState(1)``."""
+    rs = np.random.RandomState(1)
+    pre = rs.randint(0, vocab_size, size=PREAMBLE)
+    return [np.concatenate([pre, rs.randint(
+        0, vocab_size, size=rs.randint(32, 257))]).astype(np.int32)
+        for _ in range(n)]
+
+
+def blocks_copy(torch, eng, ids):
+    """The contents of pool blocks ``ids`` of a paged engine (and their
+    int8 scales)."""
+    ids = torch.as_tensor(list(ids), dtype=torch.long, device=eng.device)
+    return {name: leaf.index_select(1, ids).clone()
+            for name, leaf in eng.slots.cache.items() if name != "index"}
+
+
+def drive(torch, eng, prompts, *, max_new=None, after_first=None):
+    """``prompts`` through ``eng`` (an engine or a router), all arriving at
+    the start, ``max_new`` (default MAX_NEW) tokens each;
+    ``after_first(eng)`` runs after the first tick.  Returns the outputs
+    in rid order, the wall seconds and the mean TTFT (the engine's clock
+    stamps first tokens)."""
+    from collections import deque
+
+    from repro_torch.serve import Request
+    max_new = MAX_NEW if max_new is None else max_new
+    pending = deque(Request(rid=i, prompt=p, max_new_tokens=max_new)
+                    for i, p in enumerate(prompts))
+    t0 = time.perf_counter()
+    eng.clock = lambda: time.perf_counter() - t0
+    ticks = 0
+    while pending or not eng.idle:
+        while pending and eng.submit(pending[0]):
+            pending.popleft()
+        if not eng.idle:
+            eng.step()
+            ticks += 1
+            if ticks == 1 and after_first is not None:
+                after_first(eng)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.clock = None
+    outs = [eng.finished[r] for r in sorted(eng.finished)]
+    return outs, wall, float(np.mean([o.first_token_time for o in outs]))
+
+
+def timed_share_engine(*args, **kw):
+    """An engine that records the host seconds of each exact-hit admit in
+    ``share_s`` and of each registration in ``register_s`` (a subclass
+    made here, as :func:`eager_engine`)."""
+    from repro_torch.serve.engine import Engine
+
+    class TimedShareEngine(Engine):
+        def _admit_shared_exact(self, req, m):
+            t0 = time.perf_counter()
+            try:
+                return super()._admit_shared_exact(req, m)
+            finally:
+                self.share_s.append(time.perf_counter() - t0)
+
+        def _register_prefix(self, req, slot):
+            t0 = time.perf_counter()
+            try:
+                return super()._register_prefix(req, slot)
+            finally:
+                self.register_s.append(time.perf_counter() - t0)
+    eng = TimedShareEngine(*args, **kw)
+    eng.share_s, eng.register_s = [], []
+    return eng
+
+
+def serve_launches(cfg, counts, attn, steps, model_prefills):
+    """What a serving run must have launched: its layout's decode kernel
+    once a layer per decode step, greedy once a decode step, flash once a
+    layer per model prefill (an exact radix hit and an adoption run
+    none)."""
+    want = {k: 0 for k in counts}
+    want[attn] = cfg.num_layers * steps
+    want["greedy_sample"] = steps
+    want["flash_attention"] = cfg.num_layers * model_prefills
+    return want
+
+
+def partial_check(a, b, tol) -> dict:
+    """Requests of run ``a`` against run ``b``: bit for bit, or tokens equal
+    up to a first divergence with logprobs within ``tol`` before it.
+    Returns the count bit for bit, the divergences (rid, position) and the
+    max |logprob diff| on the agreeing prefixes; raises past ``tol``."""
+    exact, diverged, worst = 0, [], 0.0
+    for x, y in zip(a, b):
+        n = next((i for i, (s, t) in enumerate(zip(x.tokens, y.tokens))
+                  if s != t), min(len(x.tokens), len(y.tokens)))
+        d = np.abs(np.asarray(x.logprobs[:n], np.float32)
+                   - np.asarray(y.logprobs[:n], np.float32))
+        worst = max(worst, float(d.max()) if n else 0.0)
+        if x.tokens == y.tokens and not d.any():
+            exact += 1
+        elif x.tokens != y.tokens:
+            diverged.append((x.rid, n))
+    if worst > tol:
+        raise AssertionError(f"partial hits: max |logprob diff| {worst:.3e} "
+                             f"on the agreeing prefixes (held to {tol})")
+    return {"bit_for_bit": exact, "diverged": diverged, "max_diff": worst}
+
+
+def phase_prefix(torch, dev, model, params):
+    """Radix prefix sharing at full width: GRPO-shaped traffic (4 prompts x
+    group 4) on paged bf16 and int8 against the same engine with sharing
+    off, bit for bit; preamble-shaped traffic (partial hits) in bf16 and
+    float32; eviction on a pool of two requests' need; a planted unseeded
+    tail; shared blocks re-read unchanged; one decode capture an engine."""
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve.blocks import blocks_for
+
+    cfg = model.cfg
+    L = cfg.num_layers
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+    res = {}
+
+    def serve(prompts, share, kv_dtype=None, max_new=MAX_NEW, m=model,
+              p=params, slots=SLOTS, after_first=None, **kw):
+        for f in fns.values():
+            f.launches = 0
+        eng = timed_share_engine(m, p, EngineConfig(
+            num_slots=slots, max_seq_len=MAX_SEQ, kv_layout="paged",
+            kv_dtype=kv_dtype, prefix_share=share, **kw), device=dev)
+        outs, wall, ttft = drive(torch, eng, prompts, max_new=max_new,
+                                 after_first=after_first)
+        counts = {k: f.launches for k, f in fns.items()}
+        mt = eng.metrics()
+        want = serve_launches(cfg, counts, "paged_decode_attention",
+                              mt.steps, mt.prefills - mt.prefix_hits)
+        if counts != want:
+            raise AssertionError(f"prefix: launches {counts} != {want}")
+        if eng.captures != int(dev.type == "cuda"):
+            raise AssertionError(f"prefix: {eng.captures} decode captures "
+                                 f"in one engine (want 1)")
+        for k in total:
+            total[k] += counts[k]
+        tok = sum(o.num_tokens for o in outs)
+        return eng, outs, {"wall_s": wall, "ttft_mean_s": ttft,
+                           "tok_per_s": tok / wall, "steps": mt.steps,
+                           "model_prefills": mt.prefills - mt.prefix_hits,
+                           "blocks_saved": mt.blocks_saved,
+                           "launches": counts}
+
+    # GRPO-shaped: every member after the first of its group is an exact
+    # hit; the prompt's full blocks are re-read after the group finishes
+    grpo = grpo_prompts(cfg.vocab_size)
+    for kv_dtype in (None, "int8"):
+        run = "paged" + ("-int8" if kv_dtype else "")
+        _, base, rb = serve(grpo, False, kv_dtype)
+        held = {}
+
+        def keep(e):
+            held["ids"] = e.radix.pinned_blocks()
+            held["blocks"] = blocks_copy(torch, e, held["ids"])
+        eng, shared, rs_ = serve(grpo, True, kv_dtype, after_first=keep)
+        r = eng.radix
+        if (r.misses, r.hits, r.partial_hits) != (N_REQ // GROUP,
+                                                   N_REQ - N_REQ // GROUP, 0) \
+                or rs_["model_prefills"] != N_REQ // GROUP:
+            raise AssertionError(f"prefix {run}: misses/hits/partial "
+                                 f"{r.misses}/{r.hits}/{r.partial_hits}, "
+                                 f"{rs_['model_prefills']} model prefills")
+        if not same_outputs(shared, base):
+            raise AssertionError(f"prefix {run}: shared run differs from "
+                                 f"the unshared one")
+        now = blocks_copy(torch, eng, held["ids"])
+        moved = [k for k in now if not torch.equal(now[k],
+                                                   held["blocks"][k])]
+        if not held["ids"] or moved:
+            raise AssertionError(f"prefix {run}: shared blocks "
+                                 f"{held['ids']} changed: {moved}")
+        eng.slots.check(extra_pins=r.pinned_blocks())
+        share_ms = 1e3 * np.asarray(eng.share_s)
+        reg_ms = 1e3 * np.asarray(eng.register_s)
+        eng.reset()                      # flushes and asserts a clean pool
+        print(f"[prefix] {run} GRPO {N_REQ // GROUP} prompts x group "
+              f"{GROUP}: bit for bit with sharing off; misses {r.misses} "
+              f"hits {r.hits} partial {r.partial_hits}; model prefills "
+              f"{rs_['model_prefills']} vs {rb['model_prefills']} (flash "
+              f"launches {rs_['launches']['flash_attention']} = {L} x "
+              f"{rs_['model_prefills']}); blocks_saved "
+              f"{rs_['blocks_saved']}; {len(held['ids'])} shared blocks "
+              f"re-read unchanged; wall {rs_['wall_s']:.2f}s vs "
+              f"{rb['wall_s']:.2f}s, {rs_['tok_per_s']:.1f} vs "
+              f"{rb['tok_per_s']:.1f} tok/s, mean TTFT "
+              f"{rs_['ttft_mean_s'] * 1e3:.1f} vs "
+              f"{rb['ttft_mean_s'] * 1e3:.1f} ms; share-admit host ms mean "
+              f"{share_ms.mean():.3f} max {share_ms.max():.3f}, register "
+              f"host ms mean {reg_ms.mean():.3f}; 1 decode capture each")
+        res[f"grpo {run}"] = {"shared": rs_, "unshared": rb,
+                              "share_admit_ms": share_ms.tolist(),
+                              "register_ms": reg_ms.tolist(),
+                              "shared_blocks_checked": len(held["ids"])}
+        del eng, base, shared
+    # preamble-shaped: a miss, then partial hits on the 16 preamble blocks
+    pre = preamble_prompts(cfg.vocab_size)
+    _, base, rb = serve(pre, False)
+    eng, shared, rs_ = serve(pre, True)
+    r = eng.radix
+    if (r.misses, r.hits, r.partial_hits) != (1, 0, N_REQ - 1):
+        raise AssertionError(f"prefix preamble: misses/hits/partial "
+                             f"{r.misses}/{r.hits}/{r.partial_hits}")
+    pc = partial_check(shared, base, PARTIAL_TOL)
+    eng.slots.check(extra_pins=r.pinned_blocks())
+    eng.reset()
+    print(f"[prefix] preamble {PREAMBLE} ids + distinct suffixes, bf16: "
+          f"misses {r.misses} partial {r.partial_hits}; "
+          f"{pc['bit_for_bit']}/{N_REQ} bit for bit with sharing off, "
+          f"diverged (rid, position) {pc['diverged']}, max |logprob diff| "
+          f"before a divergence {pc['max_diff']:.3e} (held to "
+          f"{PARTIAL_TOL}); blocks_saved {rs_['blocks_saved']}; wall "
+          f"{rs_['wall_s']:.2f}s vs {rb['wall_s']:.2f}s, mean TTFT "
+          f"{rs_['ttft_mean_s'] * 1e3:.1f} vs {rb['ttft_mean_s'] * 1e3:.1f}"
+          f" ms")
+    res["preamble bf16"] = {"shared": rs_, "unshared": rb, **pc}
+    del eng, base, shared
+    params32 = _tree_map(lambda t: t.float(), params)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    torch.cuda.empty_cache()
+    _, base, _ = serve(pre[:GRAPH_REQ], False, m=model32, p=params32,
+                       slots=GRAPH_REQ, max_new=GRAPH_NEW)
+    eng, shared, _ = serve(pre[:GRAPH_REQ], True, m=model32, p=params32,
+                           slots=GRAPH_REQ, max_new=GRAPH_NEW)
+    worst = 0.0
+    for x, y in zip(shared, base):
+        if x.tokens != y.tokens:
+            raise AssertionError(f"prefix preamble float32: rid {x.rid}'s "
+                                 f"tokens differ from the unshared run's")
+        worst = max(worst, float(np.abs(np.subtract(x.logprobs,
+                                                    y.logprobs)).max()))
+    if worst > PARTIAL32_TOL or eng.radix.partial_hits != GRAPH_REQ - 1:
+        raise AssertionError(f"prefix preamble float32: max |diff| {worst} "
+                             f"(held to {PARTIAL32_TOL}), "
+                             f"{eng.radix.partial_hits} partial hits")
+    print(f"[prefix] preamble float32, {GRAPH_REQ} requests x {GRAPH_NEW} "
+          f"tokens: tokens identical, max |logprob diff| {worst:.3e} (held "
+          f"to {PARTIAL32_TOL})")
+    res["preamble float32"] = {"max_diff": worst}
+    del eng, base, shared, params32, model32
+    torch.cuda.empty_cache()
+    # eviction: distinct prompts on a pool of two requests' need
+    prompts = serve_prompts(cfg.vocab_size)
+    need = sorted(blocks_for(len(p) + MAX_NEW, 16) for p in prompts)
+    nb = need[-1] + need[-2] + 1
+    eng, outs, re_ = serve(prompts, True, num_kv_blocks=nb)
+    check_outputs("prefix eviction", outs)
+    r = eng.radix
+    if not r.evictions:
+        raise AssertionError("prefix eviction: no radix node was evicted")
+    eng.slots.check(extra_pins=r.pinned_blocks())
+    peak = eng.metrics().peak_active
+    eng.reset()
+    print(f"[prefix] eviction: {N_REQ} distinct prompts on {nb} blocks (two "
+          f"largest requests' need + 1): {r.evictions} nodes evicted, peak "
+          f"{peak} live; check(extra_pins=tree pins) held after the run, "
+          f"the pool clean after reset")
+    res["eviction"] = {"num_kv_blocks": nb, "evictions": r.evictions,
+                       "wall_s": re_["wall_s"]}
+    del eng, outs
+    # planted: an exact hit whose private tail block is left unseeded
+    p = next(x for x in prompts if len(x) % 16)
+    q = max(prompts, key=len)
+    trio = [p, q, p]
+    _, base, _ = serve(trio, False, slots=1, max_new=GRAPH_NEW)
+    eng = timed_share_engine(model, params, EngineConfig(
+        num_slots=1, max_seq_len=MAX_SEQ, kv_layout="paged",
+        prefix_share=True), device=dev)
+    eng.slots.seed_block = lambda pid, blk: None
+    planted, _, _ = drive(torch, eng, trio, max_new=GRAPH_NEW)
+    if eng.radix.hits != 1 or same_outputs(planted[2:], base[2:]):
+        raise AssertionError("prefix: the planted unseeded tail block was "
+                             "not caught")
+    print(f"[prefix] planted fault: an exact hit with its tail block "
+          f"unseeded leaves the unshared run (first tokens "
+          f"{planted[2].tokens[:4]} vs {base[2].tokens[:4]})")
+    del eng, base, planted
+    return total, res
+
+
+def phase_disagg(torch, dev, model, params):
+    """Disaggregated prefill/decode at full width: a router of PD_PREFILL
+    prefill and PD_DECODE decode slots on contiguous, paged and paged-int8
+    KV, sharing off (the 16 serve prompts) and on (GRPO-shaped), against a
+    monolithic engine of PD_DECODE slots bit for bit; the int8 handle
+    through the JAX package's dequantized interchange, measured; two
+    prefill engines under kv_aware routing."""
+    from repro_torch.serve import (DisaggConfig, DisaggRouter, Engine,
+                                   EngineConfig)
+
+    cfg = model.cfg
+    L = cfg.num_layers
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+    res = {}
+    mono_outs = {}
+
+    def router_for(kv, kv_dtype, share, **kw):
+        return DisaggRouter(model, params, DisaggConfig(
+            prefill_slots=PD_PREFILL, decode_slots=PD_DECODE,
+            max_seq_len=MAX_SEQ, kv_layout=kv, kv_dtype=kv_dtype,
+            prefix_share=share, **kw), device=dev)
+
+    def model_prefills(router):
+        return sum(pe.stats.prefills - pe.stats.prefix_hits
+                   for pe in router.prefills)
+
+    def finish(router, label):
+        """Handles all released, one decode capture, both pools clean."""
+        if router.pending_transfer or any(pe.resident
+                                          for pe in router.prefills):
+            raise AssertionError(f"disagg {label}: handles left unreleased")
+        if router.decode.captures != int(dev.type == "cuda"):
+            raise AssertionError(f"disagg {label}: "
+                                 f"{router.decode.captures} decode captures")
+        router.reset()                   # asserts both pools clean
+
+    for kv, kv_dtype, share in (("contiguous", None, False),
+                                ("paged", None, False),
+                                ("paged", "int8", False),
+                                ("paged", None, True),
+                                ("paged", "int8", True)):
+        run = (kv + ("-int8" if kv_dtype else "")
+               + (" sharing" if share else ""))
+        prompts = (grpo_prompts if share else serve_prompts)(cfg.vocab_size)
+        mono = Engine(model, params, EngineConfig(
+            num_slots=PD_DECODE, max_seq_len=MAX_SEQ, kv_layout=kv,
+            kv_dtype=kv_dtype), device=dev)
+        for f in fns.values():
+            f.launches = 0
+        ref, mwall, mttft = drive(torch, mono, prompts)
+        mono_outs[run] = ref
+        for k, f in fns.items():
+            total[k] += f.launches
+            f.launches = 0
+        del mono
+        router = router_for(kv, kv_dtype, share)
+        outs, wall, ttft = drive(torch, router, prompts)
+        counts = {k: f.launches for k, f in fns.items()}
+        m = router.metrics()
+        want = serve_launches(
+            cfg, counts, "decode_attention" if kv == "contiguous"
+            else "paged_decode_attention", m.steps, model_prefills(router))
+        if counts != want:
+            raise AssertionError(f"disagg {run}: launches {counts} != {want}")
+        for k in total:
+            total[k] += counts[k]
+        if not same_outputs(outs, ref) or m.transfers != N_REQ:
+            raise AssertionError(f"disagg {run}: router differs from the "
+                                 f"monolithic engine ({m.transfers} "
+                                 f"transfers)")
+        if share and (router.radix.misses, router.radix.hits) != (
+                N_REQ // GROUP, N_REQ - N_REQ // GROUP):
+            raise AssertionError(f"disagg {run}: misses/hits "
+                                 f"{router.radix.misses}/"
+                                 f"{router.radix.hits}")
+        xfer_ms = 1e3 * np.asarray([t1 - t0 for _, t0, t1
+                                    in router.transfer_timeline])
+        tok = sum(o.num_tokens for o in outs)
+        print(f"[disagg] {run}: bit for bit with a monolithic engine of "
+              f"{PD_DECODE} slots; {m.transfers} transfers "
+              f"({m.transferred_blocks} blocks), host ms per adoption mean "
+              f"{xfer_ms.mean():.3f} max {xfer_ms.max():.3f}, "
+              f"transfer_overhead_frac {m.transfer_overhead_frac:.4f}; "
+              f"model prefills {model_prefills(router)}; "
+              f"{tok / wall:.1f} vs {tok / mwall:.1f} tok/s, mean TTFT "
+              f"{ttft * 1e3:.1f} vs {mttft * 1e3:.1f} ms; wall {wall:.2f}s"
+              f" vs {mwall:.2f}s; launches {counts}")
+        res[run] = {"transfers": m.transfers,
+                    "transferred_blocks": m.transferred_blocks,
+                    "adoption_ms": xfer_ms.tolist(),
+                    "transfer_overhead_frac": m.transfer_overhead_frac,
+                    "tok_per_s": tok / wall, "mono_tok_per_s": tok / mwall,
+                    "ttft_mean_s": ttft, "mono_ttft_mean_s": mttft,
+                    "wall_s": wall, "mono_wall_s": mwall,
+                    "model_prefills": model_prefills(router),
+                    "launches": counts}
+        finish(router, run)
+        del router, outs
+    # the JAX package's int8 interchange (dequantize out, quantize in),
+    # measured against the monolithic int8 engine
+    from repro_torch.models.common import torch_dtype
+    from repro_torch.models.kvcache import SCALE_SUFFIX, dequantize_kv
+    from repro_torch.serve import PrefillEngine
+
+    def dequantized(one):
+        dt = torch_dtype(cfg.dtype)
+        return {name: (dequantize_kv(t, one[name + SCALE_SUFFIX], dt)
+                       if name + SCALE_SUFFIX in one else t)
+                for name, t in one.items()
+                if not name.endswith(SCALE_SUFFIX)}
+    router = router_for("paged", "int8", False)
+    for f in fns.values():
+        f.launches = 0
+    for pe in router.prefills:
+        pe.export_cache = (lambda h, pe=pe: dequantized(
+            PrefillEngine.export_cache(pe, h)))
+    outs, _, _ = drive(torch, router, serve_prompts(cfg.vocab_size))
+    for k, f in fns.items():
+        total[k] += f.launches
+        f.launches = 0
+    pc = partial_check(outs, mono_outs["paged-int8"], PARTIAL_TOL)
+    print(f"[disagg] paged-int8 through a dequantized handle (the JAX "
+          f"package's interchange, for comparison): {pc['bit_for_bit']}/"
+          f"{N_REQ} bit for bit, diverged {pc['diverged']}, max |logprob "
+          f"diff| before a divergence {pc['max_diff']:.3e}")
+    res["paged-int8 dequantized handle"] = pc
+    finish(router, "dequantized")
+    del router, outs
+    # two prefill engines, kv_aware: the group leaders prefill first, the
+    # members then land on the engine holding their prefix
+    from repro_torch.serve import Request
+    grpo = grpo_prompts(cfg.vocab_size)
+    router = router_for("paged", None, True, prefill_engines=2,
+                        kv_routing="kv_aware")
+    for f in fns.values():
+        f.launches = 0
+    leaders = range(0, N_REQ, GROUP)
+    for i in leaders:
+        router.submit(Request(rid=i, prompt=grpo[i], max_new_tokens=MAX_NEW))
+    while any(pe.queue for pe in router.prefills):
+        router.step()
+    for i in range(N_REQ):
+        if i not in leaders:
+            router.submit(Request(rid=i, prompt=grpo[i],
+                                  max_new_tokens=MAX_NEW))
+    outs = router.run()
+    for k, f in fns.items():
+        total[k] += f.launches
+        f.launches = 0
+    per = [(pe.radix.misses, pe.radix.hits) for pe in router.prefills]
+    if router.metrics().kv_routed != N_REQ - len(leaders) or any(
+            h != (GROUP - 1) * mi for mi, h in per) or sum(
+            mi for mi, _ in per) != len(leaders) or not same_outputs(
+            outs, mono_outs["paged sharing"]):
+        raise AssertionError(f"disagg kv_aware: per-engine misses/hits "
+                             f"{per}, kv_routed "
+                             f"{router.metrics().kv_routed}")
+    print(f"[disagg] 2 prefill engines, kv_aware: {len(leaders)} group "
+          f"leaders then {N_REQ - len(leaders)} members, every member on "
+          f"its prefix's engine (kv_routed {router.metrics().kv_routed}); "
+          f"per engine (misses, hits) {per}; bit for bit with the "
+          f"monolithic engine")
+    res["kv_aware"] = {"per_engine_misses_hits": per,
+                       "kv_routed": router.metrics().kv_routed}
+    finish(router, "kv_aware")
+    del router, outs
+    return total, res
+
+
+def phase_train_prefix(torch, dev, model, init_params):
+    """Two GRPO iterations through the paged engine rollout with sharing
+    on and off, from the same initial weights: losses, rewards and the
+    trained weights' fingerprint bit for bit; model prefills per
+    iteration (GROUP's share) and rollout seconds both ways."""
+    from repro_torch.data import ArithmeticTask
+    from repro_torch.launch.train import run_training
+
+    cfg = model.cfg
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+    runs = {}
+    # the job's task batches (seed 0), drawn in the job's order: its
+    # distinct prompts are what a sharing rollout prefills
+    task = ArithmeticTask(seed=0)
+    distinct = [len({p.tobytes() for p in task.sample_batch(4).prompts})
+                for _ in range(2)]
+    for share in (False, True):
+        params = _tree_map(lambda t: t.clone(), init_params)
+        for f in fns.values():
+            f.launches = 0
+        state, hist, report = run_training(
+            ARCH, model=model, params=params, steps=2, batch=4, group=GROUP,
+            max_new=MAX_NEW, temperature=1.0, rollout="engine", kv="paged",
+            prefix_share=share, reward_fn=token_share_reward(cfg.vocab_size),
+            device=dev, log_every=0, return_report=True)
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in fns.items()}
+        prefills = [r["prefills"] - r["prefix_hits"] for r in hist]
+        want = {k: 0 for k in counts}
+        want["paged_decode_attention"] = cfg.num_layers * sum(
+            r["decode_steps"] for r in hist)
+        want["flash_attention"] = cfg.num_layers * (sum(prefills)
+                                                    + 2 * len(hist))
+        if counts != want:
+            raise AssertionError(f"train prefix_share={share}: launches "
+                                 f"{counts} != {want}")
+        for k in total:
+            total[k] += counts[k]
+        runs[share] = {
+            "loss": [r["loss"] for r in hist],
+            "reward": [r["reward"] for r in hist],
+            "fingerprint": fingerprint(state["params"]),
+            "model_prefills": prefills,
+            "rollout_s": [t1 - t0 for _, t0, t1
+                          in report.timelines["rollout"]]}
+        del state, params, hist
+        torch.cuda.empty_cache()
+    a, b = runs[False], runs[True]
+    if (a["loss"], a["reward"], a["fingerprint"]) != (
+            b["loss"], b["reward"], b["fingerprint"]) \
+            or b["model_prefills"] != distinct \
+            or a["model_prefills"] != [4 * GROUP] * 2:
+        raise AssertionError(f"train prefix_share: losses {a['loss']} vs "
+                             f"{b['loss']}, rewards {a['reward']} vs "
+                             f"{b['reward']}, prefills "
+                             f"{a['model_prefills']} vs "
+                             f"{b['model_prefills']}")
+    print(f"[train] prefix_share, 2 GRPO iterations (batch 4 x group "
+          f"{GROUP}, temperature 1): losses {b['loss']}, rewards "
+          f"{b['reward']} and the weights' fingerprint bit for bit with "
+          f"sharing off; model prefills per iteration {b['model_prefills']}"
+          f" vs {a['model_prefills']}; rollout s "
+          f"{[round(x, 3) for x in b['rollout_s']]} vs "
+          f"{[round(x, 3) for x in a['rollout_s']]}")
+    for r in runs.values():
+        del r["fingerprint"]
+    return total, {"shared": b, "unshared": a}
 
 
 def recurrent_suspend_check(torch, dev, model, params, phase) -> dict:
@@ -3481,6 +4055,13 @@ def main(argv=None) -> int:
     static_launches, static = phase_static(torch, dev, model, params,
                                            init_params)
     torch.cuda.empty_cache()
+    prefix_launches, prefix = phase_prefix(torch, dev, model, params)
+    torch.cuda.empty_cache()
+    disagg_launches, disagg = phase_disagg(torch, dev, model, params)
+    torch.cuda.empty_cache()
+    train_prefix_launches, train_prefix = phase_train_prefix(
+        torch, dev, model, init_params)
+    torch.cuda.empty_cache()
     train_launches, train = phase_train(torch, dev, model, params)
     del params
     torch.cuda.empty_cache()
@@ -3491,7 +4072,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     zamba_launches, serve_zamba2 = phase_serve_zamba2(torch, dev)
     for counts in (suspend_launches, agentic_launches, carry_launches,
-                   static_launches, train_launches, mux_launches_,
+                   static_launches, prefix_launches, disagg_launches,
+                   train_prefix_launches, train_launches, mux_launches_,
                    rwkv_launches, zamba_launches):
         for k, n in counts.items():
             launches[k] += n
@@ -3519,7 +4101,8 @@ def main(argv=None) -> int:
                    "mamba2_scan": rows["mamba2_scan"], "topk": rows["topk"],
                    "graph": graph, "trace": trace,
                    "suspend": suspend, "agentic": agentic, "carry": carry,
-                   "static": static, "total_s": total_s,
+                   "static": static, "prefix": prefix, "disagg": disagg,
+                   "train_prefix": train_prefix, "total_s": total_s,
                    "train": train, "mux": mux, "serve_rwkv6": serve_rwkv6,
                    "serve_zamba2": serve_zamba2}, f, indent=1, default=str)
     print(smi)

@@ -2,6 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --kv paged --kv-dtype int8 --batch 8 --slots 4 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --kv paged \
+        --prefix-share --group 4              # GRPO-shaped radix sharing
+    PYTHONPATH=src python -m repro_torch.launch.serve --disagg \
+        --prefill-slots 2 --decode-slots 6    # split prefill/decode pools
 
 ``--arch`` takes internlm2-1.8b, rwkv6-7b or zamba2-2.7b (the last two on
 contiguous slots only).  Runs on the CUDA card at the architecture's full
@@ -20,29 +24,44 @@ import torch
 from repro_torch.data import tokenizer as tok
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.rl.rollout import build_engine, run_requests
+from repro_torch.rl.rollout import run_requests
 from repro_torch.serve.request import Request
+from repro_torch.serve.spec import RolloutSpec
 
 
 def serve_continuous(arch: str, prompts, *, reduced: bool = False,
                      max_new: int = 32, seed: int = 0,
+                     spec: RolloutSpec | None = None,
                      num_slots: int | None = None, block_size: int = 1,
                      kv: str = "contiguous", kv_block_size: int = 16,
                      num_kv_blocks: int | None = None, sched: str = "fifo",
-                     kv_dtype: str | None = None,
-                     max_seq_len: int | None = None, device=None,
-                     model=None, params=None) -> dict:
+                     kv_dtype: str | None = None, prefix_share: bool = False,
+                     disagg=None, max_seq_len: int | None = None,
+                     device=None, model=None, params=None) -> dict:
     """Serve ``prompts`` (sequences of token ids, ragged lengths allowed),
     one request each, through the continuous-batching engine with greedy
-    decoding.  ``num_slots`` defaults to one per prompt; ``max_seq_len`` to
-    the longest prompt plus ``max_new``.  Params default to the model's
+    decoding.  The engine's shape is ``spec`` or the loose arguments (a
+    :class:`~repro_torch.serve.spec.RolloutSpec`'s fields): ``num_slots``
+    defaults to one per prompt, ``prefix_share`` (paged) turns on radix
+    prefix sharing and ``disagg`` (``True`` or a dict of ``DisaggConfig``
+    fields) serves through a ``DisaggRouter``.  ``max_seq_len`` defaults
+    to the longest prompt plus ``max_new``.  Params default to the model's
     random init from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (the CUDA card unless ``device="cpu"``).
 
     Returns a report: ``outputs`` (``RequestOutput`` by rid), ``texts``,
-    ``wall_s``, ``tokens``, ``tok_per_s``, engine counters (from
-    ``Engine.metrics()``), the CUDA graph captures and their host seconds,
-    and the drained ``engine`` itself."""
+    ``wall_s``, ``tokens``, ``tok_per_s``, ``ttft_mean_s`` (every request
+    arrives at the start), the engine's counters (``metrics()``: prefix
+    hits, partial hits, misses and blocks saved; with ``disagg`` the
+    transfers, their host seconds and ``transfer_overhead_frac``), the
+    decode engine's CUDA graph captures and their host seconds, and the
+    drained ``engine`` itself."""
+    if spec is None:
+        spec = RolloutSpec(num_slots=num_slots, block_size=block_size,
+                           kv_layout=kv, kv_block_size=kv_block_size,
+                           num_kv_blocks=num_kv_blocks, sched=sched,
+                           kv_dtype=kv_dtype, prefix_share=prefix_share,
+                           disagg=disagg)
     dev = resolve_device(device)
     if model is None:
         model = build_model(arch, reduced=reduced)
@@ -51,22 +70,23 @@ def serve_continuous(arch: str, prompts, *, reduced: bool = False,
     prompts = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
     if max_seq_len is None:
         max_seq_len = max(len(p) for p in prompts) + max_new
-    engine = build_engine(
-        model, params, max_seq_len=max_seq_len, eos_id=tok.EOS,
-        num_slots=len(prompts) if num_slots is None else num_slots,
-        block_size=block_size, kv_layout=kv, kv_block_size=kv_block_size,
-        num_kv_blocks=num_kv_blocks, sched=sched, kv_dtype=kv_dtype,
-        device=dev)
+    engine = spec.build_engine(model, params, batch=len(prompts),
+                               max_seq_len=max_seq_len, eos_id=tok.EOS,
+                               temperature=0.0, device=dev)
     t0 = time.perf_counter()
+    engine.clock = lambda: time.perf_counter() - t0
     outs = run_requests(engine, (Request(rid=i, prompt=p,
-                                         max_new_tokens=max_new)
+                                         max_new_tokens=max_new,
+                                         prefix_key=spec.prefix_namespace)
                                  for i, p in enumerate(prompts)))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
+    engine.clock = None
     n_tok = sum(o.num_tokens for o in outs)
     s = engine.metrics()
-    return {"outputs": outs,
+    decode = getattr(engine, "decode", engine)
+    report = {"outputs": outs,
             "texts": [tok.decode(t for t in o.tokens if t != tok.EOS)
                       for o in outs],
             "wall_s": dt, "tokens": n_tok,
@@ -76,8 +96,20 @@ def serve_continuous(arch: str, prompts, *, reduced: bool = False,
             "decode_time_s": s.decode_time_s,
             "peak_active": s.peak_active,
             "peak_kv_blocks": s.peak_kv_blocks,
-            "captures": engine.captures, "capture_s": engine.capture_s,
+            "ttft_mean_s": float(np.mean([o.first_token_time
+                                          for o in outs])),
+            "prefix_hits": s.prefix_hits,
+            "prefix_partial_hits": s.prefix_partial_hits,
+            "prefix_misses": s.prefix_misses,
+            "blocks_saved": s.blocks_saved,
+            "captures": decode.captures, "capture_s": decode.capture_s,
             "engine": engine}
+    if spec.disagg:
+        report.update(transfers=s.transfers,
+                      transfer_time_s=s.transfer_time_s,
+                      transferred_blocks=s.transferred_blocks,
+                      transfer_overhead_frac=s.transfer_overhead_frac)
+    return report
 
 
 def _main():
@@ -104,22 +136,64 @@ def _main():
                     default="fifo", help="admission policy")
     ap.add_argument("--kv-dtype", choices=("auto", "int8"), default=None,
                     help="paged KV storage dtype (--kv paged)")
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="radix prompt-prefix KV sharing (--kv paged): "
+                         "requests agreeing on a block-aligned token "
+                         "prefix share those blocks, exact repeats skip "
+                         "prefill")
+    ap.add_argument("--group", type=int, default=None,
+                    help="each prompt is served group times (the GRPO "
+                         "rollout shape)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated serving: prefill engines hand the "
+                         "finished KV to the decode engine by transfer "
+                         "handle (output identical under greedy)")
+    ap.add_argument("--prefill-slots", type=int, default=None,
+                    help="prefill-side slots (--disagg; default slots/4, "
+                         "min 1)")
+    ap.add_argument("--decode-slots", type=int, default=None,
+                    help="decode-side slots (--disagg; default slots - "
+                         "prefill slots)")
+    ap.add_argument("--prefill-kv-blocks", type=int, default=None,
+                    help="prefill-side paged pool size (--disagg --kv "
+                         "paged)")
+    ap.add_argument("--decode-kv-blocks", type=int, default=None,
+                    help="decode-side paged pool size (--disagg --kv "
+                         "paged; default --num-kv-blocks)")
+    ap.add_argument("--prefill-engines", type=int, default=None,
+                    help="parallel prefill engines (--disagg; each with "
+                         "its own pools and radix tree)")
+    ap.add_argument("--kv-routing", choices=("kv_aware", "queue"),
+                    default=None,
+                    help="steering across --prefill-engines: kv_aware to "
+                         "the engine holding the longest prefix, queue by "
+                         "load alone")
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    spec = RolloutSpec.from_args(args)
     texts = [f"{i}+{i + 1}=" for i in range(args.batch)]
+    if args.group:
+        texts = [t for t in texts for _ in range(args.group)]
     res = serve_continuous(
         args.arch, [tok.encode(t, bos=True) for t in texts],
         reduced=args.reduced, max_new=args.max_new, seed=args.seed,
-        num_slots=args.slots, block_size=args.block_size, kv=args.kv,
-        kv_block_size=args.kv_block_size, num_kv_blocks=args.num_kv_blocks,
-        sched=args.sched, kv_dtype=args.kv_dtype, device=args.device)
+        spec=spec, device=args.device)
     dev = res["engine"].device
+    extra = ""
+    if args.prefix_share:
+        extra += (f", {res['prefix_hits']} prefix hits, "
+                  f"{res['prefix_partial_hits']} partial, "
+                  f"{res['prefix_misses']} misses "
+                  f"({res['blocks_saved']} blocks saved)")
+    if args.disagg:
+        extra += (f", {res['transfers']} KV transfers "
+                  f"({res['transfer_overhead_frac']:.1%} overhead)")
     print(f"[continuous] served {len(texts)} requests on {dev}, "
           f"{res['tokens']} tokens in {res['wall_s']:.2f}s "
           f"({res['tok_per_s']:.1f} tok/s, slot util "
           f"{res['slot_utilization']:.0%}, {res['decode_steps']} decode "
-          f"steps)")
+          f"steps, {res['prefills']} prefills{extra})")
     for p, t in zip(texts, res["texts"]):
         print(f"  {p!r} -> {t!r}")
 

@@ -36,6 +36,8 @@ training phases on CUDA streams of their own:
 ``--carry`` (``--mux stream --rollout engine``) is partial-rollout
 continuation: each weight sync is swapped into the live engine, whose
 in-flight generations are suspended and resumed under the new weights.
+``--prefix-share`` (``--rollout engine --kv paged``) serves each GRPO
+group's duplicated prompt from one prefill through the radix tree.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from repro_torch.rl.coexec import (GRPOJob, MuxConfig, run_coexec,
                                    run_pipelined, run_sequential)
 from repro_torch.rl.rewards import make_reward
 from repro_torch.rl.stream import run_streaming
+from repro_torch.serve.spec import RolloutSpec
 
 
 def run_training(arch: str = "internlm2-1.8b", *, reduced: bool = False,
@@ -56,6 +59,8 @@ def run_training(arch: str = "internlm2-1.8b", *, reduced: bool = False,
                  num_slots: int | None = None, engine_block_size: int = 1,
                  kv: str = "contiguous", kv_block_size: int = 16,
                  sched: str = "fifo", kv_dtype: str | None = None,
+                 prefix_share: bool = False,
+                 spec: RolloutSpec | None = None,
                  slo_bound: float = 2.0, mux: str = "off",
                  mux_staleness: int = 1, jobs: int = 2,
                  reward: str = "arith", reward_latency: float = 0.0,
@@ -69,9 +74,12 @@ def run_training(arch: str = "internlm2-1.8b", *, reduced: bool = False,
     card unless ``device="cpu"``); the sequential, pipelined and
     streaming executors train ``params`` in place.  ``reward_fn``, a
     row-wise verifier ``fn(completions, mask, answers) -> (B,) float32``,
-    replaces the named ``reward``.  Returns ``(state, history)`` (for
-    ``mux="coexec"`` dicts of them keyed by job id), plus the
-    :class:`~repro_torch.rl.coexec.MuxReport` when ``return_report``."""
+    replaces the named ``reward``.  The engine rollout's shape is
+    ``spec`` (a :class:`~repro_torch.serve.spec.RolloutSpec`), or the
+    loose ``num_slots`` ... ``prefix_share`` arguments.  Returns
+    ``(state, history)`` (for ``mux="coexec"`` dicts of them keyed by job
+    id), plus the :class:`~repro_torch.rl.coexec.MuxReport` when
+    ``return_report``."""
     cfg = MuxConfig(mode=mux, max_staleness=mux_staleness,
                     reward_workers=reward_workers, micro_groups=micro_groups)
     if carry and rollout != "engine":
@@ -82,14 +90,17 @@ def run_training(arch: str = "internlm2-1.8b", *, reduced: bool = False,
                          "seed's weights; params= names only one set")
     reward_fn = reward_fn or make_reward(reward, latency_s=reward_latency,
                                          seed=seed)
+    if spec is None:
+        spec = RolloutSpec(num_slots=num_slots, block_size=engine_block_size,
+                           kv_layout=kv, kv_block_size=kv_block_size,
+                           sched=sched, kv_dtype=kv_dtype,
+                           prefix_share=prefix_share, carry=carry)
 
     def make_job(jid: str, job_seed: int, job_params=None) -> GRPOJob:
         return GRPOJob(
             jid, model=model, arch=arch, reduced=reduced, seed=job_seed,
             steps=steps, batch=batch, group=group, max_new=max_new, lr=lr,
-            temperature=temperature, rollout=rollout, num_slots=num_slots,
-            engine_block_size=engine_block_size, kv=kv,
-            kv_block_size=kv_block_size, sched=sched, kv_dtype=kv_dtype,
+            temperature=temperature, rollout=rollout, spec=spec,
             slo_bound=slo_bound, reward_fn=reward_fn, params=job_params,
             device=device, carry=carry)
 
@@ -149,6 +160,11 @@ def _main():
                     default="fifo", help="engine admission policy")
     ap.add_argument("--slo-bound", type=float, default=2.0,
                     help="slowdown bound the slo policy enforces")
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="radix prompt-prefix KV sharing (--rollout engine "
+                         "--kv paged): each GRPO group's duplicated prompt "
+                         "prefills once, its full blocks pinned under every "
+                         "member")
     ap.add_argument("--mux", choices=("off", "pipeline", "coexec", "stream"),
                     default="off",
                     help="phase multiplexing: 'off' runs rollout and "
@@ -196,8 +212,7 @@ def _main():
         args.arch, reduced=args.reduced, steps=args.steps, batch=args.batch,
         group=args.group, max_new=args.max_new, lr=args.lr, seed=args.seed,
         rollout=args.rollout, temperature=args.temperature,
-        num_slots=args.slots, kv=args.kv, kv_block_size=args.kv_block_size,
-        sched=args.sched, kv_dtype=args.kv_dtype, slo_bound=args.slo_bound,
+        spec=RolloutSpec.from_args(args), slo_bound=args.slo_bound,
         mux=args.mux, mux_staleness=args.mux_staleness, jobs=args.jobs,
         reward=args.reward, reward_latency=args.reward_latency,
         reward_workers=args.reward_workers, micro_groups=args.micro_groups,

@@ -83,7 +83,7 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def _embed_tokens(p: dict, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
-    x = p["embed"][tokens.long()]
+    x = torch.nn.functional.embedding(tokens.long(), p["embed"])
     if cfg.local_global_ratio:           # gemma3 scales its embeddings
         x = x * math.sqrt(cfg.d_model)
     return x

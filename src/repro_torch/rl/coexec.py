@@ -49,11 +49,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.rl.grpo import group_advantages
 from repro_torch.rl.rewards import arithmetic_reward
-from repro_torch.rl.rollout import (SamplerConfig, build_engine, generate,
+from repro_torch.rl.rollout import (SamplerConfig, generate,
                                    generate_continuous,
                                    generate_continuous_stream)
 from repro_torch.rl.train_step import make_train_step
 from repro_torch.serve.sched import make_policy
+from repro_torch.serve.spec import RolloutSpec
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init, tree_map,
                                          warmup_cosine)
 
@@ -113,7 +114,12 @@ class GRPOJob:
     ``params`` are the initial weights (default: the model's random init
     from ``seed``); the sequential and pipelined executors train them in
     place.  ``carry`` (partial-rollout continuation, engine rollout) lets
-    the streaming executor swap each weight sync into the live engine."""
+    the streaming executor swap each weight sync into the live engine.
+    The engine's shape is ``spec`` (a
+    :class:`~repro_torch.serve.spec.RolloutSpec`: with ``prefix_share``
+    each GRPO group's prompt prefills once, with ``disagg`` the rollout
+    runs through a ``DisaggRouter``), or, without one, the loose
+    ``num_slots`` ... ``prefix_share`` arguments."""
 
     def __init__(self, job_id: str, model=None, *,
                  arch: str = "internlm2-1.8b", reduced: bool = False,
@@ -123,7 +129,8 @@ class GRPOJob:
                  num_slots: Optional[int] = None, engine_block_size: int = 1,
                  kv: str = "contiguous", kv_block_size: int = 16,
                  num_kv_blocks: Optional[int] = None, sched: str = "fifo",
-                 kv_dtype: Optional[str] = None,
+                 kv_dtype: Optional[str] = None, prefix_share: bool = False,
+                 spec: Optional[RolloutSpec] = None,
                  token_budget: Optional[int] = None, slo_bound: float = 2.0,
                  reward_fn=None, params=None, device=None,
                  carry: bool = False):
@@ -137,8 +144,17 @@ class GRPOJob:
         self.steps = steps
         self.batch = batch
         self.group = group
-        self.num_slots = num_slots
-        self.sched = sched
+        if spec is None:
+            spec = RolloutSpec(
+                num_slots=num_slots, block_size=engine_block_size,
+                kv_layout=kv, kv_block_size=kv_block_size,
+                num_kv_blocks=num_kv_blocks, sched=sched,
+                prefix_share=prefix_share, kv_dtype=kv_dtype)
+        # the spec is the engine shape: it builds the job's engines and
+        # is checked against a persistent one at every rollout
+        self.spec = spec.replace(group=group, carry=spec.carry or carry)
+        self.num_slots = self.spec.num_slots
+        self.sched = self.spec.sched
         # per-job token budget for deadline/SLO admission: one full GRPO
         # iteration's rollout (batch * group members, max_new tokens each)
         self.token_budget = (token_budget if token_budget is not None
@@ -154,13 +170,7 @@ class GRPOJob:
             lr_schedule=warmup_cosine(self.opt_cfg.lr, 10, steps))
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.params = params
-        self.carry = carry
-        # the engine shape: builds the job's engines and is checked
-        # against a persistent one at every rollout
-        self._engine_kw = dict(
-            block_size=engine_block_size, kv_layout=kv,
-            kv_block_size=kv_block_size, num_kv_blocks=num_kv_blocks,
-            sched=sched, kv_dtype=kv_dtype)
+        self.carry = self.spec.carry
         self._engines: dict[int, object] = {}      # max_seq_len -> Engine
 
     def init_state(self) -> dict:
@@ -195,12 +205,12 @@ class GRPOJob:
         the slot pool stays, the weights are swapped."""
         eng = self._engines.get(max_seq_len)
         if eng is None:
-            eng = build_engine(
-                self.model, params, max_seq_len=max_seq_len,
+            eng = self.spec.build_engine(
+                self.model, params, batch=num_slots, max_seq_len=max_seq_len,
                 eos_id=self.sampler.eos_id,
-                temperature=self.sampler.temperature, num_slots=num_slots,
+                temperature=self.sampler.temperature,
                 policy=self._make_policy(), device=self.device,
-                generator=self.generator, **self._engine_kw)
+                generator=self.generator)
             self._engines[max_seq_len] = eng
         return eng
 
@@ -231,7 +241,7 @@ class GRPOJob:
             with torch.no_grad(), self._serving(params, prompts) as eng:
                 out = generate_continuous(self.model, params, prompts,
                                           self.sampler, engine=eng,
-                                          **self._engine_kw)
+                                          spec=self.spec)
         self._sync()
         return b, out
 
@@ -271,7 +281,7 @@ class GRPOJob:
             for gout in generate_continuous_stream(
                     self.model, params, prompts, self.sampler,
                     group=self.group, engine=eng, sync_params=sync_params,
-                    **self._engine_kw):
+                    spec=self.spec):
                 on_group(gout)
             stats = eng.metrics()
         self._sync()
@@ -297,7 +307,7 @@ class GRPOJob:
         in place on ``state``.  Returns ``(state, rec)`` with the scalar
         metrics the history records (the JAX package's, plus the step's
         ``grad_norm`` and, when ``out`` carries ``engine_stats``, the
-        rollout's ``prefills`` and ``decode_steps``)."""
+        rollout's ``prefills``, ``prefix_hits`` and ``decode_steps``)."""
         if rewards is None:
             rewards = self.compute_rewards(b, out)
         adv = group_advantages(rewards, self.group)
@@ -319,11 +329,13 @@ class GRPOJob:
 
 
 def _rollout_counts(stats) -> dict:
-    """The engine rollout's prefills and decode steps (none for the
-    static rollout)."""
+    """The engine rollout's prefills (admissions), the radix exact hits
+    among them (admitted with no model compute) and decode steps (none
+    for the static rollout)."""
     if stats is None:
         return {}
-    return {"prefills": stats.prefills, "decode_steps": stats.steps}
+    return {"prefills": stats.prefills, "prefix_hits": stats.prefix_hits,
+            "decode_steps": stats.steps}
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,10 @@ Counterpart of ``repro/rl/rollout.py``: ``generate`` (prefill once, then
 one decode step of the whole batch per token), ``generate_continuous``
 (greedy and sampled decoding), ``generate_continuous_stream`` (with
 ``sync_params``, partial-rollout continuation across weight syncs) and
-``completions_to_text``.  The engine shape is given as plain keyword
-arguments; the JAX package's ``RolloutSpec`` comes with the
-disaggregated-serving slice.
+``completions_to_text``.  The engine shape is a
+:class:`~repro_torch.serve.spec.RolloutSpec` (``spec=``), which selects
+radix prefix sharing and disaggregated prefill/decode serving too, or
+the same fields as plain keyword arguments.
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ import torch
 
 from repro_torch.data import tokenizer as tok
 from repro_torch.device import resolve_device
-from repro_torch.serve.engine import Engine, EngineConfig, sample_logp
+from repro_torch.serve.engine import Engine, sample_logp
 from repro_torch.serve.request import Request, RequestOutput
+from repro_torch.serve.spec import RolloutSpec
 
 
 @dataclass(frozen=True)
@@ -71,22 +73,6 @@ def generate(model, params, prompts, sampler: SamplerConfig, *,
             "mask": torch.stack(masks, dim=1)}
 
 
-def build_engine(model, params, *, max_seq_len: int, eos_id: int = tok.EOS,
-                 temperature: float = 0.0, num_slots: int = 8,
-                 block_size: int = 1, kv_layout: str = "contiguous",
-                 kv_block_size: int = 16, num_kv_blocks: int | None = None,
-                 sched: str = "fifo", kv_dtype: str | None = None,
-                 policy=None, device=None, generator=None) -> Engine:
-    """An :class:`Engine` from plain engine-shape keyword arguments;
-    ``generator`` feeds sampled decoding."""
-    return Engine(model, params, EngineConfig(
-        num_slots=num_slots, max_seq_len=max_seq_len, eos_id=eos_id,
-        temperature=temperature, block_size=block_size, kv_layout=kv_layout,
-        kv_block_size=kv_block_size, num_kv_blocks=num_kv_blocks,
-        sched=sched, kv_dtype=kv_dtype), device=device, policy=policy,
-        generator=generator)
-
-
 def run_requests(engine: Engine, requests) -> list[RequestOutput]:
     """Backpressure-aware drive: submit while the queue takes requests,
     step until everything finished; outputs sorted by rid."""
@@ -99,20 +85,34 @@ def run_requests(engine: Engine, requests) -> list[RequestOutput]:
     return [engine.finished[r] for r in sorted(engine.finished)]
 
 
+def _resolve_spec(spec, num_slots, engine_kw) -> tuple:
+    """``(spec, policy)`` from a call's ``spec`` or its engine-shape
+    keyword arguments (``RolloutSpec``'s fields, and ``policy``); both
+    at once raise."""
+    policy = engine_kw.pop("policy", None)
+    if spec is None:
+        return RolloutSpec(num_slots=num_slots, **engine_kw), policy
+    if engine_kw or num_slots is not None:
+        raise ValueError(
+            f"spec= given alongside engine-shape kwargs "
+            f"{sorted(engine_kw) + (['num_slots'] if num_slots else [])}; "
+            f"move them into the RolloutSpec")
+    return spec, policy
+
+
 def _engine_session(model, params, prompts_np, sampler: SamplerConfig, *,
-                    engine, generator, num_slots, device, engine_kw):
+                    engine, generator, device, spec, policy):
     """Shared engine setup of the batch and streaming rollouts: build the
-    engine the arguments describe, or check and ``reset`` a persistent
+    engine ``spec`` describes, or check and ``reset`` a persistent
     (drained) one with ``params`` and ``generator``; then the prompt rows
-    as the pending request deque."""
+    as the pending request deque, in ``spec.prefix_namespace``."""
     B, Sp = prompts_np.shape
     T = sampler.max_new_tokens
     if engine is None:
-        engine = build_engine(
-            model, params, max_seq_len=Sp + T, eos_id=sampler.eos_id,
-            temperature=sampler.temperature,
-            num_slots=B if num_slots is None else num_slots, device=device,
-            generator=generator, **engine_kw)
+        engine = spec.build_engine(
+            model, params, batch=B, max_seq_len=Sp + T,
+            eos_id=sampler.eos_id, temperature=sampler.temperature,
+            generator=generator, policy=policy, device=device)
     else:
         cfg = engine.config
         if cfg.max_seq_len < Sp + T:
@@ -127,20 +127,25 @@ def _engine_session(model, params, prompts_np, sampler: SamplerConfig, *,
                 f"persistent engine serves temperature={cfg.temperature}, "
                 f"eos_id={cfg.eos_id} but the sampler asks for "
                 f"temperature={sampler.temperature}, eos_id={sampler.eos_id}")
-        layout = engine_kw.get("kv_layout", "contiguous")
-        if cfg.kv_layout != layout:
+        if cfg.kv_layout != spec.kv_layout:
             raise ValueError(f"persistent engine kv_layout="
-                             f"{cfg.kv_layout!r} != requested {layout!r}")
+                             f"{cfg.kv_layout!r} != requested "
+                             f"{spec.kv_layout!r}")
         want, have = (None if d == "auto" else d for d in (
-            engine_kw.get("kv_dtype"), cfg.kv_dtype))
+            spec.kv_dtype, cfg.kv_dtype))
         if have != want:
             raise ValueError(f"persistent engine kv_dtype={have!r} != "
                              f"requested {want!r}")
+        if spec.prefix_share and not cfg.prefix_share:
+            raise ValueError("persistent engine was built without "
+                             "prefix_share")
         if device is not None and resolve_device(device) != engine.device:
             raise ValueError(f"persistent engine runs on {engine.device}, "
                              f"not {device}")
         engine.reset(params, generator)
-    pending = deque(Request(rid=i, prompt=prompts_np[i], max_new_tokens=T)
+    pending = deque(Request(rid=i, prompt=prompts_np[i], max_new_tokens=T,
+                            prefix_key=spec.prefix_namespace,
+                            job_id=spec.job_id)
                     for i in range(B))
     return engine, pending
 
@@ -163,17 +168,22 @@ def _pack(outs, n_rows: int, T: int, eos_id: int, row_of):
 
 
 def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
-                        generator=None, num_slots: int | None = None,
-                        device=None, engine: Engine | None = None,
-                        **engine_kw) -> dict:
+                        spec: RolloutSpec | None = None, generator=None,
+                        num_slots: int | None = None, device=None,
+                        engine: Engine | None = None, **engine_kw) -> dict:
     """Serve each row of ``prompts (B, Sp)`` as one request through the
     engine (``num_slots`` KV slots, default one per row; fewer slots than
     rows queue and recycle).  Sampled decoding (``sampler.temperature >
     0``) draws from ``generator``, a ``torch.Generator`` on ``device``,
-    where the JAX package takes a key.  ``engine_kw`` are
-    :func:`build_engine`'s engine-shape arguments (``block_size``, ``kv_layout``,
-    ``kv_block_size``, ``num_kv_blocks``, ``sched``, ``policy``,
-    ``kv_dtype``).
+    where the JAX package takes a key.  The engine's shape is ``spec``
+    (a :class:`~repro_torch.serve.spec.RolloutSpec`), or ``num_slots``
+    and ``engine_kw``, its fields as keyword arguments (``block_size``,
+    ``kv_layout``, ``kv_block_size``, ``num_kv_blocks``, ``sched``,
+    ``prefix_share``, ``kv_dtype``, ``disagg``, ...), plus ``policy``;
+    ``spec`` and those at once raise.  ``prefix_share=True`` (paged)
+    serves GRPO's duplicated rows from one prefill each; ``disagg``
+    serves through a ``DisaggRouter``, with the same output bit for bit
+    when its decode pool has the monolithic engine's slot count.
 
     ``engine`` reuses a persistent, drained engine across calls (the mux
     trainer's rollout actor): ``Engine.reset`` swaps in ``params`` (and
@@ -192,10 +202,10 @@ def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
     prompts_np = np.asarray(prompts, np.int32)
     B = prompts_np.shape[0]
     T = sampler.max_new_tokens
+    spec, policy = _resolve_spec(spec, num_slots, engine_kw)
     engine, pending = _engine_session(
         model, params, prompts_np, sampler, engine=engine,
-        generator=generator, num_slots=num_slots, device=device,
-        engine_kw=engine_kw)
+        generator=generator, device=device, spec=spec, policy=policy)
     outs = run_requests(engine, pending)
     completions, behavior_logp, mask, token_versions = _pack(
         outs, B, T, sampler.eos_id, lambda o: o.rid)
@@ -215,6 +225,7 @@ def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
 
 def generate_continuous_stream(model, params, prompts,
                                sampler: SamplerConfig, *,
+                               spec: RolloutSpec | None = None,
                                group: int | None = None, sync_params=None,
                                generator=None, num_slots: int | None = None,
                                device=None, engine: Engine | None = None,
@@ -223,7 +234,8 @@ def generate_continuous_stream(model, params, prompts,
     row its own group when ``group`` is None or 1) the moment their last
     member finishes decoding, while the engine keeps serving the
     stragglers: the engine is drained through :meth:`Engine.harvest`
-    between scheduler ticks, never waited on.
+    between scheduler ticks, never waited on.  ``group`` defaults to
+    ``spec.group``.
 
     The same engine computation as :func:`generate_continuous` (same
     arguments): each yielded dict holds ``group_index`` (``rid //
@@ -245,11 +257,11 @@ def generate_continuous_stream(model, params, prompts,
     prompts_np = np.asarray(prompts, np.int32)
     B = prompts_np.shape[0]
     T = sampler.max_new_tokens
-    g = group or 1
+    spec, policy = _resolve_spec(spec, num_slots, engine_kw)
+    g = group or spec.group or 1
     engine, pending = _engine_session(
         model, params, prompts_np, sampler, engine=engine,
-        generator=generator, num_slots=num_slots, device=device,
-        engine_kw=engine_kw)
+        generator=generator, device=device, spec=spec, policy=policy)
     synced_version = None
     if sync_params is not None:
         _, synced_version = sync_params()   # the session's baseline

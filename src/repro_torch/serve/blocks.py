@@ -18,7 +18,7 @@ Long-tail traffic thus reserves what it might use, not a full
 layout on concurrency at equal memory.
 
 Blocks are ref-counted (``incref``/``decref``), which is what radix
-prompt-prefix sharing (radix sharing, not ported yet) builds on: a donor request
+prompt-prefix sharing (``serve/radix.py``) builds on: a donor request
 allocates a prompt's blocks under its own reservation, the prefix index
 pins them with one extra ref, and every sharing slot increfs them again —
 an immutable full block lives until its *last* owner (slot or index) lets

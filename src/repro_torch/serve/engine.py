@@ -53,10 +53,20 @@ swap that way, and :meth:`Engine.export_state` /
 every one of these writes the engine's buffers in place, so that the
 decode block's CUDA graph stays valid: only new weights capture anew.
 
-Not ported yet, and refused with ``NotImplementedError``: radix prefix
-sharing, disaggregated adoption from a ``PrefillEngine`` (its handles
-come with the disaggregated slice) and ``run_trace``'s elastic
-``controller``.
+``EngineConfig.prefix_share`` (paged only) is the JAX engine's radix
+prompt-prefix sharing (:mod:`repro_torch.serve.radix`): requests that
+agree on a block-aligned token prefix share those KV blocks, pinned under
+every sharing slot.  An exact repeat of a registered prompt admits with
+no model compute from the boundary snapshot (a copy of its tail block,
+logits row and slot rows, seeded into the slot in place); a partial
+overlap prefills the whole prompt but writes it through a row whose
+shared entries point at the null block, so a shared block is never
+written.  Admission gates on *net-new* blocks and LRU-evicts the tree
+under pressure.  Every prompt admitted, adopted or resumed registers
+once its slot holds it.  New weights (``reset(params=...)``) flush the
+tree.
+
+``run_trace``'s elastic ``controller`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -75,11 +85,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.sampling import greedy_sample
 from repro_torch.models.kvcache import SCALE_SUFFIX
 from repro_torch.serve.queue import RequestQueue
+from repro_torch.serve.radix import RadixPrefixIndex
 from repro_torch.serve.request import Request, RequestOutput
 from repro_torch.serve.sched import make_policy
 from repro_torch.serve.slots import (PagedSlotManager, SlotManager,
-                                     extract_cache, insert_cache,
-                                     insert_paged)
+                                     extract_cache, insert_cache)
 
 
 @dataclass(frozen=True)
@@ -95,7 +105,8 @@ class EngineConfig:
     num_kv_blocks: Optional[int] = None   # paged pool size (default: same
     #                                       memory as contiguous num_slots)
     sched: str = "fifo"               # "fifo" | "deadline" | "slo"
-    prefix_share: bool = False        # radix sharing: not ported yet
+    prefix_share: bool = False        # radix prompt-prefix KV sharing
+    #                                   (paged layout only)
     kv_dtype: Optional[str] = None    # paged only: None/"auto" | "int8"
 
     def __post_init__(self):
@@ -111,6 +122,9 @@ class EngineConfig:
             raise ValueError("kv_block_size must be >= 1")
         if self.sched not in ("fifo", "deadline", "slo"):
             raise ValueError(f"unknown sched policy {self.sched!r}")
+        if self.prefix_share and self.kv_layout != "paged":
+            raise ValueError("prefix_share requires kv_layout='paged' "
+                             "(sharing is block-granular)")
         if self.kv_dtype not in (None, "auto", "int8"):
             raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}")
         if self.kv_dtype == "int8" and self.kv_layout != "paged":
@@ -124,8 +138,7 @@ _warned_legacy = [False]
 
 @dataclass
 class EngineStats:
-    """The JAX engine's counter record.  The prefix-sharing counters stay
-    0 until radix sharing is ported."""
+    """The JAX engine's counter record."""
     steps: int = 0                    # decode steps executed (all slots)
     blocks: int = 0                   # scheduler ticks that ran a decode
     prefills: int = 0
@@ -193,10 +206,27 @@ def _addresses(tree, out: list) -> list:
     return out
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP, modules to "
-        f"port: radix, disaggregated adoption and elastic)")
+def _prefill(model, params, req: Request, max_seq_len: int, device):
+    """The model's prefill of ``req``'s prompt on a new batch=1 cache:
+    ``(logits (V,), cache)``."""
+    prompt = torch.from_numpy(req.prompt).to(device)[None]
+    logits, one = model.prefill(params, prompt, model.init_cache(
+        1, max_seq_len, device=device))
+    return logits[0], one
+
+
+def _evict_for(radix, slots, total_budget: int, m=None) -> bool:
+    """Under block pressure, LRU-evict ``radix`` until a request of
+    ``total_budget`` sharing ``m``'s blocks fits ``slots``' pool, sparing
+    ``m``'s path; as a last resort evict that path too, for an unshared
+    admit.  False without a tree or when nothing fits."""
+    if radix is None or not len(radix):
+        return False
+    full = slots.blocks_required(total_budget)
+    if m is not None and radix.evict_for(max(full - m.n_shared, 0),
+                                         protect=m.node_ids):
+        return True
+    return radix.evict_for(full)
 
 
 def _clone_tree(tree):
@@ -221,7 +251,7 @@ class SuspendedRequest:
 
     A paged engine pins the sequence's full KV blocks in its pool (one
     ``incref`` each, no copy) and keeps a copy of the partial last block
-    in ``tail`` (int8 dequantized); a contiguous engine keeps a copy of
+    in ``tail`` (as the pool stores it); a contiguous engine keeps a copy of
     the slot's whole stripe in ``one``.  ``logits`` is a copy of the
     slot's last logits row.  Copies, never views: the engine's buffers and
     pool are rewritten in place by every later decode step and admit.  The
@@ -287,8 +317,6 @@ class Engine:
                  policy=None, generator: Optional[torch.Generator] = None):
         if config.temperature < 0:
             raise ValueError("temperature must be >= 0")
-        if config.prefix_share:
-            raise _not_ported("prefix_share (radix prefix sharing)")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -314,6 +342,8 @@ class Engine:
         else:
             self.slots = SlotManager(model, N, config.max_seq_len,
                                      device=self.device)
+        self.radix = (RadixPrefixIndex(self.slots.alloc)
+                      if config.prefix_share else None)
         # the decode block's state: buffers owned for the engine's
         # lifetime and only ever written in place, so that a CUDA graph of
         # the block can read and write them by address
@@ -429,8 +459,7 @@ class Engine:
     def metrics(self) -> MetricsSnapshot:
         """One :class:`~repro_torch.core.telemetry.MetricsSnapshot` of this
         engine: queue and slot occupancy, decode counters, KV block
-        occupancy, suspend/resume traffic and the prefix-sharing counters
-        (0 until radix sharing is ported)."""
+        occupancy, suspend/resume traffic and the prefix-sharing counters."""
         s = self._stats
         snap = MetricsSnapshot(
             source="engine",
@@ -457,15 +486,38 @@ class Engine:
         if self.paged:
             snap.kv_blocks_total = self.slots.alloc.num_blocks
             snap.kv_blocks_in_use = self.slots.blocks_in_use
+        if self.radix is not None:
+            rs = self.radix.stats
+            snap.prefix_misses = rs["misses"]
+            snap.prefix_evictions = rs["evictions"]
+            snap.pinned_blocks = rs["pinned_blocks"]
+            snap.prefix_snapshots = rs["snapshots"]
+            snap.snapshot_demotions = rs["snapshot_demotions"]
         return snap
 
     # ---- scheduler ---------------------------------------------------------
+    def _match(self, req: Request, *, count: bool = False):
+        """Radix lookup for ``req`` (``None`` with sharing off or no
+        match).  ``count=True`` marks the admission lookup: the index owns
+        the hit/partial/miss counters and bumps exactly one per counted
+        call."""
+        if self.radix is None:
+            return None
+        return self.radix.match(req, count=count)
+
     def _can_admit(self, req: Request) -> bool:
         """A free slot and (paged) enough uncommitted KV blocks for the
-        candidate's worst-case budget."""
+        candidate's worst-case budget net of prefix-shared blocks,
+        evicting the radix tree under pressure."""
         if not self.paged:
             return bool(self.slots.num_free)
-        return self.slots.can_admit(req.total_budget)
+        if not self.slots.num_free:
+            return False
+        m = self._match(req)
+        if self.slots.can_admit(req.total_budget, shared_blocks=(
+                m.n_shared if m is not None else 0)):
+            return True
+        return _evict_for(self.radix, self.slots, req.total_budget, m)
 
     def _admit(self) -> None:
         """Admit waiting requests into free slots, in the policy's order."""
@@ -492,22 +544,39 @@ class Engine:
                                              self.slots.blocks_in_use)
 
     def _admit_one(self, req: Request) -> None:
-        """Prefill one picked request into a free slot: a batch=1 cache is
-        prefilled, then written into the slot's stripe (contiguous) or
-        through its block-table row (paged)."""
-        prompt = torch.from_numpy(req.prompt).to(self.device)[None]
-        one = self.model.init_cache(1, self.config.max_seq_len,
-                                    device=self.device)
-        logits, one = self.model.prefill(self.params, prompt, one)
-        if not self.paged:
-            slot = self.slots.assign(req.rid)
-            insert_cache(self.slots.cache, one, slot)
+        """Admit one picked request into a free slot.  A radix exact hit
+        runs no model (:meth:`_admit_shared_exact`); otherwise a batch=1
+        cache is prefilled, then written into the slot's stripe
+        (contiguous) or through its block-table row (paged), on a partial
+        hit through a copy of the row whose shared entries are 0, so that
+        the shared blocks go unwritten.  With sharing on, the admitted
+        prompt then registers."""
+        m = self._match(req, count=True)
+        shared = m.n_shared if m is not None else 0
+        if m is not None and m.exact:
+            slot = self._admit_shared_exact(req, m)
         else:
-            slot = self.slots.assign(req.rid, prompt_len=req.prompt_len,
-                                     total_budget=req.total_budget)
-            insert_paged(self.slots.cache, one,
-                         self.slots.device_tables()[slot], slot)
-        self._last_logits[slot] = logits[0]
+            logits, one = _prefill(self.model, self.params, req,
+                                   self.config.max_seq_len, self.device)
+            if not self.paged:
+                slot = self.slots.assign(req.rid)
+                insert_cache(self.slots.cache, one, slot)
+            else:
+                if m is not None:
+                    self.radix.touch(m)
+                    slot = self.slots.assign_shared(
+                        req.rid, prompt_len=req.prompt_len,
+                        total_budget=req.total_budget,
+                        shared_ids=m.block_ids)
+                    self._stats.prefix_partial_hits += 1
+                else:
+                    slot = self.slots.assign(req.rid,
+                                             prompt_len=req.prompt_len,
+                                             total_budget=req.total_budget)
+                self.slots.insert_prompt(slot, one, shared)
+            self._last_logits[slot] = logits
+            if self.radix is not None:
+                self._register_prefix(req, slot)
         self._alive[slot] = True
         self._remaining[slot] = req.max_new_tokens
         self._host_index[slot] = req.prompt_len
@@ -517,9 +586,38 @@ class Engine:
                             prefill_step=self._stats.steps,
                             arrival_time=req.arrival_time,
                             priority=req.priority, deadline=req.deadline,
-                            job_id=req.job_id)
+                            job_id=req.job_id, prefix_shared_blocks=shared)
         self._active[slot] = (req, out)
         self._stats.prefills += 1
+        self._stats.blocks_saved += shared
+
+    def _register_prefix(self, req: Request, slot: int) -> None:
+        """Register the prompt slot ``slot`` holds: its full blocks and a
+        boundary snapshot of copies taken from the slot itself
+        (:meth:`PagedSlotManager.boundary`, and the logits row), so that
+        an exact hit seeds the same bits."""
+        block_ids, tail, rows = self.slots.boundary(slot, req.prompt_len)
+        self.radix.register(req, block_ids,
+                            logits=self._last_logits[slot].clone(),
+                            tail=tail, slot_leaves=rows)
+
+    def _admit_shared_exact(self, req: Request, m) -> int:
+        """A radix exact hit, with no model compute: pin the shared full
+        blocks under the slot, seed its private tail block, its slot rows
+        and its logits row from the boundary snapshot, in place."""
+        self.radix.touch(m)
+        snap = m.snapshot
+        slot = self.slots.assign_shared(
+            req.rid, prompt_len=req.prompt_len,
+            total_budget=req.total_budget, shared_ids=m.block_ids)
+        if snap.tail:
+            self.slots.seed_block(int(self.slots.tables[slot, m.n_shared]),
+                                  snap.tail)
+        self.slots.seed_rows(slot, snap.slot_leaves)
+        self.slots.cache["index"][slot] = req.prompt_len
+        self._last_logits[slot].copy_(snap.logits)
+        self._stats.prefix_hits += 1
+        return slot
 
     def _finalize(self, slot: int) -> None:
         req, out = self._active[slot]
@@ -819,9 +917,8 @@ class Engine:
             pinned = self.slots.pin_prefix(slot, n_full)
             # the copy is queued before the release lets an admit reuse
             # the block, on the same stream
-            tail = (self.slots.copy_block(int(self.slots.tables[slot,
-                                                                n_full]))
-                    if idx % bs else {})
+            tail = (self.slots.snapshot_block(
+                int(self.slots.tables[slot, n_full])) if idx % bs else {})
             sreq = SuspendedRequest(
                 req, out, history, idx, req.max_new_tokens - produced,
                 logits, block_ids=pinned, tail=tail, **kwargs)
@@ -968,7 +1065,9 @@ class Engine:
             return True
         budget = (max_new_tokens if max_new_tokens is not None
                   else max(sreq.remaining, 1))
-        return self.slots.can_admit(sreq.index + len(tool_tokens) + budget)
+        total = sreq.index + len(tool_tokens) + budget
+        return self.slots.can_admit(total) or _evict_for(self.radix,
+                                                         self.slots, total)
 
     def resume(self, sreq: SuspendedRequest, tool_tokens=(), *,
                max_new_tokens: Optional[int] = None,
@@ -983,15 +1082,14 @@ class Engine:
         on any engine of the same serving shape (``sreq.source`` holds the
         pins until it is materialized here).  With no tool tokens and the
         boundary logits carried, every tensor decode restarts from is moved
-        by copies: greedy continuation equals the uninterrupted run bit for
-        bit on float pools.  int8 pools quantize the dequantized tail
-        again, which moves a scale by an ulp.  A boundary cut out of a
-        ``block_size > 1`` block replays the last history token, and tool
-        tokens run, through a decode step at batch 1, whose products may
-        round unlike the batched block's: on a paged pool in the adopted
-        slot through the pool's own kernel (:meth:`_inject_in_slot`), on a
-        contiguous one on the cache before it is adopted
-        (:meth:`_inject`).
+        by copies (an int8 pool's values and scales as stored): greedy
+        continuation equals the uninterrupted run bit for bit.  A boundary
+        cut out of a ``block_size > 1`` block replays the last history
+        token, and tool tokens run, through a decode step at batch 1, whose
+        products may round unlike the batched block's: on a paged pool in
+        the adopted slot through the pool's own kernel
+        (:meth:`_inject_in_slot`), on a contiguous one on the cache before
+        it is adopted (:meth:`_inject`).
 
         ``continue_output=True`` (carrying a generation across a weight
         swap) continues the handle's :class:`RequestOutput`: tokens,
@@ -1043,8 +1141,12 @@ class Engine:
             slot = self.admit_prefilled(req, sreq.logits, one)
             version = sreq.weight_version
         elif self.paged:
-            slot = self.admit_prefilled(req, sreq.logits, one)
+            # the slot holds the prompt only once the forced tokens ran:
+            # it registers then
+            slot = self._adopt(req, sreq.logits, one)
             self._last_logits[slot].copy_(self._inject_in_slot(forced, slot))
+            if self.radix is not None:
+                self._register_prefix(req, slot)
             version = self.weight_version
         else:
             logits, one = self._inject(forced, one)
@@ -1069,30 +1171,48 @@ class Engine:
         return slot
 
     def can_admit_prefilled(self, req: Request) -> bool:
-        """Adoption gate for a prefilled cache: a free slot and (paged)
-        enough uncommitted blocks for the request's worst-case budget."""
+        """Adoption gate for a prefilled cache (a transfer handle's, a
+        resume's): a free slot and (paged) enough uncommitted blocks for
+        the request's worst-case budget, evicting the radix tree under
+        pressure.  No radix match: the prompt's KV arrives prefilled."""
         if not self.slots.num_free:
             return False
-        return not self.paged or self.slots.can_admit(req.total_budget)
+        return (not self.paged or self.slots.can_admit(req.total_budget)
+                or _evict_for(self.radix, self.slots, req.total_budget))
 
     def admit_prefilled(self, req: Request, logits, one) -> int:
         """Adopt a prefilled request into a free slot, without running the
         model.  ``one`` is a batch=1 contiguous cache holding the prompt's
         state (``index`` = prompt length) and ``logits`` the logits after
-        it.  The cache is written through the same in-place splice the
-        admit path uses (:func:`insert_cache` / :func:`insert_paged`) and
+        it (an int8 pool's blocks may come as stored, with their scales:
+        :meth:`PagedSlotManager.fetch`).  The cache is written through the
+        same in-place splice the admit path uses (:func:`insert_cache` /
+        :meth:`PagedSlotManager.insert_prompt`) and
         the row's logits, liveness and budget are copied into the engine's
-        buffers, so the decode block's CUDA graph stays valid.  Returns the
-        slot; gate on :meth:`can_admit_prefilled`, a full pool raises."""
+        buffers, so the decode block's CUDA graph stays valid.  With
+        sharing on, the adopted prompt registers (for a resume, the
+        episode's whole history), so that later requests share it.
+        Returns the slot; gate on :meth:`can_admit_prefilled`, a full pool
+        raises."""
+        slot = self._adopt(req, logits, one)
+        if self.radix is not None:
+            self._register_prefix(req, slot)
+        return slot
+
+    def _adopt(self, req: Request, logits, one) -> int:
+        """:meth:`admit_prefilled` short of the registration."""
         self._validate_stop_tokens(req)
+        extra = set(one) - set(self.slots.cache)
+        if extra:
+            raise ValueError(f"cache leaves {sorted(extra)} (an int8 "
+                             f"handle's) have no place in this pool")
         if not self.paged:
             slot = self.slots.assign(req.rid)
             insert_cache(self.slots.cache, one, slot)
         else:
             slot = self.slots.assign(req.rid, prompt_len=req.prompt_len,
                                      total_budget=req.total_budget)
-            insert_paged(self.slots.cache, one,
-                         self.slots.device_tables()[slot], slot)
+            self.slots.insert_prompt(slot, one)
             self._stats.peak_kv_blocks = max(self._stats.peak_kv_blocks,
                                              self.slots.blocks_in_use)
         self._last_logits[slot].copy_(logits)
@@ -1150,6 +1270,9 @@ class Engine:
             self.weight_version += 1
         if generator is not None:
             self.generator = generator
+        if self.radix is not None:
+            # new weights invalidate every cached prefill (logits and KV)
+            self.radix.flush()
         # rids repeat across batches: per-request bookkeeping goes, the
         # measured service time stays
         self.policy.on_reset()
@@ -1197,6 +1320,7 @@ class Engine:
             slots.update(
                 tables=self.slots.tables.copy(),
                 nblocks=list(self.slots.nblocks),
+                shared={s: list(v) for s, v in self.slots.shared.items()},
                 alloc={"free": list(a.free),
                        "refcount": dict(a.refcount),
                        "quota": dict(a.quota),
@@ -1224,6 +1348,11 @@ class Engine:
                 for rid, s in self.suspended.items()},
             "newly_suspended": [s.req.rid for s in self._newly_suspended],
         })
+        if self.radix is not None:
+            # the snapshots are copies no one writes: they travel as they
+            # are; the tree's pins are in the alloc state
+            device["radix"] = self.radix.export_device_state()
+            host["radix"] = self.radix.export_host_state()
         return {"device": device, "host": host}
 
     def import_state(self, state: dict) -> None:
@@ -1276,6 +1405,8 @@ class Engine:
         if self.paged:
             self.slots.tables = sl["tables"].copy()
             self.slots.nblocks = list(sl["nblocks"])
+            self.slots.shared = {int(s): list(v)
+                                 for s, v in sl["shared"].items()}
             self.slots._dirty = True
             a = self.slots.alloc
             a.free = list(sl["alloc"]["free"])
@@ -1283,6 +1414,10 @@ class Engine:
             a.quota = dict(sl["alloc"]["quota"])
             a.owned = {k: list(v) for k, v in sl["alloc"]["owned"].items()}
             a.events = list(sl["alloc"]["events"])
+        if self.radix is not None:
+            self.radix.import_state(
+                host.get("radix"), _as_device(dev.get("radix", {}),
+                                              self.device))
 
 
 def run_trace(engine: Engine, requests: list[Request], *,
@@ -1355,4 +1490,8 @@ def run_trace(engine: Engine, requests: list[Request], *,
         report["kv_blocks_total"] = total
         report["peak_kv_blocks"] = s.peak_kv_blocks
         report["kv_block_utilization"] = s.peak_kv_blocks / max(total, 1)
+    if engine.radix is not None:
+        report["prefix"] = dict(engine.radix.stats,
+                                blocks_saved=s.blocks_saved,
+                                hit_admits=s.prefix_hits)
     return report

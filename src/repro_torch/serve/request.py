@@ -36,8 +36,7 @@ class Request:
     budgets.  ``prefix_key`` is an optional prefix-sharing *isolation
     namespace* for the radix tree, and ``stop_tokens`` turn a request
     multi-turn (suspend at a tool boundary instead of finishing).  Both
-    keep the JAX package's meaning; the port's engine does not serve
-    radix sharing or suspension yet and refuses ``stop_tokens``.
+    keep the JAX package's meaning.
     """
     rid: int
     prompt: np.ndarray

@@ -23,8 +23,20 @@ where the JAX package rebuilds them with ``.at[].set``.
 Suspension reads a slot back out: :func:`extract_cache` copies a
 contiguous slot's stripe into a batch=1 cache, and
 :meth:`PagedSlotManager.pin_prefix` pins a paged slot's full blocks in
-place, so that they outlive the slot's release.  Prefix sharing
-(``assign_shared``) comes with the radix slice.
+place, so that they outlive the slot's release;
+:meth:`PagedSlotManager.fetch` gathers such blocks back into a batch=1
+cache as they are stored.
+
+Radix prefix sharing (``serve/radix.py``) puts one block in several table
+rows: :meth:`PagedSlotManager.assign_shared` claims a slot whose leading
+entries are shared prompt blocks, each pinned (``incref``) under the slot
+in ``shared`` and unpinned at release.  A slot's *owned* entries stay
+disjoint across slots; shared ones repeat (:meth:`PagedSlotManager.check`).
+:meth:`PagedSlotManager.insert_prompt` writes a prompt past its shared
+blocks, and :meth:`PagedSlotManager.boundary` copies what a radix entry
+keeps: the partial last block as the pool stores it
+(:meth:`PagedSlotManager.snapshot_block`, int8 with its scales, written
+back by :meth:`PagedSlotManager.seed_block`) and the slot rows.
 """
 from __future__ import annotations
 
@@ -34,9 +46,7 @@ import torch
 import numpy as np
 
 from repro_torch.models.attention import gather_blocks
-from repro_torch.models.common import torch_dtype
-from repro_torch.models.kvcache import (SCALE_SUFFIX, dequantize_kv,
-                                        quantize_kv)
+from repro_torch.models.kvcache import SCALE_SUFFIX, quantize_kv
 from repro_torch.serve.blocks import BlockAllocator, blocks_for
 
 
@@ -68,7 +78,15 @@ def insert_paged(pool: dict, one: dict, table_row: torch.Tensor,
     through ``table_row (MB,)``, in place: the sequence is cut into
     ``MB`` blocks (zero-padded) and block j lands in pool block
     ``table_row[j]`` (unassigned entries are 0, so those blocks fall into
-    the null block).  int8 pools quantize each position on the write."""
+    the null block).  int8 pools quantize each position on the write,
+    unless ``one`` carries int8 values with their scales
+    (``PagedSlotManager.fetch``): those are written as they are."""
+    def blocks(u, MB, bs):
+        u = u[:, 0]                                    # (L, S, ...)
+        pad = [0, 0] * (u.dim() - 2) + [0, MB * bs - u.shape[1]]
+        u = torch.nn.functional.pad(u, pad)
+        return u.reshape(u.shape[0], MB, bs, *u.shape[2:])
+
     for name, leaf in pool.items():
         if name.endswith(SCALE_SUFFIX):
             continue                     # written beside the parent leaf
@@ -76,15 +94,17 @@ def insert_paged(pool: dict, one: dict, table_row: torch.Tensor,
             leaf[slot] = one[name]
             continue
         bs, MB = leaf.shape[2], table_row.shape[0]
-        u = one[name][:, 0]                               # (L, S, Hkv, hd)
-        u = torch.nn.functional.pad(
-            u, (0, 0, 0, 0, 0, MB * bs - u.shape[1]))
-        u = u.reshape(u.shape[0], MB, bs, *u.shape[2:])
         rows = table_row.long()
-        if name + SCALE_SUFFIX in pool:
+        sname = name + SCALE_SUFFIX
+        if sname in one:
+            leaf[:, rows] = blocks(one[name], MB, bs)
+            pool[sname][:, rows] = blocks(one[sname], MB, bs)
+            continue
+        u = blocks(one[name], MB, bs)
+        if sname in pool:
             q, s = quantize_kv(u, 3)
             leaf[:, rows] = q
-            pool[name + SCALE_SUFFIX][:, rows] = s
+            pool[sname][:, rows] = s
         else:
             leaf[:, rows] = u.to(leaf.dtype)
     return pool
@@ -158,6 +178,9 @@ class PagedSlotManager:
         self.events: list[tuple] = []
         self.tables = np.zeros((num_slots, self.max_blocks), np.int32)
         self.nblocks = [0] * num_slots     # materialized blocks per slot
+        # slot -> leading table entries pinned by prefix sharing (each
+        # incref'd on behalf of this slot; decref'd on release)
+        self.shared: dict[int, list[int]] = {}
         # one device buffer for the manager's lifetime (a CUDA graph of
         # the decode block reads it by address), staged through a host
         # buffer of its own
@@ -180,11 +203,12 @@ class PagedSlotManager:
         return blocks_for(min(total_budget, self.max_seq_len),
                           self.block_size)
 
-    def can_admit(self, total_budget: int) -> bool:
+    def can_admit(self, total_budget: int, *, shared_blocks: int = 0) -> bool:
         """Admission gate: a free slot and enough uncommitted pool for the
-        request's worst-case budget."""
-        return bool(self.free) and self.alloc.can_reserve(
-            self.blocks_required(total_budget))
+        request's net-new blocks (its worst-case budget less the
+        prompt-prefix blocks sharing pins instead of allocating)."""
+        need = max(self.blocks_required(total_budget) - shared_blocks, 0)
+        return bool(self.free) and self.alloc.can_reserve(need)
 
     def assign(self, rid: int, *, prompt_len: int, total_budget: int) -> int:
         """Claim a slot + block reservation; materialize the prompt's
@@ -197,6 +221,36 @@ class PagedSlotManager:
                                  f"{self.owner[slot]}")
         self.alloc.reserve(rid, self.blocks_required(total_budget))
         self.owner[slot] = rid
+        self.events.append(("assign", rid, slot))
+        if prompt_len:
+            self.ensure(slot, prompt_len - 1)
+        return slot
+
+    def assign_shared(self, rid: int, *, prompt_len: int, total_budget: int,
+                      shared_ids: list[int]) -> int:
+        """Claim a slot whose leading table entries are *shared* prompt
+        blocks (a radix hit): each is pinned under this slot, only the
+        net-new rest of the worst-case budget is reserved, and the
+        prompt's own tail block and decode growth materialize from that
+        reservation through :meth:`ensure`."""
+        if not self.free:
+            raise RuntimeError("no free slot")
+        if len(shared_ids) > self.blocks_required(total_budget):
+            raise AssertionError("shared prefix longer than the budget")
+        slot = self.free.pop()
+        if self.owner[slot] is not None:
+            raise AssertionError(f"slot {slot} already owned by "
+                                 f"{self.owner[slot]}")
+        self.alloc.reserve(rid, self.blocks_required(total_budget)
+                           - len(shared_ids))
+        for bid in shared_ids:
+            self.alloc.incref(bid)
+        self.owner[slot] = rid
+        if shared_ids:
+            self.shared[slot] = list(shared_ids)
+            self.tables[slot, :len(shared_ids)] = shared_ids
+            self.nblocks[slot] = len(shared_ids)
+            self._dirty = True
         self.events.append(("assign", rid, slot))
         if prompt_len:
             self.ensure(slot, prompt_len - 1)
@@ -234,55 +288,105 @@ class PagedSlotManager:
             self.alloc.incref(bid)
         return ids
 
-    def copy_block(self, pid: int) -> dict:
-        """Block ``pid`` of every paged leaf, ``(L, bs, Hkv, hd)``, as a
-        copy in the model dtype (int8 dequantized): a suspended sequence's
-        partial last block, which the slot's release hands back to the
-        allocator."""
-        dt = torch_dtype(self.model.cfg.dtype)
-        out = {}
-        for name in self.model.paged_cache_names():
-            blk = self.cache[name][:, pid]
-            if name + SCALE_SUFFIX in self.cache:
-                out[name] = dequantize_kv(
-                    blk, self.cache[name + SCALE_SUFFIX][:, pid], dt)
-            else:
-                out[name] = blk.clone()
-        return out
+    def _blocked(self) -> list:
+        """The names of the pool's block leaves: the paged leaves and, on
+        an int8 pool, their scales."""
+        names = self.model.paged_cache_names()
+        return [name for name in self.cache
+                if name in names or name.endswith(SCALE_SUFFIX)]
+
+    def snapshot_block(self, pid: int) -> dict:
+        """Block ``pid`` of every block leaf, copied as the pool stores it
+        (int8 with its scales): a suspended sequence's or a radix
+        boundary's partial last block, which :meth:`seed_block` writes
+        back bit for bit."""
+        return {name: self.cache[name][:, pid].clone()
+                for name in self._blocked()}
+
+    def seed_block(self, pid: int, blk: dict) -> None:
+        """Write a :meth:`snapshot_block` copy into block ``pid``, in
+        place."""
+        for name, t in blk.items():
+            self.cache[name][:, pid].copy_(t)
+
+    def slot_rows(self, slot: int) -> dict:
+        """Copies of slot ``slot``'s rows of the pool's slot-resident
+        leaves (batch at axis 1): every leaf that is neither the index nor
+        a paged leaf or its scales.  The attention families have none."""
+        blocked = self._blocked()
+        return {name: leaf[:, slot:slot + 1].clone()
+                for name, leaf in self.cache.items()
+                if name != "index" and name not in blocked}
+
+    def seed_rows(self, slot: int, rows: dict) -> None:
+        """Write :meth:`slot_rows` copies into slot ``slot``, in place."""
+        for name, t in rows.items():
+            self.cache[name][:, slot:slot + 1].copy_(t)
+
+    def boundary(self, slot: int, prompt_len: int) -> tuple:
+        """The boundary of the prompt slot ``slot`` holds: the ids of its
+        full blocks, a :meth:`snapshot_block` copy of its partial last
+        block (empty when it ends on a block edge) and the slot's
+        :meth:`slot_rows`, what a radix entry and a transfer handle keep.
+        Copies: the slot's blocks and rows are written again once it
+        decodes or is recycled."""
+        bs, n_full = self.block_size, prompt_len // self.block_size
+        tail = (self.snapshot_block(int(self.tables[slot, n_full]))
+                if prompt_len % bs else {})
+        return ([int(b) for b in self.tables[slot, :n_full]], tail,
+                self.slot_rows(slot))
+
+    def insert_prompt(self, slot: int, one: dict, n_shared: int = 0) -> None:
+        """Write a prefilled batch=1 cache into slot ``slot``'s blocks
+        (:func:`insert_paged`).  The first ``n_shared`` entries of its row
+        are shared blocks: the write goes through a copy of the row with
+        those entries 0 (the null block), so that a shared block is never
+        written; a tensor of its own, since the device tables are a CUDA
+        graph's buffer and the host tables change in place."""
+        if n_shared:
+            masked = self.tables[slot].copy()
+            masked[:n_shared] = 0
+            row = torch.from_numpy(masked).to(self.device)
+        else:
+            row = self.device_tables()[slot]
+        insert_paged(self.cache, one, row, slot)
 
     def fetch(self, block_ids, tail: dict, index: int) -> dict:
         """A batch=1 contiguous cache of a sequence whose full blocks are
         ``block_ids`` of this pool (pinned) and whose partial last block
-        is ``tail`` (:meth:`copy_block`'s copy, or empty): the blocks
-        gathered through a null-padded table row, int8 dequantized to the
-        model dtype, the tail spliced after them, ``index`` its length.
-        Positions past ``index`` hold what the null block holds; a decode
-        step writes a position before anything reads it.  The port's copy
-        of the JAX package's handle fetch (``serve/disagg.py``
-        ``_transfer_fns``)."""
+        is ``tail`` (a :meth:`snapshot_block` copy, or empty): the blocks
+        gathered through a null-padded table row as they are stored (an
+        int8 pool's with their scales, ``<name>_scale`` ``(L, 1, S)``),
+        the tail spliced after them, ``index`` its length.  Positions past
+        ``index`` hold what the null block holds; a decode step writes a
+        position before anything reads it.  :func:`insert_paged` writes
+        the result into a pool of the same storage unchanged.  The port's
+        copy of the JAX package's handle fetch (``serve/disagg.py``
+        ``_transfer_fns``), which dequantizes int8 blocks and leaves the
+        quantizing to the receiving pool."""
         bs, n_full = self.block_size, len(block_ids)
         row = torch.zeros((self.max_blocks,), dtype=torch.int32)
         row[:n_full] = torch.as_tensor(list(block_ids), dtype=torch.int32)
         row = row.to(self.device)
-        dt = torch_dtype(self.model.cfg.dtype)
         out = {"index": torch.tensor(index, dtype=torch.int32,
                                      device=self.device)}
-        for name in self.model.paged_cache_names():
+        span = slice(n_full * bs, (n_full + 1) * bs)
+        for name in self._blocked():
             seq = gather_blocks(self.cache[name], row, axis=1)
-            if name + SCALE_SUFFIX in self.cache:
-                seq = dequantize_kv(seq, gather_blocks(
-                    self.cache[name + SCALE_SUFFIX], row, axis=1), dt)
             if name in tail:
-                seq[:, n_full * bs:(n_full + 1) * bs] = tail[name]
+                seq[:, span] = tail[name]
             out[name] = seq[:, None]          # re-grow the batch=1 axis
         return out
 
     def release(self, slot: int) -> None:
         """Recycle a finished slot: free its blocks (pinned ones stay live
-        until their holder lets go), zero its table row."""
+        until their holder lets go), unpin its shared ones, zero its table
+        row."""
         rid = self.owner[slot]
         if rid is None:
             raise AssertionError(f"slot {slot} is already free")
+        for bid in self.shared.pop(slot, []):
+            self.alloc.decref(bid)         # co-owners keep it alive
         self.alloc.free_all(rid)
         self.tables[slot, :] = 0           # dead slot writes -> null block
         self.nblocks[slot] = 0
@@ -309,23 +413,34 @@ class PagedSlotManager:
         return self._tables_dev
 
     def check(self, extra_pins=()) -> None:
-        """Cross-structure invariants: released rows zeroed, live rows
-        disjoint and, with ``extra_pins`` (block ids held by pins outside
-        the slots, such as suspended requests'), in sync with the
-        allocator."""
+        """Cross-structure invariants: released rows zeroed, and, with
+        ``extra_pins`` (block ids held by pins outside the slots: the
+        radix tree's, suspended requests' and transfer handles'), live
+        rows in sync with the allocator.  A slot's *owned* entries are
+        disjoint across slots; its *shared* entries may repeat across
+        slots and in ``extra_pins``."""
         self.alloc.check()
-        flat = []
+        owned_flat, shared_flat = [], []
         for s in range(self.num_slots):
             if self.owner[s] is None:
                 assert not self.tables[s].any(), "released row not zeroed"
+                assert s not in self.shared
                 continue
+            ns = len(self.shared.get(s, ()))
             row = self.tables[s]
             assert not row[self.nblocks[s]:].any()
-            flat += [int(b) for b in row[:self.nblocks[s]]]
+            assert [int(b) for b in row[:ns]] == self.shared.get(s, []), \
+                "shared prefix out of sync with table row"
+            owned_flat += [int(b) for b in row[ns:self.nblocks[s]]]
+            shared_flat += [int(b) for b in row[:ns]]
+        flat = owned_flat + shared_flat
         assert 0 not in flat, "live table row points at the null block"
-        assert len(set(flat)) == len(flat), "block shared across slots"
+        # owned entries are allocated once; shared ones may repeat across
+        # slots and coincide with the donor's still-owned entries
+        assert len(set(owned_flat)) == len(owned_flat), \
+            "owned block shared across slots"
         live = set(flat) | set(extra_pins)
         assert live == set(self.alloc.refcount), \
             "materialized blocks out of sync with tables/pins"
-        for bid in extra_pins:
+        for bid in shared_flat + list(extra_pins):
             assert self.alloc.refcount.get(bid, 0) >= 1

@@ -131,9 +131,13 @@ def test_engine_refuses_what_is_not_ported(pair):
     assert eng.generator is not None
     with pytest.raises(ValueError, match="temperature"):
         Engine(tm, tp, EngineConfig(temperature=-1.0), device="cpu")
-    with pytest.raises(NotImplementedError, match="prefix_share"):
-        Engine(tm, tp, EngineConfig(kv_layout="paged", prefix_share=True),
-               device="cpu")
+    # radix prefix sharing is ported (tests/test_torch_radix.py): it builds
+    # on the paged layout and, as in the JAX package, refuses contiguous
+    eng = Engine(tm, tp, EngineConfig(kv_layout="paged", prefix_share=True),
+                 device="cpu")
+    assert eng.radix is not None and len(eng.radix) == 0
+    with pytest.raises(ValueError, match="prefix_share"):
+        EngineConfig(prefix_share=True)
     eng = Engine(tm, tp, EngineConfig(num_slots=1, max_seq_len=16),
                  device="cpu")
     # stop tokens, suspend/resume, carry_live and checkpoints are ported

@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero:
              window that cuts a chunk and skips whole ones; G 1, 4, 8 at D
              64 and 80; float32 and bf16 at odd D (element loads); G 3; a
              plan of one split; the paged entry at bs 1 to 64, bf16 (or
-             float32) and int8.  Their limits (DECODE_EDGE_TOL) are tighter
+             float32) and int8; zamba2-2.7b's shared-block shape (H = Hkv
+             = 32, D 80, the main lengths, bs 16), also timed in bf16 and
+             int8 against SDPA on the gathered view.  Their limits (DECODE_EDGE_TOL) are tighter
              than the timed rows' 2e-2: float32 noise, and one bf16
              rounding step; the smoke shows they catch a row that lost one
              position.
@@ -133,6 +135,25 @@ Phases, in order; any failure exits non-zero:
              ``RandomState(0)`` at half the closed-loop contiguous run's
              request rate: throughput, TTFT and latency (mean, p50, p95,
              p99), every request's stamps in order.
+   elastic — ``serve_elastic``: the 16 serve prompts arriving ELASTIC_GAP
+             apart through ``run_trace(realtime=False)`` with an
+             ``ElasticController`` on the ladder ELASTIC_LADDER (paged
+             bf16, starting on its first rung), against a static engine of
+             8 slots: tokens bit for bit, no shed, at least one resize, the
+             capacity log the resize log's, every engine warm with no
+             capture before its first tick and one capture after it, the
+             time per decode step within ELASTIC_TPT_GATE of the static
+             engine's, device memory after the run within one pool of a
+             single 8-slot engine's; each resize's host seconds (suspend,
+             build, resume); ms per decode step by rung, each engine's
+             first tick apart from its replays.  Then admission armed at
+             the launcher's 2 s deadline with arrivals ELASTIC_CALM_GAP
+             apart, which the ladder absorbs: no shed, no degrade, tokens
+             bit for bit.  Then admission armed with a deadline of 0.6 x
+             MAX_NEW static decode steps at ELASTIC_GAP: at least one
+             degrade, each degraded request an exact prefix of the static
+             run, every shed recorded.  Then a 2 + 6 router resized to
+             3 + 8 mid-run, bit for bit with a 6-slot monolithic engine.
    suspend — the 16 serve prompts, 8 slots, 128 new tokens, on
              contiguous, paged and paged-int8 KV at block sizes 1 and 4:
              each request's stop token is the first token its
@@ -293,6 +314,28 @@ Phases, in order; any failure exits non-zero:
              numbers beside it), float32 (4 requests, weights upcast)
              within 1e-2; the CUDA graph against the eager block; suspend
              and resume at block size 1 as for rwkv6.
+   serve-rwkv6-paged, serve-zamba2-paged — the same serve shape on paged
+             KV (zamba2 bf16 and int8): launches exact (the scan once a
+             layer per prefill; zamba2's flash and paged decode attention
+             once a shared-block use per prefill and per decode step,
+             greedy once a step), one capture.  rwkv6 bit for bit with
+             its contiguous run (the same decode step; no block used).
+             zamba2 against its contiguous run, which decodes the shared
+             block with the plain ``gqa_decode_step``: first tokens and
+             logprobs identical, mean exp(diff) of the logprobs before a
+             request's first divergence within PAGED_BF16_TOL of 1, each
+             divergent request reported with the top-2 logit gap there;
+             float32 (4 requests) tokens identical and logprobs within
+             PAGED32_TOL; the paged kernel on the run's pools against its
+             plain version.  zamba2 also suspends and resumes 4 requests
+             at block size 1 on paged KV, and serves through a 2 + 6
+             router, bit for bit with a 6-slot monolithic paged engine.
+   prefix-ssm-hybrid — GRPO-shaped traffic (4 serve prompts x GROUP) on
+             paged zamba2 (bf16, int8) and rwkv6, sharing on against off:
+             bit for bit, 4 model prefills against 16, misses 4, hits 12,
+             rwkv6's blocks_saved 0 (its block is MAX_SEQ long: with no
+             paged leaf the block size only keys the radix tree, and a
+             prompt shorter than a block is a root snapshot).
 
 In the float32 runs of phases 7 and 8 the engine's tokens are also held to
 the re-prefill's argmax (log-probability gap within 1e-2); in bf16 the gap
@@ -419,7 +462,9 @@ DECODE_EDGE_CASES = (
     ("f32-D128", [1, 130, 255, 256], 256, 6, 3, 128, "float32", 100, (16,)),
     ("bf16-D35", [2, 128, 129, 200], 200, 6, 3, 35, "bfloat16", None,
      (8,)),
-    ("G3-D128", [64, 384, 385], 512, 9, 3, 128, "bfloat16", None, (32,)))
+    ("G3-D128", [64, 384, 385], 512, 9, 3, 128, "bfloat16", None, (32,)),
+    ("zamba2", [1, 17, 100, 255, 512, 640, 900, 1024], 1024, 32, 32, 80,
+     "bfloat16", None, (16,)))
 # Their limits, by the dtype of q and the output: float32 noise of the
 # summation order, and in bf16 one rounding step of the output (2^-7 of
 # it) above that.  Tight enough that dropping one position, the error a
@@ -470,7 +515,8 @@ def decode_edge_cases(torch, dev) -> dict:
         e = check_close(torch, f"decode_attention {label}", out, ref, tol)
         errs["decode_attention"] = max(errs["decode_attention"], e)
         msg = [f"contiguous {e:.2e}"]
-        if label == "edges":     # the limit sees one position go missing
+        if label in ("edges", "zamba2"):
+            # the limit sees one position go missing
             short = da.decode_attention_plain(
                 q, k, v, (lengths - 1).clamp_min(0), window=window)
             for b in np.flatnonzero(lengths_np > 0):
@@ -556,31 +602,14 @@ def phase_kernels(torch, dev, timer):
             r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      bound_ms=b_ms, bound_by=b_by)
 
-    for label, lengths_np, S in ATTN_CASES:
-        B = len(lengths_np)
+    def paged(label, lengths_np, S, Hkv, D, q, plan):
+        """The paged kernel, bf16 and int8, over shuffled tables with
+        null-block tails, against its plain version, the bound and SDPA on
+        the gathered view."""
+        B, H = q.shape[:2]
         lengths = torch.from_numpy(lengths_np).to(dev)
         live = int(np.minimum(lengths_np, S).sum())
-        q = torch.randn(B, H, D, **bf)
         qo_bytes = 2 * B * H * D * 2 + B * 4
-        ops = 4 * H * D * live
-        C, n = da.split_plan(S)
-        plan = (f"; plan chunk={C} n_split={n} CTAs={B * Hkv * n}, live "
-                f"{Hkv * int(np.minimum(-(-lengths_np // C), n).sum())}, "
-                f"merge CTAs={B * H if n > 1 else 0}")
-        # contiguous
-        k = torch.randn(B, S, Hkv, D, **bf)
-        v = torch.randn(B, S, Hkv, D, **bf)
-        out = da.decode_attention(q, k, v, lengths)
-        err = check_close(torch, "decode_attention", out,
-                          da.decode_attention_plain(q, k, v, lengths),
-                          ATTN_TOL)
-        record("decode_attention", label, err,
-               timer(lambda: da.decode_attention(q, k, v, lengths)),
-               timer(lambda: da.decode_attention_plain(q, k, v, lengths)),
-               timer(sdpa(q, k, v, lengths)),
-               live * Hkv * D * 2 * 2 + qo_bytes, ops, note=plan)
-        del k, v
-        # paged: shuffled tables, null-block tails
         tables_np, NB = paged_tables(rs, lengths_np, S, bs)
         tables = torch.from_numpy(tables_np).to(dev)
         kp = torch.randn(NB, bs, Hkv, D, **bf)
@@ -608,9 +637,41 @@ def phase_kernels(torch, dev, timer):
                    timer(sdpa(q, kg.to(torch.bfloat16),
                               vg.to(torch.bfloat16), lengths)),
                    live * Hkv * D * 2 * elem + extra + qo_bytes + tbl_bytes,
-                   ops, note=plan)
+                   4 * H * D * live, note=plan)
             del kg, vg
-        del kp, vp, kq, vq, ks, vs
+
+    for label, lengths_np, S in ATTN_CASES:
+        B = len(lengths_np)
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        live = int(np.minimum(lengths_np, S).sum())
+        q = torch.randn(B, H, D, **bf)
+        qo_bytes = 2 * B * H * D * 2 + B * 4
+        ops = 4 * H * D * live
+        C, n = da.split_plan(S)
+        plan = (f"; plan chunk={C} n_split={n} CTAs={B * Hkv * n}, live "
+                f"{Hkv * int(np.minimum(-(-lengths_np // C), n).sum())}, "
+                f"merge CTAs={B * H if n > 1 else 0}")
+        # contiguous
+        k = torch.randn(B, S, Hkv, D, **bf)
+        v = torch.randn(B, S, Hkv, D, **bf)
+        out = da.decode_attention(q, k, v, lengths)
+        err = check_close(torch, "decode_attention", out,
+                          da.decode_attention_plain(q, k, v, lengths),
+                          ATTN_TOL)
+        record("decode_attention", label, err,
+               timer(lambda: da.decode_attention(q, k, v, lengths)),
+               timer(lambda: da.decode_attention_plain(q, k, v, lengths)),
+               timer(sdpa(q, k, v, lengths)),
+               live * Hkv * D * 2 * 2 + qo_bytes, ops, note=plan)
+        del k, v
+        paged(label, lengths_np, S, Hkv, D, q, plan)
+    # zamba2-2.7b's shared attention block over its paged pool: H = Hkv =
+    # 32, D 80 (G 1), the main case's lengths
+    lengths_np, S = ATTN_CASES[0][1], ATTN_CASES[0][2]
+    C, n = da.split_plan(S)
+    paged("zamba2", lengths_np, S, 32, 80,
+          torch.randn(len(lengths_np), 32, 80, **bf),
+          f"; plan chunk={C} n_split={n} CTAs={len(lengths_np) * 32 * n}")
     for key, e in decode_edge_cases(torch, dev).items():
         rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], e)
 
@@ -1745,6 +1806,309 @@ def phase_trace(torch, dev, model, params, closed_rate: float) -> dict:
     return res
 
 
+ELASTIC_LADDER = (2, 4, 8)     # the elastic phase's slot ladder
+ELASTIC_GAP = 0.05             # seconds between its requests' arrivals
+ELASTIC_CALM_GAP = 0.3         # arrivals the ladder absorbs (sub-saturation)
+ELASTIC_TPT_GATE = 1.2         # elastic time per token over the static one
+
+
+def pool_bytes(eng) -> int:
+    """The bytes of an engine's cache leaves."""
+    return sum(t.numel() * t.element_size() for t in eng.slots.cache.values())
+
+
+def tick_split(ticks) -> dict:
+    """ms per decode step by rung from ``(slots, first, seconds, steps)``
+    ticks: ``{slots: {"first": (ms, steps), "replays": (ms, steps)}}``,
+    ``first`` the engines' first ticks with work (their capture precedes
+    the timed window)."""
+    acc: dict = {}
+    for slots, first, dt, n in ticks:
+        d = acc.setdefault(slots, {"first": [0.0, 0], "replays": [0.0, 0]})
+        d["first" if first else "replays"][0] += dt
+        d["first" if first else "replays"][1] += n
+    return {slots: {k: (t / n * 1e3 if n else None, n)
+                    for k, (t, n) in d.items()}
+            for slots, d in sorted(acc.items())}
+
+
+def split_line(split: dict) -> str:
+    return "; ".join(
+        f"{slots} slots: replays " + (f"{r[0]:.3f} ({r[1]} steps)" if r[1]
+                                      else "none")
+        + ", first ticks " + (f"{f[0]:.3f} ({f[1]})" if f[1] else "none")
+        for slots, d in split.items()
+        for r, f in [(d["replays"], d["first"])])
+
+
+def phase_elastic(torch, dev, model, params) -> tuple:
+    """Elastic serving at full width: the serve prompts arriving
+    ELASTIC_GAP apart through ``serve_elastic`` (``run_trace(realtime=
+    False)`` with an ``ElasticController`` on the ladder ELASTIC_LADDER,
+    paged bf16, starting on its first rung) against a static engine of
+    SLOTS slots: tokens bit for bit, no shed, at least one resize, the
+    capacity log the resize log's; each resize's host seconds (suspend
+    all, build, resume), each engine's one capture, warm before its first
+    tick; device memory after the run within one pool of a single engine
+    of the last rung; each tick's decode time by rung, first ticks apart.
+    Then admission armed at the launcher's 2 s deadline on arrivals
+    ELASTIC_CALM_GAP apart: no shed, no degrade, tokens bit for bit.  Then
+    the first trace with admission armed and a deadline that degrades:
+    degraded requests exact prefixes of the static run, every shed
+    recorded.  Then a router of PD_PREFILL + PD_DECODE
+    slots resized mid-run against a monolithic engine of PD_DECODE
+    slots, bit for bit."""
+    from repro_torch.launch.serve import serve_elastic
+    from repro_torch.serve import (DisaggConfig, DisaggRouter, Engine,
+                                   EngineConfig, Request, RolloutSpec)
+    from repro_torch.serve import elastic
+
+    cfg = model.cfg
+    prompts = serve_prompts(cfg.vocab_size)
+    spec = RolloutSpec(kv_layout="paged")
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+    res = {}
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    static = Engine(model, params, EngineConfig(
+        num_slots=SLOTS, max_seq_len=MAX_SEQ, kv_layout="paged"), device=dev)
+    static.warm_up()        # its time per token counts replays only too
+    for f in fns.values():
+        f.launches = 0
+    ref, swall, _ = drive(torch, static, prompts)
+    sm = static.metrics()
+    static_tpt = sm.decode_time_s / max(sm.steps, 1)
+    single = torch.cuda.memory_allocated() - base
+    pool = pool_bytes(static)
+    for k, f in fns.items():
+        total[k] += f.launches
+    del static
+    gc.collect()
+    resizes, retired, ticks = [], [], []
+    original = elastic.resize_engine
+    step = Engine.step
+
+    def timed_step(engine):
+        """Engine.step, recording each tick's slots, whether it is its
+        engine's first with work, its decode seconds and steps."""
+        s = engine._stats
+        t, n = s.decode_time_s, s.steps
+        first = engine._graph is None       # it captures on this tick
+        done = step(engine)
+        if s.steps > n:
+            ticks.append((engine.config.num_slots, first,
+                          s.decode_time_s - t, s.steps - n))
+        return done
+
+    def timed_resize(engine, num_slots, **kw):
+        t = {}
+        retired.append((engine.config.num_slots, engine.captures,
+                        engine.capture_s))
+        t0 = time.perf_counter()
+        new = original(engine, num_slots, timings=t, **kw)
+        t.update(total_s=time.perf_counter() - t0,
+                 slots=(engine.config.num_slots, num_slots),
+                 live=new.num_active)
+        if new._warm != (dev.type == "cuda") or new.captures:
+            raise AssertionError("elastic: a resized engine must be warm, "
+                                 "with no capture, before its first tick")
+        resizes.append(t)
+        return new
+
+    def run(shed=False, deadline_s=2.0, gap=ELASTIC_GAP):
+        resizes.clear()
+        retired.clear()
+        ticks.clear()
+        for f in fns.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        elastic.resize_engine = timed_resize
+        Engine.step = timed_step
+        try:
+            rep = serve_elastic(ARCH, prompts, model=model, params=params,
+                                max_new=MAX_NEW, spec=spec,
+                                ladder=ELASTIC_LADDER, shed=shed,
+                                deadline_s=deadline_s, arrival_gap_s=gap,
+                                max_seq_len=MAX_SEQ, device=dev)
+        finally:
+            elastic.resize_engine = original
+            Engine.step = step
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in fns.items()}
+        for k in total:
+            total[k] += counts[k]
+        eng = rep["engine"]
+        m = eng.metrics()
+        # each engine's warm-up runs the block once on its empty pool (on
+        # the card; elsewhere it is a no-op)
+        warm = (1 + len(resizes)) * int(dev.type == "cuda")
+        want = serve_launches(cfg, counts, "paged_decode_attention",
+                              m.steps + warm, m.prefills - m.adoptions)
+        if counts != want:
+            raise AssertionError(f"elastic: launches {counts} != {want}")
+        retired.append((eng.config.num_slots, eng.captures, eng.capture_s))
+        if any(c != int(dev.type == "cuda") for _, c, _ in retired):
+            raise AssertionError(f"elastic: captures per engine {retired}")
+        return rep, eng, counts, torch.cuda.max_memory_allocated() - base
+
+    rep, eng, counts, peak = run()
+    e = rep["elastic"]
+    outs = rep["outputs"]
+    check_outputs("elastic", outs)
+    if not same_outputs(outs, ref, logprobs=False):
+        bad = [o.rid for o, r in zip(outs, ref) if o.tokens != r.tokens]
+        raise AssertionError(f"elastic: tokens differ from the static "
+                             f"engine's for rids {bad}")
+    lp_same = same_outputs(outs, ref)
+    lp_diff = max(float(np.abs(np.asarray(o.logprobs)
+                               - np.asarray(r.logprobs)).max())
+                  for o, r in zip(outs, ref))
+    if e["sheds"] or e["resizes"] < 1 or \
+            [c[1] for c in e["capacity_log"][1:]] != \
+            [r[2] for r in e["resize_log"]] or \
+            e["capacity_log"][0][1] != ELASTIC_LADDER[0]:
+        raise AssertionError(f"elastic: sheds {e['sheds']}, resize log "
+                             f"{e['resize_log']}, capacity log "
+                             f"{e['capacity_log']}")
+    m = eng.metrics()
+    tpt = m.decode_time_s / max(m.steps, 1)
+    if tpt > ELASTIC_TPT_GATE * static_tpt:
+        raise AssertionError(f"elastic: {tpt * 1e3:.3f} ms per decode step "
+                             f"against the static {static_tpt * 1e3:.3f}")
+    gc.collect()
+    held = torch.cuda.memory_allocated() - base
+    if held > single + pool_bytes(eng):
+        raise AssertionError(
+            f"elastic: {held / 2 ** 30:.2f} GiB held after "
+            f"{len(resizes)} resizes, a single engine of {SLOTS} slots "
+            f"{single / 2 ** 30:.2f} GiB (+ one pool "
+            f"{pool_bytes(eng) / 2 ** 30:.2f})")
+    for r in resizes:
+        print(f"[elastic] resize {r['slots'][0]} -> {r['slots'][1]} slots "
+              f"({r['live']} live): host s suspend {r['suspend_s']:.4f}, "
+              f"build {r['build_s']:.4f}, resume {r['resume_s']:.4f}, "
+              f"total {r['total_s']:.4f}")
+    print(f"[elastic] {ARCH} paged bf16, ladder {ELASTIC_LADDER}, arrivals "
+          f"{ELASTIC_GAP}s apart: tokens bit for bit with a static engine "
+          f"of {SLOTS} slots (logprobs "
+          f"{'bit for bit' if lp_same else f'max |diff| {lp_diff:.3e}'}); "
+          f"sheds 0; {e['resizes']} resizes {e['resize_log']}; "
+          f"capacity_seconds_ratio {e['capacity_seconds_ratio']:.4f} "
+          f"({e['capacity_seconds']:.3f} of {e['static_capacity_seconds']:.3f}"
+          f" slot-s); {rep['tok_per_s']:.1f} tok/s in "
+          f"{rep['makespan_s']:.2f}s (static {swall:.2f}s); "
+          f"{tpt * 1e3:.3f} ms per decode step (static "
+          f"{static_tpt * 1e3:.3f}); captures per engine (slots, n, host s) "
+          f"{retired}; peak memory {peak / 2 ** 30:.2f} GiB over the "
+          f"weights, {held / 2 ** 30:.2f} GiB held after the run (a single "
+          f"{SLOTS}-slot engine {single / 2 ** 30:.2f}, its pool "
+          f"{pool / 2 ** 30:.2f}); launches {counts}")
+    split = tick_split(ticks)
+    print(f"[elastic] ms per decode step by rung, each engine's first tick "
+          f"apart: {split_line(split)} (static {SLOTS} slots "
+          f"{static_tpt * 1e3:.3f})")
+    res["grow"] = {
+        "elastic": {k: v for k, v in e.items() if k not in (
+            "shed_records", "degrade_records")},
+        "resizes": list(resizes), "captures": list(retired),
+        "tok_per_s": rep["tok_per_s"], "makespan_s": rep["makespan_s"],
+        "static_wall_s": swall, "ms_per_step": tpt * 1e3,
+        "static_ms_per_step": static_tpt * 1e3, "logprobs_identical": lp_same,
+        "max_logprob_diff": lp_diff, "peak_bytes": peak,
+        "held_bytes": held, "single_engine_bytes": single,
+        "pool_bytes": pool, "launches": counts, "by_rung": split}
+    del rep, eng, outs
+    # admission armed at the launcher's deadline, at arrivals the ladder
+    # absorbs: a warm or resized engine's time per token must not shed
+    rep, eng, counts, _ = run(shed=True, deadline_s=2.0,
+                              gap=ELASTIC_CALM_GAP)
+    e = rep["elastic"]
+    outs = rep["outputs"]
+    check_outputs("elastic calm", outs)
+    if e["sheds"] or e["degrades"] or not same_outputs(outs, ref,
+                                                       logprobs=False):
+        raise AssertionError(f"elastic calm: {e['sheds']} sheds, "
+                             f"{e['degrades']} degrades at arrivals "
+                             f"{ELASTIC_CALM_GAP}s apart, or tokens differ "
+                             f"from the static run")
+    m = eng.metrics()
+    split = tick_split(ticks)
+    print(f"[elastic] admission armed, deadline 2.0s after arrival, "
+          f"arrivals {ELASTIC_CALM_GAP}s apart: 0 shed, 0 degraded, tokens "
+          f"bit for bit with the static run; {e['resizes']} resizes "
+          f"{e['resize_log']}; capacity_seconds_ratio "
+          f"{e['capacity_seconds_ratio']:.4f}; "
+          f"{m.decode_time_s / max(m.steps, 1) * 1e3:.3f} ms per decode "
+          f"step ({split_line(split)})")
+    res["calm"] = {"gap_s": ELASTIC_CALM_GAP, "resizes": e["resizes"],
+                   "resize_log": e["resize_log"],
+                   "capacity_seconds_ratio": e["capacity_seconds_ratio"],
+                   "by_rung": split, "launches": counts}
+    del rep, eng, outs
+    # admission armed, a deadline that degrades at the static time per token
+    deadline_s = 0.6 * MAX_NEW * static_tpt
+    rep, eng, counts, peak = run(shed=True, deadline_s=deadline_s)
+    e = rep["elastic"]
+    done = {o.rid: o for o in rep["outputs"]}
+    shed = {r["rid"] for r in e["shed_records"]}
+    clamp = {r["rid"]: r["to"] for r in e["degrade_records"]}
+    if e["degrades"] < 1 or shed & set(done) or \
+            shed | set(done) != set(range(N_REQ)) or e["sheds"] != len(shed):
+        raise AssertionError(f"elastic shed: {e['degrades']} degrades, sheds "
+                             f"{sorted(shed)}, served {sorted(done)}")
+    for rid, o in done.items():
+        n = clamp.get(rid, MAX_NEW)
+        if o.tokens != ref[rid].tokens[:n]:
+            raise AssertionError(f"elastic shed: rid {rid} (budget {n}) is "
+                                 f"not a prefix of the static run")
+    print(f"[elastic] admission armed, deadline {deadline_s:.3f}s after "
+          f"arrival: {e['degrades']} degraded (budgets "
+          f"{sorted(clamp.values())}), each an exact prefix of the static "
+          f"run; {e['sheds']} shed, each recorded; {len(done)} served; "
+          f"{e['resizes']} resizes; class counts {e['class_counts']}")
+    res["shed"] = {"deadline_s": deadline_s, "degrades": e["degrades"],
+                   "sheds": e["sheds"], "budgets": clamp,
+                   "resizes": e["resizes"], "launches": counts}
+    del rep, eng, done
+    # a router resized in the middle of its run
+    mono = Engine(model, params, EngineConfig(
+        num_slots=PD_DECODE, max_seq_len=MAX_SEQ, kv_layout="paged"),
+        device=dev)
+    for f in fns.values():
+        f.launches = 0
+    mref, _, _ = drive(torch, mono, prompts)
+    del mono
+    router = DisaggRouter(model, params, DisaggConfig(
+        prefill_slots=PD_PREFILL, decode_slots=PD_DECODE,
+        max_seq_len=MAX_SEQ, kv_layout="paged"), device=dev)
+    for i, p in enumerate(prompts):
+        router.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+    for _ in range(MAX_NEW // 2):
+        router.step()
+    live = router.decode.num_active
+    t0 = time.perf_counter()
+    router = elastic.resize_router(router, decode_slots=SLOTS,
+                                   prefill_slots=PD_PREFILL + 1)
+    rs_s = time.perf_counter() - t0
+    outs = router.run()
+    torch.cuda.synchronize()
+    for k, f in fns.items():
+        total[k] += f.launches
+    if not same_outputs(outs, mref):
+        raise AssertionError("elastic: the resized router differs from the "
+                             "monolithic engine")
+    print(f"[elastic] router {PD_PREFILL}+{PD_DECODE} resized to "
+          f"{PD_PREFILL + 1}+{SLOTS} after {MAX_NEW // 2} ticks ({live} "
+          f"live) in {rs_s:.4f} host s: bit for bit with a monolithic "
+          f"engine of {PD_DECODE} slots; {router.decode.captures} decode "
+          f"capture(s)")
+    res["router"] = {"resize_s": rs_s, "live": live}
+    router.reset()
+    del router, outs
+    return total, res
+
+
 def token_share_reward(vocab_size: int):
     """Row-wise verifier for the train phase: the share of a row's
     recorded tokens in the lower half of the vocabulary.  A randomly
@@ -2519,9 +2883,12 @@ def preamble_prompts(vocab_size, n=N_REQ):
 def blocks_copy(torch, eng, ids):
     """The contents of pool blocks ``ids`` of a paged engine (and their
     int8 scales)."""
+    from repro_torch.models.kvcache import SCALE_SUFFIX
+
     ids = torch.as_tensor(list(ids), dtype=torch.long, device=eng.device)
     return {name: leaf.index_select(1, ids).clone()
-            for name, leaf in eng.slots.cache.items() if name != "index"}
+            for name, leaf in eng.slots.cache.items()
+            if name in eng.slots.paged_names or name.endswith(SCALE_SUFFIX)}
 
 
 def drive(torch, eng, prompts, *, max_new=None, after_first=None):
@@ -3033,14 +3400,16 @@ def phase_train_prefix(torch, dev, model, init_params):
     return total, {"shared": b, "unshared": a}
 
 
-def recurrent_suspend_check(torch, dev, model, params, phase) -> dict:
-    """4 requests x 32 tokens at block size 1: suspended and resumed
-    equal to the uninterrupted run, bit for bit; block size 4 with stop
-    tokens refused."""
+def recurrent_suspend_check(torch, dev, model, params, phase,
+                            kv="contiguous") -> dict:
+    """4 requests x 32 tokens at block size 1 on ``kv``: suspended and
+    resumed equal to the uninterrupted run, bit for bit; block size 4 with
+    stop tokens refused."""
     from repro_torch.serve import Engine, EngineConfig, Request
 
     prompts = serve_prompts(model.cfg.vocab_size)[:RECURRENT_REQ]
-    ecfg = EngineConfig(num_slots=RECURRENT_REQ, max_seq_len=MAX_SEQ)
+    ecfg = EngineConfig(num_slots=RECURRENT_REQ, max_seq_len=MAX_SEQ,
+                        kv_layout=kv)
     eng = Engine(model, params, ecfg, device=dev)
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=RECURRENT_NEW))
@@ -3066,8 +3435,8 @@ def recurrent_suspend_check(torch, dev, model, params, phase) -> dict:
     else:
         raise AssertionError(f"{phase}: stop tokens at block_size 4 were "
                              f"accepted")
-    print(f"[{phase}] {len(stops)} of {RECURRENT_REQ} requests suspended "
-          f"and resumed at block size 1: tokens and logprobs the "
+    print(f"[{phase}] {kv}: {len(stops)} of {RECURRENT_REQ} requests "
+          f"suspended and resumed at block size 1: tokens and logprobs the "
           f"uninterrupted run's bit for bit; resume host ms mean "
           f"{1e3 * np.mean(resume_s):.3f}; block size 4 refused "
           f"({refused[:60]}...)")
@@ -3772,6 +4141,14 @@ def phase_serve_rwkv6(torch, dev):
     bf = prefill_decode_check(torch, dev, model, params, outs, "serve-rwkv6",
                               "bf16", 0.1,
                               plain=(rw, "rwkv6_scan", rwkv6_scan_plain))
+    paged_counts, paged = phase_serve_paged(torch, dev, model, params,
+                                            RWKV_ARCH, outs,
+                                            "serve-rwkv6-paged")
+    prefix_counts, prefix = phase_prefix_recurrent(
+        torch, dev, model, params, "prefix-ssm-hybrid rwkv6")
+    for part in (paged_counts, prefix_counts):
+        for k, n in part.items():
+            counts[k] += n
     # float32: the same weights upcast, 4 requests
     del rep["engine"]
     params = _tree_map(lambda t: t.float(), params)
@@ -3789,7 +4166,8 @@ def phase_serve_rwkv6(torch, dev):
               "captures": rep["captures"], "capture_s": rep["capture_s"],
               "graph_vs_eager": graph, "suspend": suspend,
               "max_memory_allocated": peak, "launches": counts,
-              "prefill_decode_bf16": bf, "prefill_decode_float32": f32}
+              "prefill_decode_bf16": bf, "prefill_decode_float32": f32,
+              "paged": paged, "prefix": prefix}
     del rep, rep32, model, params
     return counts, report
 
@@ -3910,6 +4288,22 @@ def phase_serve_zamba2(torch, dev):
     bf = prefill_decode_check(torch, dev, model, params, outs,
                               "serve-zamba2", "bf16", 0.1,
                               plain=(mb, "mamba2_scan", mamba2_scan_plain))
+    paged_counts, paged = phase_serve_paged(torch, dev, model, params,
+                                            ZAMBA_ARCH, outs,
+                                            "serve-zamba2-paged")
+    prefix_counts, prefix = phase_prefix_recurrent(
+        torch, dev, model, params, "prefix-ssm-hybrid zamba2")
+    for f in fns.values():
+        f.launches = 0
+    paged["suspend"] = recurrent_suspend_check(
+        torch, dev, model, params, "serve-zamba2-paged", kv="paged")
+    for k, f in fns.items():
+        counts[k] += f.launches
+    disagg_counts, paged["disagg"] = phase_disagg_recurrent(
+        torch, dev, model, params, "serve-zamba2-paged")
+    for part in (paged_counts, prefix_counts, disagg_counts):
+        for k, n in part.items():
+            counts[k] += n
     # float32: the same weights upcast, 4 requests
     del rep["engine"]
     params = _tree_map(lambda t: t.float(), params)
@@ -3920,6 +4314,22 @@ def phase_serve_zamba2(torch, dev):
                              kv="contiguous", max_seq_len=MAX_SEQ, device=dev)
     f32 = prefill_decode_check(torch, dev, model, params, rep32["outputs"],
                                "serve-zamba2", "float32", 1e-2)
+    for f in fns.values():
+        f.launches = 0
+    p32 = serve_continuous(ZAMBA_ARCH, prompts[:4], model=model,
+                           params=params, max_new=MAX_NEW, num_slots=4,
+                           kv="paged", max_seq_len=MAX_SEQ, device=dev)
+    for k, f in fns.items():
+        counts[k] += f.launches
+    d32 = divergence(torch, dev, model, params, p32["outputs"],
+                     rep32["outputs"])
+    if d32["diverged"] or d32["max_abs_diff"] > PAGED32_TOL:
+        raise AssertionError(f"serve-zamba2-paged float32: against "
+                             f"contiguous {d32}")
+    print(f"[serve-zamba2-paged] float32, 4 requests: tokens the "
+          f"contiguous run's, logprobs max |diff| "
+          f"{d32['max_abs_diff']:.3e} (held within {PAGED32_TOL})")
+    paged["float32"] = d32
     report = {"tokens": rep["tokens"], "decode_steps": steps,
               "prefills": rep["prefills"], "wall_s": rep["wall_s"],
               "decode_time_s": rep["decode_time_s"],
@@ -3928,9 +4338,262 @@ def phase_serve_zamba2(torch, dev):
               "graph_vs_eager": graph, "suspend": suspend,
               "max_memory_allocated": peak, "launches": counts,
               "prefill_decode_bf16": bf,
-              "prefill_decode_float32": f32}
-    del rep, rep32, model, params
+              "prefill_decode_float32": f32,
+              "paged": paged, "prefix": prefix}
+    del rep, rep32, p32, model, params
     return counts, report
+
+
+PAGED_BF16_TOL = 0.1   # zamba2 paged against contiguous, bf16: mean
+#                        exp(diff) of the agreeing positions' logprobs
+PAGED32_TOL = 1e-4     # the same in float32, every logprob
+
+
+def serve_paged_launches(cfg, counts, steps, prefills) -> dict:
+    """What a recurrent model's paged run must have launched: its scan once
+    a layer per prefill, zamba2's flash and paged decode attention once a
+    shared-block use per prefill and per decode step, greedy once a step."""
+    want = {k: 0 for k in counts}
+    if cfg.family == "hybrid":
+        uses = cfg.num_layers // cfg.hybrid_attn_every
+        want["mamba2_scan"] = cfg.num_layers * prefills
+        want["flash_attention"] = uses * prefills
+        want["paged_decode_attention"] = uses * steps
+    else:
+        want["rwkv6_scan"] = cfg.num_layers * prefills
+    want["greedy_sample"] = steps
+    return want
+
+
+def divergence(torch, dev, model, params, outs, ref) -> dict:
+    """Where each request of ``outs`` first leaves ``ref`` (a run on the
+    contiguous layout): the logprob differences before that point and, for
+    each divergent request, the top-2 gap of ``ref``'s logits there (a
+    prefill of prompt + ``ref``'s tokens before it)."""
+    diffs, diverged = [], {}
+    for o, r in zip(outs, ref):
+        n = next((i for i, (a, b) in enumerate(zip(o.tokens, r.tokens))
+                  if a != b), min(len(o.tokens), len(r.tokens)))
+        diffs += (np.asarray(o.logprobs[:n]) - np.asarray(r.logprobs[:n])
+                  ).tolist()
+        if n < min(len(o.tokens), len(r.tokens)):
+            seq = np.concatenate([r.prompt, np.asarray(r.tokens[:n],
+                                                       np.int32)])
+            logits, _ = model.prefill(params, torch.from_numpy(seq).to(dev)[
+                None], model.init_cache(1, MAX_SEQ, device=dev))
+            top = torch.topk(logits[0].float(), 2).values
+            diverged[o.rid] = {"at": n, "top2_gap": float(top[0] - top[1])}
+    diffs = np.asarray(diffs)
+    return {"ratio_mean": float(np.exp(diffs).mean()),
+            "max_abs_diff": float(np.abs(diffs).max()),
+            "diverged": diverged}
+
+
+def recheck_hybrid_pool(torch, dev, engine, run) -> float:
+    """The paged kernel against its plain version on each shared-block
+    use's pool and the tables the run left."""
+    from repro_torch.kernels import decode_attention as da
+
+    cache, cfg = engine.slots.cache, engine.model.cfg
+    tables, lengths = engine.slots._tables_dev, cache["index"]
+    q = torch.randn(SLOTS, cfg.num_heads, cfg.resolved_head_dim,
+                    generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev, dtype=engine.params["embed"].dtype)
+    err = 0.0
+    for occ in range(cache["attn_k"].shape[0]):
+        kw = {}
+        if "attn_k_scale" in cache:
+            kw = dict(k_scale=cache["attn_k_scale"][occ],
+                      v_scale=cache["attn_v_scale"][occ])
+        args = (q, cache["attn_k"][occ], cache["attn_v"][occ], tables,
+                lengths)
+        err = max(err, check_close(
+            torch, f"{run} pool use {occ}",
+            da.paged_decode_attention(*args, **kw),
+            da.paged_decode_attention_plain(*args, **kw), ATTN_TOL))
+    return err
+
+
+def phase_serve_paged(torch, dev, model, params, arch, contiguous,
+                      phase) -> tuple:
+    """The serve shape on paged KV for a recurrent model: bf16 (zamba2
+    also int8), held to the contiguous run ``contiguous`` (rwkv6 bit for
+    bit: the same decode step; zamba2 within PAGED_BF16_TOL, divergent
+    requests reported with their top-2 gap), exact launches, one decode
+    capture; zamba2's paged kernel on the run's pools against its plain
+    version."""
+    from repro_torch.launch.serve import serve_continuous
+
+    cfg = model.cfg
+    hybrid = cfg.family == "hybrid"
+    prompts = serve_prompts(cfg.vocab_size)
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+    res = {}
+    for kv_dtype in ((None, "int8") if hybrid else (None,)):
+        run = "paged" + ("-int8" if kv_dtype else "")
+        for f in fns.values():
+            f.launches = 0
+        rep = serve_continuous(arch, prompts, model=model, params=params,
+                               max_new=MAX_NEW, num_slots=SLOTS, kv="paged",
+                               kv_dtype=kv_dtype, max_seq_len=MAX_SEQ,
+                               device=dev)
+        counts = {k: f.launches for k, f in fns.items()}
+        steps, outs = rep["decode_steps"], rep["outputs"]
+        check_outputs(f"{phase} {run}", outs)
+        want = serve_paged_launches(cfg, counts, steps, rep["prefills"])
+        if counts != want or rep["prefills"] != N_REQ \
+                or rep["captures"] != int(dev.type == "cuda"):
+            raise AssertionError(f"{phase} {run}: launches {counts} != "
+                                 f"{want} ({rep['prefills']} prefills, "
+                                 f"{rep['captures']} captures)")
+        for k in total:
+            total[k] += counts[k]
+        step_ms = rep["decode_time_s"] / max(steps, 1) * 1e3
+        r = {"tokens": rep["tokens"], "decode_steps": steps,
+             "wall_s": rep["wall_s"], "tok_per_s": rep["tok_per_s"],
+             "ms_per_decode_step": step_ms, "captures": rep["captures"],
+             "capture_s": rep["capture_s"], "launches": counts,
+             "peak_kv_blocks": rep["peak_kv_blocks"]}
+        if hybrid:
+            d = divergence(torch, dev, model, params, outs, contiguous)
+            first = all(o.tokens[0] == c.tokens[0] and o.logprobs[0]
+                        == c.logprobs[0] for o, c in zip(outs, contiguous))
+            if not first or abs(d["ratio_mean"] - 1) > PAGED_BF16_TOL:
+                raise AssertionError(f"{phase} {run}: against contiguous, "
+                                     f"first tokens equal {first}, mean "
+                                     f"exp(diff) {d['ratio_mean']}")
+            r.update(d, kernel_on_pool_err=recheck_hybrid_pool(
+                torch, dev, rep["engine"], f"{phase} {run}"))
+            cmp = (f"against contiguous (plain gqa_decode_step): first "
+                   f"tokens identical, mean exp(diff) "
+                   f"{d['ratio_mean']:.6f} (held within {PAGED_BF16_TOL} of "
+                   f"1), max |diff| {d['max_abs_diff']:.4e} before any "
+                   f"divergence; {len(d['diverged'])} of {N_REQ} diverge "
+                   f"(rid: position, top-2 gap) "
+                   + ", ".join(f"{k}: {v['at']}, {v['top2_gap']:.4f}"
+                               for k, v in d["diverged"].items())
+                   + f"; paged kernel on the run's pools max_abs_err "
+                   f"{r['kernel_on_pool_err']:.3e}")
+        else:
+            if not same_outputs(outs, contiguous) \
+                    or rep["peak_kv_blocks"] != 0:
+                raise AssertionError(f"{phase} {run}: differs from the "
+                                     f"contiguous run")
+            cmp = "tokens and logprobs the contiguous run's bit for bit"
+        print(f"[{phase}] {run}: {N_REQ} requests, {rep['tokens']} tokens, "
+              f"{steps} decode steps in {rep['wall_s']:.2f}s = "
+              f"{rep['tok_per_s']:.1f} tok/s; {step_ms:.3f} ms per decode "
+              f"step; 1 capture in {rep['capture_s']:.3f}s; peak KV blocks "
+              f"{rep['peak_kv_blocks']}; {cmp}; launches {counts}")
+        res[run] = r
+        del rep, outs
+    return total, res
+
+
+def phase_prefix_recurrent(torch, dev, model, params, phase) -> tuple:
+    """GRPO-shaped traffic (the first N_REQ / GROUP serve prompts x GROUP)
+    on paged pools with radix sharing on against off: bit for bit, model
+    prefills N_REQ / GROUP against N_REQ, misses and hits; zamba2 on bf16
+    and int8 (full blocks shared), rwkv6 with one block of MAX_SEQ (no
+    paged leaf: the block size only keys the tree, and a prompt shorter
+    than a block registers as a root snapshot, blocks_saved 0)."""
+    from repro_torch.serve import Engine, EngineConfig
+
+    cfg = model.cfg
+    hybrid = cfg.family == "hybrid"
+    scan = "mamba2_scan" if hybrid else "rwkv6_scan"
+    prompts = grpo_prompts(cfg.vocab_size)
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+    res = {}
+    runs = ((None, 16), ("int8", 16)) if hybrid else ((None, MAX_SEQ),)
+    for kv_dtype, bs in runs:
+        run = "paged" + ("-int8" if kv_dtype else "")
+        got = {}
+        for share in (False, True):
+            eng = Engine(model, params, EngineConfig(
+                num_slots=SLOTS, max_seq_len=MAX_SEQ, kv_layout="paged",
+                kv_block_size=bs, kv_dtype=kv_dtype, prefix_share=share),
+                device=dev)
+            for f in fns.values():
+                f.launches = 0
+            outs, wall, ttft = drive(torch, eng, prompts)
+            counts = {k: f.launches for k, f in fns.items()}
+            for k in total:
+                total[k] += counts[k]
+            m = eng.metrics()
+            got[share] = dict(outs=outs, wall=wall, ttft=ttft,
+                              prefills=counts[scan] // cfg.num_layers,
+                              hits=m.prefix_hits, misses=m.prefix_misses,
+                              saved=m.blocks_saved, captures=eng.captures)
+            del eng
+        off, on = got[False], got[True]
+        n_groups = N_REQ // GROUP
+        if not same_outputs(on["outs"], off["outs"]) or \
+                (on["prefills"], off["prefills"]) != (n_groups, N_REQ) or \
+                (on["misses"], on["hits"]) != (n_groups, N_REQ - n_groups) \
+                or (not hybrid and on["saved"]) or \
+                {on["captures"], off["captures"]} != {int(dev.type == "cuda")}:
+            raise AssertionError(
+                f"{phase} {run}: sharing on {on['prefills']} prefills, "
+                f"misses/hits {on['misses']}/{on['hits']}, blocks_saved "
+                f"{on['saved']}, captures {on['captures']}/"
+                f"{off['captures']}, outputs identical "
+                f"{same_outputs(on['outs'], off['outs'])}")
+        tok = sum(o.num_tokens for o in on["outs"])
+        print(f"[{phase}] {run} (block {bs}), {n_groups} prompts x group "
+              f"{GROUP}: sharing on bit for bit with off; model prefills "
+              f"{on['prefills']} vs {off['prefills']}; misses "
+              f"{on['misses']}, hits {on['hits']}, blocks_saved "
+              f"{on['saved']}; wall {on['wall']:.2f} vs {off['wall']:.2f}s, "
+              f"{tok / on['wall']:.1f} vs {tok / off['wall']:.1f} tok/s, "
+              f"mean TTFT {on['ttft'] * 1e3:.1f} vs {off['ttft'] * 1e3:.1f} "
+              f"ms; one capture an engine")
+        res[run] = {k: {kk: vv for kk, vv in v.items() if kk != "outs"}
+                    for k, v in (("off", off), ("on", on))}
+    return total, res
+
+
+def phase_disagg_recurrent(torch, dev, model, params, phase) -> tuple:
+    """A router of PD_PREFILL prefill and PD_DECODE decode slots on paged
+    KV against a monolithic paged engine of PD_DECODE slots, bit for bit;
+    every handle released, both pools clean."""
+    from repro_torch.serve import (DisaggConfig, DisaggRouter, Engine,
+                                   EngineConfig)
+
+    prompts = serve_prompts(model.cfg.vocab_size)
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    mono = Engine(model, params, EngineConfig(
+        num_slots=PD_DECODE, max_seq_len=MAX_SEQ, kv_layout="paged"),
+        device=dev)
+    ref, mwall, _ = drive(torch, mono, prompts)
+    del mono
+    router = DisaggRouter(model, params, DisaggConfig(
+        prefill_slots=PD_PREFILL, decode_slots=PD_DECODE,
+        max_seq_len=MAX_SEQ, kv_layout="paged"), device=dev)
+    outs, wall, _ = drive(torch, router, prompts)
+    m = router.metrics()
+    if not same_outputs(outs, ref) or m.transfers != N_REQ \
+            or router.decode.captures != int(dev.type == "cuda"):
+        raise AssertionError(f"{phase}: the router differs from the "
+                             f"monolithic paged engine ({m.transfers} "
+                             f"transfers, {router.decode.captures} "
+                             f"captures)")
+    xfer_ms = 1e3 * np.asarray([t1 - t0 for _, t0, t1
+                                in router.transfer_timeline])
+    print(f"[{phase}] router {PD_PREFILL}+{PD_DECODE} on paged KV: bit for "
+          f"bit with a monolithic paged engine of {PD_DECODE} slots; "
+          f"{m.transfers} transfers ({m.transferred_blocks} blocks), host "
+          f"ms per adoption mean {xfer_ms.mean():.3f}; wall {wall:.2f} vs "
+          f"{mwall:.2f}s")
+    router.reset()
+    counts = {k: f.launches for k, f in fns.items()}
+    del router, outs
+    return counts, {"transfers": m.transfers, "adoption_ms":
+                    xfer_ms.tolist(), "wall_s": wall, "mono_wall_s": mwall}
 
 
 def _tree_map(fn, tree):
@@ -4046,6 +4709,8 @@ def main(argv=None) -> int:
     trace = phase_trace(torch, dev, model, params,
                         N_REQ / serve["contiguous"]["wall_s"])
     torch.cuda.empty_cache()
+    elastic_launches, elastic = phase_elastic(torch, dev, model, params)
+    torch.cuda.empty_cache()
     suspend_launches, suspend = phase_suspend(torch, dev, model, params)
     agentic_launches, agentic = phase_agentic(torch, dev, model, params)
     torch.cuda.empty_cache()
@@ -4071,10 +4736,10 @@ def main(argv=None) -> int:
     rwkv_launches, serve_rwkv6 = phase_serve_rwkv6(torch, dev)
     torch.cuda.empty_cache()
     zamba_launches, serve_zamba2 = phase_serve_zamba2(torch, dev)
-    for counts in (suspend_launches, agentic_launches, carry_launches,
-                   static_launches, prefix_launches, disagg_launches,
-                   train_prefix_launches, train_launches, mux_launches_,
-                   rwkv_launches, zamba_launches):
+    for counts in (elastic_launches, suspend_launches, agentic_launches,
+                   carry_launches, static_launches, prefix_launches,
+                   disagg_launches, train_prefix_launches, train_launches,
+                   mux_launches_, rwkv_launches, zamba_launches):
         for k, n in counts.items():
             launches[k] += n
     launches["topk"] = launches["topk_values"] + launches["topk_mask"]
@@ -4099,7 +4764,7 @@ def main(argv=None) -> int:
                    "flash": rows["flash_attention"],
                    "rwkv6_scan": rows["rwkv6_scan"],
                    "mamba2_scan": rows["mamba2_scan"], "topk": rows["topk"],
-                   "graph": graph, "trace": trace,
+                   "graph": graph, "trace": trace, "elastic": elastic,
                    "suspend": suspend, "agentic": agentic, "carry": carry,
                    "static": static, "prefix": prefix, "disagg": disagg,
                    "train_prefix": train_prefix, "total_s": total_s,

@@ -6,12 +6,15 @@
         --prefix-share --group 4              # GRPO-shaped radix sharing
     PYTHONPATH=src python -m repro_torch.launch.serve --disagg \
         --prefill-slots 2 --decode-slots 6    # split prefill/decode pools
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine elastic \
+        --ladder 2,4,8 [--shed --deadline-s 2]   # closed-loop capacity
 
-``--arch`` takes internlm2-1.8b, rwkv6-7b or zamba2-2.7b (the last two on
-contiguous slots only).  Runs on the CUDA card at the architecture's full
-width with random weights from ``--seed``; ``--reduced`` serves the
-smoke-test variant and ``--device cpu`` runs the kernels' plain versions on
-the CPU.
+``--arch`` takes internlm2-1.8b, rwkv6-7b or zamba2-2.7b, on every layout
+(rwkv6 has no paged leaf: ``--kv paged`` serves it with zero blocks a
+request, and ``--kv-dtype int8`` raises).  Runs on the CUDA card at the
+architecture's full width with random weights from ``--seed``;
+``--reduced`` serves the smoke-test variant and ``--device cpu`` runs the
+kernels' plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -112,9 +115,79 @@ def serve_continuous(arch: str, prompts, *, reduced: bool = False,
     return report
 
 
+def serve_elastic(arch: str, prompts, *, reduced: bool = False,
+                  max_new: int = 32, seed: int = 0,
+                  spec: RolloutSpec | None = None,
+                  ladder: tuple = (2, 4, 8), shed: bool = False,
+                  deadline_s: float = 2.0, arrival_gap_s: float = 0.05,
+                  max_seq_len: int | None = None, device=None, model=None,
+                  params=None) -> dict:
+    """Closed-loop elastic serving: replay a staggered arrival trace
+    (request ``i`` arrives at ``i * arrival_gap_s``) through
+    ``serve.run_trace(realtime=False)`` with an ``ElasticController`` in
+    the loop.
+
+    The engine starts on the smallest rung of ``ladder`` and the
+    controller grows or shrinks it between steps by suspend/resume (live
+    KV carried, greedy tokens identical to a static run).  ``shed=True``
+    gives every request the deadline ``arrival + deadline_s`` and arms the
+    admission gate: a request that cannot meet its deadline is degraded
+    (decode budget clamped) before it is shed, and every shed is recorded
+    in the report.  Returns the ``run_trace`` report (its ``"elastic"``
+    section: capacity-seconds, sheds and degrades, the resize history; its
+    ``"engine"``: the engine it ended on) with ``texts``.
+
+    The JAX package warms every rung up, compiling its decode shape before
+    the trace; otherwise the first step's compile lands in
+    ``decode_time_s``, the admission predictor reads an inflated time per
+    token and an unloaded system sheds like a saturated one.  On the card
+    the counterpart of that compile is the CUDA graph capture of each new
+    engine's decode block: the starting engine and every resized one run
+    :meth:`~repro_torch.serve.engine.Engine.warm_up` on their empty pool,
+    and capture on their first tick with work before its timed window, so
+    neither lands in ``decode_time_s``."""
+    from repro_torch.serve.elastic import ElasticConfig, ElasticController
+    from repro_torch.serve.engine import run_trace
+
+    dev = resolve_device(device)
+    if model is None:
+        model = build_model(arch, reduced=reduced)
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    ladder = tuple(sorted({int(x) for x in ladder}))
+    if spec is None:
+        spec = RolloutSpec()
+    spec = spec.replace(num_slots=ladder[0])
+    toks = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
+    if max_seq_len is None:
+        max_seq_len = max(len(t) for t in toks) + max_new
+    engine = spec.build_engine(model, params, batch=len(toks),
+                               max_seq_len=max_seq_len, eos_id=tok.EOS,
+                               temperature=0.0, device=dev)
+    getattr(engine, "decode", engine).warm_up()
+    reqs = []
+    for i, t in enumerate(toks):
+        arrival = i * arrival_gap_s
+        reqs.append(Request(rid=i, prompt=t, max_new_tokens=max_new,
+                            arrival_time=arrival,
+                            deadline=arrival + deadline_s if shed else None))
+    controller = ElasticController(ElasticConfig(
+        ladder=ladder, shed=shed, interval_s=0.05, cooldown_s=0.15))
+    report = run_trace(engine, reqs, realtime=False, controller=controller)
+    report["texts"] = [tok.decode(t for t in o.tokens if t != tok.EOS)
+                       for o in report["outputs"]]
+    return report
+
+
 def _main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--engine", choices=("continuous", "elastic"),
+                    default="continuous",
+                    help="continuous = a fixed slot pool; elastic = the "
+                         "continuous engine under the closed-loop capacity "
+                         "controller (serve.elastic), replaying a "
+                         "staggered arrival trace")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the smoke-test variant (2 layers, fp32)")
     ap.add_argument("--device", default=None,
@@ -170,11 +243,43 @@ def _main():
                          "load alone")
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ladder", default="2,4,8",
+                    help="--engine elastic: comma-separated slot counts the "
+                         "controller may resize between")
+    ap.add_argument("--shed", action="store_true",
+                    help="--engine elastic: give every request a deadline "
+                         "and arm overload admission control (degrade the "
+                         "decode budget before shedding; every shed "
+                         "reported)")
+    ap.add_argument("--deadline-s", type=float, default=2.0,
+                    help="--engine elastic --shed: each request's deadline, "
+                         "seconds after its arrival")
     args = ap.parse_args()
     spec = RolloutSpec.from_args(args)
     texts = [f"{i}+{i + 1}=" for i in range(args.batch)]
     if args.group:
         texts = [t for t in texts for _ in range(args.group)]
+    if args.engine == "elastic":
+        ladder = tuple(int(x) for x in args.ladder.split(","))
+        res = serve_elastic(
+            args.arch, [tok.encode(t, bos=True) for t in texts],
+            reduced=args.reduced, max_new=args.max_new, seed=args.seed,
+            spec=spec, ladder=ladder, shed=args.shed,
+            deadline_s=args.deadline_s, device=args.device)
+        e = res["elastic"]
+        print(f"[elastic] served {len(res['outputs'])}/{len(texts)} "
+              f"requests on {res['engine'].device}, {res['tokens']} tokens "
+              f"in {res['makespan_s']:.2f}s ({res['tok_per_s']:.1f} tok/s)")
+        print(f"  resizes {e['resizes']} "
+              + "".join(f"{a}->{b} " for _, a, b in e["resize_log"])
+              + f"| capacity {e['capacity_seconds']:.2f} slot-s "
+              f"(static {e['static_capacity_seconds']:.2f}, ratio "
+              f"{e['capacity_seconds_ratio']:.2f})")
+        print(f"  sheds {e['sheds']}, degrades {e['degrades']}, classes "
+              f"{e['class_counts']}")
+        for o, t in zip(res["outputs"], res["texts"]):
+            print(f"  rid={o.rid} [{o.finish_reason}] -> {t!r}")
+        return
     res = serve_continuous(
         args.arch, [tok.encode(t, bos=True) for t in texts],
         reduced=args.reduced, max_new=args.max_new, seed=args.seed,

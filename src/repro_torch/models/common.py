@@ -58,12 +58,36 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
 # ---------------------------------------------------------------------------
 # Norm / MLP
 # ---------------------------------------------------------------------------
+# A reduction on the card may split a row differently for different row
+# counts below 16 (``norm_rows.py``: the plain mean rounded a row at 2-7
+# rows unlike at 8), so a decode step's norm could round a slot's row one
+# way in an engine of 4 slots and another in one of 8, and a greedy token
+# flip where two logits nearly tie (an elastic engine serves on several
+# slot counts).  Fewer rows than NORM_GROUPS therefore take the mean of
+# squares in two reductions whose shapes hold at any row count: NORM_GROUPS
+# partial means a row (at least NORM_GROUPS outputs, each over a fixed
+# width), then their mean.  From NORM_GROUPS rows on (prefill, training,
+# decode at 16 slots) the plain mean rounds every row alike and is kept.
+NORM_GROUPS = 16
+
+
+def _mean_square(xf: torch.Tensor) -> torch.Tensor:
+    """Mean of squares over the last axis, keepdim: for fewer than
+    NORM_GROUPS rows (and a width that is a multiple of it) the mean of
+    NORM_GROUPS partial means, else the plain mean."""
+    d = xf.shape[-1]
+    if xf.numel() >= NORM_GROUPS * d or d % NORM_GROUPS:
+        return xf.pow(2).mean(-1, keepdim=True)
+    return xf.pow(2).unflatten(-1, (NORM_GROUPS, d // NORM_GROUPS)).mean(
+        -1).mean(-1, keepdim=True)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm in float32 with the weight applied as ``1 + w`` (zero-init
     weights are the identity), cast back to ``x``'s dtype."""
     dt = x.dtype
     xf = x.float()
-    xf = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    xf = xf * torch.rsqrt(_mean_square(xf) + eps)
     return (xf * (1.0 + w.float())).to(dt)
 
 

@@ -16,7 +16,14 @@ and ``wkv`` ``(L, B, H, hd, hd)`` float32.  The hybrid family carries each
 Mamba2 layer's state, ``conv`` ``(L, B, W-1, inner + 2N)`` in the model
 dtype and ``ssm`` ``(L, B, nh, N, hd)`` float32, and one K/V stripe per use
 of the shared attention block, ``attn_k``/``attn_v`` ``(ceil(L / every), B,
-S, Hkv, hd)``.  Neither family's paged layout is ported yet.
+S, Hkv, hd)``.
+
+The paged layout (:func:`init_paged_cache`) pages the leaves with a
+sequence axis (:func:`paged_names`) and keeps every other leaf per slot:
+the dense family's ``k``/``v``, the hybrid family's ``attn_k``/``attn_v``
+(its ``conv``/``ssm`` stay per slot), and nothing of the ssm family, whose
+paged layout degenerates to the contiguous one (a request needs no
+block).
 
 Where the JAX package rebuilds a cache with ``.at[].set``, the port updates
 these tensors in place (``index_put_`` / slice assignment): a cache dict is
@@ -118,33 +125,37 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 def init_paged_cache(cfg: ModelConfig, num_slots: int, max_len: int, *,
                      block_size: int, num_blocks: int,
                      kv_dtype: str | None = None, device) -> dict:
-    """Zeroed paged decode cache: ``k``/``v`` block pools
-    ``(L, num_blocks + 1, block_size, Hkv, hd)`` shared across slots
-    (entry 0 is the null block) and a per-slot ``index`` vector.
+    """Zeroed paged decode cache: every :func:`paged_names` leaf becomes a
+    block pool ``(L, num_blocks + 1, block_size, ...)`` shared across slots
+    (entry 0 is the null block), every other leaf keeps the contiguous
+    per-slot layout, and ``index`` is a per-slot vector.
     ``kv_dtype="int8"`` stores the pools as int8 plus ``<name>_scale``
-    pools ``(L, num_blocks + 1, block_size)`` float32, initialised to 1."""
+    pools ``(L, num_blocks + 1, block_size)`` float32, initialised to 1; a
+    family with no paged leaf (ssm) has nothing to quantize and raises
+    ``ValueError``."""
     if kv_dtype not in (None, "auto", "int8"):
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
-    check_supported(cfg)
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            "the paged layout for the ssm family (rwkv6) is not ported yet: "
-            "it comes with paged and radix for ssm (ROADMAP, modules to "
-            "port); serve it with kv_layout='contiguous'")
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "the paged layout for the hybrid family (zamba2) is not ported "
-            "yet: it comes with paged and radix for the hybrid family "
-            "(ROADMAP, modules to port); serve it with "
-            "kv_layout='contiguous'")
     int8 = kv_dtype == "int8"
-    pool = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
-            cfg.resolved_head_dim)
-    dt = torch.int8 if int8 else torch_dtype(cfg.dtype)
+    paged = set(paged_names(cfg))
+    if int8 and not paged:
+        raise ValueError(
+            f"kv_dtype='int8' needs paged KV leaves; family {cfg.family!r} "
+            "has none to quantize")
+    # the contiguous layout's shapes, allocated nowhere
+    shapes = init_cache(cfg, num_slots, max_len, device="meta")
     out = {"index": torch.zeros((num_slots,), dtype=torch.int32,
                                 device=device)}
-    for name in paged_names(cfg):
-        out[name] = torch.zeros(pool, dtype=dt, device=device)
+    for name, leaf in shapes.items():
+        if name == "index":
+            continue
+        if name not in paged:
+            out[name] = torch.zeros(leaf.shape, dtype=leaf.dtype,
+                                    device=device)
+            continue
+        # (L, B, S, *rest) -> (L, num_blocks + 1, block_size, *rest)
+        pool = (leaf.shape[0], num_blocks + 1, block_size) + leaf.shape[3:]
+        out[name] = torch.zeros(pool, dtype=torch.int8 if int8 else
+                                leaf.dtype, device=device)
         if int8:
             out[name + SCALE_SUFFIX] = torch.ones(pool[:3],
                                                   dtype=torch.float32,

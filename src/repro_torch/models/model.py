@@ -57,13 +57,15 @@ class Model:
         return stack_decode_step(params, self.cfg, token, cache, ring=ring)
 
     def kernel_supported(self) -> bool:
-        """Whether :meth:`kernel_decode_step` serves this architecture
-        (GQA stacks); the others decode through :meth:`decode_step`."""
+        """Whether :meth:`kernel_decode_step` serves this architecture on a
+        contiguous cache (GQA stacks); the others decode through
+        :meth:`decode_step`, but for the hybrid family's paged pool."""
         return kernel_supported(self.cfg)
 
     def kernel_decode_step(self, params, token, cache, *, tables=None):
         """Batched one-token decode over a whole slot pool through the
-        decode attention kernels; ``tables`` selects the paged layout."""
+        decode attention kernels; ``tables`` selects the paged layout (the
+        only one for the hybrid family, none for the ssm family)."""
         return stack_kernel_decode_step(params, self.cfg, token, cache,
                                         tables=tables)
 

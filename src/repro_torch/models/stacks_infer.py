@@ -5,12 +5,14 @@ Counterpart of ``repro/models/stacks_infer.py``: :func:`stack_prefill`
 (dense, ssm and hybrid branches) fills a contiguous cache;
 :func:`stack_kernel_decode_step` decodes one token for every slot of the
 serving pool through the decode attention kernels (dense GQA, contiguous
-or paged); :func:`stack_decode_step` decodes one token for every row of a
-contiguous cache of any batch (dense through the kernel step; ssm and
-hybrid in plain PyTorch: the recurrent state has no sequence axis for a
-decode kernel, and the JAX engine refuses its kernel backend for the
-hybrid family).  Caches are updated in place (slice assignment and
-``index_put_``) where the JAX package rebuilds them with ``.at[].set``.
+or paged; and the hybrid family's paged pool, its shared attention block
+through the paged kernel);
+:func:`stack_decode_step` decodes one token for every row of a contiguous
+cache of any batch (dense through the kernel step; ssm and hybrid in plain
+PyTorch: the recurrent state has no sequence axis for a decode kernel, and
+the JAX engine refuses its kernel backend for the hybrid family).  Caches
+are updated in place (slice assignment and ``index_put_``) where the JAX
+package rebuilds them with ``.at[].set``.
 """
 from __future__ import annotations
 
@@ -110,11 +112,12 @@ def _hybrid_prefill(p: dict, cfg: ModelConfig, x, cache: dict):
 
 
 def kernel_supported(cfg: ModelConfig) -> bool:
-    """Whether :func:`stack_kernel_decode_step` serves this config: GQA
-    transformer stacks only.  The ssm family carries no sequence-shaped KV
-    for a decode kernel and steps its recurrence in
-    :func:`stack_decode_step`; so does the hybrid family, whose kernel
-    backend the JAX engine refuses."""
+    """Whether :func:`stack_kernel_decode_step` serves this config on a
+    contiguous cache: GQA transformer stacks only.  The ssm family carries
+    no sequence-shaped KV for a decode kernel and steps its recurrence in
+    :func:`stack_decode_step`; so does the hybrid family on contiguous
+    stripes, whose kernel backend the JAX engine refuses; its paged pool
+    decodes through :func:`stack_kernel_decode_step`."""
     return cfg.family == "dense" and cfg.attention == "gqa"
 
 
@@ -174,13 +177,19 @@ def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     return _unembed(p, cfg, x)[:, 0], cache
 
 
-def _hybrid_decode(p: dict, cfg: ModelConfig, x, cache: dict):
+def _hybrid_decode(p: dict, cfg: ModelConfig, x, cache: dict, tables=None):
     """zamba2's layers for one token of every slot: each Mamba2 block steps
     its conv and SSM state; after layer ``idx`` with ``(idx + 1) % every ==
-    0`` the shared block decodes against use ``occ = idx // every``."""
+    0`` the shared block decodes against use ``occ = idx // every``: over
+    the contiguous ``attn_k``/``attn_v`` stripes in plain PyTorch, or with
+    ``tables`` over their block pools through ``paged_decode_attention``
+    (quantized on the write for int8 pools), never a gathered view."""
     every = cfg.hybrid_attn_every
     sp = p["shared_attn"]
     index = cache["index"]
+    if tables is not None:
+        idx = index.long()
+        pid, off = _paged_position(cache["attn_k"].shape[2], idx, tables)
     for li, lp in enumerate(p["layers"]):
         h = _norm(lp["norm"], x, cfg)
         m, conv, ssm = mb.mamba2_decode_step(
@@ -191,13 +200,52 @@ def _hybrid_decode(p: dict, cfg: ModelConfig, x, cache: dict):
         if (li + 1) % every == 0:
             occ = li // every
             h = _norm(sp["ln1"], x, cfg)
-            a, _, _ = attn.gqa_decode_step(
-                sp["attn"], cfg, h, cache["attn_k"][occ],
-                cache["attn_v"][occ], index)
+            if tables is None:
+                a, _, _ = attn.gqa_decode_step(
+                    sp["attn"], cfg, h, cache["attn_k"][occ],
+                    cache["attn_v"][occ], index)
+            else:
+                q, k_new, v_new = attn.gqa_project_qkv(sp["attn"], cfg, h,
+                                                       idx[:, None])
+                o = _paged_attention(cache, ("attn_k", "attn_v"), occ,
+                                     q[:, 0], k_new[:, 0], v_new[:, 0], pid,
+                                     off, tables, index + 1)
+                a = attn.attn_out(o, sp["attn"]["wo"])[:, None].to(x.dtype)
             x = x + a
             h = _norm(sp["ln2"], x, cfg)
             x = x + mlp_apply(sp["mlp"], h)
     return x
+
+
+def _paged_position(bs: int, idx: torch.Tensor, tables: torch.Tensor):
+    """Pool block and offset of each slot's position ``idx`` through its
+    table row; a row past its table (a dead slot that keeps stepping) is
+    clamped onto the row's last entry, the null block once released."""
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    pid = tables[rows, (idx // bs).clamp(max=tables.shape[1] - 1)].long()
+    return pid, idx % bs
+
+
+def _paged_attention(cache: dict, names, li: int, q, k_row, v_row, pid, off,
+                     tables, lengths, window=None):
+    """Write each slot's new K/V row ``(N, Hkv, hd)`` into layer ``li`` of
+    the ``names`` block pools at ``(pid, off)`` (quantized, with its scale,
+    when the pool is int8) and attend ``q (N, H, hd)`` over ``lengths``
+    positions through the tables with ``paged_decode_attention``."""
+    k_l, v_l = cache[names[0]][li], cache[names[1]][li]
+    ks_l = vs_l = None
+    if names[0] + kvcache.SCALE_SUFFIX in cache:
+        ks_l = cache[names[0] + kvcache.SCALE_SUFFIX][li]
+        vs_l = cache[names[1] + kvcache.SCALE_SUFFIX][li]
+        kq, ks = kvcache.quantize_kv(k_row, 1)
+        vq, vs = kvcache.quantize_kv(v_row, 1)
+        k_l[pid, off], v_l[pid, off] = kq, vq
+        ks_l[pid, off], vs_l[pid, off] = ks, vs
+    else:
+        k_l[pid, off] = k_row.to(k_l.dtype)
+        v_l[pid, off] = v_row.to(v_l.dtype)
+    return paged_decode_attention(q, k_l, v_l, tables, lengths,
+                                  window=window, k_scale=ks_l, v_scale=vs_l)
 
 
 def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -206,13 +254,18 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
 
     token: ``(N, 1)`` integer.  cache: the serving layout —
 
-    * contiguous (``tables=None``): ``k``/``v`` ``(L, N, S, Hkv, hd)`` slot
-      stripes, ``index`` ``(N,)``; runs ``decode_attention`` per layer;
-    * paged (``tables (N, MB)`` int32): ``k``/``v`` pools
+    * contiguous (``tables=None``, dense only): ``k``/``v`` ``(L, N, S,
+      Hkv, hd)`` slot stripes, ``index`` ``(N,)``; runs
+      ``decode_attention`` per layer;
+    * paged (``tables (N, MB)`` int32): the paged leaves are pools
       ``(L, NB+1, bs, Hkv, hd)`` (block 0 = null), optionally int8 with
-      ``k_scale``/``v_scale`` ``(L, NB+1, bs)`` (quantize on write); runs
-      ``paged_decode_attention`` per layer over the tables, never a
-      gathered view.
+      ``<name>_scale`` ``(L, NB+1, bs)`` (quantize on write), every other
+      leaf per slot.  Dense: ``k``/``v``, ``paged_decode_attention`` per
+      layer over the tables, never a gathered view.  Hybrid: each Mamba2
+      layer steps its per-slot ``conv``/``ssm``, and each use of the
+      shared block runs ``paged_decode_attention`` over its
+      ``attn_k``/``attn_v`` pool.  The ssm family's pool pages nothing
+      and decodes through :func:`stack_decode_step`.
 
     Each slot writes its new K/V at position ``index`` and attends over
     ``index + 1`` positions.  Dead slots write where nothing live reads:
@@ -223,21 +276,24 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     """
     kvcache.check_supported(cfg)
     if not kernel_supported(cfg):
-        raise ValueError(f"stack_kernel_decode_step serves GQA stacks, not "
-                         f"family {cfg.family!r}: use stack_decode_step")
+        if tables is None or cfg.family != "hybrid":
+            raise ValueError(f"stack_kernel_decode_step serves GQA stacks "
+                             f"and paged hybrid pools, not family "
+                             f"{cfg.family!r} here: use stack_decode_step")
+        x = _hybrid_decode(p, cfg, _embed_tokens(p, cfg, token), cache,
+                           tables)
+        cache["index"].add_(1)
+        return _unembed(p, cfg, x)[:, 0], cache
     index = cache["index"]                                   # (N,)
     N = token.shape[0]
     rows = torch.arange(N, device=index.device)
     x = _embed_tokens(p, cfg, token)                         # (N, 1, d)
     pos = index[:, None]
     idx = index.long()
-    quant = "k" + kvcache.SCALE_SUFFIX in cache
     if tables is None:
         widx = idx.clamp(max=cache["k"].shape[2] - 1)
     else:
-        bs, MB = cache["k"].shape[2], tables.shape[1]
-        pid = tables[rows, (idx // bs).clamp(max=MB - 1)].long()
-        off = idx % bs
+        pid, off = _paged_position(cache["k"].shape[2], idx, tables)
     lengths = index + 1
     for li, (lp, (theta, window)) in enumerate(
             zip(p["layers"], _layer_theta_window(cfg))):
@@ -245,26 +301,14 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
         q, k_new, v_new = attn.gqa_project_qkv(lp["attn"], cfg, h, pos,
                                                rope_theta=theta)
         kr, vr = k_new[:, 0], v_new[:, 0]                   # (N, Hkv, hd)
-        k_l, v_l = cache["k"][li], cache["v"][li]
         if tables is None:
+            k_l, v_l = cache["k"][li], cache["v"][li]
             k_l[rows, widx] = kr.to(k_l.dtype)
             v_l[rows, widx] = vr.to(v_l.dtype)
             o = decode_attention(q[:, 0], k_l, v_l, lengths, window=window)
         else:
-            ks_l = vs_l = None
-            if quant:
-                ks_l = cache["k" + kvcache.SCALE_SUFFIX][li]
-                vs_l = cache["v" + kvcache.SCALE_SUFFIX][li]
-                kq, ks = kvcache.quantize_kv(kr, 1)
-                vq, vs = kvcache.quantize_kv(vr, 1)
-                k_l[pid, off], v_l[pid, off] = kq, vq
-                ks_l[pid, off], vs_l[pid, off] = ks, vs
-            else:
-                k_l[pid, off] = kr.to(k_l.dtype)
-                v_l[pid, off] = vr.to(v_l.dtype)
-            o = paged_decode_attention(q[:, 0], k_l, v_l, tables, lengths,
-                                       window=window, k_scale=ks_l,
-                                       v_scale=vs_l)
+            o = _paged_attention(cache, ("k", "v"), li, q[:, 0], kr, vr,
+                                 pid, off, tables, lengths, window)
         x = x + attn.attn_out(o, lp["attn"]["wo"])[:, None].to(x.dtype)
         h = _norm(lp["ln2"], x, cfg)
         x = x + mlp_apply(lp["mlp"], h)

@@ -1,8 +1,12 @@
 """Continuous-batching rollout serving: requests, queue, admission
-policies, KV slot managers, the engine with radix prefix sharing, and
-disaggregated prefill/decode serving.  See ``serve.engine``."""
+policies, KV slot managers, the engine with radix prefix sharing,
+disaggregated prefill/decode serving and elastic capacity.  See
+``serve.engine``."""
 from repro_torch.serve.blocks import BlockAllocator, blocks_for
 from repro_torch.serve.disagg import KVTransferHandle, PrefillEngine
+from repro_torch.serve.elastic import (ElasticConfig, ElasticController,
+                                       rederive_slo, resize_engine,
+                                       resize_router)
 from repro_torch.serve.engine import (Engine, EngineConfig, EngineStats,
                                       SuspendedRequest, run_trace)
 from repro_torch.serve.protocol import ENGINE_ATTRS, EngineProtocol
@@ -22,4 +26,6 @@ __all__ = ["BlockAllocator", "blocks_for", "Engine", "EngineConfig",
            "SuspendedRequest", "run_trace", "PrefixMatch", "RadixNode",
            "RadixPrefixIndex", "KVTransferHandle", "PrefillEngine",
            "DisaggConfig", "DisaggRouter", "RouterStats", "EngineProtocol",
-           "ENGINE_ATTRS", "RolloutSpec"]
+           "ENGINE_ATTRS", "RolloutSpec", "ElasticConfig",
+           "ElasticController", "resize_engine", "resize_router",
+           "rederive_slo"]

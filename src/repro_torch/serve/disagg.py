@@ -37,10 +37,11 @@ Paged, the transfer rides the allocator's reference counts:
 With ``prefix_share`` the prefill engine keeps a radix tree over its own
 pool: an exact repeat becomes a handle with no model compute, and a
 request sharing a block-aligned prefix pins those blocks and writes only
-its extension.  The contiguous layout disaggregates too, the handle
-carrying the whole batch=1 prefill cache (slots bound how many un-adopted
-handles may be resident); that is how rwkv6 and zamba2, whose paged
-layouts are not ported, disaggregate.
+its extension.  A paged handle of rwkv6 or zamba2 carries the slot rows
+of their recurrent state in ``slot_leaves`` (rwkv6's state is all slot
+rows: no block is pinned).  The contiguous layout disaggregates too, the
+handle carrying the whole batch=1 prefill cache (slots bound how many
+un-adopted handles may be resident).
 """
 from __future__ import annotations
 

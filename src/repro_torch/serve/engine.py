@@ -13,13 +13,14 @@ step's logits (at temperature 0 with the fused greedy kernel,
 ``kernels.sampling``; above it by :func:`sample_logp`'s Gumbel-max draw
 from the engine's ``torch.Generator``), then runs the model's batched
 decode step: ``Model.kernel_decode_step`` for GQA stacks (decode attention
-in a kernel, per layer, over contiguous stripes or paged block pools),
-``Model.decode_step`` for rwkv6 and zamba2 (the recurrences and zamba2's
-shared attention block in plain PyTorch, over contiguous slots; their
-paged layouts are not ported and raise ``NotImplementedError``).  The model's family decides, as the JAX engine's
-``_resolve_backend`` does; there is no backend switch: on CUDA tensors the
-kernels run, on CPU tensors their plain versions.  Admission prefills one
-request at a time and never samples.
+in a kernel, per layer, over contiguous stripes or paged block pools) and
+for zamba2's paged pool (its shared attention block runs the paged kernel
+over the ``attn_k``/``attn_v`` pools), ``Model.decode_step`` for rwkv6 on
+either layout (its pool pages nothing) and contiguous zamba2 (the
+recurrences and zamba2's shared attention block in plain PyTorch).  The
+layout and the model's family decide; there is no backend
+switch: on CUDA tensors the kernels run, on CPU tensors their plain
+versions.  Admission prefills one request at a time and never samples.
 
 On the card a tick's ``block_size`` decode steps run as one CUDA graph,
 the counterpart of the JAX engine's jitted ``lax.scan`` block: the
@@ -66,7 +67,9 @@ under pressure.  Every prompt admitted, adopted or resumed registers
 once its slot holds it.  New weights (``reset(params=...)``) flush the
 tree.
 
-``run_trace``'s elastic ``controller`` is not ported yet and raises.
+:func:`run_trace` takes an elastic ``controller``
+(:mod:`repro_torch.serve.elastic`): it gates every arrival (admit, degrade
+or shed) and may replace the engine between steps by a resized one.
 """
 from __future__ import annotations
 
@@ -250,9 +253,11 @@ class SuspendedRequest:
     (or a weight sync), waiting to be resumed: the JAX engine's handle.
 
     A paged engine pins the sequence's full KV blocks in its pool (one
-    ``incref`` each, no copy) and keeps a copy of the partial last block
-    in ``tail`` (as the pool stores it); a contiguous engine keeps a copy of
-    the slot's whole stripe in ``one``.  ``logits`` is a copy of the
+    ``incref`` each, no copy), keeps a copy of the partial last block in
+    ``tail`` (as the pool stores it) and copies of the slot's rows of the
+    slot-resident leaves in ``slot_leaves`` (zamba2's ``conv``/``ssm``,
+    all of rwkv6's state); a contiguous engine keeps a copy of the slot's
+    whole stripe in ``one``.  ``logits`` is a copy of the
     slot's last logits row.  Copies, never views: the engine's buffers and
     pool are rewritten in place by every later decode step and admit.  The
     slot itself is released at suspension.
@@ -267,12 +272,13 @@ class SuspendedRequest:
     once."""
 
     __slots__ = ("req", "out", "history", "index", "remaining", "logits",
-                 "logits_valid", "block_ids", "tail", "one", "source",
-                 "weight_version", "released")
+                 "logits_valid", "block_ids", "tail", "slot_leaves", "one",
+                 "source", "weight_version", "released")
 
     def __init__(self, req: Request, out: RequestOutput, history, index: int,
                  remaining: int, logits, *, source, logits_valid: bool = True,
-                 block_ids=(), tail=None, one=None, weight_version: int = 0):
+                 block_ids=(), tail=None, slot_leaves=None, one=None,
+                 weight_version: int = 0):
         self.req = req
         self.out = out
         self.history = np.asarray(history, np.int32).reshape(-1)
@@ -282,6 +288,7 @@ class SuspendedRequest:
         self.logits_valid = logits_valid
         self.block_ids = tuple(int(b) for b in block_ids)
         self.tail = tail if tail is not None else {}
+        self.slot_leaves = slot_leaves if slot_leaves is not None else {}
         self.one = one                      # contiguous: the batch=1 stripe
         self.source = source                # the Engine holding the pins
         self.weight_version = weight_version
@@ -295,6 +302,7 @@ class SuspendedRequest:
         self.source._release_suspended(self)
         self.one = None
         self.tail = {}
+        self.slot_leaves = {}
         self.logits = None
 
 
@@ -380,6 +388,11 @@ class Engine:
         # positions >= index): recurrent state cannot rewind, so those
         # families suspend at block_size 1 only
         paged_names = set(model.paged_cache_names())
+        # the decode step through the kernels: GQA stacks, and pools with
+        # paged leaves (zamba2's shared block over its attn_k/attn_v pools);
+        # rwkv6's pool pages nothing and steps as a contiguous cache does
+        self._kernel_step = model.kernel_supported() or (
+            self.paged and bool(paged_names))
         self._rollback_safe = all(
             k == "index" or k in paged_names or k.endswith(SCALE_SUFFIX)
             for k in self.slots.cache)
@@ -653,14 +666,8 @@ class Engine:
                                     self.config.temperature,
                                     generator=self.generator)
             rec = self._alive & (self._remaining > 0)
-            # the model updates the cache in place
-            if self.model.kernel_supported():
-                logits, _ = self.model.kernel_decode_step(
-                    self.params, nxt[:, None], self.slots.cache,
-                    tables=tables)
-            else:
-                logits, _ = self.model.decode_step(
-                    self.params, nxt[:, None], self.slots.cache)
+            logits = self._model_step(nxt[:, None], self.slots.cache,
+                                      tables)
             self._last_logits.copy_(logits)
             self._alive &= nxt != self.config.eos_id
             self._remaining -= rec.to(torch.int32)
@@ -705,6 +712,40 @@ class Engine:
         if self._graph is None or key != self._graph_key_at:
             self._capture(key)
         return self._graph
+
+    def warm_up(self) -> None:
+        """Run the decode block once, eagerly, on an idle engine on the
+        card, so that the first tick with work captures the block's graph
+        before its timed window and replays it: neither the eager block nor
+        the capture lands in ``decode_time_s``, which the elastic admission
+        gate reads as the time per token (a resized engine would otherwise
+        look saturated for its first tick).  Every slot is dead, so the
+        block writes only where no request reads: stripes and slot rows an
+        admit overwrites, the null block through zeroed table rows.  A
+        sampled engine's generator is restored afterwards.  A no-op on the
+        CPU and on an engine that has run a tick; a live engine raises."""
+        if self.device.type != "cuda" or self._warm:
+            return
+        if self._active:
+            raise RuntimeError("warm_up() on a live engine")
+        state = (None if self.generator is None
+                 else self.generator.get_state())
+        self._decode_block(self.slots.device_tables() if self.paged
+                           else None)
+        if state is not None:
+            self.generator.set_state(state)
+        self._warm = True
+
+    def release_graphs(self) -> None:
+        """Release the engine's CUDA graphs (the decode block's and the
+        forced-token ones) and their private memory pools, as a retired
+        engine should (``resize_engine``); a later tick captures anew."""
+        if self._graph is not None:
+            self._graph.reset()
+        for entry in self._inject_graphs.values():
+            entry[1].reset()
+        self._graph = self._graph_key_at = None
+        self._inject_graphs = {}
 
     def _capture(self, key: tuple) -> None:
         """Capture the decode block into a new CUDA graph, or raise.
@@ -892,7 +933,8 @@ class Engine:
                       logits_valid: bool = True) -> SuspendedRequest:
         """Take slot ``slot``'s generation out into a handle and release
         the slot.  Paged: pin the sequence's full blocks, copy its partial
-        last block.  Contiguous: copy the stripe.  The slot's device rows
+        last block and its slot-resident rows.  Contiguous: copy the
+        stripe.  The slot's device rows
         stay as they are: a freed slot keeps decoding in the block, into
         its own stripe or, through its zeroed table row, the null block."""
         req, out = self._active.pop(slot)
@@ -913,15 +955,18 @@ class Engine:
                 logits, one=one, **kwargs)
         else:
             bs = self.config.kv_block_size
-            n_full = idx // bs
+            has_paged = bool(self.slots.paged_names)
+            n_full = idx // bs if has_paged else 0
             pinned = self.slots.pin_prefix(slot, n_full)
-            # the copy is queued before the release lets an admit reuse
-            # the block, on the same stream
+            # the copies are queued before the release lets an admit reuse
+            # the block and the rows, on the same stream
             tail = (self.slots.snapshot_block(
-                int(self.slots.tables[slot, n_full])) if idx % bs else {})
+                int(self.slots.tables[slot, n_full]))
+                if has_paged and idx % bs else {})
             sreq = SuspendedRequest(
                 req, out, history, idx, req.max_new_tokens - produced,
-                logits, block_ids=pinned, tail=tail, **kwargs)
+                logits, block_ids=pinned, tail=tail,
+                slot_leaves=self.slots.slot_rows(slot), **kwargs)
         self.slots.release(slot)
         self.suspended[req.rid] = sreq
         self._stats.suspends += 1
@@ -931,7 +976,7 @@ class Engine:
         """A batch=1 contiguous cache of a handle suspended from this
         engine: the stripe's copy itself (contiguous; a resume consumes
         it), or the pinned blocks gathered with the tail spliced on (paged,
-        :meth:`PagedSlotManager.fetch`)."""
+        :meth:`PagedSlotManager.fetch`) beside the slot rows' copies."""
         if sreq.released:
             raise RuntimeError(
                 f"suspended rid {sreq.req.rid} was already released")
@@ -940,7 +985,9 @@ class Engine:
             one["index"] = torch.tensor(sreq.index, dtype=torch.int32,
                                         device=self.device)
             return one
-        return self.slots.fetch(sreq.block_ids, sreq.tail, sreq.index)
+        one = self.slots.fetch(sreq.block_ids, sreq.tail, sreq.index)
+        one.update(sreq.slot_leaves)
+        return one
 
     def _release_suspended(self, sreq: SuspendedRequest) -> None:
         if self.paged:
@@ -1031,7 +1078,7 @@ class Engine:
         pool = self.slots.cache
         row = self.slots.device_tables()[slot:slot + 1]
         if self.device.type != "cuda":
-            view = dict(pool, index=pool["index"][slot:slot + 1])
+            view = self.slots.slot_view(slot, pool["index"][slot:slot + 1])
             return self._pool_steps(toks, view, row)
         if self._inject_row is None:
             self._inject_row = torch.zeros_like(row)
@@ -1039,7 +1086,7 @@ class Engine:
                                              device=self.device)
         self._inject_row.copy_(row)
         self._inject_index.copy_(pool["index"][slot:slot + 1])
-        view = dict(pool, index=self._inject_index)
+        view = self.slots.slot_view(slot, self._inject_index)
         key = (tuple(_addresses(self.params, [])),
                tuple(_addresses([view, self._inject_row, toks], [])))
         logits = self._forced_decode(
@@ -1048,11 +1095,18 @@ class Engine:
         pool["index"][slot:slot + 1].copy_(self._inject_index)
         return logits
 
+    def _model_step(self, token: torch.Tensor, cache: dict, tables):
+        """One decode step of ``token`` over ``cache``, which the model
+        updates in place; returns the logits."""
+        if self._kernel_step:
+            return self.model.kernel_decode_step(self.params, token, cache,
+                                                 tables=tables)[0]
+        return self.model.decode_step(self.params, token, cache)[0]
+
     def _pool_steps(self, toks: torch.Tensor, view: dict,
                     row: torch.Tensor):
         for i in range(toks.shape[0]):
-            logits, _ = self.model.kernel_decode_step(
-                self.params, toks[i:i + 1, None], view, tables=row)
+            logits = self._model_step(toks[i:i + 1, None], view, row)
         return logits[0]
 
     def can_resume(self, sreq: SuspendedRequest, tool_tokens=(), *,
@@ -1310,7 +1364,8 @@ class Engine:
             # metadata in the host one; their pins are in the alloc state
             device["suspended"] = {
                 rid: {"logits": s.logits.clone(), "one": _clone_tree(s.one),
-                      "tail": _clone_tree(s.tail)}
+                      "tail": _clone_tree(s.tail),
+                      "slot_leaves": _clone_tree(s.slot_leaves)}
                 for rid, s in self.suspended.items()}
         slots: dict = {"owner": list(self.slots.owner),
                        "free": list(self.slots.free),
@@ -1393,6 +1448,8 @@ class Engine:
                 source=self, logits_valid=m["logits_valid"],
                 block_ids=m["block_ids"],
                 tail=_as_device(d["tail"], self.device),
+                slot_leaves=_as_device(d.get("slot_leaves", {}),
+                                       self.device),
                 one=_as_device(d["one"], self.device),
                 weight_version=m["weight_version"])
         self._newly_suspended = [self.suspended[r]
@@ -1433,21 +1490,32 @@ def run_trace(engine: Engine, requests: list[Request], *,
     throughput, slot utilization, backpressure, deadline and KV block
     aggregates.
 
-    ``controller`` (the JAX package's ``serve.elastic`` capacity loop)
-    is not ported yet and raises."""
-    if controller is not None:
-        raise NotImplementedError(
-            "run_trace(controller=...) needs serve/elastic.py, which is "
-            "not ported to repro_torch yet (ROADMAP, modules to port)")
+    ``controller`` (a :class:`~repro_torch.serve.elastic.ElasticController`)
+    closes the capacity loop: every arrival passes its admission gate,
+    which may shed it (recorded by the controller, never submitted) or
+    clamp its decode budget, and between steps the controller may replace
+    the engine by a resized one, live work carried over.  The report then
+    has an ``"elastic"`` section (capacity-seconds, sheds and degrades,
+    the resize history) and ``"engine"``, the engine the trace ended on."""
     pending = sorted(requests, key=lambda r: (r.arrival_time, r.rid))
     t0 = time.perf_counter()
     engine.clock = lambda: time.perf_counter() - t0
+    if controller is not None:
+        controller.attach(engine, engine.clock())
     while pending or not engine.idle:
         now = engine.clock()
         while pending and pending[0].arrival_time <= now:
-            if not engine.submit(pending[0]):
+            req = pending[0]
+            if controller is not None:
+                verdict, req = controller.admit(req, now, engine)
+                if verdict == "shed":
+                    pending.pop(0)          # recorded by the controller
+                    continue
+            if not engine.submit(req):
                 break                       # queue full: defer, retry after
             pending.pop(0)                  # the engine drains a bit
+        if controller is not None:
+            engine = controller.maybe_resize(engine, engine.clock())
         progressed = engine.step()
         if not progressed and pending:
             if realtime:
@@ -1458,6 +1526,12 @@ def run_trace(engine: Engine, requests: list[Request], *,
             else:
                 nxt = pending[0]
                 nxt.arrival_time = engine.clock()
+                if controller is not None:
+                    verdict, nxt = controller.admit(nxt, engine.clock(),
+                                                    engine)
+                    if verdict == "shed":
+                        pending.pop(0)
+                        continue
                 if engine.submit(nxt):
                     pending.pop(0)
     makespan = engine.clock()
@@ -1494,4 +1568,7 @@ def run_trace(engine: Engine, requests: list[Request], *,
         report["prefix"] = dict(engine.radix.stats,
                                 blocks_saved=s.blocks_saved,
                                 hit_admits=s.prefix_hits)
+    if controller is not None:
+        report["elastic"] = controller.summary(makespan)
+        report["engine"] = engine
     return report

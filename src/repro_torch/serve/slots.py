@@ -9,13 +9,16 @@ stripe, and :func:`insert_cache` overwrites a whole stripe with a freshly
 prefilled single-request cache (so a recycled slot can never leak the
 previous request's KV).
 
-**Paged** (:class:`PagedSlotManager`) — ``k``/``v`` live in a shared pool
-of fixed-size blocks; each live slot holds a block-table row of physical
+**Paged** (:class:`PagedSlotManager`) — the leaves with a sequence axis
+(``k``/``v``; zamba2's ``attn_k``/``attn_v``) live in a shared pool of
+fixed-size blocks; each live slot holds a block-table row of physical
 block ids.  Blocks are reserved at admit for the request's whole budget
 and materialized as its ``index`` crosses block boundaries
 (:meth:`PagedSlotManager.ensure`).  Unassigned and released table entries
-point at the null block 0.  :func:`insert_paged` writes a prefilled cache
-through a table row.
+point at the null block 0.  Every other leaf (zamba2's ``conv``/``ssm``,
+all of rwkv6's state) stays per slot and rides with it; a family with no
+paged leaf needs no block at all.  :func:`insert_paged` writes a
+prefilled cache through a table row.
 
 Both write the pool tensors in place (slice assignment / ``index_put_``)
 where the JAX package rebuilds them with ``.at[].set``.
@@ -73,14 +76,15 @@ def extract_cache(pool: dict, slot: int) -> dict:
 
 
 def insert_paged(pool: dict, one: dict, table_row: torch.Tensor,
-                 slot: int) -> dict:
-    """Write a prefilled batch=1 contiguous cache into the block pools
-    through ``table_row (MB,)``, in place: the sequence is cut into
-    ``MB`` blocks (zero-padded) and block j lands in pool block
-    ``table_row[j]`` (unassigned entries are 0, so those blocks fall into
-    the null block).  int8 pools quantize each position on the write,
-    unless ``one`` carries int8 values with their scales
-    (``PagedSlotManager.fetch``): those are written as they are."""
+                 slot: int, paged) -> dict:
+    """Write a prefilled batch=1 contiguous cache into a paged pool, in
+    place.  Each ``paged`` leaf's sequence is cut into ``MB`` blocks
+    (zero-padded) and block j lands in pool block ``table_row[j]``
+    (unassigned entries are 0, so those blocks fall into the null block);
+    int8 pools quantize each position on the write, unless ``one`` carries
+    int8 values with their scales (``PagedSlotManager.fetch``): those are
+    written as they are.  Every other leaf is slot-resident and lands in
+    row ``slot``, as :func:`insert_cache` writes it."""
     def blocks(u, MB, bs):
         u = u[:, 0]                                    # (L, S, ...)
         pad = [0, 0] * (u.dim() - 2) + [0, MB * bs - u.shape[1]]
@@ -92,6 +96,9 @@ def insert_paged(pool: dict, one: dict, table_row: torch.Tensor,
             continue                     # written beside the parent leaf
         if name == "index":
             leaf[slot] = one[name]
+            continue
+        if name not in paged:
+            leaf[:, slot] = one[name][:, 0]
             continue
         bs, MB = leaf.shape[2], table_row.shape[0]
         rows = table_row.long()
@@ -169,6 +176,7 @@ class PagedSlotManager:
         self.max_blocks = blocks_for(max_seq_len, block_size)  # per slot
         if num_blocks is None:
             num_blocks = num_slots * self.max_blocks
+        self.paged_names = model.paged_cache_names()
         self.alloc = BlockAllocator(num_blocks, block_size)
         self.cache = model.init_paged_cache(
             num_slots, max_seq_len, block_size=block_size,
@@ -199,7 +207,9 @@ class PagedSlotManager:
 
     def blocks_required(self, total_budget: int) -> int:
         """Worst-case blocks a request with this prompt+decode budget can
-        write."""
+        write (0 for a family with no paged leaf, such as rwkv6)."""
+        if not self.paged_names:
+            return 0
         return blocks_for(min(total_budget, self.max_seq_len),
                           self.block_size)
 
@@ -259,7 +269,10 @@ class PagedSlotManager:
     def ensure(self, slot: int, upto_pos: int) -> None:
         """Materialize blocks so the slot's table covers positions
         ``<= upto_pos``, clamped to the request's quota (writes past the
-        budget fall through to the null block by design)."""
+        budget fall through to the null block by design).  Nothing to do
+        for a family with no paged leaf."""
+        if not self.paged_names:
+            return
         rid = self.owner[slot]
         if rid is None:
             raise AssertionError(f"ensure on free slot {slot}")
@@ -291,9 +304,8 @@ class PagedSlotManager:
     def _blocked(self) -> list:
         """The names of the pool's block leaves: the paged leaves and, on
         an int8 pool, their scales."""
-        names = self.model.paged_cache_names()
         return [name for name in self.cache
-                if name in names or name.endswith(SCALE_SUFFIX)]
+                if name in self.paged_names or name.endswith(SCALE_SUFFIX)]
 
     def snapshot_block(self, pid: int) -> dict:
         """Block ``pid`` of every block leaf, copied as the pool stores it
@@ -312,7 +324,8 @@ class PagedSlotManager:
     def slot_rows(self, slot: int) -> dict:
         """Copies of slot ``slot``'s rows of the pool's slot-resident
         leaves (batch at axis 1): every leaf that is neither the index nor
-        a paged leaf or its scales.  The attention families have none."""
+        a paged leaf or its scales (zamba2's ``conv``/``ssm``, all of
+        rwkv6's state).  The dense family has none."""
         blocked = self._blocked()
         return {name: leaf[:, slot:slot + 1].clone()
                 for name, leaf in self.cache.items()
@@ -323,16 +336,29 @@ class PagedSlotManager:
         for name, t in rows.items():
             self.cache[name][:, slot:slot + 1].copy_(t)
 
+    def slot_view(self, slot: int, index: torch.Tensor) -> dict:
+        """The pool as a batch=1 cache of slot ``slot``: the block leaves
+        whole (a table row selects the slot's blocks), the slot-resident
+        leaves as views of its row, so that a decode step on the view
+        writes the pool, and ``index`` as given."""
+        blocked = self._blocked()
+        return {name: (index if name == "index" else
+                       leaf if name in blocked else leaf[:, slot:slot + 1])
+                for name, leaf in self.cache.items()}
+
     def boundary(self, slot: int, prompt_len: int) -> tuple:
         """The boundary of the prompt slot ``slot`` holds: the ids of its
         full blocks, a :meth:`snapshot_block` copy of its partial last
         block (empty when it ends on a block edge) and the slot's
         :meth:`slot_rows`, what a radix entry and a transfer handle keep.
         Copies: the slot's blocks and rows are written again once it
-        decodes or is recycled."""
-        bs, n_full = self.block_size, prompt_len // self.block_size
+        decodes or is recycled.  A family with no paged leaf has no block
+        to keep: its boundary is the slot rows alone (for the radix tree,
+        a snapshot at the root)."""
+        bs = self.block_size
+        n_full = prompt_len // bs if self.paged_names else 0
         tail = (self.snapshot_block(int(self.tables[slot, n_full]))
-                if prompt_len % bs else {})
+                if self.paged_names and prompt_len % bs else {})
         return ([int(b) for b in self.tables[slot, :n_full]], tail,
                 self.slot_rows(slot))
 
@@ -349,7 +375,7 @@ class PagedSlotManager:
             row = torch.from_numpy(masked).to(self.device)
         else:
             row = self.device_tables()[slot]
-        insert_paged(self.cache, one, row, slot)
+        insert_paged(self.cache, one, row, slot, self.paged_names)
 
     def fetch(self, block_ids, tail: dict, index: int) -> dict:
         """A batch=1 contiguous cache of a sequence whose full blocks are
@@ -357,7 +383,8 @@ class PagedSlotManager:
         is ``tail`` (a :meth:`snapshot_block` copy, or empty): the blocks
         gathered through a null-padded table row as they are stored (an
         int8 pool's with their scales, ``<name>_scale`` ``(L, 1, S)``),
-        the tail spliced after them, ``index`` its length.  Positions past
+        the tail spliced after them, ``index`` its length (slot-resident
+        leaves are not here: their holder keeps them).  Positions past
         ``index`` hold what the null block holds; a decode step writes a
         position before anything reads it.  :func:`insert_paged` writes
         the result into a pool of the same storage unchanged.  The port's

@@ -559,9 +559,9 @@ def test_refusals_and_trace_report(pair):
         EngineConfig(prefix_share=True, kv_layout="contiguous")
     for arch in ("rwkv6-7b", "zamba2-2.7b"):
         m = build_model(arch, reduced=True)
-        with pytest.raises(NotImplementedError, match="paged"):
-            Engine(m, m.init(torch.Generator().manual_seed(0)),
+        e = Engine(m, m.init(torch.Generator().manual_seed(0)),
                    _cfg(EngineConfig, prefix_share=True), device="cpu")
+        assert e.radix is not None and not len(e.radix)
     eng = Engine(tm, tp, _cfg(EngineConfig, prefix_share=True),
                  device="cpu")
     reqs = [Request(rid=i, prompt=p, max_new_tokens=4, arrival_time=0.0)

@@ -410,12 +410,20 @@ def test_ssm_refusals(pair):
     jm, jp, tm, tp = pair
     with pytest.raises(NotImplementedError, match="rwkv6 training"):
         stack_forward(tp, tm.cfg, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="paged"):
+    with pytest.raises(ValueError, match="int8"):
         Engine(tm, tp, EngineConfig(num_slots=2, max_seq_len=32,
-                                    kv_layout="paged"), device="cpu")
+                                    kv_layout="paged", kv_dtype="int8"),
+               device="cpu")
+    eng = Engine(tm, tp, EngineConfig(num_slots=2, max_seq_len=32,
+                                      kv_layout="paged"), device="cpu")
+    assert eng.slots.paged_names == () and eng.slots.blocks_required(32) == 0
     with pytest.raises(ValueError, match="stack_decode_step"):
         tm.kernel_decode_step(tp, torch.zeros((2, 1), dtype=torch.int32),
                               tm.init_cache(2, 8, device="cpu"))
+    with pytest.raises(ValueError, match="stack_decode_step"):
+        tm.kernel_decode_step(tp, torch.zeros((2, 1), dtype=torch.int32),
+                              eng.slots.cache,
+                              tables=eng.slots.device_tables())
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
         r = torch.zeros(1, 8, 2, 16, device="cuda")

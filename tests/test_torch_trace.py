@@ -193,7 +193,8 @@ def test_clock_stamps_and_slo_fallback_match_jax(pair):
 
 def test_run_trace_realtime_and_refusals(pair):
     """``realtime=True`` sleeps through an idle gap instead of rebasing
-    arrivals; ``controller=`` waits for serve/elastic.py."""
+    arrivals; a ``controller=`` on a one-rung ladder never resizes and
+    reports a capacity ratio of 1."""
     _, _, tm, tp = pair
     eng = Engine(tm, tp, EngineConfig(num_slots=2, max_seq_len=16),
                  device="cpu")
@@ -206,5 +207,17 @@ def test_run_trace_realtime_and_refusals(pair):
     assert rep["makespan_s"] >= 0.3
     assert rep["outputs"][1].first_token_time >= 0.3
     assert "kv_blocks_total" not in rep and "deadline_total" not in rep
-    with pytest.raises(NotImplementedError, match="elastic"):
-        run_trace(eng, [], controller=object())
+    from repro_torch.serve import ElasticConfig, ElasticController
+    eng = Engine(tm, tp, EngineConfig(num_slots=2, max_seq_len=16),
+                 device="cpu")
+    reqs = [Request(rid=i, prompt=r.prompt, max_new_tokens=2)
+            for i, r in enumerate(_trace(Request)[:2])]
+    ctl = ElasticController(ElasticConfig(ladder=(2,), interval_s=0.0,
+                                          cooldown_s=0.0))
+    rep = run_trace(eng, reqs, realtime=False, controller=ctl)
+    e = rep["elastic"]
+    assert [o.rid for o in rep["outputs"]] == [0, 1]
+    assert e["resizes"] == 0 and e["sheds"] == 0
+    assert e["capacity_seconds_ratio"] == pytest.approx(1.0)
+    assert e["class_counts"] == {"batch": {"admitted": 2, "degraded": 0,
+                                           "shed": 0}}

@@ -374,9 +374,11 @@ def test_hybrid_refusals(pair):
     jm, jp, tm, tp = pair
     with pytest.raises(NotImplementedError, match="zamba2 training"):
         stack_forward(tp, tm.cfg, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="paged and radix"):
-        Engine(tm, tp, EngineConfig(num_slots=2, max_seq_len=32,
-                                    kv_layout="paged"), device="cpu")
+    eng = Engine(tm, tp, EngineConfig(num_slots=2, max_seq_len=32,
+                                      kv_layout="paged", kv_dtype="int8",
+                                      prefix_share=True), device="cpu")
+    assert eng.slots.paged_names == ("attn_k", "attn_v")
+    assert sorted(eng.slots.slot_rows(0)) == ["conv", "ssm"]
     pool = tm.init_cache(2, 8, device="cpu")
     pool["index"] = torch.zeros((2,), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ring"):

@@ -20,17 +20,26 @@ Phases, in order; any failure exits non-zero:
              timed row and are also held, untimed, where splitting is risky
              (DECODE_EDGE_CASES): lengths at chunk edges, at S, 1 and 0; a
              window that cuts a chunk and skips whole ones; G 1, 4, 8 at D
-             64 and 80; float32 and bf16 at odd D (element loads); G 3; a
-             plan of one split; the paged entry at bs 1 to 64, bf16 (or
+             64 and 80; float32 and bf16 at odd D (element loads); G 3; G 4
+             and 5 at D 128 (minitron-8b's and qwen2.5-32b's decode, G 5
+             with the one-position-shorter fault); a plan of one split; the paged entry at bs 1 to 64, bf16 (or
              float32) and int8; zamba2-2.7b's shared-block shape (H = Hkv
              = 32, D 80, the main lengths, bs 16), also timed in bf16 and
-             int8 against SDPA on the gathered view.  Their limits (DECODE_EDGE_TOL) are tighter
+             int8 against SDPA on the gathered view.  gemma3-4b's decode
+             (GEMMA_ATTN: 8 rows, H 8, Hkv 4, D 256, lengths 1-2048) is
+             timed without a window and in its 1024 window, contiguous
+             and paged (bf16, int8), against SDPA on the masked stripe,
+             and the D 256 instance is held untimed at chunk edges, G 1
+             and 2, the window, float32, element loads (D 250), with the
+             one-position-shorter fault shown to fail.  Their limits
+             (DECODE_EDGE_TOL) are tighter
              than the timed rows' 2e-2: float32 noise, and one bf16
              rounding step; the smoke shows they catch a row that lost one
              position.
              Greedy sampling (each row over a cluster of CTAs, 16 at 8 rows)
-             is held at internlm2's, rwkv6-7b's and zamba2-2.7b's
-             vocabularies (92544, 65536, 32000), 8 rows with ties planted
+             is held and timed at the served models' vocabularies (92544,
+             65536, 32000, gemma3's 262144, minitron's 256000, qwen's
+             152064), 8 rows with ties planted
              across every edge of the cluster's slices, across the last
              edge alone, between an early column and the last, across the
              1024/2048 edges of a one-CTA-a-row kernel, and a row of equal
@@ -97,13 +106,16 @@ Phases, in order; any failure exits non-zero:
              output and log-sum-exp, untimed at the edge cases of
              FLASH_EDGE_CASES in bf16 and float32 (S 1, 63, 64, 65, 130;
              windows 5, 64, 100; G 1, 2, 4; every compiled D from 16 to
-             128; the internlm2 prefill's S 512; the long-S tiles from S
-             1024) and on strided q, k, v views, the bf16 output held
+             128, and 256; the internlm2, minitron-8b and qwen2.5-32b
+             prefills' S 512 at G 2, 4 and 5; the long-S tiles
+             from S 1024) and on strided q, k, v views, the bf16 output held
              element by element to one bf16 rounding of each p and of the
              output (shown to see one key missing from P V); then at the
              training shape (16 rows, S 143, H 16, Hkv 8, D 128, bf16), at
              S 4096 (2 rows) and at zamba2's shared-attention shape (1 row,
-             S 512, H = Hkv = 32, D 80), with the gradients of
+             S 512, H = Hkv = 32, D 80) and at gemma3's prefill (1 row, S
+             1900, H 8, Hkv 4, D 256, with and without its 1024 window;
+             SDPA with the window's mask), with the gradients of
              ``FlashAttentionFn`` against autograd through the plain
              version; times of the kernel, the plain version,
              ``scaled_dot_product_attention`` and the bound, and of the
@@ -337,9 +349,40 @@ Phases, in order; any failure exits non-zero:
              paged leaf the block size only keys the radix tree, and a
              prompt shorter than a block is a root snapshot).
 
-In the float32 runs of phases 7 and 8 the engine's tokens are also held to
-the re-prefill's argmax (log-probability gap within 1e-2); in bf16 the gap
-is reported.
+9. serve-gemma3 — zamba2's weights freed, gemma3-4b at full width (34
+             layers, 5 local layers windowed at 1024 : 1 global, D 256,
+             vocab 262144, tied embeddings) in bf16: 16 prompts of 600-1900
+             ids (``gemma_prompts``: at least 8 longer than the window and
+             4 decoding across position 1024, counted and printed), 8
+             slots, 128 new tokens, MAX_SEQ 2048, on contiguous, paged and
+             paged-int8 KV: launches exact (the layout's decode kernel 34
+             times a step, flash 34 a prefill, greedy once a step), ms per
+             decode step against the weight-bytes bound, peak memory;
+             paged against contiguous as zamba2's paged run; the graph
+             against the eager block on every layout; GRPO-shaped traffic
+             (4 prompts x group 4) with sharing on against off bit for bit
+             (4 model prefills against 16); a 2 + 6 router bit for bit
+             with a 6-slot monolithic engine; float32 (4 requests, the
+             weights upcast) prefill against decode within DENSE32_TOL.
+   ring-gemma3 — every layer windowed (``local_global_ratio=0``), 2 rows:
+             960 ids prefilled into a ring cache (1024 slots) and a full
+             cache of 1280, 256 teacher-forced decode steps (the ring wraps
+             after 64): float32 logits within RING32_TOL of the full
+             cache's, relative to the largest |logit|; in bf16 the largest
+             difference and the greedy tokens that differ, with their top-2
+             gaps (reported).
+10. serve-minitron-8b, serve-qwen2.5-32b — at full width and depth (qwen's
+             65.5 GB of weights last, after every other phase's tensors
+             are freed): 8 requests of 32-512 ids, 4 slots, 64 new tokens,
+             contiguous and paged, launches exact, paged against
+             contiguous, ms per step against the bound, peak memory;
+             minitron-8b also in float32 (its weights upcast, 8 requests
+             on 4 slots, 128 new tokens) prefill against decode within
+             DENSE32_TOL (qwen's float32 copy, 131 GB, does not fit).
+
+In the float32 runs of phases 7 to 10 the engine's tokens are also held to
+the re-prefill's argmax (log-probability gap within the run's limit); in
+bf16 the gap is reported.
 
 Prints the card's name and power limit, a JSON line with every kernel's
 numbers, and as its last line ``{"ok": true, "device": {...}}``.  Needs a
@@ -375,6 +418,14 @@ ARCH, SLOTS, MAX_NEW, MAX_SEQ, N_REQ = "internlm2-1.8b", 8, 128, 1024, 16
 RWKV_ARCH = "rwkv6-7b"
 ZAMBA_ARCH = "zamba2-2.7b"
 SCAN_CHUNK = 64
+LAYOUT_ATTN = {"contiguous": "decode_attention",   # a KV layout's decode
+               "paged": "paged_decode_attention"}  # kernel
+
+
+def add_counts(total, counts):
+    """Add the launch counts ``counts`` into ``total``, key by key."""
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
 
 
 def bound(n_bytes: float, n_ops, dtype: str = None):
@@ -428,6 +479,12 @@ class Timer:
         return float(np.median(times))
 
 
+# gemma3-4b's decode (8 rows, H 8, Hkv 4, D 256, bf16, MAX_SEQ 2048):
+# lengths across its 1024 window, attended without a window (the global
+# layers) and with it (the local ones)
+GEMMA_ATTN = (np.asarray([1, 100, 600, 1023, 1024, 1025, 1500, 2048],
+                         np.int32), 2048, 8, 4, 256)
+
 # (label, ragged lengths, stripe length S): the serving shape, a long set
 ATTN_CASES = (
     ("main", np.asarray([1, 17, 100, 255, 512, 640, 900, 1024], np.int32),
@@ -440,8 +497,8 @@ ATTN_CASES = (
 # Chunk edges (C - 1, C, C + 1 for C 128, and S), a row of length 1 and one
 # of 0; a window that cuts through a chunk and skips whole ones; G 1, 4, 8
 # at D 64 and 80; float32 and bf16 at odd D (the element-load path); a plan
-# of one split (S 128); the paged entry at bs 1 and 64, bf16 and int8 in
-# every case.
+# of one split (S 128); minitron-8b's G 4 and qwen2.5-32b's G 5 at D 128;
+# the paged entry at bs 1 and 64, bf16 and int8 in every case.
 EDGES = [0, 1, 127, 128, 129, 1024, 257, 640]
 DECODE_EDGE_CASES = (
     ("edges", EDGES, 1024, 16, 8, 128, "bfloat16", None, (1, 16, 64)),
@@ -463,8 +520,25 @@ DECODE_EDGE_CASES = (
     ("bf16-D35", [2, 128, 129, 200], 200, 6, 3, 35, "bfloat16", None,
      (8,)),
     ("G3-D128", [64, 384, 385], 512, 9, 3, 128, "bfloat16", None, (32,)),
+    # the dense serve phases' own shapes: minitron-8b (H 32, Hkv 8: G 4)
+    # and qwen2.5-32b (H 40, Hkv 8: G 5) at D 128
+    ("G4-D128", EDGES, 1024, 32, 8, 128, "bfloat16", None, (16,)),
+    ("G5-D128", [0, 1, 127, 128, 129, 257, 511, 512], 512, 40, 8, 128,
+     "bfloat16", None, (16,)),
     ("zamba2", [1, 17, 100, 255, 512, 640, 900, 1024], 1024, 32, 32, 80,
-     "bfloat16", None, (16,)))
+     "bfloat16", None, (16,)),
+    # the head-dim-256 instance (gemma3-4b: H 8, Hkv 4): chunk edges and
+    # S, G 1 and 2, gemma3's 1024 window cutting chunks and skipping whole
+    # ones, float32, element loads at D 250
+    ("G2-D256", EDGES + [2047, 2048], 2048, 8, 4, 256, "bfloat16", None,
+     (1, 16, 64)),
+    ("G1-D256", EDGES, 1024, 4, 4, 256, "bfloat16", None, (16,)),
+    ("window-D256", [2048, 2000, 1500, 1100, 1025, 1024, 600, 1], 2048, 8,
+     4, 256, "bfloat16", 1024, (16,)),
+    ("f32-D256", [1, 130, 255, 256, 0], 256, 4, 2, 256, "float32", 100,
+     (1, 16)),
+    ("bf16-D250", [2, 128, 129, 200], 200, 4, 2, 250, "bfloat16", None,
+     (8,)))
 # Their limits, by the dtype of q and the output: float32 noise of the
 # summation order, and in bf16 one rounding step of the output (2^-7 of
 # it) above that.  Tight enough that dropping one position, the error a
@@ -515,7 +589,7 @@ def decode_edge_cases(torch, dev) -> dict:
         e = check_close(torch, f"decode_attention {label}", out, ref, tol)
         errs["decode_attention"] = max(errs["decode_attention"], e)
         msg = [f"contiguous {e:.2e}"]
-        if label in ("edges", "zamba2"):
+        if label in ("edges", "zamba2", "G5-D128", "G2-D256"):
             # the limit sees one position go missing
             short = da.decode_attention_plain(
                 q, k, v, (lengths - 1).clamp_min(0), window=window)
@@ -578,11 +652,14 @@ def phase_kernels(torch, dev, timer):
     bf = dict(dtype=torch.bfloat16, device=dev)
     rows = {}
 
-    def sdpa(q, k, v, lengths):
+    def sdpa(q, k, v, lengths, window=None):
         """F.scaled_dot_product_attention on a (B, S, Hkv, D) view."""
         S = k.shape[1]
-        mask = (torch.arange(S, device=dev)[None, :]
-                < lengths[:, None].long())[:, None, None, :]
+        pos = torch.arange(S, device=dev)[None, :]
+        mask = pos < lengths[:, None].long()
+        if window is not None:
+            mask &= pos >= lengths[:, None].long() - window
+        mask = mask[:, None, None, :]
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
         return lambda: F.scaled_dot_product_attention(
             q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
@@ -602,13 +679,17 @@ def phase_kernels(torch, dev, timer):
             r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      bound_ms=b_ms, bound_by=b_by)
 
-    def paged(label, lengths_np, S, Hkv, D, q, plan):
+    def live_positions(lengths_np, S, window):
+        n = np.minimum(lengths_np, S)
+        return int((n if window is None else np.minimum(n, window)).sum())
+
+    def paged(label, lengths_np, S, Hkv, D, q, plan, window=None):
         """The paged kernel, bf16 and int8, over shuffled tables with
         null-block tails, against its plain version, the bound and SDPA on
         the gathered view."""
         B, H = q.shape[:2]
         lengths = torch.from_numpy(lengths_np).to(dev)
-        live = int(np.minimum(lengths_np, S).sum())
+        live = live_positions(lengths_np, S, window)
         qo_bytes = 2 * B * H * D * 2 + B * 4
         tables_np, NB = paged_tables(rs, lengths_np, S, bs)
         tables = torch.from_numpy(tables_np).to(dev)
@@ -623,11 +704,11 @@ def phase_kernels(torch, dev, timer):
                  live * 4 * 2)):
             def kern():
                 return da.paged_decode_attention(q, *args, tables, lengths,
-                                                 **kw)
+                                                 window=window, **kw)
 
             def plain():
                 return da.paged_decode_attention_plain(
-                    q, *args, tables, lengths, **kw)
+                    q, *args, tables, lengths, window=window, **kw)
             err = check_close(torch, f"paged_decode_attention[{mode}]",
                               kern(), plain(), ATTN_TOL)
             kg = da.gather_view(args[0], tables, kw.get("k_scale"))
@@ -635,7 +716,7 @@ def phase_kernels(torch, dev, timer):
             record("paged_decode_attention", f"{label}" if mode == "bf16"
                    else f"{label}-int8", err, timer(kern), timer(plain),
                    timer(sdpa(q, kg.to(torch.bfloat16),
-                              vg.to(torch.bfloat16), lengths)),
+                              vg.to(torch.bfloat16), lengths, window)),
                    live * Hkv * D * 2 * elem + extra + qo_bytes + tbl_bytes,
                    4 * H * D * live, note=plan)
             del kg, vg
@@ -672,6 +753,35 @@ def phase_kernels(torch, dev, timer):
     paged("zamba2", lengths_np, S, 32, 80,
           torch.randn(len(lengths_np), 32, 80, **bf),
           f"; plan chunk={C} n_split={n} CTAs={len(lengths_np) * 32 * n}")
+    # gemma3-4b (D 256, the wide instance): no window (its global layers)
+    # and its 1024 window (the local ones), contiguous and paged
+    lengths_np, S, Hg, Hkvg, Dg = GEMMA_ATTN
+    B = len(lengths_np)
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    C, n = da.split_plan(S)
+    q = torch.randn(B, Hg, Dg, **bf)
+    k = torch.randn(B, S, Hkvg, Dg, **bf)
+    v = torch.randn(B, S, Hkvg, Dg, **bf)
+    for window in (None, 1024):
+        label = "gemma3" + ("" if window is None else f"-w{window}")
+        live = live_positions(lengths_np, S, window)
+        plan = (f"; plan chunk={C} n_split={n} CTAs={B * Hkvg * n}, live "
+                f"positions {live}")
+        err = check_close(
+            torch, f"decode_attention {label}",
+            da.decode_attention(q, k, v, lengths, window=window),
+            da.decode_attention_plain(q, k, v, lengths, window=window),
+            ATTN_TOL)
+        record("decode_attention", label, err,
+               timer(lambda: da.decode_attention(q, k, v, lengths,
+                                                 window=window)),
+               timer(lambda: da.decode_attention_plain(q, k, v, lengths,
+                                                       window=window)),
+               timer(sdpa(q, k, v, lengths, window)),
+               live * Hkvg * Dg * 2 * 2 + 2 * B * Hg * Dg * 2 + B * 4,
+               4 * Hg * Dg * live, note=plan)
+        paged(label, lengths_np, S, Hkvg, Dg, q, plan, window)
+    del q, k, v
     for key, e in decode_edge_cases(torch, dev).items():
         rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], e)
 
@@ -745,15 +855,17 @@ def greedy_planted(torch, x) -> int:
 
 
 def phase_greedy(torch, dev, timer, record, rows):
-    """Greedy sampling at the vocabularies of the three served models, 8
-    rows (internlm2's timed as the main row, and there also with clusters
-    of 8 and of 16 CTAs a row), with the ties of :func:`greedy_logits`;
-    the edge cases untimed; the planted fault."""
+    """Greedy sampling at the vocabularies of the served models, 8 rows
+    (internlm2's timed as the main row, and there also with clusters of 8
+    and of 16 CTAs a row), with the ties of :func:`greedy_logits`; the
+    edge cases untimed; the planted fault."""
     from repro_torch.kernels import sampling
 
     g = torch.Generator(device=dev).manual_seed(7)
     B = 8
-    for label, V in (("main", 92544), ("rwkv6", 65536), ("zamba2", 32000)):
+    for label, V in (("main", 92544), ("rwkv6", 65536), ("zamba2", 32000),
+                     ("gemma3", 262144), ("minitron8b", 256000),
+                     ("qwen2.5-32b", 152064)):
         x, want = greedy_logits(torch, g, dev, B, V)
         err = check_greedy(torch, f"V={V}", x, want)
         note = f"; cluster {sampling.greedy_cluster(B)}"
@@ -1283,9 +1395,14 @@ def phase_topk(torch, dev, timer):
 
 # (label, rows, positions, H, Hkv, D): internlm2's training shape, a long
 # one, and zamba2's shared attention at the smoke's longest prompt
-FLASH_CASES = (("main", 16, 16 + MAX_NEW - 1, 16, 8, 128),
-               ("long", 2, 4096, 16, 8, 128),
-               ("zamba2", 1, 512, 32, 32, 80))
+# (label, B, S, H, Hkv, D, window): the training shape, a long one,
+# zamba2's shared attention, gemma3-4b's longest prefill at D 256 without
+# and with its 1024 window
+FLASH_CASES = (("main", 16, 16 + MAX_NEW - 1, 16, 8, 128, None),
+               ("long", 2, 4096, 16, 8, 128, None),
+               ("zamba2", 1, 512, 32, 32, 80, None),
+               ("gemma3", 1, 1900, 8, 4, 256, None),
+               ("gemma3-w1024", 1, 1900, 8, 4, 256, 1024))
 
 
 # (label, rows, positions, H, Hkv, D, window): held against the plain
@@ -1293,7 +1410,8 @@ FLASH_CASES = (("main", 16, 16 + MAX_NEW - 1, 16, 8, 128),
 # last tile; windows that end on a tile edge (64) and that empty a query
 # tile's leading key tiles (5, 100); G 1, 2, 4; every compiled D (16 to
 # 128 in steps of 16) at 32-key tiles (below S 256) and 64-key ones; the
-# internlm2 prefill's own shape (S 512, H 16, Hkv 8, D 128); from S 1024
+# internlm2, minitron-8b and qwen2.5-32b prefills' own shapes (S 512, Hkv 8,
+# D 128, H 16, 32 and 40: G 2, 4 and 5); from S 1024
 # at D 128 the warpgroup-MMA path (S 1030 leaves the last tile's second
 # warpgroup without a row).
 FLASH_EDGE_CASES = (
@@ -1306,6 +1424,8 @@ FLASH_EDGE_CASES = (
     ("window64", 1, 300, 8, 4, 128, 64),
     ("window100", 1, 300, 8, 4, 128, 100),
     ("prefill-S512", 1, 512, 16, 8, 128, None),
+    ("minitron-S512", 1, 512, 32, 8, 128, None),
+    ("qwen-S512", 1, 512, 40, 8, 128, None),
     ("G1-D64", 2, 130, 4, 4, 64, None),
     ("G4-D80", 2, 130, 8, 2, 80, 100),
     ("G1-D80-S512", 1, 512, 4, 4, 80, 64),
@@ -1323,6 +1443,11 @@ FLASH_EDGE_CASES = (
     ("long-G4-S1030", 1, 1030, 8, 2, 128, None),
     ("long-G1-D80", 1, 1500, 4, 4, 80, 64),
     ("long-G2-D64", 1, 1030, 4, 2, 64, None),
+    ("D256", 2, 130, 4, 2, 256, None),
+    ("D256-G1-S65", 2, 65, 4, 4, 256, 5),
+    ("D256-S300-w100", 1, 300, 8, 4, 256, 100),
+    ("D256-S1030", 1, 1030, 8, 4, 256, None),
+    ("D256-S1500-w1024", 1, 1500, 8, 4, 256, 1024),
 )
 # Output limits, element by element.  float32: summation-order noise.
 # bf16: the kernel rounds each p to bf16 before P V (relative error at
@@ -1332,9 +1457,9 @@ FLASH_EDGE_CASES = (
 # On a row of 1000 keys, where outputs are about 0.05, the limit is about
 # 3.5e-3.  Log-sum-exp: absolute, by dtype.
 FLASH_LSE_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
-# the case, and the key, at which the smoke shows that the bf16 limit sees
+# the cases, and the key, at which the smoke shows that the bf16 limit sees
 # one key go missing from P V on rows of 512 to 1030 keys
-FLASH_PLANTED = ("long-G4-S1030", 512)
+FLASH_PLANTED = {"long-G4-S1030": 512, "D256-S1030": 512}
 
 
 def flash_limit(torch, q, k, v, ref, window=None):
@@ -1416,8 +1541,8 @@ def flash_edge_cases(torch, dev) -> dict:
             note(dt, e, sh, el)
             msg.append(f"{dt} {e:.2e} ({sh:.2f} of the limit; lse "
                        f"{el:.2e})")
-            if (label, dt) == (FLASH_PLANTED[0], "bfloat16"):
-                key = FLASH_PLANTED[1]
+            if label in FLASH_PLANTED and dt == "bfloat16":
+                key = FLASH_PLANTED[label]
                 msg.append(f"key {key} missing from P V: "
                            f"{planted_miss(torch, q, k, v, key):.1f} of the "
                            f"limit")
@@ -1447,44 +1572,56 @@ def phase_flash(torch, dev, timer):
     from repro_torch.kernels import flash_attention as fa
 
     row = {"max_abs_err": 0.0, "edge_max_err": flash_edge_cases(torch, dev)}
-    for label, B, S, H, Hkv, D in FLASH_CASES:
+    for label, B, S, H, Hkv, D, window in FLASH_CASES:
         g = torch.Generator(device=dev).manual_seed(2)
         q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev,
                                dtype=torch.bfloat16) for h in (H, Hkv, Hkv))
-        err, share, lse_err = check_flash(torch, label, q, k, v)
+        err, share, lse_err = check_flash(torch, label, q, k, v, window)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         # gradients: FlashAttentionFn against autograd through the plain
         dout = torch.randn(B, S, H, D, generator=g, device=dev,
                            dtype=torch.bfloat16)
         got = [t.detach().requires_grad_() for t in (q, k, v)]
-        fa.FlashAttentionFn.apply(*got, True, None).backward(dout)
+        fa.FlashAttentionFn.apply(*got, True, window).backward(dout)
         ref = [t.detach().requires_grad_() for t in (q, k, v)]
-        fa.flash_attention_plain(*ref).backward(dout)
+        fa.flash_attention_plain(*ref, window=window).backward(dout)
         g_err = {n: check_close(torch, f"flash_attention {label} {n}",
                                 a.grad, b.grad, ATTN_TOL)
                  for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
         del got, ref
-        out, lse = fa.flash_attention(q, k, v, return_lse=True)
-        kt, vt, qt = k.transpose(1, 2), v.transpose(1, 2), q.transpose(1, 2)
-        ms = timer(lambda: fa.flash_attention(q, k, v, return_lse=True))
-        plain_ms = timer(lambda: fa.flash_attention_plain(q, k, v,
-                                                          return_lse=True),
-                         iters=10)
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+        out, lse = fa.flash_attention(q, k, v, window=window,
+                                      return_lse=True)
+
+        def sdpa(q, k, v):
+            """SDPA on (B, H, S, D) views: causal, or the window's mask."""
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if window is None:
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=wmask, enable_gqa=True)
+        pos = torch.arange(S, device=dev)
+        wmask = fa._mask(pos, pos, True, window)
+        ms = timer(lambda: fa.flash_attention(q, k, v, window=window,
+                                              return_lse=True))
+        plain_ms = timer(lambda: fa.flash_attention_plain(
+            q, k, v, window=window, return_lse=True), iters=10)
+        lib_ms = timer(lambda: sdpa(q, k, v))
         bwd_ms = timer(lambda: fa.flash_attention_backward_plain(
-            q, k, v, out, lse, dout), iters=10)
+            q, k, v, out, lse, dout, window=window), iters=10)
         q2, k2, v2 = (torch.cat([t, t]) for t in (q, k, v))
-        ms_2x = timer(lambda: fa.flash_attention(q2, k2, v2, return_lse=True))
-        lib_ms_2x = timer(lambda: F.scaled_dot_product_attention(
-            q2.transpose(1, 2), k2.transpose(1, 2), v2.transpose(1, 2),
-            is_causal=True, enable_gqa=True))
-        del q2, k2, v2
+        ms_2x = timer(lambda: fa.flash_attention(q2, k2, v2, window=window,
+                                                 return_lse=True))
+        lib_ms_2x = timer(lambda: sdpa(q2, k2, v2))
+        del q2, k2, v2, wmask
         n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 \
             + lse.numel() * 4
-        n_ops = 4 * B * H * D * (S * (S + 1) // 2)     # causal pairs only
+        w = S if window is None else window
+        pairs = sum(min(i + 1, w) for i in range(S))   # causal, in window
+        n_ops = 4 * B * H * D * pairs
         b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
-        print(f"[flash] {label} (B={B}, S={S}, H={H}, Hkv={Hkv}, D={D}): "
+        print(f"[flash] {label} (B={B}, S={S}, H={H}, Hkv={Hkv}, D={D}, "
+              f"window {window}): "
               f"max_abs_err={err:.3e} ({share:.2f} of the limit; lse "
               f"{lse_err:.2e}) "
               f"grad max_abs_err {g_err} kernel_ms={ms:.4f} "
@@ -1543,15 +1680,15 @@ def serve_prompts(vocab_size: int):
             for n in lens]
 
 
-def check_outputs(run, outs):
-    """Every request finished, with 1..MAX_NEW tokens and finite
+def check_outputs(run, outs, n_req=N_REQ, max_new=MAX_NEW):
+    """Every request finished, with 1..max_new tokens and finite
     log-probabilities <= 0."""
-    if len(outs) != N_REQ or any(o.finish_reason not in ("length", "eos")
+    if len(outs) != n_req or any(o.finish_reason not in ("length", "eos")
                                  for o in outs):
         raise AssertionError(f"{run}: unfinished requests")
     for o in outs:
         lp = np.asarray(o.logprobs)
-        if not (1 <= o.num_tokens <= MAX_NEW and np.isfinite(lp).all()
+        if not (1 <= o.num_tokens <= max_new and np.isfinite(lp).all()
                 and (lp <= 1e-6).all()):
             raise AssertionError(f"{run}: rid {o.rid} output malformed")
 
@@ -1578,12 +1715,8 @@ def phase_serve(torch, dev, model, params):
         steps = rep["decode_steps"]
         outs = rep["outputs"]
         check_outputs(run, outs)
-        attn = "decode_attention" if kv == "contiguous" \
-            else "paged_decode_attention"
-        want = {k: 0 for k in counts}
-        want[attn] = cfg.num_layers * steps
-        want["greedy_sample"] = steps
-        want["flash_attention"] = cfg.num_layers * rep["prefills"]
+        want = serve_launches(cfg, counts, LAYOUT_ATTN[kv], steps,
+                              rep["prefills"])
         if counts != want:
             raise AssertionError(f"{run}: launches {counts} != {want}")
         for k in launches:
@@ -1638,15 +1771,17 @@ def eager_engine(*args, **kw):
 
 
 def serve_short(torch, dev, model, params, *, eager=False, kv="contiguous",
-                kv_dtype=None, temperature=0.0, seed=0, engine=None):
-    """The first GRAPH_REQ serve prompts at GRAPH_NEW new tokens through
-    an engine of the serve phase's shape (``engine``, reset with
-    ``params``, or a new one, eager or not); returns the outputs, the
-    engine, the launch counts, ms per decode step and the wall time."""
+                kv_dtype=None, temperature=0.0, seed=0, engine=None,
+                prompts=None, max_seq=MAX_SEQ):
+    """The first GRAPH_REQ serve prompts (or of ``prompts``) at GRAPH_NEW
+    new tokens through an engine of the serve phase's shape (``engine``,
+    reset with ``params``, or a new one, eager or not); returns the
+    outputs, the engine, the launch counts, ms per decode step and the
+    wall time."""
     from repro_torch.rl.rollout import run_requests
     from repro_torch.serve import Engine, EngineConfig, Request
 
-    cfg = EngineConfig(num_slots=SLOTS, max_seq_len=MAX_SEQ,
+    cfg = EngineConfig(num_slots=SLOTS, max_seq_len=max_seq,
                        temperature=temperature, kv_layout=kv,
                        kv_dtype=kv_dtype)
     gen = (torch.Generator(device=dev).manual_seed(seed)
@@ -1659,7 +1794,9 @@ def serve_short(torch, dev, model, params, *, eager=False, kv="contiguous",
     fns = wrappers()
     for f in fns.values():
         f.launches = 0
-    prompts = serve_prompts(model.cfg.vocab_size)[:GRAPH_REQ]
+    if prompts is None:
+        prompts = serve_prompts(model.cfg.vocab_size)
+    prompts = prompts[:GRAPH_REQ]
     t0 = time.perf_counter()
     outs = run_requests(engine, (Request(rid=i, prompt=p,
                                          max_new_tokens=GRAPH_NEW)
@@ -2948,14 +3085,24 @@ def timed_share_engine(*args, **kw):
 
 
 def serve_launches(cfg, counts, attn, steps, model_prefills):
-    """What a serving run must have launched: its layout's decode kernel
-    once a layer per decode step, greedy once a decode step, flash once a
-    layer per model prefill (an exact radix hit and an adoption run
-    none)."""
+    """What a serving run must have launched: greedy once a decode step;
+    per model prefill (an exact radix hit and an adoption run none) a
+    recurrent model's scan once a layer and flash once an attention layer
+    (every layer of a dense model, each shared-block use of zamba2's, none
+    of rwkv6's); the layout's decode kernel ``attn`` once an attention
+    layer per decode step."""
     want = {k: 0 for k in counts}
-    want[attn] = cfg.num_layers * steps
+    if cfg.family == "hybrid":
+        uses = cfg.num_layers // cfg.hybrid_attn_every
+        want["mamba2_scan"] = cfg.num_layers * model_prefills
+    elif cfg.family == "ssm":
+        uses = 0
+        want["rwkv6_scan"] = cfg.num_layers * model_prefills
+    else:
+        uses = cfg.num_layers
+    want["flash_attention"] = uses * model_prefills
+    want[attn] = uses * steps
     want["greedy_sample"] = steps
-    want["flash_attention"] = cfg.num_layers * model_prefills
     return want
 
 
@@ -4144,7 +4291,7 @@ def phase_serve_rwkv6(torch, dev):
     paged_counts, paged = phase_serve_paged(torch, dev, model, params,
                                             RWKV_ARCH, outs,
                                             "serve-rwkv6-paged")
-    prefix_counts, prefix = phase_prefix_recurrent(
+    prefix_counts, prefix = phase_prefix_sharing(
         torch, dev, model, params, "prefix-ssm-hybrid rwkv6")
     for part in (paged_counts, prefix_counts):
         for k, n in part.items():
@@ -4173,7 +4320,7 @@ def phase_serve_rwkv6(torch, dev):
 
 
 def prefill_decode_check(torch, dev, model, params, outs, phase, label,
-                         tol, *, plain=None):
+                         tol, *, plain=None, max_seq=MAX_SEQ):
     """Prefill ``prompt + completion[:n]`` again for 4 full completions at
     n in RECHECK_AT and compare the log-probability of ``completion[n]``
     with the engine's (decode) one: the mean of exp(diff) must lie within
@@ -4198,7 +4345,7 @@ def prefill_decode_check(torch, dev, model, params, outs, phase, label,
                                                            np.int32)])
                 tokens = torch.from_numpy(seq).to(dev)[None]
                 logits, _ = model.prefill(params, tokens, model.init_cache(
-                    1, MAX_SEQ, device=dev))
+                    1, max_seq, device=dev))
                 lps = torch.log_softmax(logits[0], -1)
                 lp = float(lps[o.tokens[n]])
                 out.append(lp - o.logprobs[n])
@@ -4291,7 +4438,7 @@ def phase_serve_zamba2(torch, dev):
     paged_counts, paged = phase_serve_paged(torch, dev, model, params,
                                             ZAMBA_ARCH, outs,
                                             "serve-zamba2-paged")
-    prefix_counts, prefix = phase_prefix_recurrent(
+    prefix_counts, prefix = phase_prefix_sharing(
         torch, dev, model, params, "prefix-ssm-hybrid zamba2")
     for f in fns.values():
         f.launches = 0
@@ -4299,7 +4446,7 @@ def phase_serve_zamba2(torch, dev):
         torch, dev, model, params, "serve-zamba2-paged", kv="paged")
     for k, f in fns.items():
         counts[k] += f.launches
-    disagg_counts, paged["disagg"] = phase_disagg_recurrent(
+    disagg_counts, paged["disagg"] = phase_router(
         torch, dev, model, params, "serve-zamba2-paged")
     for part in (paged_counts, prefix_counts, disagg_counts):
         for k, n in part.items():
@@ -4349,23 +4496,8 @@ PAGED_BF16_TOL = 0.1   # zamba2 paged against contiguous, bf16: mean
 PAGED32_TOL = 1e-4     # the same in float32, every logprob
 
 
-def serve_paged_launches(cfg, counts, steps, prefills) -> dict:
-    """What a recurrent model's paged run must have launched: its scan once
-    a layer per prefill, zamba2's flash and paged decode attention once a
-    shared-block use per prefill and per decode step, greedy once a step."""
-    want = {k: 0 for k in counts}
-    if cfg.family == "hybrid":
-        uses = cfg.num_layers // cfg.hybrid_attn_every
-        want["mamba2_scan"] = cfg.num_layers * prefills
-        want["flash_attention"] = uses * prefills
-        want["paged_decode_attention"] = uses * steps
-    else:
-        want["rwkv6_scan"] = cfg.num_layers * prefills
-    want["greedy_sample"] = steps
-    return want
-
-
-def divergence(torch, dev, model, params, outs, ref) -> dict:
+def divergence(torch, dev, model, params, outs, ref,
+               max_seq=MAX_SEQ) -> dict:
     """Where each request of ``outs`` first leaves ``ref`` (a run on the
     contiguous layout): the logprob differences before that point and, for
     each divergent request, the top-2 gap of ``ref``'s logits there (a
@@ -4380,7 +4512,7 @@ def divergence(torch, dev, model, params, outs, ref) -> dict:
             seq = np.concatenate([r.prompt, np.asarray(r.tokens[:n],
                                                        np.int32)])
             logits, _ = model.prefill(params, torch.from_numpy(seq).to(dev)[
-                None], model.init_cache(1, MAX_SEQ, device=dev))
+                None], model.init_cache(1, max_seq, device=dev))
             top = torch.topk(logits[0].float(), 2).values
             diverged[o.rid] = {"at": n, "top2_gap": float(top[0] - top[1])}
     diffs = np.asarray(diffs)
@@ -4441,7 +4573,8 @@ def phase_serve_paged(torch, dev, model, params, arch, contiguous,
         counts = {k: f.launches for k, f in fns.items()}
         steps, outs = rep["decode_steps"], rep["outputs"]
         check_outputs(f"{phase} {run}", outs)
-        want = serve_paged_launches(cfg, counts, steps, rep["prefills"])
+        want = serve_launches(cfg, counts, "paged_decode_attention", steps,
+                              rep["prefills"])
         if counts != want or rep["prefills"] != N_REQ \
                 or rep["captures"] != int(dev.type == "cuda"):
             raise AssertionError(f"{phase} {run}: launches {counts} != "
@@ -4491,49 +4624,56 @@ def phase_serve_paged(torch, dev, model, params, arch, contiguous,
     return total, res
 
 
-def phase_prefix_recurrent(torch, dev, model, params, phase) -> tuple:
-    """GRPO-shaped traffic (the first N_REQ / GROUP serve prompts x GROUP)
-    on paged pools with radix sharing on against off: bit for bit, model
-    prefills N_REQ / GROUP against N_REQ, misses and hits; zamba2 on bf16
-    and int8 (full blocks shared), rwkv6 with one block of MAX_SEQ (no
+def phase_prefix_sharing(torch, dev, model, params, phase, *, prompts=None,
+                         max_seq=MAX_SEQ) -> tuple:
+    """GRPO-shaped traffic (the first N_REQ / GROUP serve prompts x GROUP,
+    or ``prompts``, GROUP copies of each) on paged pools with radix sharing
+    on against off: bit for bit, model prefills (the launches of the
+    prefill's layer kernel over the layers: a recurrent model's scan, a
+    dense model's flash) one a group against one a request, misses and
+    hits, one capture an engine; zamba2 on bf16 and int8 (full blocks
+    shared), a dense model on bf16, rwkv6 with one block of MAX_SEQ (no
     paged leaf: the block size only keys the tree, and a prompt shorter
     than a block registers as a root snapshot, blocks_saved 0)."""
     from repro_torch.serve import Engine, EngineConfig
 
     cfg = model.cfg
-    hybrid = cfg.family == "hybrid"
-    scan = "mamba2_scan" if hybrid else "rwkv6_scan"
-    prompts = grpo_prompts(cfg.vocab_size)
+    ssm = cfg.family == "ssm"
+    prefill = {"hybrid": "mamba2_scan", "ssm": "rwkv6_scan"}.get(
+        cfg.family, "flash_attention")
+    if prompts is None:
+        prompts = grpo_prompts(cfg.vocab_size)
     fns = wrappers()
     total = {k: 0 for k in fns}
     res = {}
-    runs = ((None, 16), ("int8", 16)) if hybrid else ((None, MAX_SEQ),)
+    runs = {"hybrid": ((None, 16), ("int8", 16)),
+            "ssm": ((None, MAX_SEQ),)}.get(cfg.family, ((None, 16),))
     for kv_dtype, bs in runs:
         run = "paged" + ("-int8" if kv_dtype else "")
         got = {}
         for share in (False, True):
             eng = Engine(model, params, EngineConfig(
-                num_slots=SLOTS, max_seq_len=MAX_SEQ, kv_layout="paged",
+                num_slots=SLOTS, max_seq_len=max_seq, kv_layout="paged",
                 kv_block_size=bs, kv_dtype=kv_dtype, prefix_share=share),
                 device=dev)
             for f in fns.values():
                 f.launches = 0
             outs, wall, ttft = drive(torch, eng, prompts)
             counts = {k: f.launches for k, f in fns.items()}
-            for k in total:
-                total[k] += counts[k]
+            add_counts(total, counts)
             m = eng.metrics()
             got[share] = dict(outs=outs, wall=wall, ttft=ttft,
-                              prefills=counts[scan] // cfg.num_layers,
+                              prefills=counts[prefill] // cfg.num_layers,
                               hits=m.prefix_hits, misses=m.prefix_misses,
                               saved=m.blocks_saved, captures=eng.captures)
             del eng
         off, on = got[False], got[True]
-        n_groups = N_REQ // GROUP
+        n_req = len(prompts)
+        n_groups = n_req // GROUP
         if not same_outputs(on["outs"], off["outs"]) or \
-                (on["prefills"], off["prefills"]) != (n_groups, N_REQ) or \
-                (on["misses"], on["hits"]) != (n_groups, N_REQ - n_groups) \
-                or (not hybrid and on["saved"]) or \
+                (on["prefills"], off["prefills"]) != (n_groups, n_req) or \
+                (on["misses"], on["hits"]) != (n_groups, n_req - n_groups) \
+                or (ssm and on["saved"]) or \
                 {on["captures"], off["captures"]} != {int(dev.type == "cuda")}:
             raise AssertionError(
                 f"{phase} {run}: sharing on {on['prefills']} prefills, "
@@ -4555,28 +4695,31 @@ def phase_prefix_recurrent(torch, dev, model, params, phase) -> tuple:
     return total, res
 
 
-def phase_disagg_recurrent(torch, dev, model, params, phase) -> tuple:
+def phase_router(torch, dev, model, params, phase, *, prompts=None,
+                 max_seq=MAX_SEQ) -> tuple:
     """A router of PD_PREFILL prefill and PD_DECODE decode slots on paged
-    KV against a monolithic paged engine of PD_DECODE slots, bit for bit;
-    every handle released, both pools clean."""
+    KV against a monolithic paged engine of PD_DECODE slots, bit for bit,
+    over the serve prompts (or ``prompts``); every handle released, both
+    pools clean."""
     from repro_torch.serve import (DisaggConfig, DisaggRouter, Engine,
                                    EngineConfig)
 
-    prompts = serve_prompts(model.cfg.vocab_size)
+    if prompts is None:
+        prompts = serve_prompts(model.cfg.vocab_size)
     fns = wrappers()
     for f in fns.values():
         f.launches = 0
     mono = Engine(model, params, EngineConfig(
-        num_slots=PD_DECODE, max_seq_len=MAX_SEQ, kv_layout="paged"),
+        num_slots=PD_DECODE, max_seq_len=max_seq, kv_layout="paged"),
         device=dev)
     ref, mwall, _ = drive(torch, mono, prompts)
     del mono
     router = DisaggRouter(model, params, DisaggConfig(
         prefill_slots=PD_PREFILL, decode_slots=PD_DECODE,
-        max_seq_len=MAX_SEQ, kv_layout="paged"), device=dev)
+        max_seq_len=max_seq, kv_layout="paged"), device=dev)
     outs, wall, _ = drive(torch, router, prompts)
     m = router.metrics()
-    if not same_outputs(outs, ref) or m.transfers != N_REQ \
+    if not same_outputs(outs, ref) or m.transfers != len(prompts) \
             or router.decode.captures != int(dev.type == "cuda"):
         raise AssertionError(f"{phase}: the router differs from the "
                              f"monolithic paged engine ({m.transfers} "
@@ -4594,6 +4737,291 @@ def phase_disagg_recurrent(torch, dev, model, params, phase) -> tuple:
     del router, outs
     return counts, {"transfers": m.transfers, "adoption_ms":
                     xfer_ms.tolist(), "wall_s": wall, "mono_wall_s": mwall}
+
+
+GEMMA_ARCH, GEMMA_SEQ, GEMMA_WINDOW = "gemma3-4b", 2048, 1024
+DENSE32_TOL = 1e-3     # float32 prefill against decode, gemma3, minitron
+RING_STEPS, RING_PROMPT, RING_FULL = 256, 960, 1280
+RING32_TOL = 1e-4      # ring against full cache, float32, of max |logit|
+DENSE_ARCHS = ("minitron-8b", "qwen2.5-32b")
+DENSE_REQ, DENSE_SLOTS, DENSE_NEW = 8, 4, 64
+DENSE_F32 = ("minitron-8b",)   # qwen2.5-32b's float32 copy does not fit
+
+
+def gemma_prompts(vocab_size, n=N_REQ):
+    """``n`` prompts of 600-1900 ids from ``RandomState(0)``, made so that
+    gemma3's 1024 window bites: a quarter end below position 1024 and
+    decode across it (900-1023 ids), half are longer than the window
+    (1025-1900), the rest anywhere in 600-1900; shuffled."""
+    rs = np.random.RandomState(0)
+    q = n // 4
+    lens = np.concatenate([rs.randint(900, GEMMA_WINDOW, size=q),
+                           rs.randint(GEMMA_WINDOW + 1, 1901, size=2 * q),
+                           rs.randint(600, 1901, size=n - 3 * q)])
+    return [rs.randint(0, vocab_size, size=int(k)).astype(np.int32)
+            for k in rs.permutation(lens)]
+
+
+def weight_bound_ms(params) -> float:
+    """A decode step's least time: every weight read once at HBM_BPS."""
+    return sum(t.numel() * t.element_size() for t in _leaves(params)) \
+        / HBM_BPS * 1e3
+
+
+def serve_layouts(torch, dev, model, params, arch, prompts, phase, *,
+                  layouts, slots, max_new, max_seq) -> tuple:
+    """``prompts`` through ``serve_continuous`` on each layout: exact
+    launches, finished outputs; tok/s, ms per decode step against the
+    weight-bytes bound, peak memory.  Every layout after the first is held
+    to the first (contiguous) as ``phase_serve_paged`` holds zamba2's:
+    first tokens and logprobs identical, mean exp(diff) before a request's
+    first divergence within PAGED_BF16_TOL of 1, divergent requests
+    reported with their top-2 gap.  Returns the launch totals, the
+    reports and the first layout's outputs."""
+    from repro_torch.launch.serve import serve_continuous
+
+    cfg = model.cfg
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+    bound_ms = weight_bound_ms(params)
+    res, base = {}, None
+    for kv, kv_dtype in layouts:
+        run = kv + ("-int8" if kv_dtype else "")
+        for f in fns.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rep = serve_continuous(arch, prompts, model=model, params=params,
+                               max_new=max_new, num_slots=slots, kv=kv,
+                               kv_dtype=kv_dtype, max_seq_len=max_seq,
+                               device=dev)
+        counts = {k: f.launches for k, f in fns.items()}
+        peak = torch.cuda.max_memory_allocated()
+        steps, outs = rep["decode_steps"], rep["outputs"]
+        check_outputs(f"{phase} {run}", outs, len(prompts), max_new)
+        want = serve_launches(cfg, counts, LAYOUT_ATTN[kv], steps,
+                              rep["prefills"])
+        if counts != want or rep["prefills"] != len(prompts) \
+                or rep["captures"] != int(dev.type == "cuda"):
+            raise AssertionError(f"{phase} {run}: launches {counts} != "
+                                 f"{want} ({rep['prefills']} prefills, "
+                                 f"{rep['captures']} captures)")
+        add_counts(total, counts)
+        step_ms = rep["decode_time_s"] / max(steps, 1) * 1e3
+        r = {"tokens": rep["tokens"], "decode_steps": steps,
+             "wall_s": rep["wall_s"], "tok_per_s": rep["tok_per_s"],
+             "ms_per_decode_step": step_ms, "weight_bound_ms": bound_ms,
+             "captures": rep["captures"], "capture_s": rep["capture_s"],
+             "max_memory_allocated": peak, "launches": counts}
+        cmp = ""
+        if base is None:
+            base = outs
+        else:
+            d = divergence(torch, dev, model, params, outs, base, max_seq)
+            first = all(o.tokens[0] == c.tokens[0] and o.logprobs[0]
+                        == c.logprobs[0] for o, c in zip(outs, base))
+            if not first or abs(d["ratio_mean"] - 1) > PAGED_BF16_TOL:
+                raise AssertionError(f"{phase} {run}: against contiguous, "
+                                     f"first tokens equal {first}, mean "
+                                     f"exp(diff) {d['ratio_mean']}")
+            r.update(d, bit_for_bit=same_outputs(outs, base))
+            cmp = (f"; against contiguous: first tokens identical, "
+                   f"{'bit for bit' if r['bit_for_bit'] else 'not bit for bit'}"
+                   f", mean exp(diff) {d['ratio_mean']:.6f} (held within "
+                   f"{PAGED_BF16_TOL} of 1), max |diff| "
+                   f"{d['max_abs_diff']:.4e} before any divergence; "
+                   f"{len(d['diverged'])} of {len(prompts)} diverge "
+                   f"(rid: position, top-2 gap) "
+                   + ", ".join(f"{k}: {v['at']}, {v['top2_gap']:.4f}"
+                               for k, v in d["diverged"].items()))
+        print(f"[{phase}] {run}: {len(prompts)} requests, {rep['tokens']} "
+              f"tokens, {steps} decode steps in {rep['wall_s']:.2f}s = "
+              f"{rep['tok_per_s']:.1f} tok/s; {step_ms:.3f} ms per decode "
+              f"step (weight-bytes bound {bound_ms:.3f} ms, "
+              f"{step_ms / bound_ms:.2f}x), "
+              f"{rep['wall_s'] - rep['decode_time_s']:.2f}s outside decode "
+              f"(1 capture in "
+              f"{rep['capture_s']:.3f}s); peak memory {peak / 2 ** 30:.2f} "
+              f"GiB; launches {counts}{cmp}")
+        res[run] = r
+        del rep
+    return total, res, base
+
+
+def phase_serve_gemma3(torch, dev):
+    """gemma3-4b at full width and depth (34 layers, 5 local windowed at
+    1024 : 1 global, D 256, vocab 262144, tied embeddings) through the
+    continuous engine: the D 256 decode and flash instances, greedy at V
+    262144, graph against eager, float32 prefill against decode, radix
+    sharing and a router."""
+    model, params = build(torch, dev, GEMMA_ARCH)
+    cfg = model.cfg
+    prompts = gemma_prompts(cfg.vocab_size)
+    lens = np.asarray([len(p) for p in prompts])
+    longer = int((lens > GEMMA_WINDOW).sum())
+    across = int(((lens < GEMMA_WINDOW)
+                  & (lens + MAX_NEW > GEMMA_WINDOW)).sum())
+    print(f"[serve-gemma3] {N_REQ} prompts of {lens.min()}-{lens.max()} "
+          f"ids: {longer} longer than the {GEMMA_WINDOW} window, {across} "
+          f"ending below position {GEMMA_WINDOW} and decoding across it")
+    if longer < 8 or across < 4:
+        raise AssertionError("serve-gemma3: the window does not bite")
+    counts, layouts, base = serve_layouts(
+        torch, dev, model, params, GEMMA_ARCH, prompts, "serve-gemma3",
+        layouts=(("contiguous", None), ("paged", None), ("paged", "int8")),
+        slots=SLOTS, max_new=MAX_NEW, max_seq=GEMMA_SEQ)
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    graph = {run: graph_vs_eager(torch, dev, model, params, "serve-gemma3",
+                                 run, kv=kv, kv_dtype=kv_dtype,
+                                 prompts=prompts, max_seq=GEMMA_SEQ)
+             for run, kv, kv_dtype in (("contiguous", "contiguous", None),
+                                       ("paged", "paged", None),
+                                       ("paged-int8", "paged", "int8"))}
+    add_counts(counts, {k: f.launches for k, f in fns.items()})
+    share_counts, share = phase_prefix_sharing(
+        torch, dev, model, params, "serve-gemma3", max_seq=GEMMA_SEQ,
+        prompts=[p for p in prompts[:N_REQ // GROUP] for _ in range(GROUP)])
+    add_counts(counts, share_counts)
+    router_counts, router = phase_router(
+        torch, dev, model, params, "serve-gemma3", prompts=prompts,
+        max_seq=GEMMA_SEQ)
+    add_counts(counts, router_counts)
+    f32_counts, f32 = float32_check(torch, dev, model, params, GEMMA_ARCH,
+                                    prompts[:4], "serve-gemma3",
+                                    max_seq=GEMMA_SEQ)
+    add_counts(counts, f32_counts)
+    ring_counts, ring = ring_check(torch, dev, model, params)
+    add_counts(counts, ring_counts)
+    report = {"prompt_lengths": lens.tolist(), "longer_than_window": longer,
+              "across_window": across, "layouts": layouts,
+              "graph_vs_eager": graph, "sharing": share, "router": router,
+              "prefill_decode_float32": f32, "ring": ring,
+              "launches": counts}
+    del model, params, base
+    return counts, report
+
+
+def float32_check(torch, dev, model, params, arch, prompts, phase, *,
+                  max_seq) -> tuple:
+    """The same weights upcast to float32: ``prompts`` served on
+    contiguous KV (4 slots, MAX_NEW new tokens), decode held to prefill by
+    ``prefill_decode_check`` within DENSE32_TOL.  Returns the launch
+    counts and its report."""
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.models import build_model
+
+    p32 = _tree_map(lambda t: t.float(), params)
+    m32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    torch.cuda.empty_cache()
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    rep32 = serve_continuous(arch, prompts, model=m32, params=p32,
+                             max_new=MAX_NEW, num_slots=4, kv="contiguous",
+                             max_seq_len=max_seq, device=dev)
+    check_outputs(f"{phase} float32", rep32["outputs"], len(prompts))
+    res = prefill_decode_check(torch, dev, m32, p32, rep32["outputs"],
+                               phase, "float32", DENSE32_TOL,
+                               max_seq=max_seq)
+    counts = {k: f.launches for k, f in fns.items()}
+    del rep32, p32, m32
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+def ring_check(torch, dev, model, params) -> tuple:
+    """ring-gemma3: every layer windowed (``local_global_ratio=0``, the
+    ring carve), 2 rows: RING_PROMPT ids prefilled into a ring cache of
+    ``min(RING_FULL, window)`` slots and into a full cache of RING_FULL,
+    then RING_STEPS teacher-forced decode steps through both (the ring
+    wraps after window - RING_PROMPT steps).  float32: the logits within
+    RING32_TOL of the full cache's, relative to the largest |logit|; bf16:
+    the largest difference, and the greedy tokens that differ with their
+    top-2 gaps (reported)."""
+    from repro_torch.models.model import Model
+
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    rs = np.random.RandomState(2)
+    B, w = 2, model.cfg.sliding_window
+    ids = torch.from_numpy(rs.randint(
+        0, model.cfg.vocab_size, size=(B, RING_PROMPT + RING_STEPS)).astype(
+            np.int32)).to(dev)
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        m = Model(dataclasses.replace(model.cfg, local_global_ratio=0,
+                                      dtype=dtype))
+        p = params if dtype == "bfloat16" else _tree_map(
+            lambda t: t.float(), params)
+        ring = m.init_cache(B, RING_FULL, ring=True, device=dev)
+        full = m.init_cache(B, RING_FULL, device=dev)
+        if ring["k"].shape[2] != w:
+            raise AssertionError(f"ring cache of {ring['k'].shape[2]} slots")
+        diffs, scales, flips = [], [], []
+
+        def compare(t, lr, lf):
+            diffs.append((lr - lf).abs().max())
+            scales.append(lf.abs().max())
+            if dtype == "bfloat16":
+                for row in torch.nonzero(lr.argmax(-1) != lf.argmax(-1)
+                                         ).flatten().tolist():
+                    top = torch.topk(lf[row], 2).values
+                    flips.append((t, row, float(top[0] - top[1])))
+
+        compare(-1, m.prefill(p, ids[:, :RING_PROMPT], ring)[0],
+                m.prefill(p, ids[:, :RING_PROMPT], full)[0])
+        for t in range(RING_STEPS):
+            tok = ids[:, RING_PROMPT + t:RING_PROMPT + t + 1]
+            compare(t, m.decode_step(p, tok, ring, ring=True)[0],
+                    m.decode_step(p, tok, full)[0])
+        worst = float(torch.stack(diffs).max())
+        scale = float(torch.stack(scales).max())
+        rel = worst / scale
+        res[dtype] = {"max_abs_diff": worst, "max_abs_logit": scale,
+                      "relative": rel, "greedy_flips": flips}
+        print(f"[ring-gemma3] {dtype}: {B} rows, {RING_PROMPT} ids "
+              f"prefilled, {RING_STEPS} decode steps on a ring of {w} "
+              f"slots (wraps after {w - RING_PROMPT}) against a full cache of "
+              f"{RING_FULL}: max |diff| {worst:.4e}, {rel:.3e} of the "
+              f"largest |logit| {scale:.3f} (step -1: the prefill)"
+              + (f" (held within {RING32_TOL})" if dtype == "float32" else
+                 f"; greedy tokens differing at {len(flips)} of "
+                 f"{B * RING_STEPS} (step, row, top-2 gap) {flips[:8]}"))
+        if dtype == "float32" and not rel <= RING32_TOL:
+            raise AssertionError(f"ring-gemma3: float32 ring decode off the "
+                                 f"full cache by {rel:.3e} of the largest "
+                                 f"logit")
+        del ring, full, p
+        torch.cuda.empty_cache()
+    counts = {k: f.launches for k, f in fns.items()}
+    want = {k: 0 for k in counts}
+    want["decode_attention"] = 2 * 2 * RING_STEPS * model.cfg.num_layers
+    want["flash_attention"] = 2 * 2 * model.cfg.num_layers
+    if counts != want:
+        raise AssertionError(f"ring-gemma3: launches {counts} != {want}")
+    return counts, res
+
+
+def phase_serve_dense(torch, dev, arch) -> tuple:
+    """minitron-8b or qwen2.5-32b at full width and depth: DENSE_REQ
+    requests of 32-512 ids on DENSE_SLOTS slots, DENSE_NEW new tokens,
+    contiguous and paged, exact launches, paged held to contiguous; the
+    DENSE_F32 models also in float32, prefill against decode."""
+    model, params = build(torch, dev, arch)
+    prompts = serve_prompts(model.cfg.vocab_size)[:DENSE_REQ]
+    counts, res, _ = serve_layouts(
+        torch, dev, model, params, arch, prompts, f"serve-{arch}",
+        layouts=(("contiguous", None), ("paged", None)), slots=DENSE_SLOTS,
+        max_new=DENSE_NEW, max_seq=MAX_SEQ)
+    if arch in DENSE_F32:
+        f32_counts, res["prefill_decode_float32"] = float32_check(
+            torch, dev, model, params, arch, prompts, f"serve-{arch}",
+            max_seq=MAX_SEQ)
+        add_counts(counts, f32_counts)
+    del model, params
+    return counts, res
 
 
 def _tree_map(fn, tree):
@@ -4736,12 +5164,21 @@ def main(argv=None) -> int:
     rwkv_launches, serve_rwkv6 = phase_serve_rwkv6(torch, dev)
     torch.cuda.empty_cache()
     zamba_launches, serve_zamba2 = phase_serve_zamba2(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma_launches, serve_gemma3 = phase_serve_gemma3(torch, dev)
+    dense_counts, serve_dense = {}, {}
+    for arch in DENSE_ARCHS:        # qwen2.5-32b last: 65.5 GB of weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts, serve_dense[arch] = phase_serve_dense(torch, dev, arch)
+        add_counts(dense_counts, counts)
     for counts in (elastic_launches, suspend_launches, agentic_launches,
                    carry_launches, static_launches, prefix_launches,
                    disagg_launches, train_prefix_launches, train_launches,
-                   mux_launches_, rwkv_launches, zamba_launches):
-        for k, n in counts.items():
-            launches[k] += n
+                   mux_launches_, rwkv_launches, zamba_launches,
+                   gemma_launches, dense_counts):
+        add_counts(launches, counts)
     launches["topk"] = launches["topk_values"] + launches["topk_mask"]
     smi = card_line()
     total_s = time.perf_counter() - t0
@@ -4769,7 +5206,9 @@ def main(argv=None) -> int:
                    "static": static, "prefix": prefix, "disagg": disagg,
                    "train_prefix": train_prefix, "total_s": total_s,
                    "train": train, "mux": mux, "serve_rwkv6": serve_rwkv6,
-                   "serve_zamba2": serve_zamba2}, f, indent=1, default=str)
+                   "serve_zamba2": serve_zamba2,
+                   "serve_gemma3": serve_gemma3, "serve_dense": serve_dense},
+                  f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

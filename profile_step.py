@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a served model's decode and prefill time goes on one H100.
 
-    python3 profile_step.py [--arch zamba2-2.7b|internlm2-1.8b|rwkv6-7b]
+    python3 profile_step.py [--arch zamba2-2.7b|internlm2-1.8b|rwkv6-7b|
+                             gemma3-4b]
 
 Builds the CUDA kernels, initialises the model at full width in bf16 with
 seeded random weights (as ``chip_smoke.py`` does), and runs
@@ -25,14 +26,17 @@ position 300):
   decode attention's two passes (split and merge) at ``chip_smoke.py``'s
   main and long shapes and with every row full, the L2 flushed before
   each call as ``chip_smoke.py``'s timer does, and the split pass's rate
-  (live K/V bytes over its device time).
+  (live K/V bytes over its device time);
+* gemma3-4b: as internlm2, with the pool at position 1500 of 2048 (past
+  its 1024 window: 29 of 34 layers windowed) and the prefill at S 1900
+  (34 flash launches), decode attention's and flash's shares at D 256.
 
-Then, for every KV layout the architecture serves (internlm2:
+Then, for every KV layout the architecture serves (internlm2 and gemma3:
 contiguous, paged, paged-int8; rwkv6 and zamba2: contiguous), one engine
-tick of 8 live slots from position 300 (``Engine.step``: the decode
-block, its copy to the host and the scheduler's bookkeeping), once with
-the decode block run eagerly and once as the CUDA graph replay the
-engine captures, on engines of the same shape.
+tick of 8 live slots from position 300 (gemma3: 1500) (``Engine.step``:
+the decode block, its copy to the host and the scheduler's bookkeeping),
+once with the decode block run eagerly and once as the CUDA graph replay
+the engine captures, on engines of the same shape.
 
 For each it prints the wall time of a call, the device events per call,
 the device-busy time (the sum of their times), the idle share of the wall
@@ -49,8 +53,8 @@ import time
 import numpy as np
 
 import chip_smoke
-from chip_smoke import (ARCH, ATTN_CASES, MAX_SEQ, RWKV_ARCH, SLOTS,
-                        ZAMBA_ARCH)
+from chip_smoke import (ARCH, ATTN_CASES, GEMMA_ARCH, GEMMA_SEQ, MAX_SEQ,
+                        RWKV_ARCH, SLOTS, ZAMBA_ARCH)
 
 # device kernels by name: csrc/decode_attention.cu's, every forward kernel
 # of csrc/flash_attention.cu (flash_fwd_*), every kernel of
@@ -124,8 +128,9 @@ def profile_calls(torch, fn, n: int = 3, match=DECODE_ATTN) -> dict:
 
 
 def profile_ticks(torch, dev, model, params, layouts=(("contiguous", None),),
-                  match=None, n: int = 5) -> dict:
-    """One engine tick of ``SLOTS`` live slots from position 300, for each
+                  match=None, n: int = 5, pos: int = 300,
+                  max_seq: int = MAX_SEQ) -> dict:
+    """One engine tick of ``SLOTS`` live slots from position ``pos``, for each
     ``(kv_layout, kv_dtype)`` of ``layouts``: through the eager decode
     block (``chip_smoke.eager_engine``) and through the CUDA graph, each
     on its own engine after two warm ticks (the first runs eagerly, the
@@ -138,12 +143,12 @@ def profile_ticks(torch, dev, model, params, layouts=(("contiguous", None),),
         for name, make in (("eager", chip_smoke.eager_engine),
                            ("graph", Engine)):
             eng = make(model, params, EngineConfig(
-                num_slots=SLOTS, max_seq_len=MAX_SEQ, kv_layout=kv,
+                num_slots=SLOTS, max_seq_len=max_seq, kv_layout=kv,
                 kv_dtype=kv_dtype), device=dev)
             rs = np.random.RandomState(6)
             for i in range(SLOTS):
                 eng.submit(Request(rid=i, prompt=rs.randint(
-                    0, model.cfg.vocab_size, 300).astype(np.int32),
+                    0, model.cfg.vocab_size, pos).astype(np.int32),
                     max_new_tokens=4 + 2 * n))
             eng.step()
             eng.step()
@@ -193,34 +198,39 @@ def profile_rwkv6(torch, dev, model, params) -> dict:
     return profile_recurrent(torch, dev, model, params, WKV)
 
 
-def profile_internlm2(torch, dev, model, params) -> dict:
+def profile_internlm2(torch, dev, model, params, pos: int = 300,
+                      prefill: int = 512, max_seq: int = MAX_SEQ) -> dict:
     """Where internlm2 spends its time: the kernel decode step of a full
-    pool (8 slots at position 300), with decode attention's share of the
-    device time; one S 512 prefill, with flash attention's share."""
-    pool = model.init_cache(SLOTS, MAX_SEQ, device=dev)
-    pool["index"] = torch.full((SLOTS,), 300, dtype=torch.int32, device=dev)
+    pool (8 slots at position ``pos``), with decode attention's share of
+    the device time; one prefill of ``prefill`` ids, with flash
+    attention's share."""
+    pool = model.init_cache(SLOTS, max_seq, device=dev)
+    pool["index"] = torch.full((SLOTS,), pos, dtype=torch.int32, device=dev)
     g = torch.Generator(device=dev).manual_seed(6)
     tok = torch.randint(0, model.cfg.vocab_size, (SLOTS, 1), device=dev,
                         generator=g)
 
     def step():
-        pool["index"].fill_(300)
+        pool["index"].fill_(pos)
         return model.kernel_decode_step(params, tok, pool)
-    prompt = torch.randint(0, model.cfg.vocab_size, (1, 512), device=dev,
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, prefill), device=dev,
                            generator=g)
+    name = f"prefill_{prefill}"
     res = {"decode_step": profile_calls(torch, step),
-           "prefill_512": profile_calls(
+           name: profile_calls(
                torch, lambda: model.prefill(params, prompt, model.init_cache(
-                   1, MAX_SEQ, device=dev)), match=FLASH)}
+                   1, max_seq, device=dev)), match=FLASH)}
     report(res)
     report_share(res, "decode_step")
-    report_share(res, "prefill_512")
+    report_share(res, name)
     del pool
-    res["decode_attention_passes"] = profile_decode_passes(torch, dev)
+    if model.cfg.name == ARCH:
+        res["decode_attention_passes"] = profile_decode_passes(torch, dev)
     ticks = profile_ticks(
         torch, dev, model, params,
         (("contiguous", None), ("paged", None), ("paged", "int8")),
-        match={"decode attention": DECODE_ATTN["decode attention"]})
+        match={"decode attention": DECODE_ATTN["decode attention"]},
+        pos=pos, max_seq=max_seq)
     for name in ticks:
         report_share(ticks, name)
     res.update(ticks)
@@ -303,8 +313,15 @@ def report_share(res: dict, name: str) -> None:
               f"{m['ms'] / r['device_busy_ms']:.3f}")
 
 
+def profile_gemma3(torch, dev, model, params) -> dict:
+    """gemma3-4b as internlm2, past its window: the pool at position 1500
+    of GEMMA_SEQ, the prefill at S 1900."""
+    return profile_internlm2(torch, dev, model, params, pos=1500,
+                             prefill=1900, max_seq=GEMMA_SEQ)
+
+
 PROFILES = {ZAMBA_ARCH: profile_zamba2, ARCH: profile_internlm2,
-            RWKV_ARCH: profile_rwkv6}
+            RWKV_ARCH: profile_rwkv6, GEMMA_ARCH: profile_gemma3}
 
 
 def main(argv=None) -> int:

@@ -22,7 +22,9 @@
 // of scales per live position for int8), q and the output once, the live
 // table entries and the lengths.  At internlm2's serving shape (8 rows,
 // lengths 1-1024, Hkv 8, D 128, bf16) that is 14.1 MB, 4.2 us at 3.35 TB/s;
-// at the long shape (lengths up to 4096) 52.5 MB, 15.7 us.
+// at the long shape (lengths up to 4096) 52.5 MB, 15.7 us; at gemma3-4b's
+// (8 rows, lengths 1-2048, Hkv 4, D 256) 30.0 MB, 9.0 us, and 23.8 MB,
+// 7.1 us, in its 1024 window.
 //
 // What the first design lost: one CTA per (row, KV head) walked its whole
 // row, so a step had 64 CTAs on 132 SMs and the longest row set the time;
@@ -66,11 +68,20 @@
 //     so a paged run agrees with a contiguous one token for token.
 //   * Masked positions get p = 0 explicitly; empty groups and splits are
 //     skipped by their l = 0, never weighed, so garbage and -inf never meet.
-//   * Head dims up to 128.  A D that is not a multiple of the load width, or
-//     a pool not aligned to it, takes the same loop with element loads.
-//   * Two register sizings: MAXG 2 (G 1-2, internlm2's G, 8 positions in
-//     flight per group) and MAXG 8 (G 3-8, 2 positions in flight, so that
-//     q, the scores and acc of 8 heads fit the registers).
+//   * Head dims up to 256, in two instances on the head dim DM.  DM 128
+//     (every D up to 128: internlm2's 128, zamba2's 80) is the design
+//     above.  DM 256 (gemma3-4b's D 256, G 2) keeps the lane groups and
+//     gives each lane two loads a position, 128 elements apart, so that a
+//     warp's loads still cover whole 256-byte rows; its q and acc double
+//     to 2 x 16 floats a lane at G 2, and it keeps half the positions in
+//     flight (U 4), the same bytes in flight as DM 128.  It serves G <= 2
+//     only: acc_s[NPAR][MAXG][DM] of the G 8 sizing would double the
+//     shared memory and the registers of a case no served model has.
+//     A D that is not a multiple of the load width, or a pool not aligned
+//     to it, takes the same loop with element loads.
+//   * Two register sizings at DM 128: MAXG 2 (G 1-2, internlm2's G, 8
+//     positions in flight per group) and MAXG 8 (G 3-8, 2 positions in
+//     flight, so that q, the scores and acc of 8 heads fit the registers).
 //
 // What is left (numbers in PERF.md, from chip_smoke.py and profile_step.py):
 //   * The split pass loads about 2.2 TB/s on full rows and less on ragged
@@ -99,7 +110,8 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSub = 128;         // positions per staged sub-chunk (paged)
 constexpr int kMaxG = 8;          // query heads per KV head
-constexpr int kMaxD = 128;        // head dim
+constexpr int kMaxD = 256;        // head dim (DM 256 instance: G <= 2)
+constexpr int kSmallD = 128;      // head dims of the DM 128 instances
 constexpr int kMaxSplits = 64;    // split_plan's MAX_SPLITS: merge weights
 constexpr float kNegInf = -1.0e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -134,8 +146,9 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One lane's share of a position: N elements of type KT in one load of T;
-// LANES lanes cover kMaxD elements.  R is the raw element for element loads.
+// One lane's load of a position: N elements of type KT in one load of T;
+// LANES lanes cover 128 elements (a head dim up to 128 in one load a lane,
+// 256 in two).  R is the raw element for element loads.
 template <typename KT> struct Pack;
 template <> struct Pack<__nv_bfloat16> {
   using T = uint4;
@@ -218,16 +231,19 @@ struct Args {
 
 // CTA (b * Hkv + h, split): the partial softmax of its chunk for the G query
 // heads of KV head h.  QT: query/output type; KT: stored K/V type; MAXG: a
-// bound on G that sizes the registers.
-template <typename QT, typename KT, bool PAGED, int MAXG>
+// bound on G that sizes the registers; DM: a bound on D (128 or 256).
+template <typename QT, typename KT, bool PAGED, int MAXG, int DM>
 __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
   using P = Pack<KT>;
   constexpr bool QUANT = std::is_same<KT, int8_t>::value;
   constexpr int N = P::N, LANES = P::LANES;
+  constexpr int NV = DM / (N * LANES);  // loads a lane makes per position
+  constexpr int E = NV * N;             // elements a lane holds
   constexpr int PPW = 32 / LANES;       // positions per warp at a time
   constexpr int NPAR = kWarps * PPW;    // lane groups (positions) per CTA
-  constexpr int U = MAXG >= 8 ? 2 : 8;  // positions' loads in flight
+  constexpr int U = MAXG >= 8 ? 2 : 8 / NV;  // positions' loads in flight
   constexpr int STEP = NPAR * U;        // positions per batch
+  static_assert(DM % (N * LANES) == 0, "a lane's loads must tile DM");
   static_assert(kSub % STEP == 0, "a batch must not straddle a sub-chunk");
 
   const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
@@ -235,21 +251,25 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
   const int G = a.H / a.Hkv, D = a.D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = warp * PPW + lane / LANES;  // this lane's group
-  const int d0 = (lane % LANES) * N;          // its first element
+  const int d0 = (lane % LANES) * N;  // its first element (load j: + j N LANES)
 
   // q of the G heads, this lane's elements, scaled so that scores are in
   // base 2: exp(x * scale) = exp2(x * scale * log2 e).  Loaded before the
   // chunk's range is known, so its latency overlaps that of lengths[b].
   const long long row0 = (long long)b * a.H + h * G;  // first query head row
   const QT* q = static_cast<const QT*>(a.q) + row0 * D;
-  float qf[MAXG][N];
+  float qf[MAXG][E];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g)
 #pragma unroll
-    for (int e = 0; e < N; ++e)
-      qf[g][e] = (g < G && d0 + e < D)
-                     ? to_f32(q[g * D + d0 + e]) * (a.scale * kLog2e)
-                     : 0.f;
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const int d = d0 + j * N * LANES + e;
+        qf[g][j * N + e] =
+            (g < G && d < D) ? to_f32(q[g * D + d]) * (a.scale * kLog2e)
+                             : 0.f;
+      }
 
   const int len = a.lengths[b];
   const int limit = PAGED ? a.MB * a.S : a.S;  // positions that exist
@@ -257,13 +277,13 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
   const int c_lo = max(split * a.chunk, lo);
   const int c_hi = min((split + 1) * a.chunk, min(len, limit));
 
-  float m[MAXG], l[MAXG], acc[MAXG][N];
+  float m[MAXG], l[MAXG], acc[MAXG][E];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < N; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
 
   const KT* kp = static_cast<const KT*>(a.k);
@@ -302,7 +322,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
       if (base + STEP <= c_lo) continue;
       if (base >= c_hi) break;
       // (a) the K and V loads of U positions, all issued before any use
-      typename P::T kr[U], vr[U];
+      typename P::T kr[U][NV], vr[U][NV];
       bool ok[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -312,24 +332,28 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
         const long long row =
             PAGED ? row_s[t]
                   : (((long long)b * a.S + pos) * a.Hkv + h) * D;
-        kr[u] = typename P::T{};
-        vr[u] = typename P::T{};
-        if (ok[u]) {
-          kr[u] = load_pack(kp + row, d0, D, a.vec);
-          vr[u] = load_pack(vp + row, d0, D, a.vec);
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          kr[u][j] = typename P::T{};
+          vr[u][j] = typename P::T{};
+          if (ok[u]) {
+            kr[u][j] = load_pack(kp + row, d0 + j * N * LANES, D, a.vec);
+            vr[u][j] = load_pack(vp + row, d0 + j * N * LANES, D, a.vec);
+          }
         }
       }
       // (b) scores: a partial dot product per lane, summed over the group
       float s[U][MAXG];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float kf[N];
-        P::unpack(kr[u], kf);
+        float kf[E];
+#pragma unroll
+        for (int j = 0; j < NV; ++j) P::unpack(kr[u][j], kf + j * N);
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
           float x = 0.f;
 #pragma unroll
-          for (int e = 0; e < N; ++e) x = fmaf(qf[g][e], kf[e], x);
+          for (int e = 0; e < E; ++e) x = fmaf(qf[g][e], kf[e], x);
 #pragma unroll
           for (int o = LANES / 2; o > 0; o >>= 1)
             x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -347,12 +371,13 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
         m[g] = mb;
         l[g] *= corr;
 #pragma unroll
-        for (int e = 0; e < N; ++e) acc[g][e] *= corr;
+        for (int e = 0; e < E; ++e) acc[g][e] *= corr;
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float vf[N];
-        P::unpack(vr[u], vf);
+        float vf[E];
+#pragma unroll
+        for (int j = 0; j < NV; ++j) P::unpack(vr[u][j], vf + j * N);
         const float vsc = QUANT ? vs_s[i0 + u * NPAR + grp] : 1.f;
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
@@ -360,7 +385,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
           l[g] += p;
           const float pv = p * vsc;
 #pragma unroll
-          for (int e = 0; e < N; ++e) acc[g][e] = fmaf(pv, vf[e], acc[g][e]);
+          for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pv, vf[e], acc[g][e]);
         }
       }
     }
@@ -368,7 +393,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
 
   // combine the NPAR groups once, through shared memory
   __shared__ float m_s[NPAR][MAXG], l_s[NPAR][MAXG];
-  __shared__ float acc_s[NPAR][MAXG][kMaxD];
+  __shared__ float acc_s[NPAR][MAXG][DM];
   if (lane % LANES == 0) {
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
@@ -379,7 +404,10 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
 #pragma unroll
   for (int g = 0; g < MAXG; ++g)
 #pragma unroll
-    for (int e = 0; e < N; ++e) acc_s[grp][g][d0 + e] = acc[g][e];
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        acc_s[grp][g][d0 + j * N * LANES + e] = acc[g][j * N + e];
   __syncthreads();
   const long long BHn = (long long)a.B * a.H * a.n_split;  // partials' stride
   for (int i = tid; i < G * D; i += kThreads) {
@@ -410,12 +438,14 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
 // empty splits (l = 0) skipped; a row with none live gives zeros.  Each
 // thread issues the acc loads of kBatch splits before it reads their
 // weights (the first batch's overlap warp 0's weights), and drops an empty
-// split's unwritten acc with a select, not a branch.
-template <typename QT>
+// split's unwritten acc with a select, not a branch.  A thread owns
+// columns tid + c kThreads, c < DM / kThreads.
+template <typename QT, int DM>
 __global__ void __launch_bounds__(kThreads)
     decode_merge_kernel(const float* part, void* out, int rows, int D,
                         int n_split) {
   constexpr int kBatch = 16;
+  constexpr int COLS = DM / kThreads;
   const int r = blockIdx.x, tid = threadIdx.x;
   const long long n = (long long)rows * n_split;
   const float* m = part + (long long)r * n_split;
@@ -423,13 +453,20 @@ __global__ void __launch_bounds__(kThreads)
   const float* acc = part + 2 * n + (long long)r * n_split * D;
   __shared__ float w_s[kMaxSplits];
   __shared__ float L_s;
-  float A = 0.f;
-  for (int i0 = 0; i0 < n_split; i0 += kBatch) {
-    float x[kBatch];
+  float A[COLS];
 #pragma unroll
-    for (int j = 0; j < kBatch; ++j)
-      x[j] = tid < D && i0 + j < n_split ? acc[(long long)(i0 + j) * D + tid]
-                                         : 0.f;
+  for (int c = 0; c < COLS; ++c) A[c] = 0.f;
+  for (int i0 = 0; i0 < n_split; i0 += kBatch) {
+    float x[COLS][kBatch];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int d = tid + c * kThreads;
+        x[c][j] = d < D && i0 + j < n_split
+                      ? acc[(long long)(i0 + j) * D + d]
+                      : 0.f;
+      }
     if (i0 == 0) {
       if (tid < 32) {  // warp 0: the largest live m, the weights, sum l
         float M = kNegInf;
@@ -453,36 +490,55 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) {
       const float w = i0 + j < n_split ? w_s[i0 + j] : 0.f;
-      A = w > 0.f ? fmaf(w, x[j], A) : A;
+#pragma unroll
+      for (int c = 0; c < COLS; ++c)
+        A[c] = w > 0.f ? fmaf(w, x[c][j], A[c]) : A[c];
     }
   }
   const float L = L_s;
-  if (tid < D)
-    store(static_cast<QT*>(out) + (long long)r * D + tid,
-          L > 0.f ? A / L : 0.f);
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) {
+    const int d = tid + c * kThreads;
+    if (d < D)
+      store(static_cast<QT*>(out) + (long long)r * D + d,
+            L > 0.f ? A[c] / L : 0.f);
+  }
 }
 
 // dtype codes shared with the Python wrapper
 enum { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
+template <typename QT, int DM>
+int launch_merge(const Args& a, cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_merge_kernel<QT, DM><<<a.B * a.H, kThreads, 0, stream>>>(
+      a.part, a.out, a.B * a.H, a.D, a.n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename QT, typename KT, bool PAGED>
 int launch_typed(const Args& a, cudaStream_t stream) {
   const dim3 grid(a.B * a.Hkv, a.n_split), block(kThreads);
   const int G = a.H / a.Hkv;
+  if (a.D > kSmallD) {  // launch() admits G <= 2 only here
+    decode_split_kernel<QT, KT, PAGED, 2, kMaxD>
+        <<<grid, block, 0, stream>>>(a);
+    return launch_merge<QT, kMaxD>(a, stream);
+  }
   if (G <= 2)
-    decode_split_kernel<QT, KT, PAGED, 2><<<grid, block, 0, stream>>>(a);
+    decode_split_kernel<QT, KT, PAGED, 2, kSmallD>
+        <<<grid, block, 0, stream>>>(a);
   else
-    decode_split_kernel<QT, KT, PAGED, 8><<<grid, block, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_merge_kernel<QT><<<a.B * a.H, block, 0, stream>>>(
-      a.part, a.out, a.B * a.H, a.D, a.n_split);
-  return static_cast<int>(cudaGetLastError());
+    decode_split_kernel<QT, KT, PAGED, 8, kSmallD>
+        <<<grid, block, 0, stream>>>(a);
+  return launch_merge<QT, kSmallD>(a, stream);
 }
 
 template <bool PAGED>
 int launch(Args a, int q_dtype, int kv_dtype, cudaStream_t stream) {
   if (a.H % a.Hkv || a.H / a.Hkv > kMaxG || a.D > kMaxD || a.D < 1 ||
+      (a.D > kSmallD && a.H / a.Hkv > 2) ||
       a.chunk < 1 || a.n_split < 1 || a.n_split > kMaxSplits ||
       (long long)a.chunk * a.n_split < (PAGED ? (long long)a.MB * a.S : a.S) ||
       a.part == nullptr)

@@ -11,7 +11,7 @@
 // log-sum-exp (B, H, S) float32 of the scaled, masked scores, which the
 // backward pass uses to recompute the probabilities.  A row with no live
 // key gets p = 0 everywhere (zeros out), not exp(NEG_INF - NEG_INF).
-// Head dims that are multiples of 16 up to 128.
+// Head dims that are multiples of 16 up to 128, and 256 (gemma3-4b).
 //
 // Bound on the H100 (each input read once, each output written once; the
 // causal products 4 B H D S (S + 1) / 2 at 989 TFLOP/s bf16):
@@ -20,7 +20,10 @@
 //   * zamba2's shared attention (1 row, S 512, H = Hkv = 32, D 80): 10.6 MB,
 //     3.1 us, against 1.35 GFLOP, 1.4 us: bytes bound, 0.0031 ms;
 //   * long (2 rows, S 4096, H 16, Hkv 8, D 128): 137.5 GFLOP, 0.139 ms,
-//     against 100.7 MB, 0.030 ms: operations bound, 0.139 ms.
+//     against 100.7 MB, 0.030 ms: operations bound, 0.139 ms;
+//   * gemma3-4b's prefill (1 row, S 1900, H 8, Hkv 4, D 256): 14.8 GFLOP,
+//     0.0150 ms, against 23.4 MB, 0.0070 ms: operations bound, 0.0150 ms
+//     (a 1024 window: 11.6 GFLOP, 0.0117 ms).
 //
 // The bf16 path (every served and trained model's) has two kernels, picked
 // by shape in launch_bf16:
@@ -46,6 +49,12 @@
 //   Occupancy (nvcc -Xptxas -v): D 128 at 32-key tiles (the training
 //   shape) 52 KB and 167 registers, D 80 at 64-key tiles (zamba2) 55 KB
 //   and 168 registers: 3 CTAs, 12 warps, per SM, set by the registers.
+//   D 256 (gemma3-4b): the O accumulator of a warp's 16 rows is 128 floats
+//   a lane, and Q's fragments would be 64 registers more; so at D 256 Q
+//   stays in shared memory and each 16-column step's fragment is loaded
+//   (ldmatrix) where it is used, and the key tiles are 32 wide at every S
+//   (S: 16 floats a lane).  99 KB of shared memory (Q, a 2-stage ring of
+//   32-key K/V tiles): 2 CTAs per SM.
 //
 // flash_fwd_wgmma, warpgroup MMA (D 128 from S 1024):
 //   * one CTA of 2 warpgroups per (query head, row, 128-row query tile),
@@ -76,7 +85,8 @@
 //
 // The float32 path (chip_smoke's float32 prefill-vs-decode runs) is a
 // scalar full-float32 FMA path with its tiles in shared memory; it is a
-// check of numbers, not a timing target.
+// check of numbers, not a timing target.  At D 256 its CTA takes 32 query
+// rows (8 a warp) instead of 64, so that Q, K, V and O fit in 220 KB.
 //
 // Later work: warp specialisation (a producer warp or TMA, consumer
 // warpgroups that overlap one tile's softmax with another's products),
@@ -91,7 +101,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;            // gemma3-4b's; below it D <= kSmallD
+constexpr int kSmallD = 128;
 constexpr float kNegInf = -1.0e30f;   // log-sum-exp of a row with no key
 constexpr int kShortS = 256;          // below: 32-key mma.sync tiles
 constexpr int kLongS = 1024;          // from here on at D 128: wgmma
@@ -308,6 +319,9 @@ __global__ void __launch_bounds__(Tile<D, kBk_>::kThreads)
   constexpr int kKS = D / 16;    // 16-column steps of Q K^T
   constexpr int kNB = kBk / 8;   // 8-key blocks of S
   constexpr int kDB = D / 8;     // 8-column blocks of O
+  // Q's fragments stay in registers up to D 128; at D 256 they would take
+  // 64 registers beside O's 128, so each is loaded where it is used
+  constexpr bool kQReg = D <= kSmallD;
   constexpr float kLog2e = 1.4426950408889634f;
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -353,7 +367,8 @@ __global__ void __launch_bounds__(Tile<D, kBk_>::kThreads)
   const int k_off = ((lane & 7) + (lane >> 4) * 8) * kLd +
                     ((lane >> 3) & 1) * 8;
 
-  uint32_t qf[kKS][4];  // this warp's Q fragments, loaded once
+  uint32_t qf[kKS][4];  // this warp's Q fragments (kQReg: loaded once)
+  const uint32_t q_warp = smem_u32(qs + warp * 16 * kLd + a_off);
   float o[kDB][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
@@ -372,8 +387,7 @@ __global__ void __launch_bounds__(Tile<D, kBk_>::kThreads)
                                    S, tid);
     }
     cp_async_commit();
-    if (it == 0) {
-      const uint32_t q_warp = smem_u32(qs + warp * 16 * kLd + a_off);
+    if (kQReg && it == 0) {
 #pragma unroll
       for (int ks = 0; ks < kKS; ++ks)
         ldsm_x4(q_warp + ks * 16 * sizeof(bf16), qf[ks]);
@@ -394,6 +408,7 @@ __global__ void __launch_bounds__(Tile<D, kBk_>::kThreads)
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < kKS; ++ks) {
+      if (!kQReg) ldsm_x4(q_warp + ks * 16 * sizeof(bf16), qf[ks]);
 #pragma unroll
       for (int n2 = 0; n2 < kNB / 2; ++n2) {
         uint32_t bk[4];
@@ -693,20 +708,23 @@ int run_wgmma(const Args& a, int B, cudaStream_t stream) {
 // The bf16 path by shape: warpgroup MMA at D 128 from S kLongS on;
 // otherwise mma.sync tiles, with 32-key tiles below S kShortS (a short
 // sequence's CTAs walk few tiles: smaller ones waste less of the diagonal
-// and fit more CTAs on an SM) and 64-key tiles above.
+// and fit more CTAs on an SM) and 64-key tiles above; at D 256 32-key
+// tiles at every S (the registers).
 template <int D>
 int launch_bf16(const Args& a, int B, cudaStream_t stream) {
-  if (D == 128 && a.S >= kLongS) return run_wgmma(a, B, stream);
-  return a.S < kShortS ? run_bf16<D, 32>(a, B, stream)
-                       : run_bf16<D, 64>(a, B, stream);
+  if constexpr (D > kSmallD) {
+    return run_bf16<D, 32>(a, B, stream);
+  } else {
+    if (D == 128 && a.S >= kLongS) return run_wgmma(a, B, stream);
+    return a.S < kShortS ? run_bf16<D, 32>(a, B, stream)
+                         : run_bf16<D, 64>(a, B, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // float32: scalar FMAs in full float32, tiles in shared memory
 // ---------------------------------------------------------------------------
 constexpr int kF32Threads = 128;
-constexpr int kF32Rows = 16;                         // query rows per warp
-constexpr int kF32Bq = kF32Threads / 32 * kF32Rows;  // query rows per CTA
 constexpr int kF32Bk = 64;                           // keys per tile
 constexpr int kF32LdS = kF32Bk + 4;
 constexpr int kF32LdP = kF32Bk + 8;
@@ -724,31 +742,32 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Shared-memory layout of one CTA, in bytes.
+// Shared-memory layout of one CTA of Bq query rows, in bytes.
 struct SmemF32 {
   int ld, ldo;                       // Q/K/V row stride; output row stride
   size_t q, k, v, s, p, o, total;    // offsets
-  __host__ __device__ explicit SmemF32(int D) {
+  __host__ __device__ SmemF32(int D, int Bq) {
     ld = D + 8;
     ldo = D + 4;
-    const size_t tile = (size_t)kF32Bq * ld * sizeof(float);  // Bq == Bk
+    const size_t kv = (size_t)kF32Bk * ld * sizeof(float);
     q = 0;
-    k = q + tile;
-    v = k + tile;
-    s = v + tile;
-    p = s + (size_t)kF32Bq * kF32LdS * sizeof(float);
-    o = p + (size_t)kF32Bq * kF32LdP * sizeof(float);
-    total = o + (size_t)kF32Bq * ldo * sizeof(float);
+    k = q + (size_t)Bq * ld * sizeof(float);
+    v = k + kv;
+    s = v + kv;
+    p = s + (size_t)Bq * kF32LdS * sizeof(float);
+    o = p + (size_t)Bq * kF32LdP * sizeof(float);
+    total = o + (size_t)Bq * ldo * sizeof(float);
   }
 };
 
-// Rows [pos0, pos0 + 64) of one head into a padded shared tile (rows at or
+// Rows [pos0, pos0 + rows) of one head into a padded shared tile (rows at or
 // past S are zeros), 16-byte loads.
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               long long ss, int ld, int pos0,
-                                              int nvalid, int D, int tid) {
+                                              int nvalid, int rows, int D,
+                                              int tid) {
   const int vpr = D / 4;
-  for (int i = tid; i < kF32Bk * vpr; i += kF32Threads) {
+  for (int i = tid; i < rows * vpr; i += kF32Threads) {
     const int row = i / vpr, c = i - (i / vpr) * vpr;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < nvalid)
@@ -758,9 +777,14 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
   }
 }
 
+// ROWS query rows a warp (16; 8 at D 256, for the shared memory); COLS
+// output columns a lane (D up to 32 COLS)
+template <int ROWS, int COLS>
 __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
+  constexpr int kF32Rows = ROWS;
+  constexpr int kF32Bq = kF32Threads / 32 * ROWS;  // query rows per CTA
   extern __shared__ __align__(128) unsigned char smem[];
-  const SmemF32 L(a.D);
+  const SmemF32 L(a.D, kF32Bq);
   float* qs = reinterpret_cast<float*>(smem + L.q);
   float* ks = reinterpret_cast<float*>(smem + L.k);
   float* vs = reinterpret_cast<float*>(smem + L.v);
@@ -778,7 +802,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
   const float* kg = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const float* vg = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
-  load_tile_f32(qs, qg, a.q_ss, ld, q0, S - q0, D, tid);
+  load_tile_f32(qs, qg, a.q_ss, ld, q0, S - q0, kF32Bq, D, tid);
   for (int i = tid; i < kF32Bq * ldo; i += kF32Threads) os[i] = 0.f;
 
   // this warp's rows
@@ -799,8 +823,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
   if (a.causal && q0 - a.window + 1 > 0) k_begin = q0 - a.window + 1;
   for (int t0 = (k_begin / kF32Bk) * kF32Bk; t0 < k_end; t0 += kF32Bk) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_f32(ks, kg, a.k_ss, ld, t0, S - t0, D, tid);
-    load_tile_f32(vs, vg, a.v_ss, ld, t0, S - t0, D, tid);
+    load_tile_f32(ks, kg, a.k_ss, ld, t0, S - t0, kF32Bk, D, tid);
+    load_tile_f32(vs, vg, a.v_ss, ld, t0, S - t0, kF32Bk, D, tid);
     __syncthreads();
 
     // S[16 x 64] = Q K^T for the warp's rows; lane l holds keys l, l + 32
@@ -851,7 +875,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
 
     // O[16 x D] += P V; lane l holds output columns l + 32 j
     {
-      constexpr int kCols = kMaxD / 32;
+      constexpr int kCols = COLS;
       float acc[kF32Rows][kCols];
 #pragma unroll
       for (int r = 0; r < kF32Rows; ++r)
@@ -900,15 +924,22 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
   }
 }
 
-int launch_f32(const Args& a, int B, cudaStream_t stream) {
-  const SmemF32 L(a.D);
+template <int ROWS, int COLS>
+int run_f32(const Args& a, int B, cudaStream_t stream) {
+  constexpr int kBq = kF32Threads / 32 * ROWS;
+  const SmemF32 L(a.D, kBq);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<ROWS, COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L.total));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(a.H, B, (a.S + kF32Bq - 1) / kF32Bq);
-  flash_fwd_f32<<<grid, kF32Threads, L.total, stream>>>(a);
+  const dim3 grid(a.H, B, (a.S + kBq - 1) / kBq);
+  flash_fwd_f32<ROWS, COLS><<<grid, kF32Threads, L.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const Args& a, int B, cudaStream_t stream) {
+  return a.D > kSmallD ? run_f32<8, kMaxD / 32>(a, B, stream)
+                       : run_f32<16, kSmallD / 32>(a, B, stream);
 }
 
 // dtype codes shared with the Python wrapper
@@ -926,7 +957,7 @@ int flash_attention_forward(
     int S, int H, int Hkv, int D, int causal, int window, float scale,
     int dtype, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv || D % 16 || D < 16 ||
-      D > kMaxD || B > 65535 || (S + 63) / 64 > 65535)
+      (D > kSmallD && D != kMaxD) || B > 65535 || (S + 31) / 32 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, out, lse, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
          v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, S, H, Hkv, D,
@@ -942,7 +973,8 @@ int flash_attention_forward(
     case 80: return launch_bf16<80>(a, B, s);
     case 96: return launch_bf16<96>(a, B, s);
     case 112: return launch_bf16<112>(a, B, s);
-    default: return launch_bf16<128>(a, B, s);
+    case 128: return launch_bf16<128>(a, B, s);
+    default: return launch_bf16<256>(a, B, s);
   }
 }
 

@@ -31,7 +31,10 @@
 //     kernel's strict `>` across vocabulary blocks holds across threads,
 //     warps and the slices' edges.
 // The launch and the two cluster barriers set a floor of a few
-// microseconds, far above the bound.
+// microseconds, far above the bound.  Nothing is sized by V: shared memory
+// holds one state a warp and one a CTA, indices are 32-bit (V < 2^31) and
+// a row's offset 64-bit, so gemma3-4b's 262144 entries (16384 a CTA at 16
+// CTAs, 8 loads of 16 bytes a thread) take the same code.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -27,7 +27,8 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1.0e30
 NO_WINDOW = 2 ** 30     # matches models.stacks.NO_WINDOW: never masks
-MAX_GROUP, MAX_HEAD_DIM = 8, 128   # the kernel's register/shared sizing
+MAX_GROUP, MAX_HEAD_DIM = 8, 256   # the kernel's register/shared sizing
+WIDE_HEAD_DIM, WIDE_MAX_GROUP = 128, 2   # above this D, G <= 2 only
 SPLIT_CHUNK, MAX_SPLITS = 128, 64  # positions per CTA; splits per row
 LOG2E = 1.4426950408889634
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -184,9 +185,14 @@ def _ptr(t):
 
 
 def _check_heads(H: int, Hkv: int, D: int) -> None:
-    if H % Hkv or H // Hkv > MAX_GROUP or D > MAX_HEAD_DIM:
-        raise ValueError(f"kernel takes H % Hkv == 0, H/Hkv <= {MAX_GROUP}, "
-                         f"D <= {MAX_HEAD_DIM}; got H={H} Hkv={Hkv} D={D}")
+    """The kernel's instances: D up to WIDE_HEAD_DIM at G up to MAX_GROUP,
+    D up to MAX_HEAD_DIM (gemma3-4b's 256) at G up to WIDE_MAX_GROUP."""
+    g_max = MAX_GROUP if D <= WIDE_HEAD_DIM else WIDE_MAX_GROUP
+    if H % Hkv or H // Hkv > g_max or D > MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes H % Hkv == 0, H/Hkv <= {MAX_GROUP} "
+                         f"at D <= {WIDE_HEAD_DIM} and <= {WIDE_MAX_GROUP} "
+                         f"at D <= {MAX_HEAD_DIM}; got H={H} Hkv={Hkv} "
+                         f"D={D}")
 
 
 def decode_attention(q, k, v, lengths, *, window=None):

@@ -27,7 +27,8 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1.0e30
 NO_WINDOW = 2 ** 30     # matches models.stacks.NO_WINDOW: never masks
-MAX_HEAD_DIM = 128      # the largest of the kernels' head-dim instances
+MAX_HEAD_DIM = 256      # the largest of the kernels' head-dim instances
+SMALL_HEAD_DIMS = 128   # every multiple of 16 up to it has an instance
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -131,9 +132,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if k.shape[:2] != (B, S) or k.shape[3] != D or H % Hkv:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)} (H % Hkv must be 0)")
-    if D % 16 or D > MAX_HEAD_DIM:
+    if D % 16 or (D > SMALL_HEAD_DIMS and D != MAX_HEAD_DIM):
         raise ValueError(f"kernel takes head dims that are multiples of 16 "
-                         f"up to {MAX_HEAD_DIM}; got {D}")
+                         f"up to {SMALL_HEAD_DIMS}, and {MAX_HEAD_DIM}; got "
+                         f"{D}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: the "

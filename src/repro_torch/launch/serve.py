@@ -9,9 +9,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --engine elastic \
         --ladder 2,4,8 [--shed --deadline-s 2]   # closed-loop capacity
 
-``--arch`` takes internlm2-1.8b, rwkv6-7b or zamba2-2.7b, on every layout
-(rwkv6 has no paged leaf: ``--kv paged`` serves it with zero blocks a
-request, and ``--kv-dtype int8`` raises).  Runs on the CUDA card at the
+``--arch`` takes internlm2-1.8b, gemma3-4b (sliding-window layers),
+minitron-8b, qwen2.5-32b, rwkv6-7b or zamba2-2.7b, on every layout (rwkv6
+has no paged leaf: ``--kv paged`` serves it with zero blocks a request,
+and ``--kv-dtype int8`` raises).  Runs on the CUDA card at the
 architecture's full width with random weights from ``--seed``;
 ``--reduced`` serves the smoke-test variant and ``--device cpu`` runs the
 kernels' plain versions on the CPU.

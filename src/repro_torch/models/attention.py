@@ -203,33 +203,50 @@ def gqa_apply_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def gqa_decode_step(p: dict, cfg: ModelConfig, x: torch.Tensor,
                     k_cache: torch.Tensor, v_cache: torch.Tensor,
-                    index: torch.Tensor):
+                    index: torch.Tensor, *, window=None,
+                    rope_theta: Optional[float] = None, ring: bool = False):
     """One-token decode for a batch of rows, each at its own position, in
     plain PyTorch (the hybrid family's shared attention block).
 
     x: (B,1,d); k/v_cache: (B,S,Hkv,hd); index: (B,) integer.  Row b
     writes its K/V at position ``index[b]`` and attends over positions
-    ``<= index[b]``.  A row past its stripe (a dead slot that keeps
-    stepping) writes onto the stripe's last position and reads only its own
-    stripe, so nothing live sees it; the JAX step's ``dynamic_update_slice``
-    clamps the same way.  The JAX package's step takes a scalar index and
-    its engine vmaps it over the slots; the rows here are as independent.
-    Caches are updated in place; returns
-    ``(out (B,1,d), k_cache, v_cache)``."""
+    ``<= index[b]`` (and, with ``window``, ``> index[b] - window``).  A row
+    past its stripe (a dead slot that keeps stepping) writes onto the
+    stripe's last position and reads only its own stripe, so nothing live
+    sees it; the JAX step's ``dynamic_update_slice`` clamps the same way.
+    ``ring=True`` treats each stripe as a ring buffer of S slots: position
+    ``index[b]`` goes to slot ``index[b] % S``, and each slot's absolute
+    position is rebuilt from it to decide validity, as the JAX step does.
+    The JAX package's step takes a scalar index and its engine vmaps it
+    over the slots; the rows here are as independent.  Caches are updated
+    in place; returns ``(out (B,1,d), k_cache, v_cache)``."""
     B = x.shape[0]
     idx = index.long()
-    q, k_new, v_new = gqa_project_qkv(p, cfg, x, idx[:, None])
+    q, k_new, v_new = gqa_project_qkv(p, cfg, x, idx[:, None],
+                                      rope_theta=rope_theta)
     S = k_cache.shape[1]
     rows = torch.arange(B, device=x.device)
-    widx = idx.clamp(max=S - 1)
+    widx = idx % S if ring else idx.clamp(max=S - 1)
     k_cache[rows, widx] = k_new[:, 0].to(k_cache.dtype)
     v_cache[rows, widx] = v_new[:, 0].to(v_cache.dtype)
     H, Hkv = q.shape[2], k_cache.shape[2]
     qg = q.reshape(B, Hkv, H // Hkv, -1)
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float()
     s = s * (q.shape[-1] ** -0.5)
-    kpos = torch.arange(S, device=x.device)
-    valid = kpos[None, :] <= idx[:, None]
+    kpos = torch.arange(S, device=x.device)[None, :]
+    at = idx[:, None]
+    if ring:
+        # the slot p holds absolute position index - slot + p (p <= slot)
+        # or the lap before it (p > slot)
+        slot = widx[:, None]
+        abs_pos = torch.where(kpos <= slot, at - slot + kpos,
+                              at - slot - S + kpos)
+        valid = (abs_pos >= 0) & (abs_pos <= at)
+    else:
+        abs_pos = kpos
+        valid = kpos <= at
+    if window is not None:
+        valid &= (at - abs_pos) < window
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", w.to(v_cache.dtype), v_cache)

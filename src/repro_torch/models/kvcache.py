@@ -42,20 +42,30 @@ SCALE_SUFFIX = "_scale"
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense GQA, the ssm (rwkv6) and the hybrid
-    (zamba2) families; the others wait for theirs."""
+    """The port serves the dense GQA family (internlm2, gemma3 with its
+    sliding-window layers, minitron, qwen2.5), the ssm (rwkv6) and the
+    hybrid (zamba2) families; MoE, MLA, vision and audio wait for theirs."""
     if cfg.family != "ssm" and (cfg.family not in ("dense", "hybrid")
                                 or cfg.attention != "gqa"):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attention!r} is not "
-            f"ported yet: it comes with the other-architectures slice "
-            f"(ROADMAP, modules to port)")
+            f"ported yet: MoE, MLA, vision and audio come with their own "
+            f"slices (ROADMAP, modules to port)")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device) -> dict:
-    """Zeroed contiguous decode cache with a scalar ``index``."""
+               ring: bool = False, device) -> dict:
+    """Zeroed contiguous decode cache with a scalar ``index``.
+
+    ``ring=True`` allocates sliding-window ring buffers (the long-context
+    carve) instead of full-length stripes: ``S = min(max_len,
+    sliding_window)`` positions a row when the config has a window, and
+    the hybrid family's shared-attention stripes ``min(S, 4096)``; the
+    decode step then writes position ``index`` at slot ``index % S``.  The
+    ssm family has no sequence axis, so ``ring`` changes nothing there."""
     check_supported(cfg)
+    S = (min(max_len, cfg.sliding_window) if ring and cfg.sliding_window
+         else max_len)
     idx = torch.zeros((), dtype=torch.int32, device=device)
     if cfg.family == "ssm":     # rwkv6: one block's state per layer
         one = rwkv6_init_state(cfg, batch, device=device)
@@ -69,12 +79,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                  device=device)
                for name, t in one.items()}
         n_attn = -(-cfg.num_layers // cfg.hybrid_attn_every)
-        shape = (n_attn, batch, max_len, cfg.num_kv_heads,
+        Sa = min(S, 4096) if ring else S   # the shared block's ring
+        shape = (n_attn, batch, Sa, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         return out | {"attn_k": torch.zeros(shape, dtype=dt, device=device),
                       "attn_v": torch.zeros(shape, dtype=dt, device=device),
                       "index": idx}
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+    shape = (cfg.num_layers, batch, S, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),

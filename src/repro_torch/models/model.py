@@ -30,8 +30,12 @@ class Model:
         """tokens (B, S) -> (logits (B, S, V) float32, aux scalar)."""
         return stack_forward(params, self.cfg, tokens, remat=remat)
 
-    def init_cache(self, batch: int, max_len: int, *, device) -> dict:
-        return kvcache.init_cache(self.cfg, batch, max_len, device=device)
+    def init_cache(self, batch: int, max_len: int, *, ring: bool = False,
+                   device) -> dict:
+        """Zeroed contiguous cache; ``ring=True`` allocates sliding-window
+        ring buffers (:func:`~repro_torch.models.kvcache.init_cache`)."""
+        return kvcache.init_cache(self.cfg, batch, max_len, ring=ring,
+                                  device=device)
 
     def init_paged_cache(self, num_slots: int, max_len: int, *,
                          block_size: int, num_blocks: int,
@@ -53,7 +57,8 @@ class Model:
         """One-token decode over a contiguous cache of any batch (a slot
         pool, a batch=1 view, the static ``generate`` batch): the dense
         family through the decode attention kernel, ssm and hybrid in
-        plain PyTorch; ``ring`` is refused."""
+        plain PyTorch; ``ring=True`` decodes over a ring cache from
+        ``init_cache(ring=True)``."""
         return stack_decode_step(params, self.cfg, token, cache, ring=ring)
 
     def kernel_supported(self) -> bool:

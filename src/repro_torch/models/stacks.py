@@ -29,13 +29,16 @@ def _norm(w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return rms_norm(x, w, cfg.norm_eps)
 
 
-def _layer_theta_window(cfg: ModelConfig) -> list[tuple[float, int]]:
+def _layer_theta_window(cfg: ModelConfig, *,
+                        ring: bool = False) -> list[tuple[float, int]]:
     """Per-layer ``(rope_theta, window)``: ``local_global_ratio`` local
     layers (theta 1e4, sliding window) per global layer, else one pair for
-    every layer."""
+    every layer.  ``ring=True`` is the long-context carve of a ring cache:
+    the global layers are windowed too (their thetas stay)."""
     if cfg.local_global_ratio and cfg.sliding_window:
         r = cfg.local_global_ratio
-        return [(cfg.rope_theta, NO_WINDOW) if i % (r + 1) == r
+        glob = NO_WINDOW if not ring else cfg.sliding_window
+        return [(cfg.rope_theta, glob) if i % (r + 1) == r
                 else (1.0e4, cfg.sliding_window)
                 for i in range(cfg.num_layers)]
     w = cfg.sliding_window if cfg.sliding_window else NO_WINDOW

@@ -141,25 +141,26 @@ def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     batch-1 step over the slots; the rows here are as independent, so one
     batched step computes the same thing.  The cache is updated in place
     (``index`` advances by one); returns ``(logits (N, V) f32, cache)``.
-    ``ring`` (the sliding-window ring buffer of the long-context cells) is
-    not ported."""
-    if ring:
-        raise NotImplementedError(
-            "ring decode (the sliding-window ring-buffer cache of the "
-            "long-context cells) is not ported yet")
+
+    ``ring=True`` decodes over a ring cache (``init_cache(ring=True)``, the
+    long-context carve in which every layer is windowed): dense through
+    the kernel step (:func:`stack_kernel_decode_step`), the hybrid
+    family's shared block through the plain ``gqa_decode_step`` with its
+    window at the stripe length, as the JAX package does; the ssm family
+    has nothing to ring and ignores it."""
     index = cache["index"]
     if index.dim() == 0:
         # one position for every row: step a per-row copy, then advance
         # the shared one
         rows = dict(cache, index=index.expand(token.shape[0]).clone())
-        logits, _ = stack_decode_step(p, cfg, token, rows)
+        logits, _ = stack_decode_step(p, cfg, token, rows, ring=ring)
         index.add_(1)
         return logits, cache
     if cfg.family == "dense":
-        return stack_kernel_decode_step(p, cfg, token, cache)
+        return stack_kernel_decode_step(p, cfg, token, cache, ring=ring)
     x = _embed_tokens(p, cfg, token)                         # (N, 1, d)
     if cfg.family == "hybrid":
-        x = _hybrid_decode(p, cfg, x, cache)
+        x = _hybrid_decode(p, cfg, x, cache, ring=ring)
         cache["index"].add_(1)
         return _unembed(p, cfg, x)[:, 0], cache
     for li, lp in enumerate(p["layers"]):
@@ -177,14 +178,17 @@ def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     return _unembed(p, cfg, x)[:, 0], cache
 
 
-def _hybrid_decode(p: dict, cfg: ModelConfig, x, cache: dict, tables=None):
+def _hybrid_decode(p: dict, cfg: ModelConfig, x, cache: dict, tables=None,
+                   ring: bool = False):
     """zamba2's layers for one token of every slot: each Mamba2 block steps
     its conv and SSM state; after layer ``idx`` with ``(idx + 1) % every ==
     0`` the shared block decodes against use ``occ = idx // every``: over
-    the contiguous ``attn_k``/``attn_v`` stripes in plain PyTorch, or with
-    ``tables`` over their block pools through ``paged_decode_attention``
-    (quantized on the write for int8 pools), never a gathered view."""
+    the contiguous ``attn_k``/``attn_v`` stripes in plain PyTorch (with
+    ``ring``, ring buffers windowed at their length), or with ``tables``
+    over their block pools through ``paged_decode_attention`` (quantized
+    on the write for int8 pools), never a gathered view."""
     every = cfg.hybrid_attn_every
+    window = cache["attn_k"].shape[2] if ring else None
     sp = p["shared_attn"]
     index = cache["index"]
     if tables is not None:
@@ -203,7 +207,7 @@ def _hybrid_decode(p: dict, cfg: ModelConfig, x, cache: dict, tables=None):
             if tables is None:
                 a, _, _ = attn.gqa_decode_step(
                     sp["attn"], cfg, h, cache["attn_k"][occ],
-                    cache["attn_v"][occ], index)
+                    cache["attn_v"][occ], index, window=window, ring=ring)
             else:
                 q, k_new, v_new = attn.gqa_project_qkv(sp["attn"], cfg, h,
                                                        idx[:, None])
@@ -249,7 +253,7 @@ def _paged_attention(cache: dict, names, li: int, q, k_row, v_row, pid, off,
 
 
 def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
-                             cache: dict, *, tables=None):
+                             cache: dict, *, tables=None, ring: bool = False):
     """One-token decode for the whole slot pool through the decode kernels.
 
     token: ``(N, 1)`` integer.  cache: the serving layout —
@@ -273,8 +277,23 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     all-zero table rows into the null block.  The cache is updated in
     place (``index`` advances by one); returns ``(logits (N, V) f32,
     cache)``.
+
+    ``ring=True`` (dense, contiguous only: the paged pool takes no ring)
+    reads the stripes of S slots as ring buffers: position ``index`` is
+    written at slot ``index % S`` and the kernel attends over ``min(index
+    + 1, S)`` slots with no window.  That is the windowed attention of the
+    JAX ring step because the ring carve windows every layer at
+    ``sliding_window >= S`` (``_layer_theta_window(ring=True)``): a ring
+    of S slots then holds exactly the live window's positions, every slot
+    once, and the softmax does not depend on the order the slots hold
+    them in.
     """
     kvcache.check_supported(cfg)
+    if ring and (tables is not None or not kernel_supported(cfg)):
+        raise ValueError("ring decode runs on contiguous dense stripes "
+                         "here; the hybrid family's ring goes through "
+                         "stack_decode_step, and the paged pool takes no "
+                         "ring")
     if not kernel_supported(cfg):
         if tables is None or cfg.family != "hybrid":
             raise ValueError(f"stack_kernel_decode_step serves GQA stacks "
@@ -290,13 +309,19 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     x = _embed_tokens(p, cfg, token)                         # (N, 1, d)
     pos = index[:, None]
     idx = index.long()
-    if tables is None:
-        widx = idx.clamp(max=cache["k"].shape[2] - 1)
-    else:
-        pid, off = _paged_position(cache["k"].shape[2], idx, tables)
+    S = cache["k"].shape[2]
     lengths = index + 1
+    if ring:
+        widx = idx % S
+        lengths = lengths.clamp(max=S)
+    elif tables is None:
+        widx = idx.clamp(max=S - 1)
+    else:
+        pid, off = _paged_position(S, idx, tables)
     for li, (lp, (theta, window)) in enumerate(
-            zip(p["layers"], _layer_theta_window(cfg))):
+            zip(p["layers"], _layer_theta_window(cfg, ring=ring))):
+        if ring:
+            window = None           # the ring holds the window, no more
         h = _norm(lp["ln1"], x, cfg)
         q, k_new, v_new = attn.gqa_project_qkv(lp["attn"], cfg, h, pos,
                                                rope_theta=theta)

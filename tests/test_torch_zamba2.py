@@ -44,6 +44,8 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import mamba2 as tmb  # noqa: E402
 from repro_torch.models.stacks import stack_forward  # noqa: E402
+from repro_torch.models.stacks_infer import \
+    stack_kernel_decode_step  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig, Request  # noqa: E402
 from repro_torch.serve.slots import insert_cache  # noqa: E402
 
@@ -381,9 +383,12 @@ def test_hybrid_refusals(pair):
     assert sorted(eng.slots.slot_rows(0)) == ["conv", "ssm"]
     pool = tm.init_cache(2, 8, device="cpu")
     pool["index"] = torch.zeros((2,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ring"):
-        tm.decode_step(tp, torch.zeros((2, 1), dtype=torch.int32), pool,
-                       ring=True)
+    # ring decode runs since the gemma3 slice (test_torch_gemma3.py holds
+    # it to the JAX ring decode); the kernel step still refuses it here
+    with pytest.raises(ValueError, match="stack_decode_step"):
+        stack_kernel_decode_step(tp, tm.cfg,
+                                 torch.zeros((2, 1), dtype=torch.int32),
+                                 pool, ring=True)
     with pytest.raises(ValueError, match="stack_decode_step"):
         tm.kernel_decode_step(tp, torch.zeros((2, 1), dtype=torch.int32),
                               pool)

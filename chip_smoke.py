@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero:
              window that cuts a chunk and skips whole ones; G 1, 4, 8 at D
              64 and 80; float32 and bf16 at odd D (element loads); G 3; G 4
              and 5 at D 128 (minitron-8b's and qwen2.5-32b's decode, G 5
-             with the one-position-shorter fault); a plan of one split; the paged entry at bs 1 to 64, bf16 (or
+             with the one-position-shorter fault); G 7 at D 128
+             (qwen2-vl-7b's); whisper-tiny's cross-attention over 1500
+             positions at and below the stripe; a plan of one split; the paged entry at bs 1 to 64, bf16 (or
              float32) and int8; zamba2-2.7b's shared-block shape (H = Hkv
              = 32, D 80, the main lengths, bs 16), also timed in bf16 and
              int8 against SDPA on the gathered view.  gemma3-4b's decode
@@ -31,21 +33,28 @@ Phases, in order; any failure exits non-zero:
              and paged (bf16, int8), against SDPA on the masked stripe,
              and the D 256 instance is held untimed at chunk edges, G 1
              and 2, the window, float32, element loads (D 250), with the
-             one-position-shorter fault shown to fail.  Their limits
+             one-position-shorter fault shown to fail.  FRONTEND_ATTN is
+             timed the same way: qwen2-vl-7b's decode (8 rows, H 28, Hkv
+             4, D 128, lengths 257-1024; contiguous, paged bf16 and
+             int8), whisper-tiny's self-attention (H = Hkv = 6, D 64; the
+             three layouts) and its cross-attention (every length 1500,
+             contiguous), each against SDPA.  Their limits
              (DECODE_EDGE_TOL) are tighter
              than the timed rows' 2e-2: float32 noise, and one bf16
              rounding step; the smoke shows they catch a row that lost one
              position.
-             Greedy sampling (each row over a cluster of CTAs, 16 at 8 rows)
+             Greedy sampling (each row over a cluster of CTAs, 8 at every
+             row count up to 16, so that a row's logprob rounds alike at
+             every slot count up to 16)
              is held and timed at the served models' vocabularies (92544,
              65536, 32000, gemma3's 262144, minitron's 256000, qwen's
-             152064), 8 rows with ties planted
+             152064, whisper's 51865), 8 rows with ties planted
              across every edge of the cluster's slices, across the last
              edge alone, between an early column and the last, across the
              1024/2048 edges of a one-CTA-a-row kernel, and a row of equal
              entries (token 0); tokens equal to the plain version's and
-             the planted ones, logprobs within 1e-4; untimed at one row and
-             at 16 (clusters of 16 and 8) and at V 50001 (element loads, a
+             the planted ones, logprobs within 1e-4; untimed at one row,
+             at 16 and at 24 (a cluster of 4) and at V 50001 (element loads, a
              short last slice); the plain version with the slice that holds
              a row's maximum dropped is shown to change its token; at 8 x
              92544 it is also timed with clusters of 8 and of 16.
@@ -108,14 +117,18 @@ Phases, in order; any failure exits non-zero:
              windows 5, 64, 100; G 1, 2, 4; every compiled D from 16 to
              128, and 256; the internlm2, minitron-8b and qwen2.5-32b
              prefills' S 512 at G 2, 4 and 5; the long-S tiles
-             from S 1024) and on strided q, k, v views, the bf16 output held
+             from S 1024), bidirectional (``causal=False``) at S 1, 65,
+             130, 300 (G 7), 1030 and whisper's encoder's S 1500 at D 64
+             (FLASH_BIDIR_CASES), and on strided q, k, v views, the bf16 output held
              element by element to one bf16 rounding of each p and of the
              output (shown to see one key missing from P V); then at the
              training shape (16 rows, S 143, H 16, Hkv 8, D 128, bf16), at
              S 4096 (2 rows) and at zamba2's shared-attention shape (1 row,
              S 512, H = Hkv = 32, D 80) and at gemma3's prefill (1 row, S
              1900, H 8, Hkv 4, D 256, with and without its 1024 window;
-             SDPA with the window's mask), with the gradients of
+             SDPA with the window's mask), qwen2-vl-7b's prefill (1 row,
+             S 512, H 28, Hkv 4, D 128) and whisper-tiny's encoder (1 row,
+             S 1500, H = Hkv = 6, D 64, bidirectional), with the gradients of
              ``FlashAttentionFn`` against autograd through the plain
              version; times of the kernel, the plain version,
              ``scaled_dot_product_attention`` and the bound, and of the
@@ -166,6 +179,15 @@ Phases, in order; any failure exits non-zero:
              degrade, each degraded request an exact prefix of the static
              run, every shed recorded.  Then a 2 + 6 router resized to
              3 + 8 mid-run, bit for bit with a 6-slot monolithic engine.
+             Between the grow run and the armed runs, a second ladder,
+             ELASTIC_LADDER_16 (4/8/16, arrivals ELASTIC_GAP_16 apart, so
+             that it reaches 16 slots), and a static engine of 16 slots,
+             each held to the static 8-slot engine: tokens and logprobs
+             bit for bit (the decode step runs its products, norms and
+             logits on 16 rows at every slot count up to 16, and greedy
+             sampling one cluster size), the divergent requests and their
+             top-2 gaps printed; ms per decode step by rung and of both
+             static engines.
    suspend — the 16 serve prompts, 8 slots, 128 new tokens, on
              contiguous, paged and paged-int8 KV at block sizes 1 and 4:
              each request's stop token is the first token its
@@ -379,6 +401,34 @@ Phases, in order; any failure exits non-zero:
              minitron-8b also in float32 (its weights upcast, 8 requests
              on 4 slots, 128 new tokens) prefill against decode within
              DENSE32_TOL (qwen's float32 copy, 131 GB, does not fit).
+             Before them, after gemma3:
+   serve-qwen2-vl-7b — the vlm family at full width and depth (28 layers,
+             d_model 3584, 28/4 heads of 128, QKV biases, M-RoPE, vocab
+             152064; 7.62 B), seeded biases: VLM_REQ prompts of 264-512
+             ids, each with its own seeded 256 vision embeddings over its
+             first positions, 8 slots, 128 new tokens, on contiguous,
+             paged and paged-int8 KV: launches exact (the layout's decode
+             kernel 28 a step, flash 28 a prefill, greedy once a step), ms
+             per decode step against the weight-bytes bound, peak memory;
+             paged bf16 bit for bit with contiguous, int8 against it as
+             zamba2's paged run; the graph against the eager block on
+             every layout; radix sharing on: no hit, nothing registered,
+             bit for bit with it off; one prompt under two frontends:
+             other tokens; a 2 + 6 router bit for bit with a 6-slot
+             monolithic engine; request 0 suspended after SUSPEND_AT
+             ticks and resumed, bit for bit; float32 (4 requests, weights
+             upcast) prefill against decode within DENSE32_TOL.
+   serve-whisper-tiny — the audio family at full width and depth (4
+             encoder and 4 decoder layers, d_model 384, 6 heads of 64,
+             vocab 51865, tied embeddings; 39.4 M), seeded biases: the
+             16 serve prompts, each with its own seeded 1500 frames,
+             through the same checks (flash 8 a prefill: 4 encoder layers
+             bidirectional, 4 decoder; a decode step runs the layout's
+             kernel 4 times and the contiguous one 4 more, over each
+             slot's cross K/V); then the kernel decode step of 8 slots at
+             position 300 under ``torch.profiler``
+             (``profile_step.profile_calls``): device events a step and
+             device-busy ms beside the weight-bytes bound.
 
 In the float32 runs of phases 7 to 10 the engine's tokens are also held to
 the re-prefill's argmax (log-probability gap within the run's limit); in
@@ -394,6 +444,11 @@ builds, checks and times the kernels only (phases 1-3, no result line),
 with ``--src`` the kernels of another checkout's ``src`` (an unpacked
 parent commit) on this script's timer; it writes
 ``chiprun_out/kernels_{tree,parent}.json``.
+
+    python3 chip_smoke.py --only kernels,elastic,serve-qwen2-vl-7b
+
+runs the named phases alone (ONLY_PHASES; no result line) and writes
+``chiprun_out/chip_smoke_only.json``.
 """
 from __future__ import annotations
 
@@ -485,6 +540,16 @@ class Timer:
 GEMMA_ATTN = (np.asarray([1, 100, 600, 1023, 1024, 1025, 1500, 2048],
                          np.int32), 2048, 8, 4, 256)
 
+# (label, lengths, S, H, Hkv, D, paged too): qwen2-vl-7b's decode (G 7,
+# lengths past its 256 image positions), whisper-tiny's self-attention (H =
+# Hkv = 6, D 64) and its cross-attention over the encoder's 1500 positions
+# at every row (contiguous only: the cross leaves are per slot)
+FRONTEND_ATTN = (
+    ("qwen2-vl", [257, 300, 400, 512, 640, 777, 900, 1024], 1024, 28, 4, 128,
+     True),
+    ("whisper", [1, 17, 100, 255, 300, 400, 512, 640], 1024, 6, 6, 64, True),
+    ("whisper-cross", [1500] * 8, 1500, 6, 6, 64, False))
+
 # (label, ragged lengths, stripe length S): the serving shape, a long set
 ATTN_CASES = (
     ("main", np.asarray([1, 17, 100, 255, 512, 640, 900, 1024], np.int32),
@@ -527,6 +592,11 @@ DECODE_EDGE_CASES = (
      "bfloat16", None, (16,)),
     ("zamba2", [1, 17, 100, 255, 512, 640, 900, 1024], 1024, 32, 32, 80,
      "bfloat16", None, (16,)),
+    # qwen2-vl-7b's G 7 at D 128, and whisper-tiny's cross-attention (G 1,
+    # D 64) over its 1500 encoder positions at and just below the stripe
+    ("G7-D128", EDGES, 1024, 28, 4, 128, "bfloat16", None, (16,)),
+    ("cross-S1500", [1500, 1500, 1499, 1280, 1281, 1], 1500, 6, 6, 64,
+     "bfloat16", None, ()),
     # the head-dim-256 instance (gemma3-4b: H 8, Hkv 4): chunk edges and
     # S, G 1 and 2, gemma3's 1024 window cutting chunks and skipping whole
     # ones, float32, element loads at D 250
@@ -589,7 +659,8 @@ def decode_edge_cases(torch, dev) -> dict:
         e = check_close(torch, f"decode_attention {label}", out, ref, tol)
         errs["decode_attention"] = max(errs["decode_attention"], e)
         msg = [f"contiguous {e:.2e}"]
-        if label in ("edges", "zamba2", "G5-D128", "G2-D256"):
+        if label in ("edges", "zamba2", "G5-D128", "G2-D256", "G7-D128",
+                     "cross-S1500"):
             # the limit sees one position go missing
             short = da.decode_attention_plain(
                 q, k, v, (lengths - 1).clamp_min(0), window=window)
@@ -782,6 +853,31 @@ def phase_kernels(torch, dev, timer):
                4 * Hg * Dg * live, note=plan)
         paged(label, lengths_np, S, Hkvg, Dg, q, plan, window)
     del q, k, v
+    for label, lens, S, Hf, Hkvf, Df, with_paged in FRONTEND_ATTN:
+        lengths_np = np.asarray(lens, np.int32)
+        B = len(lengths_np)
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        live = live_positions(lengths_np, S, None)
+        C, n = da.split_plan(S)
+        plan = (f"; plan chunk={C} n_split={n} CTAs={B * Hkvf * n}, live "
+                f"positions {live}")
+        q = torch.randn(B, Hf, Df, **bf)
+        k = torch.randn(B, S, Hkvf, Df, **bf)
+        v = torch.randn(B, S, Hkvf, Df, **bf)
+        err = check_close(torch, f"decode_attention {label}",
+                          da.decode_attention(q, k, v, lengths),
+                          da.decode_attention_plain(q, k, v, lengths),
+                          ATTN_TOL)
+        record("decode_attention", label, err,
+               timer(lambda: da.decode_attention(q, k, v, lengths)),
+               timer(lambda: da.decode_attention_plain(q, k, v, lengths)),
+               timer(sdpa(q, k, v, lengths)),
+               live * Hkvf * Df * 2 * 2 + 2 * B * Hf * Df * 2 + B * 4,
+               4 * Hf * Df * live, note=plan)
+        del k, v
+        if with_paged:
+            paged(label, lengths_np, S, Hkvf, Df, q, plan)
+        del q
     for key, e in decode_edge_cases(torch, dev).items():
         rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], e)
 
@@ -789,11 +885,12 @@ def phase_kernels(torch, dev, timer):
     return rows
 
 
-# (label, B, V): greedy sampling untimed at one row and at 16 (clusters of
-# 16 and 8 CTAs), and at a vocabulary that is not a multiple of 4 nor of
-# the cluster (element loads, a short last slice)
+# (label, B, V): greedy sampling untimed at one row and at 16 (8 CTAs a
+# row at every row count up to 16), at 24 (4 CTAs), and at a vocabulary
+# that is not a multiple of 4 nor of the cluster (element loads, a short
+# last slice)
 GREEDY_EDGE_CASES = (("B1", 1, 92544), ("B16", 16, 92544),
-                     ("V50001", 8, 50001))
+                     ("B24", 24, 92544), ("V50001", 8, 50001))
 
 
 def greedy_logits(torch, g, dev, B, V):
@@ -865,7 +962,7 @@ def phase_greedy(torch, dev, timer, record, rows):
     B = 8
     for label, V in (("main", 92544), ("rwkv6", 65536), ("zamba2", 32000),
                      ("gemma3", 262144), ("minitron8b", 256000),
-                     ("qwen2.5-32b", 152064)):
+                     ("qwen2.5-32b", 152064), ("whisper", 51865)):
         x, want = greedy_logits(torch, g, dev, B, V)
         err = check_greedy(torch, f"V={V}", x, want)
         note = f"; cluster {sampling.greedy_cluster(B)}"
@@ -1398,11 +1495,16 @@ def phase_topk(torch, dev, timer):
 # (label, B, S, H, Hkv, D, window): the training shape, a long one,
 # zamba2's shared attention, gemma3-4b's longest prefill at D 256 without
 # and with its 1024 window
-FLASH_CASES = (("main", 16, 16 + MAX_NEW - 1, 16, 8, 128, None),
-               ("long", 2, 4096, 16, 8, 128, None),
-               ("zamba2", 1, 512, 32, 32, 80, None),
-               ("gemma3", 1, 1900, 8, 4, 256, None),
-               ("gemma3-w1024", 1, 1900, 8, 4, 256, 1024))
+# (label, rows, positions, H, Hkv, D, window, causal): the timed shapes;
+# qwen2-vl-7b's prefill (G 7) and whisper-tiny's encoder (bidirectional
+# over its 1500 frames, D 64)
+FLASH_CASES = (("main", 16, 16 + MAX_NEW - 1, 16, 8, 128, None, True),
+               ("long", 2, 4096, 16, 8, 128, None, True),
+               ("zamba2", 1, 512, 32, 32, 80, None, True),
+               ("gemma3", 1, 1900, 8, 4, 256, None, True),
+               ("gemma3-w1024", 1, 1900, 8, 4, 256, 1024, True),
+               ("qwen2-vl", 1, 512, 28, 4, 128, None, True),
+               ("whisper-encoder", 1, 1500, 6, 6, 64, None, False))
 
 
 # (label, rows, positions, H, Hkv, D, window): held against the plain
@@ -1457,37 +1559,52 @@ FLASH_EDGE_CASES = (
 # On a row of 1000 keys, where outputs are about 0.05, the limit is about
 # 3.5e-3.  Log-sum-exp: absolute, by dtype.
 FLASH_LSE_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
+# (label, rows, positions, H, Hkv, D): bidirectional (``causal=False``,
+# the whisper encoder's) at key-tile edges, a ragged last tile, G 7 at D
+# 128 (qwen2-vl's widths), the encoder's own S 1500 at D 64, and the
+# long-S tiles of D 128, held untimed in bf16 and float32
+FLASH_BIDIR_CASES = (
+    ("bidir-S1", 2, 1, 6, 6, 64),
+    ("bidir-S65", 2, 65, 6, 6, 64),
+    ("bidir-S130", 2, 130, 8, 4, 128),
+    ("bidir-G7-S300", 1, 300, 28, 4, 128),
+    ("bidir-S1500-D64", 1, 1500, 6, 6, 64),
+    ("bidir-S1030-D128", 1, 1030, 8, 2, 128),
+)
 # the cases, and the key, at which the smoke shows that the bf16 limit sees
 # one key go missing from P V on rows of 512 to 1030 keys
 FLASH_PLANTED = {"long-G4-S1030": 512, "D256-S1030": 512}
 
 
-def flash_limit(torch, q, k, v, ref, window=None):
+def flash_limit(torch, q, k, v, ref, window=None, causal=True):
     """The elementwise limit on |kernel - plain| for ``ref``, the plain
     version's output on q, k, v (see the comment above FLASH_LSE_TOL)."""
     from repro_torch.kernels import flash_attention as fa
 
     if q.dtype == torch.float32:
         return 1e-4 + 1e-4 * ref.float().abs()
-    wv = fa.flash_attention_plain(q, k, v.abs(), window=window).float()
+    wv = fa.flash_attention_plain(q, k, v.abs(), window=window,
+                                  causal=causal).float()
     return 1.01 * (2 ** -8 * wv + 2 ** -7 * ref.float().abs()) + 1e-5
 
 
-def check_flash(torch, label, q, k, v, window=None) -> tuple:
+def check_flash(torch, label, q, k, v, window=None, causal=True) -> tuple:
     """The kernel against the plain version on q, k, v: output within
     flash_limit and log-sum-exp within FLASH_LSE_TOL; raises on a miss,
     returns (output error, its largest share of the limit, log-sum-exp
     error)."""
     from repro_torch.kernels import flash_attention as fa
 
-    out, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+    out, lse = fa.flash_attention(q, k, v, window=window, causal=causal,
+                                  return_lse=True)
     ref, ref_lse = fa.flash_attention_plain(q, k, v, window=window,
-                                            return_lse=True)
+                                            causal=causal, return_lse=True)
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"flash_attention {label}: non-finite output")
     diff = (out.float() - ref.float()).abs()
     err = float(diff.max())
-    share = float((diff / flash_limit(torch, q, k, v, ref, window)).max())
+    share = float((diff / flash_limit(torch, q, k, v, ref, window,
+                                      causal)).max())
     if not share <= 1.0:
         raise AssertionError(f"flash_attention {label}: kernel disagrees "
                              f"with its plain version (max abs err "
@@ -1548,6 +1665,18 @@ def flash_edge_cases(torch, dev) -> dict:
                            f"limit")
         print(f"[flash] edge {label} (B={B}, S={S}, H={H}, Hkv={Hkv}, "
               f"D={D}, window {window}): max_abs_err " + ", ".join(msg))
+    for label, B, S, H, Hkv, D in FLASH_BIDIR_CASES:
+        msg = []
+        for dt in ("bfloat16", "float32"):
+            q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev).to(
+                getattr(torch, dt)) for h in (H, Hkv, Hkv))
+            e, sh, el = check_flash(torch, f"edge {label} {dt}", q, k, v,
+                                    causal=False)
+            note(dt, e, sh, el)
+            msg.append(f"{dt} {e:.2e} ({sh:.2f} of the limit; lse "
+                       f"{el:.2e})")
+        print(f"[flash] edge {label} (B={B}, S={S}, H={H}, Hkv={Hkv}, "
+              f"D={D}, causal=False): max_abs_err " + ", ".join(msg))
     B, S, H, Hkv, D = 2, 16 + MAX_NEW - 1, 16, 8, 128
     qkv = torch.randn(B, S, (H + 2 * Hkv) * D, generator=g,
                       device=dev).to(torch.bfloat16)
@@ -1572,56 +1701,62 @@ def phase_flash(torch, dev, timer):
     from repro_torch.kernels import flash_attention as fa
 
     row = {"max_abs_err": 0.0, "edge_max_err": flash_edge_cases(torch, dev)}
-    for label, B, S, H, Hkv, D, window in FLASH_CASES:
+    for label, B, S, H, Hkv, D, window, causal in FLASH_CASES:
         g = torch.Generator(device=dev).manual_seed(2)
         q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev,
                                dtype=torch.bfloat16) for h in (H, Hkv, Hkv))
-        err, share, lse_err = check_flash(torch, label, q, k, v, window)
+        err, share, lse_err = check_flash(torch, label, q, k, v, window,
+                                          causal)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         # gradients: FlashAttentionFn against autograd through the plain
         dout = torch.randn(B, S, H, D, generator=g, device=dev,
                            dtype=torch.bfloat16)
         got = [t.detach().requires_grad_() for t in (q, k, v)]
-        fa.FlashAttentionFn.apply(*got, True, window).backward(dout)
+        fa.FlashAttentionFn.apply(*got, causal, window).backward(dout)
         ref = [t.detach().requires_grad_() for t in (q, k, v)]
-        fa.flash_attention_plain(*ref, window=window).backward(dout)
+        fa.flash_attention_plain(*ref, window=window,
+                                 causal=causal).backward(dout)
         g_err = {n: check_close(torch, f"flash_attention {label} {n}",
                                 a.grad, b.grad, ATTN_TOL)
                  for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
         del got, ref
-        out, lse = fa.flash_attention(q, k, v, window=window,
+        out, lse = fa.flash_attention(q, k, v, window=window, causal=causal,
                                       return_lse=True)
 
         def sdpa(q, k, v):
-            """SDPA on (B, H, S, D) views: causal, or the window's mask."""
+            """SDPA on (B, H, S, D) views: causal or bidirectional, or the
+            window's mask."""
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             if window is None:
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
             return F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=wmask, enable_gqa=True)
         pos = torch.arange(S, device=dev)
         wmask = fa._mask(pos, pos, True, window)
         ms = timer(lambda: fa.flash_attention(q, k, v, window=window,
-                                              return_lse=True))
+                                              causal=causal, return_lse=True))
         plain_ms = timer(lambda: fa.flash_attention_plain(
-            q, k, v, window=window, return_lse=True), iters=10)
+            q, k, v, window=window, causal=causal, return_lse=True),
+            iters=10)
         lib_ms = timer(lambda: sdpa(q, k, v))
         bwd_ms = timer(lambda: fa.flash_attention_backward_plain(
-            q, k, v, out, lse, dout, window=window), iters=10)
+            q, k, v, out, lse, dout, window=window, causal=causal), iters=10)
         q2, k2, v2 = (torch.cat([t, t]) for t in (q, k, v))
         ms_2x = timer(lambda: fa.flash_attention(q2, k2, v2, window=window,
+                                                 causal=causal,
                                                  return_lse=True))
         lib_ms_2x = timer(lambda: sdpa(q2, k2, v2))
         del q2, k2, v2, wmask
         n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 \
             + lse.numel() * 4
         w = S if window is None else window
-        pairs = sum(min(i + 1, w) for i in range(S))   # causal, in window
+        pairs = (sum(min(i + 1, w) for i in range(S)) if causal
+                 else S * S)                  # causal, in window; or all
         n_ops = 4 * B * H * D * pairs
         b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
         print(f"[flash] {label} (B={B}, S={S}, H={H}, Hkv={Hkv}, D={D}, "
-              f"window {window}): "
+              f"window {window}, causal={causal}): "
               f"max_abs_err={err:.3e} ({share:.2f} of the limit; lse "
               f"{lse_err:.2e}) "
               f"grad max_abs_err {g_err} kernel_ms={ms:.4f} "
@@ -1691,6 +1826,15 @@ def check_outputs(run, outs, n_req=N_REQ, max_new=MAX_NEW):
         if not (1 <= o.num_tokens <= max_new and np.isfinite(lp).all()
                 and (lp <= 1e-6).all()):
             raise AssertionError(f"{run}: rid {o.rid} output malformed")
+
+
+def frontend_of(frontends, i, dev=None):
+    """Request ``i``'s frontend from ``frontends`` (None when there are
+    none), on ``dev`` when given."""
+    if frontends is None:
+        return None
+    f = frontends[i]
+    return f if dev is None else f.to(dev)
 
 
 def phase_serve(torch, dev, model, params):
@@ -1772,12 +1916,12 @@ def eager_engine(*args, **kw):
 
 def serve_short(torch, dev, model, params, *, eager=False, kv="contiguous",
                 kv_dtype=None, temperature=0.0, seed=0, engine=None,
-                prompts=None, max_seq=MAX_SEQ):
-    """The first GRAPH_REQ serve prompts (or of ``prompts``) at GRAPH_NEW
-    new tokens through an engine of the serve phase's shape (``engine``,
-    reset with ``params``, or a new one, eager or not); returns the
-    outputs, the engine, the launch counts, ms per decode step and the
-    wall time."""
+                prompts=None, max_seq=MAX_SEQ, frontends=None):
+    """The first GRAPH_REQ serve prompts (or of ``prompts``, with
+    ``frontends``) at GRAPH_NEW new tokens through an engine of the serve
+    phase's shape (``engine``, reset with ``params``, or a new one, eager
+    or not); returns the outputs, the engine, the launch counts, ms per
+    decode step and the wall time."""
     from repro_torch.rl.rollout import run_requests
     from repro_torch.serve import Engine, EngineConfig, Request
 
@@ -1799,7 +1943,8 @@ def serve_short(torch, dev, model, params, *, eager=False, kv="contiguous",
     prompts = prompts[:GRAPH_REQ]
     t0 = time.perf_counter()
     outs = run_requests(engine, (Request(rid=i, prompt=p,
-                                         max_new_tokens=GRAPH_NEW)
+                                         max_new_tokens=GRAPH_NEW,
+                                         frontend=frontend_of(frontends, i))
                                  for i, p in enumerate(prompts)))
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -1944,6 +2089,8 @@ def phase_trace(torch, dev, model, params, closed_rate: float) -> dict:
 
 
 ELASTIC_LADDER = (2, 4, 8)     # the elastic phase's slot ladder
+ELASTIC_LADDER_16 = (4, 8, 16)  # its second ladder, across 16 slots
+ELASTIC_GAP_16 = 0.02          # arrivals that push that ladder to 16
 ELASTIC_GAP = 0.05             # seconds between its requests' arrivals
 ELASTIC_CALM_GAP = 0.3         # arrivals the ladder absorbs (sub-saturation)
 ELASTIC_TPT_GATE = 1.2         # elastic time per token over the static one
@@ -2053,7 +2200,8 @@ def phase_elastic(torch, dev, model, params) -> tuple:
         resizes.append(t)
         return new
 
-    def run(shed=False, deadline_s=2.0, gap=ELASTIC_GAP):
+    def run(shed=False, deadline_s=2.0, gap=ELASTIC_GAP,
+            ladder=ELASTIC_LADDER):
         resizes.clear()
         retired.clear()
         ticks.clear()
@@ -2065,7 +2213,7 @@ def phase_elastic(torch, dev, model, params) -> tuple:
         try:
             rep = serve_elastic(ARCH, prompts, model=model, params=params,
                                 max_new=MAX_NEW, spec=spec,
-                                ladder=ELASTIC_LADDER, shed=shed,
+                                ladder=ladder, shed=shed,
                                 deadline_s=deadline_s, arrival_gap_s=gap,
                                 max_seq_len=MAX_SEQ, device=dev)
         finally:
@@ -2156,6 +2304,8 @@ def phase_elastic(torch, dev, model, params) -> tuple:
         "held_bytes": held, "single_engine_bytes": single,
         "pool_bytes": pool, "launches": counts, "by_rung": split}
     del rep, eng, outs
+    res["grow16"] = ladder16(torch, dev, model, params, prompts, ref,
+                             static_tpt, run, resizes, ticks, total)
     # admission armed at the launcher's deadline, at arrivals the ladder
     # absorbs: a warm or resized engine's time per token must not shed
     rep, eng, counts, _ = run(shed=True, deadline_s=2.0,
@@ -2244,6 +2394,69 @@ def phase_elastic(torch, dev, model, params) -> tuple:
     router.reset()
     del router, outs
     return total, res
+
+
+def ladder16(torch, dev, model, params, prompts, ref, static_tpt, run,
+             resizes, ticks, total) -> dict:
+    """The elastic phase's second ladder, ELASTIC_LADDER_16 (paged bf16,
+    arrivals ELASTIC_GAP_16 apart, so that it reaches 16 slots), and a
+    static engine of 16 slots, each against the static engine of SLOTS
+    slots (``ref``): the divergent requests (tokens, and logprobs bit for
+    bit) and their top-2 gaps; every run must equal ``ref`` bit for bit.
+    ms per decode step by rung and of both static engines."""
+    from repro_torch.serve import Engine, EngineConfig
+
+    static = Engine(model, params, EngineConfig(
+        num_slots=16, max_seq_len=MAX_SEQ, kv_layout="paged"), device=dev)
+    static.warm_up()
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    ref16, _, _ = drive(torch, static, prompts)
+    add_counts(total, {k: f.launches for k, f in fns.items()})
+    sm = static.metrics()
+    tpt16 = sm.decode_time_s / max(sm.steps, 1)
+    del static
+    rep, eng, counts, _ = run(gap=ELASTIC_GAP_16, ladder=ELASTIC_LADDER_16)
+    e = rep["elastic"]
+    outs = rep["outputs"]
+    check_outputs("elastic 16", outs)
+    top = max(c[1] for c in e["capacity_log"])
+    res = {"ladder": ELASTIC_LADDER_16, "gap_s": ELASTIC_GAP_16,
+           "resize_log": e["resize_log"], "largest_rung": top,
+           "by_rung": tick_split(ticks), "resizes": list(resizes),
+           "static16_ms_per_step": tpt16 * 1e3,
+           "static_ms_per_step": static_tpt * 1e3}
+    bad = []
+    for name, got in (("static 16", ref16), ("elastic 4/8/16", outs)):
+        tok = [o.rid for o, r in zip(got, ref) if o.tokens != r.tokens]
+        lp = [o.rid for o, r in zip(got, ref) if not np.array_equal(
+            np.asarray(o.logprobs, np.float32),
+            np.asarray(r.logprobs, np.float32))]
+        d = divergence(torch, dev, model, params, got, ref)
+        res[name] = {"tokens_differ": tok, "logprobs_differ": lp,
+                     "diverged": d["diverged"],
+                     "max_abs_diff": d["max_abs_diff"]}
+        print(f"[elastic] {name} against the static {SLOTS}-slot engine: "
+              f"{len(tok)} of {N_REQ} requests with other tokens {tok}, "
+              f"{len(lp)} with other logprobs; (rid: position, top-2 gap) "
+              + (", ".join(f"{k}: {v['at']}, {v['top2_gap']:.4f}"
+                           for k, v in d["diverged"].items()) or "none")
+              + f"; max |logprob diff| before any divergence "
+              f"{d['max_abs_diff']:.4e}")
+        if tok or lp:
+            bad.append(name)
+    print(f"[elastic] ladder {ELASTIC_LADDER_16}, arrivals {ELASTIC_GAP_16}s "
+          f"apart: largest rung {top}, {e['resizes']} resizes "
+          f"{e['resize_log']}; ms per decode step by rung: "
+          f"{split_line(res['by_rung'])}; static 16 slots "
+          f"{tpt16 * 1e3:.3f}, static {SLOTS} {static_tpt * 1e3:.3f}")
+    if bad or top != ELASTIC_LADDER_16[-1]:
+        raise AssertionError(f"elastic 16: {bad} not bit for bit with the "
+                             f"static {SLOTS}-slot engine, or the ladder "
+                             f"topped at {top}")
+    del rep, eng, outs, ref16
+    return res
 
 
 def token_share_reward(vocab_size: int):
@@ -3028,9 +3241,11 @@ def blocks_copy(torch, eng, ids):
             if name in eng.slots.paged_names or name.endswith(SCALE_SUFFIX)}
 
 
-def drive(torch, eng, prompts, *, max_new=None, after_first=None):
-    """``prompts`` through ``eng`` (an engine or a router), all arriving at
-    the start, ``max_new`` (default MAX_NEW) tokens each;
+def drive(torch, eng, prompts, *, max_new=None, after_first=None,
+          frontends=None):
+    """``prompts`` (with ``frontends``) through ``eng`` (an engine or a
+    router), all arriving at the start, ``max_new`` (default MAX_NEW)
+    tokens each;
     ``after_first(eng)`` runs after the first tick.  Returns the outputs
     in rid order, the wall seconds and the mean TTFT (the engine's clock
     stamps first tokens)."""
@@ -3038,7 +3253,8 @@ def drive(torch, eng, prompts, *, max_new=None, after_first=None):
 
     from repro_torch.serve import Request
     max_new = MAX_NEW if max_new is None else max_new
-    pending = deque(Request(rid=i, prompt=p, max_new_tokens=max_new)
+    pending = deque(Request(rid=i, prompt=p, max_new_tokens=max_new,
+                            frontend=frontend_of(frontends, i))
                     for i, p in enumerate(prompts))
     t0 = time.perf_counter()
     eng.clock = lambda: time.perf_counter() - t0
@@ -3089,9 +3305,18 @@ def serve_launches(cfg, counts, attn, steps, model_prefills):
     per model prefill (an exact radix hit and an adoption run none) a
     recurrent model's scan once a layer and flash once an attention layer
     (every layer of a dense model, each shared-block use of zamba2's, none
-    of rwkv6's); the layout's decode kernel ``attn`` once an attention
-    layer per decode step."""
+    of rwkv6's; whisper's decoder and encoder layers); the layout's decode
+    kernel ``attn`` once an attention layer per decode step, and for
+    whisper the contiguous kernel once a layer more (its
+    cross-attention)."""
     want = {k: 0 for k in counts}
+    if cfg.family == "audio":
+        want["flash_attention"] = (cfg.num_layers + cfg.encoder_layers) \
+            * model_prefills
+        want[attn] += cfg.num_layers * steps
+        want["decode_attention"] += cfg.num_layers * steps
+        want["greedy_sample"] = steps
+        return want
     if cfg.family == "hybrid":
         uses = cfg.num_layers // cfg.hybrid_attn_every
         want["mamba2_scan"] = cfg.num_layers * model_prefills
@@ -4320,7 +4545,8 @@ def phase_serve_rwkv6(torch, dev):
 
 
 def prefill_decode_check(torch, dev, model, params, outs, phase, label,
-                         tol, *, plain=None, max_seq=MAX_SEQ):
+                         tol, *, plain=None, max_seq=MAX_SEQ,
+                         frontends=None):
     """Prefill ``prompt + completion[:n]`` again for 4 full completions at
     n in RECHECK_AT and compare the log-probability of ``completion[n]``
     with the engine's (decode) one: the mean of exp(diff) must lie within
@@ -4344,8 +4570,9 @@ def prefill_decode_check(torch, dev, model, params, outs, phase, label,
                 seq = np.concatenate([o.prompt, np.asarray(o.tokens[:n],
                                                            np.int32)])
                 tokens = torch.from_numpy(seq).to(dev)[None]
-                logits, _ = model.prefill(params, tokens, model.init_cache(
-                    1, max_seq, device=dev))
+                logits, _ = model.prefill(
+                    params, tokens, model.init_cache(1, max_seq, device=dev),
+                    frontend=frontend_of(frontends, o.rid, dev))
                 lps = torch.log_softmax(logits[0], -1)
                 lp = float(lps[o.tokens[n]])
                 out.append(lp - o.logprobs[n])
@@ -4497,11 +4724,12 @@ PAGED32_TOL = 1e-4     # the same in float32, every logprob
 
 
 def divergence(torch, dev, model, params, outs, ref,
-               max_seq=MAX_SEQ) -> dict:
+               max_seq=MAX_SEQ, frontends=None) -> dict:
     """Where each request of ``outs`` first leaves ``ref`` (a run on the
     contiguous layout): the logprob differences before that point and, for
     each divergent request, the top-2 gap of ``ref``'s logits there (a
-    prefill of prompt + ``ref``'s tokens before it)."""
+    prefill of prompt + ``ref``'s tokens before it, with the request's
+    frontend)."""
     diffs, diverged = [], {}
     for o, r in zip(outs, ref):
         n = next((i for i, (a, b) in enumerate(zip(o.tokens, r.tokens))
@@ -4511,8 +4739,10 @@ def divergence(torch, dev, model, params, outs, ref,
         if n < min(len(o.tokens), len(r.tokens)):
             seq = np.concatenate([r.prompt, np.asarray(r.tokens[:n],
                                                        np.int32)])
-            logits, _ = model.prefill(params, torch.from_numpy(seq).to(dev)[
-                None], model.init_cache(1, max_seq, device=dev))
+            logits, _ = model.prefill(
+                params, torch.from_numpy(seq).to(dev)[None],
+                model.init_cache(1, max_seq, device=dev),
+                frontend=frontend_of(frontends, o.rid, dev))
             top = torch.topk(logits[0].float(), 2).values
             diverged[o.rid] = {"at": n, "top2_gap": float(top[0] - top[1])}
     diffs = np.asarray(diffs)
@@ -4696,11 +4926,11 @@ def phase_prefix_sharing(torch, dev, model, params, phase, *, prompts=None,
 
 
 def phase_router(torch, dev, model, params, phase, *, prompts=None,
-                 max_seq=MAX_SEQ) -> tuple:
+                 max_seq=MAX_SEQ, frontends=None) -> tuple:
     """A router of PD_PREFILL prefill and PD_DECODE decode slots on paged
     KV against a monolithic paged engine of PD_DECODE slots, bit for bit,
-    over the serve prompts (or ``prompts``); every handle released, both
-    pools clean."""
+    over the serve prompts (or ``prompts``, with ``frontends``); every
+    handle released, both pools clean."""
     from repro_torch.serve import (DisaggConfig, DisaggRouter, Engine,
                                    EngineConfig)
 
@@ -4712,12 +4942,12 @@ def phase_router(torch, dev, model, params, phase, *, prompts=None,
     mono = Engine(model, params, EngineConfig(
         num_slots=PD_DECODE, max_seq_len=max_seq, kv_layout="paged"),
         device=dev)
-    ref, mwall, _ = drive(torch, mono, prompts)
+    ref, mwall, _ = drive(torch, mono, prompts, frontends=frontends)
     del mono
     router = DisaggRouter(model, params, DisaggConfig(
         prefill_slots=PD_PREFILL, decode_slots=PD_DECODE,
         max_seq_len=max_seq, kv_layout="paged"), device=dev)
-    outs, wall, _ = drive(torch, router, prompts)
+    outs, wall, _ = drive(torch, router, prompts, frontends=frontends)
     m = router.metrics()
     if not same_outputs(outs, ref) or m.transfers != len(prompts) \
             or router.decode.captures != int(dev.type == "cuda"):
@@ -4769,7 +4999,7 @@ def weight_bound_ms(params) -> float:
 
 
 def serve_layouts(torch, dev, model, params, arch, prompts, phase, *,
-                  layouts, slots, max_new, max_seq) -> tuple:
+                  layouts, slots, max_new, max_seq, frontends=None) -> tuple:
     """``prompts`` through ``serve_continuous`` on each layout: exact
     launches, finished outputs; tok/s, ms per decode step against the
     weight-bytes bound, peak memory.  Every layout after the first is held
@@ -4793,7 +5023,7 @@ def serve_layouts(torch, dev, model, params, arch, prompts, phase, *,
         rep = serve_continuous(arch, prompts, model=model, params=params,
                                max_new=max_new, num_slots=slots, kv=kv,
                                kv_dtype=kv_dtype, max_seq_len=max_seq,
-                               device=dev)
+                               device=dev, frontends=frontends)
         counts = {k: f.launches for k, f in fns.items()}
         peak = torch.cuda.max_memory_allocated()
         steps, outs = rep["decode_steps"], rep["outputs"]
@@ -4816,7 +5046,8 @@ def serve_layouts(torch, dev, model, params, arch, prompts, phase, *,
         if base is None:
             base = outs
         else:
-            d = divergence(torch, dev, model, params, outs, base, max_seq)
+            d = divergence(torch, dev, model, params, outs, base, max_seq,
+                           frontends)
             first = all(o.tokens[0] == c.tokens[0] and o.logprobs[0]
                         == c.logprobs[0] for o, c in zip(outs, base))
             if not first or abs(d["ratio_mean"] - 1) > PAGED_BF16_TOL:
@@ -4903,11 +5134,11 @@ def phase_serve_gemma3(torch, dev):
 
 
 def float32_check(torch, dev, model, params, arch, prompts, phase, *,
-                  max_seq) -> tuple:
-    """The same weights upcast to float32: ``prompts`` served on
-    contiguous KV (4 slots, MAX_NEW new tokens), decode held to prefill by
-    ``prefill_decode_check`` within DENSE32_TOL.  Returns the launch
-    counts and its report."""
+                  max_seq, frontends=None) -> tuple:
+    """The same weights upcast to float32: ``prompts`` (with
+    ``frontends``) served on contiguous KV (4 slots, MAX_NEW new tokens),
+    decode held to prefill by ``prefill_decode_check`` within DENSE32_TOL.
+    Returns the launch counts and its report."""
     from repro_torch.launch.serve import serve_continuous
     from repro_torch.models import build_model
 
@@ -4919,11 +5150,12 @@ def float32_check(torch, dev, model, params, arch, prompts, phase, *,
         f.launches = 0
     rep32 = serve_continuous(arch, prompts, model=m32, params=p32,
                              max_new=MAX_NEW, num_slots=4, kv="contiguous",
-                             max_seq_len=max_seq, device=dev)
+                             max_seq_len=max_seq, device=dev,
+                             frontends=frontends)
     check_outputs(f"{phase} float32", rep32["outputs"], len(prompts))
     res = prefill_decode_check(torch, dev, m32, p32, rep32["outputs"],
                                phase, "float32", DENSE32_TOL,
-                               max_seq=max_seq)
+                               max_seq=max_seq, frontends=frontends)
     counts = {k: f.launches for k, f in fns.items()}
     del rep32, p32, m32
     torch.cuda.empty_cache()
@@ -5024,6 +5256,217 @@ def phase_serve_dense(torch, dev, arch) -> tuple:
     return counts, res
 
 
+VLM_ARCH, WHISPER_ARCH = "qwen2-vl-7b", "whisper-tiny"
+VLM_REQ = 8            # qwen2-vl requests, each prompt past its 256 images
+FRONTEND_NEW = MAX_NEW
+SUSPEND_AT = 16        # ticks before the frontend phases' suspension
+
+
+def vlm_prompts(vocab_size, n=VLM_REQ):
+    """``n`` prompts of 264-512 ids from ``RandomState(0)``: each longer
+    than qwen2-vl's 256 image positions, so that text follows the grid."""
+    rs = np.random.RandomState(0)
+    return [rs.randint(0, vocab_size, size=int(k)).astype(np.int32)
+            for k in rs.randint(264, 513, size=n)]
+
+
+def seeded_frontends(torch, dev, cfg, n, seed):
+    """``n`` frontends ``(1, F, d_model)`` of N(0, 1) from a generator
+    seeded with ``seed``, in the model dtype: a vlm's
+    ``num_frontend_tokens`` vision embeddings, an audio model's
+    ``max_source_len`` frames."""
+    from repro_torch.models.common import torch_dtype
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    F = (cfg.max_source_len if cfg.frontend == "audio"
+         else cfg.num_frontend_tokens)
+    return [torch.randn(1, F, cfg.d_model, generator=g, device=dev).to(
+        torch_dtype(cfg.dtype)) for _ in range(n)]
+
+
+def seed_biases(torch, dev, params, seed):
+    """Seeded N(0, 0.02) values in every bias of ``params`` (QKV, MLP and
+    LayerNorm biases, which the init zeroes), in place: random weights
+    whose biases move the output as trained ones do."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def walk(tree):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
+            if isinstance(v, (dict, list)):
+                walk(v)
+            elif k in ("bq", "bk", "bv", "bi", "bo", "b"):
+                v.copy_(0.02 * torch.randn(v.shape, generator=g,
+                                           device=dev))
+    walk(params)
+
+
+def frontend_suspend_check(torch, dev, model, params, prompts, frontends,
+                           ref, phase) -> dict:
+    """The paged run again with request 0 suspended after SUSPEND_AT ticks,
+    held SUSPEND_AT ticks while the others decode, then resumed: every
+    request bit for bit with ``ref`` (the uninterrupted contiguous run,
+    which the paged one equals bit for bit)."""
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    eng = Engine(model, params, EngineConfig(
+        num_slots=SLOTS, max_seq_len=MAX_SEQ, kv_layout="paged"), device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=FRONTEND_NEW,
+                           frontend=frontends[i]))
+    for _ in range(SUSPEND_AT):
+        eng.step()
+    sreq = eng.suspend(0)
+    for _ in range(SUSPEND_AT):
+        eng.step()
+    while not eng.can_resume(sreq):
+        eng.step()
+    eng.resume(sreq, (), continue_output=True)
+    eng.run()
+    outs = [eng.finished[r] for r in sorted(eng.finished)]
+    if not same_outputs(outs, ref):
+        raise AssertionError(f"{phase}: a suspended and resumed frontend "
+                             f"request differs from the uninterrupted run")
+    eng.slots.check()
+    print(f"[{phase}] rid 0 suspended after {SUSPEND_AT} ticks, held "
+          f"{SUSPEND_AT}, resumed (paged, its frontend's KV carried): every "
+          f"request bit for bit with the uninterrupted run; "
+          f"{eng.captures} capture(s)")
+    return {"suspended_at_tick": SUSPEND_AT, "captures": eng.captures}
+
+
+def phase_serve_frontend(torch, dev, arch) -> tuple:
+    """qwen2-vl-7b (VLM_REQ prompts of 264-512 ids, each with its own
+    seeded 256 vision embeddings) or whisper-tiny (the N_REQ serve
+    prompts, each with its own seeded 1500 frames) at full width and
+    depth, seeded biases: every layout through the engine (exact launches;
+    paged bf16 bit for bit with contiguous, int8 reported), the graph
+    against eager on every layout, radix sharing on (no hit, tokens equal
+    to off), one prompt under two frontends (tokens differ), a router bit
+    for bit, one suspend and resume bit for bit, float32 prefill against
+    decode; whisper's device events a decode step (``profile_step``)."""
+    from repro_torch.launch.serve import serve_continuous
+
+    phase = f"serve-{arch}"
+    model, params = build(torch, dev, arch)
+    seed_biases(torch, dev, params, 3)
+    cfg = model.cfg
+    audio = cfg.family == "audio"
+    prompts = (serve_prompts(cfg.vocab_size) if audio
+               else vlm_prompts(cfg.vocab_size))
+    frontends = seeded_frontends(torch, dev, cfg, len(prompts), 4)
+    counts, layouts, base = serve_layouts(
+        torch, dev, model, params, arch, prompts, phase,
+        layouts=(("contiguous", None), ("paged", None), ("paged", "int8")),
+        slots=SLOTS, max_new=FRONTEND_NEW, max_seq=MAX_SEQ,
+        frontends=frontends)
+    if not layouts["paged"]["bit_for_bit"]:
+        raise AssertionError(f"{phase}: paged bf16 differs from contiguous")
+    if all(len(set(o.tokens)) == 1 for o in base):
+        raise AssertionError(f"{phase}: every request repeats one token")
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    graph = {run: graph_vs_eager(torch, dev, model, params, phase, run,
+                                 kv=kv, kv_dtype=kv_dtype, prompts=prompts,
+                                 frontends=frontends)
+             for run, kv, kv_dtype in (("contiguous", "contiguous", None),
+                                       ("paged", "paged", None),
+                                       ("paged-int8", "paged", "int8"))}
+    add_counts(counts, {k: f.launches for k, f in fns.items()})
+    # radix sharing on: frontend requests bypass the tree
+    for f in fns.values():
+        f.launches = 0
+    rep = serve_continuous(arch, prompts, model=model, params=params,
+                           max_new=FRONTEND_NEW, num_slots=SLOTS, kv="paged",
+                           prefix_share=True, max_seq_len=MAX_SEQ,
+                           device=dev, frontends=frontends)
+    add_counts(counts, {k: f.launches for k, f in fns.items()})
+    tree = len(rep["engine"].radix)
+    if (rep["prefix_hits"], rep["prefix_partial_hits"], tree) != (0, 0, 0) \
+            or not same_outputs(rep["outputs"], base):
+        raise AssertionError(f"{phase}: radix on: {rep['prefix_hits']} "
+                             f"hits, {rep['prefix_partial_hits']} partial, "
+                             f"{tree} entries, or tokens differ from off")
+    print(f"[{phase}] radix sharing on (paged): 0 hits, 0 partial, nothing "
+          f"registered; bit for bit with sharing off")
+    del rep
+    # one prompt under two frontends
+    for f in fns.values():
+        f.launches = 0
+    pair = serve_continuous(arch, [prompts[0], prompts[0]], model=model,
+                            params=params, max_new=FRONTEND_NEW,
+                            num_slots=2, max_seq_len=MAX_SEQ, device=dev,
+                            frontends=frontends[:2])["outputs"]
+    add_counts(counts, {k: f.launches for k, f in fns.items()})
+    if pair[0].tokens == pair[1].tokens or pair[0].tokens != base[0].tokens:
+        raise AssertionError(f"{phase}: one prompt under two frontends gives "
+                             f"the same tokens, or not the served ones")
+    differ = sum(a != b for a, b in zip(pair[0].tokens, pair[1].tokens))
+    print(f"[{phase}] rid 0's prompt under frontends 0 and 1: {differ} of "
+          f"{len(pair[0].tokens)} tokens differ; frontend 0's are the "
+          f"served ones")
+    router_counts, router = phase_router(torch, dev, model, params, phase,
+                                         prompts=prompts, frontends=frontends)
+    add_counts(counts, router_counts)
+    for f in fns.values():
+        f.launches = 0
+    suspend = frontend_suspend_check(torch, dev, model, params, prompts,
+                                     frontends, base, phase)
+    add_counts(counts, {k: f.launches for k, f in fns.items()})
+    f32_counts, f32 = float32_check(torch, dev, model, params, arch,
+                                    prompts[:4], phase, max_seq=MAX_SEQ,
+                                    frontends=frontends)
+    add_counts(counts, f32_counts)
+    report = {"prompt_lengths": [len(p) for p in prompts],
+              "layouts": layouts, "graph_vs_eager": graph,
+              "frontend_pair_tokens_differing": differ, "router": router,
+              "suspend": suspend, "prefill_decode_float32": f32,
+              "launches": counts}
+    if audio:
+        report["decode_step_profile"] = whisper_step_profile(
+            torch, dev, model, params, layouts)
+    del model, params, base
+    return counts, report
+
+
+def whisper_step_profile(torch, dev, model, params, layouts) -> dict:
+    """whisper-tiny's kernel decode step of SLOTS slots at position 300
+    (contiguous, cross leaves over 1500 frames) under ``torch.profiler``
+    (``profile_step.profile_calls``): device events a step and device-busy
+    ms, against the weight-bytes bound and the served ms a step."""
+    import profile_step
+
+    pool = model.init_cache(SLOTS, MAX_SEQ, device=dev)
+    pool["index"] = torch.full((SLOTS,), 300, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    tok = torch.randint(0, model.cfg.vocab_size, (SLOTS, 1), device=dev,
+                        generator=g)
+
+    def step():
+        pool["index"].fill_(300)
+        return model.kernel_decode_step(params, tok, pool)
+    res = profile_step.profile_calls(torch, step)
+    bound_ms = weight_bound_ms(params)
+    cross = sum(pool[n].numel() * pool[n].element_size()
+                for n in ("cross_k", "cross_v")) / SLOTS
+    served = layouts["contiguous"]["ms_per_decode_step"]
+    ev = res["device_events"]
+    print(f"[serve-{WHISPER_ARCH}] eager decode step of {SLOTS} slots at "
+          f"position 300: {ev if ev is None else f'{ev:.0f}'} device events "
+          f"a step, device-busy "
+          + ("not measured" if res["device_busy_ms"] is None else
+             f"{res['device_busy_ms']:.3f} ms")
+          + f" in {res['wall_ms']:.3f} ms wall; served (graph) "
+          f"{served:.3f} ms a step against the {bound_ms:.4f} ms weight-bytes "
+          f"bound ({served / bound_ms:.1f}x); cross K/V "
+          f"{cross / 1e6:.2f} MB a slot; decode attention "
+          f"{res['matched']['decode attention'] if res['matched'] else None}")
+    del pool
+    return dict(res, weight_bound_ms=bound_ms, cross_bytes_per_slot=cross,
+                served_ms_per_step=served)
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -5086,6 +5529,44 @@ SOURCES = {
 }
 
 
+ONLY_PHASES = ("kernels", "elastic", f"serve-{VLM_ARCH}",
+               f"serve-{WHISPER_ARCH}")
+
+
+def run_only(torch, dev, phases, t0) -> int:
+    """``--only``: the named phases of ONLY_PHASES, in that order, and
+    their numbers in ``chiprun_out/chip_smoke_only.json``; no result
+    line."""
+    bad = sorted(set(phases) - set(ONLY_PHASES))
+    if bad:
+        raise SystemExit(f"chip_smoke: unknown phases {bad}; choose from "
+                         f"{ONLY_PHASES}")
+    res = {}
+    if "kernels" in phases:
+        timer = Timer(torch, dev)
+        res["kernels"] = phase_kernels(torch, dev, timer)
+        res["flash"] = phase_flash(torch, dev, timer)
+        del timer
+    if "elastic" in phases:
+        model, params = build(torch, dev)
+        res["elastic"] = phase_elastic(torch, dev, model, params)[1]
+        del model, params
+    for arch in (VLM_ARCH, WHISPER_ARCH):
+        if f"serve-{arch}" in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            res[arch] = phase_serve_frontend(torch, dev, arch)[1]
+    smi = card_line()
+    print(f"[smoke] phases {phases} passed in "
+          f"{time.perf_counter() - t0:.1f}s ({smi})")
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_only.json"), "w") as f:
+        json.dump({"card": smi, **res}, f, indent=1, default=str)
+    print(smi)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke of the port.")
@@ -5095,6 +5576,10 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=None,
                     help="with --kernels-only: the src directory whose "
                          "repro_torch to time (another checkout's)")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run after the build, "
+                         "of " + ", ".join(ONLY_PHASES) + " (no result "
+                         "line): a quicker check of a few phases")
     args = ap.parse_args(argv)
     if args.src:
         if not args.kernels_only:
@@ -5109,15 +5594,34 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    phase_s = {}
+    last = [t0]
+
+    def lap(name):
+        """Print the host seconds since the previous lap; keep them in
+        ``phase_s`` under ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+        print(f"[smoke] {name} took {phase_s[name]:.1f}s", flush=True)
+
     libs = _build.build_all()
     print(f"[build] {len(libs)} kernel libraries built for sm_90a in "
           f"{time.perf_counter() - t0:.1f}s from {_build.CSRC}")
+    if args.only:
+        return run_only(torch, dev, args.only.split(","), t0)
+    lap("build_all")
     timer = Timer(torch, dev)
     rows = phase_kernels(torch, dev, timer)
+    lap("phase_kernels")
     rows["rwkv6_scan"] = phase_scan(torch, dev, timer)
+    lap("phase_scan")
     rows["mamba2_scan"] = phase_mamba2_scan(torch, dev, timer)
+    lap("phase_mamba2_scan")
     rows["topk"] = phase_topk(torch, dev, timer)
+    lap("phase_topk")
     rows["flash_attention"] = phase_flash(torch, dev, timer)
+    lap("phase_flash")
     del timer
     if args.kernels_only:
         smi = card_line()
@@ -5131,53 +5635,78 @@ def main(argv=None) -> int:
         return 0
     torch.cuda.empty_cache()
     model, params = build(torch, dev)
+    lap("build internlm2")
     init_params = _tree_map(lambda t: t.clone(), params)
     launches, serve = phase_serve(torch, dev, model, params)
+    lap("phase_serve")
     graph = phase_graph(torch, dev, model, params)
+    lap("phase_graph")
     trace = phase_trace(torch, dev, model, params,
                         N_REQ / serve["contiguous"]["wall_s"])
+    lap("phase_trace")
     torch.cuda.empty_cache()
     elastic_launches, elastic = phase_elastic(torch, dev, model, params)
+    lap("phase_elastic")
     torch.cuda.empty_cache()
     suspend_launches, suspend = phase_suspend(torch, dev, model, params)
+    lap("phase_suspend")
     agentic_launches, agentic = phase_agentic(torch, dev, model, params)
+    lap("phase_agentic")
     torch.cuda.empty_cache()
     carry_launches, carry = phase_carry(torch, dev, model, params,
                                         init_params)
+    lap("phase_carry")
     torch.cuda.empty_cache()
     static_launches, static = phase_static(torch, dev, model, params,
                                            init_params)
+    lap("phase_static")
     torch.cuda.empty_cache()
     prefix_launches, prefix = phase_prefix(torch, dev, model, params)
+    lap("phase_prefix")
     torch.cuda.empty_cache()
     disagg_launches, disagg = phase_disagg(torch, dev, model, params)
+    lap("phase_disagg")
     torch.cuda.empty_cache()
     train_prefix_launches, train_prefix = phase_train_prefix(
         torch, dev, model, init_params)
+    lap("phase_train_prefix")
     torch.cuda.empty_cache()
     train_launches, train = phase_train(torch, dev, model, params)
+    lap("phase_train")
     del params
     torch.cuda.empty_cache()
     mux_launches_, mux = phase_mux(torch, dev, model, init_params)
+    lap("phase_mux")
     del model, init_params
     torch.cuda.empty_cache()
     rwkv_launches, serve_rwkv6 = phase_serve_rwkv6(torch, dev)
+    lap("phase_serve_rwkv6")
     torch.cuda.empty_cache()
     zamba_launches, serve_zamba2 = phase_serve_zamba2(torch, dev)
+    lap("phase_serve_zamba2")
     gc.collect()
     torch.cuda.empty_cache()
     gemma_launches, serve_gemma3 = phase_serve_gemma3(torch, dev)
+    lap("phase_serve_gemma3")
+    frontend_counts, serve_frontend = {}, {}
+    for arch in (VLM_ARCH, WHISPER_ARCH):
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts, serve_frontend[arch] = phase_serve_frontend(torch, dev, arch)
+        lap(f"phase_serve_frontend {arch}")
+        add_counts(frontend_counts, counts)
     dense_counts, serve_dense = {}, {}
     for arch in DENSE_ARCHS:        # qwen2.5-32b last: 65.5 GB of weights
         gc.collect()
         torch.cuda.empty_cache()
         counts, serve_dense[arch] = phase_serve_dense(torch, dev, arch)
+        lap(f"phase_serve_dense {arch}")
         add_counts(dense_counts, counts)
     for counts in (elastic_launches, suspend_launches, agentic_launches,
                    carry_launches, static_launches, prefix_launches,
                    disagg_launches, train_prefix_launches, train_launches,
                    mux_launches_, rwkv_launches, zamba_launches,
-                   gemma_launches, dense_counts):
+                   gemma_launches, frontend_counts, dense_counts):
         add_counts(launches, counts)
     launches["topk"] = launches["topk_values"] + launches["topk_mask"]
     smi = card_line()
@@ -5207,7 +5736,9 @@ def main(argv=None) -> int:
                    "train_prefix": train_prefix, "total_s": total_s,
                    "train": train, "mux": mux, "serve_rwkv6": serve_rwkv6,
                    "serve_zamba2": serve_zamba2,
-                   "serve_gemma3": serve_gemma3, "serve_dense": serve_dense},
+                   "serve_gemma3": serve_gemma3,
+                   "serve_frontend": serve_frontend, "phase_s": phase_s,
+                   "serve_dense": serve_dense},
                   f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -30,7 +30,27 @@ keepdim, in float32); the script swaps it in and measures:
    tokens through 2 and 4 slots against 8: the rids whose greedy tokens
    differ.
 
-Writes ``chiprun_out/norm_rows.json``.  Needs a CUDA card.
+5. decode rows — ``stacks_infer.DECODE_ROWS`` at 1 (the step on its live
+   rows only) and at 16 (norms, products and logits on at least 16
+   rows), each with the greedy kernel's cluster chosen by the row count
+   (``sampling.greedy_cluster``) and with the cluster of 16 rows at every
+   row count: internlm2-1.8b paged bf16, the 16 serve prompts at 128 new
+   tokens through 2, 4 and 16 slots against 8: the rids whose tokens
+   differ and those whose log-probabilities differ, bit for bit; and ms
+   per decode step at 8 and 16 slots (contiguous and paged, 8 and 16
+   requests x 64 new tokens), each variant in order and again in reverse.
+   Then the cost of the committed variant (``rows16-cluster16``) against
+   the step on its live rows (``rows1``) on the other served dense models
+   at the smoke's slot counts (contiguous, requests x 64 new tokens, in
+   order and in reverse): gemma3-4b and qwen2-vl-7b (text prompts) at 8
+   slots, minitron-8b and qwen2.5-32b at 4, and whisper-tiny at 8 (zero
+   frames).
+
+    python3 norm_rows.py --decode-rows [--models-only]
+
+runs section 5 alone (``--models-only``: its timing of the other
+models).  Writes ``chiprun_out/norm_rows.json`` (with
+``--decode-rows``, ``chiprun_out/decode_rows.json``).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -193,6 +213,123 @@ def check_slots(torch, dev, model, params, fns) -> dict:
     return out
 
 
+def decode_row_variants() -> dict:
+    """(DECODE_ROWS, greedy cluster rule) by name."""
+    from repro_torch.kernels import sampling
+    by_rows = sampling.greedy_cluster
+
+    def fixed(B):
+        return by_rows(max(B, 16))
+    return {"rows1": (1, by_rows), "rows1-cluster16": (1, fixed),
+            "rows16": (16, by_rows), "rows16-cluster16": (16, fixed)}
+
+
+def check_decode_rows(torch, dev, model, params) -> dict:
+    from repro_torch.kernels import sampling
+    from repro_torch.models import stacks_infer
+    rows0, cluster0 = stacks_infer.DECODE_ROWS, sampling.greedy_cluster
+    prompts = chip_smoke.serve_prompts(model.cfg.vocab_size)
+    out = {"slots": {}, "step_ms": {}}
+    variants = decode_row_variants()
+    try:
+        for name, (rows, cluster) in variants.items():
+            stacks_infer.DECODE_ROWS, sampling.greedy_cluster = rows, cluster
+            ref, _ = serve(torch, dev, model, params, prompts, MAX_NEW,
+                           SLOTS, "paged")
+            res = out["slots"][name] = {}
+            for slots in (2, 4, 16):
+                got, _ = serve(torch, dev, model, params, prompts, MAX_NEW,
+                               slots, "paged")
+                res[slots] = {
+                    "tokens": [o.rid for o, r in zip(got, ref)
+                               if o.tokens != r.tokens],
+                    "logprobs": [o.rid for o, r in zip(got, ref)
+                                 if not np.array_equal(
+                                     np.asarray(o.logprobs, np.float32),
+                                     np.asarray(r.logprobs, np.float32))]}
+            print(f"[decode-rows] {name}: {ARCH} paged bf16, {len(prompts)} "
+                  f"requests x {MAX_NEW}, rids differing from {SLOTS} "
+                  f"slots: " + "; ".join(
+                      f"{s} slots tokens {v['tokens']} logprobs "
+                      f"{v['logprobs']}" for s, v in res.items()),
+                  flush=True)
+        order = list(variants) + list(variants)[::-1]
+        for kv in ("contiguous", "paged"):
+            for slots in (SLOTS, 16):
+                key = f"{kv} {slots} slots"
+                for name in order:
+                    rows, cluster = variants[name]
+                    stacks_infer.DECODE_ROWS = rows
+                    sampling.greedy_cluster = cluster
+                    _, ms = serve(torch, dev, model, params,
+                                  prompts[:slots], STEP_NEW, slots, kv)
+                    out["step_ms"].setdefault(key, {}).setdefault(
+                        name, []).append(ms)
+                print(f"[decode-rows] {ARCH} {key}, {slots} requests x "
+                      f"{STEP_NEW} new tokens, ms per decode step (in "
+                      f"order, in reverse): " + "; ".join(
+                          f"{n} {v[0]:.4f}, {v[1]:.4f}"
+                          for n, v in out["step_ms"][key].items()),
+                      flush=True)
+    finally:
+        stacks_infer.DECODE_ROWS, sampling.greedy_cluster = rows0, cluster0
+    return out
+
+
+COST_MODELS = (("gemma3-4b", 8), ("qwen2-vl-7b", 8), ("whisper-tiny", 8),
+               ("minitron-8b", 4), ("qwen2.5-32b", 4))
+
+
+def time_decode_rows_models(torch, dev) -> dict:
+    """ms per decode step of ``rows1`` and ``rows16-cluster16`` on each of
+    COST_MODELS, one model on the card at a time."""
+    import gc
+
+    from repro_torch.kernels import sampling
+    from repro_torch.models import stacks_infer
+    from repro_torch.rl.rollout import run_requests
+    from repro_torch.serve import Engine, EngineConfig, Request
+    variants = {k: v for k, v in decode_row_variants().items()
+                if k in ("rows1", "rows16-cluster16")}
+    rows0, cluster0 = stacks_infer.DECODE_ROWS, sampling.greedy_cluster
+    out = {}
+    try:
+        for arch, slots in COST_MODELS:
+            model, params = chip_smoke.build(torch, dev, arch)
+            cfg = model.cfg
+            prompts = chip_smoke.serve_prompts(cfg.vocab_size)[:slots]
+            frames = (np.zeros((1, cfg.max_source_len, cfg.d_model),
+                               np.float32) if cfg.frontend == "audio"
+                      else None)
+            res = out[f"{arch} {slots} slots"] = {}
+            for name in list(variants) + list(variants)[::-1]:
+                stacks_infer.DECODE_ROWS, sampling.greedy_cluster = \
+                    variants[name]
+                eng = Engine(model, params, EngineConfig(
+                    num_slots=slots, max_seq_len=MAX_SEQ), device=dev)
+                eng.warm_up()
+                run_requests(eng, (Request(rid=i, prompt=p,
+                                           max_new_tokens=STEP_NEW,
+                                           frontend=frames)
+                                   for i, p in enumerate(prompts)))
+                torch.cuda.synchronize()
+                m = eng.metrics()
+                res.setdefault(name, []).append(
+                    m.decode_time_s / max(m.steps, 1) * 1e3)
+                del eng
+            print(f"[decode-rows] {arch} contiguous, {slots} slots, {slots} "
+                  f"requests x {STEP_NEW} new tokens, ms per decode step "
+                  f"(in order, in reverse): " + "; ".join(
+                      f"{n} {v[0]:.4f}, {v[1]:.4f}" for n, v in res.items()),
+                  flush=True)
+            del model, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        stacks_infer.DECODE_ROWS, sampling.greedy_cluster = rows0, cluster0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -202,6 +339,19 @@ def main() -> int:
     from repro_torch.models import common
     dev = torch.device("cuda", 0)
     _build.build_all()
+    if "--decode-rows" in sys.argv[1:]:
+        res = {"card": chip_smoke.card_line(), "torch": torch.__version__}
+        print(f"{res['card']}; torch {torch.__version__}", flush=True)
+        if "--models-only" not in sys.argv[1:]:
+            res["decode_rows"] = check_decode_rows(
+                torch, dev, *chip_smoke.build(torch, dev, ARCH))
+        res["decode_rows_models"] = time_decode_rows_models(torch, dev)
+        out_dir = os.path.join(chip_smoke.ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "decode_rows.json"), "w") as f:
+            json.dump(res, f, indent=1)
+        print(res["card"])
+        return 0
     committed = common._mean_square
     fns = variants()
     res = {"card": chip_smoke.card_line(), "torch": torch.__version__}

@@ -4,10 +4,11 @@ port's.
 The input is the JAX pytree as nested dicts of numpy arrays (``jax.tree.map
 (np.asarray, params)``), so this module needs neither JAX nor the JAX
 package.  Layer groups the JAX stack keeps stacked on axis 0 for
-``lax.scan`` (``layers``, ``dense_layers``) become Python lists of
-per-layer dicts (zamba2's ``layers`` hold ``norm`` and the nested
-``mamba`` block); unstacked groups such as zamba2's ``shared_attn`` keep
-their nesting; every array keeps its layout and dtype (zamba2's
+``lax.scan`` (``layers``, ``dense_layers``, whisper's ``cross`` and the
+``layers`` of its ``encoder``) become Python lists of per-layer dicts
+(zamba2's ``layers`` hold ``norm`` and the nested ``mamba`` block);
+unstacked groups such as zamba2's ``shared_attn`` and whisper's
+``encoder`` keep their nesting; every array keeps its layout and dtype (zamba2's
 ``A_log``, ``D`` and ``dt_bias`` stay float32 in a bf16 model).  float32 converts exactly;
 bfloat16 (numpy's ``ml_dtypes`` bfloat16) goes bit for bit through a
 ``uint16`` view into ``torch.bfloat16``.
@@ -17,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-STACKED = ("layers", "dense_layers")
+STACKED = ("layers", "dense_layers", "cross")
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
@@ -61,8 +62,12 @@ def from_jax_params(tree: dict, device="cpu") -> dict:
 
     out = {}
     for k, v in tree.items():
-        out[k] = ([conv(layer) for layer in _unstack(v)] if k in STACKED
-                  else conv(v))
+        if k in STACKED:
+            out[k] = [conv(layer) for layer in _unstack(v)]
+        elif k == "encoder":      # whisper: {"layers": stacked, final_norm}
+            out[k] = from_jax_params(v, device)
+        else:
+            out[k] = conv(v)
     return out
 
 

@@ -26,15 +26,20 @@ NEG_INF = -1.0e30
 MAX_TOPK = 1024         # the kernel's shared-memory sizing
 TOPK_CLUSTER = 8        # CTAs per row: one thread-block cluster
 GREEDY_MAX_CLUSTER = 16     # CTAs per row of the greedy kernel, at most
+GREEDY_ROWS = 16            # row counts up to this share one cluster size
 SMS = 132                   # the H100's streaming multiprocessors
 
 
 def greedy_cluster(B: int) -> int:
     """CTAs per row of the greedy kernel's cluster: the largest power of
-    two up to 16 that keeps ``B * cluster`` within the card's SMs (16 at
-    the engine's 8 rows), at least 1."""
+    two up to 16 that keeps ``max(B, GREEDY_ROWS) * cluster`` within the
+    card's SMs, at least 1.  Every row count up to GREEDY_ROWS takes the
+    same cluster (8), so that a row's log-sum-exp sums its slices in one
+    order at every slot count up to 16, as the decode step's rows round
+    (``stacks_infer.DECODE_ROWS``): a 16-slot engine's logprobs are then
+    an 8-slot one's bit for bit."""
     c = GREEDY_MAX_CLUSTER
-    while c > 1 and B * c > SMS:
+    while c > 1 and max(B, GREEDY_ROWS) * c > SMS:
         c //= 2
     return c
 

@@ -10,9 +10,14 @@
         --ladder 2,4,8 [--shed --deadline-s 2]   # closed-loop capacity
 
 ``--arch`` takes internlm2-1.8b, gemma3-4b (sliding-window layers),
-minitron-8b, qwen2.5-32b, rwkv6-7b or zamba2-2.7b, on every layout (rwkv6
-has no paged leaf: ``--kv paged`` serves it with zero blocks a request,
-and ``--kv-dtype int8`` raises).  Runs on the CUDA card at the
+minitron-8b, qwen2.5-32b, qwen2-vl-7b (M-RoPE, vision embeddings),
+whisper-tiny (an encoder and cross-attention), rwkv6-7b or zamba2-2.7b, on
+every layout (rwkv6 has no paged leaf: ``--kv paged`` serves it with zero
+blocks a request, and ``--kv-dtype int8`` raises).  qwen2-vl-7b and
+whisper-tiny requests carry a zero frontend, as the JAX CLI's: a vision
+request's prompt leads with ``num_frontend_tokens`` placeholder ids that
+the embeddings overlay, an audio request carries ``max_source_len``
+frames.  Runs on the CUDA card at the
 architecture's full width with random weights from ``--seed``;
 ``--reduced`` serves the smoke-test variant and ``--device cpu`` runs the
 kernels' plain versions on the CPU.
@@ -33,6 +38,22 @@ from repro_torch.serve.request import Request
 from repro_torch.serve.spec import RolloutSpec
 
 
+def cli_frontend(cfg, prompt):
+    """``(prompt, frontend)`` of a CLI request for ``cfg``: a vlm's prompt
+    with ``num_frontend_tokens`` placeholder ids (0) in front and a zero
+    ``(1, F, d)`` frontend over them, an audio model's prompt with zero
+    ``(1, max_source_len, d)`` frames, a text model's prompt alone."""
+    prompt = np.asarray(prompt, np.int32).reshape(-1)
+    if cfg.frontend == "vision":
+        F = cfg.num_frontend_tokens
+        return (np.concatenate([np.zeros(F, np.int32), prompt]),
+                np.zeros((1, F, cfg.d_model), np.float32))
+    if cfg.frontend == "audio":
+        return prompt, np.zeros((1, cfg.max_source_len, cfg.d_model),
+                                np.float32)
+    return prompt, None
+
+
 def serve_continuous(arch: str, prompts, *, reduced: bool = False,
                      max_new: int = 32, seed: int = 0,
                      spec: RolloutSpec | None = None,
@@ -41,7 +62,8 @@ def serve_continuous(arch: str, prompts, *, reduced: bool = False,
                      num_kv_blocks: int | None = None, sched: str = "fifo",
                      kv_dtype: str | None = None, prefix_share: bool = False,
                      disagg=None, max_seq_len: int | None = None,
-                     device=None, model=None, params=None) -> dict:
+                     device=None, model=None, params=None,
+                     frontends=None) -> dict:
     """Serve ``prompts`` (sequences of token ids, ragged lengths allowed),
     one request each, through the continuous-batching engine with greedy
     decoding.  The engine's shape is ``spec`` or the loose arguments (a
@@ -51,7 +73,8 @@ def serve_continuous(arch: str, prompts, *, reduced: bool = False,
     fields) serves through a ``DisaggRouter``.  ``max_seq_len`` defaults
     to the longest prompt plus ``max_new``.  Params default to the model's
     random init from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (the CUDA card unless ``device="cpu"``).
+    ``device`` (the CUDA card unless ``device="cpu"``).  ``frontends``
+    gives request i the frontend ``frontends[i]`` (vlm, audio).
 
     Returns a report: ``outputs`` (``RequestOutput`` by rid), ``texts``,
     ``wall_s``, ``tokens``, ``tok_per_s``, ``ttft_mean_s`` (every request
@@ -79,10 +102,10 @@ def serve_continuous(arch: str, prompts, *, reduced: bool = False,
                                temperature=0.0, device=dev)
     t0 = time.perf_counter()
     engine.clock = lambda: time.perf_counter() - t0
-    outs = run_requests(engine, (Request(rid=i, prompt=p,
-                                         max_new_tokens=max_new,
-                                         prefix_key=spec.prefix_namespace)
-                                 for i, p in enumerate(prompts)))
+    outs = run_requests(engine, (Request(
+        rid=i, prompt=p, max_new_tokens=max_new,
+        frontend=None if frontends is None else frontends[i],
+        prefix_key=spec.prefix_namespace) for i, p in enumerate(prompts)))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -122,7 +145,7 @@ def serve_elastic(arch: str, prompts, *, reduced: bool = False,
                   ladder: tuple = (2, 4, 8), shed: bool = False,
                   deadline_s: float = 2.0, arrival_gap_s: float = 0.05,
                   max_seq_len: int | None = None, device=None, model=None,
-                  params=None) -> dict:
+                  params=None, frontends=None) -> dict:
     """Closed-loop elastic serving: replay a staggered arrival trace
     (request ``i`` arrives at ``i * arrival_gap_s``) through
     ``serve.run_trace(realtime=False)`` with an ``ElasticController`` in
@@ -136,7 +159,8 @@ def serve_elastic(arch: str, prompts, *, reduced: bool = False,
     (decode budget clamped) before it is shed, and every shed is recorded
     in the report.  Returns the ``run_trace`` report (its ``"elastic"``
     section: capacity-seconds, sheds and degrades, the resize history; its
-    ``"engine"``: the engine it ended on) with ``texts``.
+    ``"engine"``: the engine it ended on) with ``texts``.  ``frontends``
+    gives request i the frontend ``frontends[i]`` (vlm, audio).
 
     The JAX package warms every rung up, compiling its decode shape before
     the trace; otherwise the first step's compile lands in
@@ -171,6 +195,8 @@ def serve_elastic(arch: str, prompts, *, reduced: bool = False,
         arrival = i * arrival_gap_s
         reqs.append(Request(rid=i, prompt=t, max_new_tokens=max_new,
                             arrival_time=arrival,
+                            frontend=(None if frontends is None
+                                      else frontends[i]),
                             deadline=arrival + deadline_s if shed else None))
     controller = ElasticController(ElasticConfig(
         ladder=ladder, shed=shed, interval_s=0.05, cooldown_s=0.15))
@@ -260,13 +286,17 @@ def _main():
     texts = [f"{i}+{i + 1}=" for i in range(args.batch)]
     if args.group:
         texts = [t for t in texts for _ in range(args.group)]
+    cfg = build_model(args.arch, reduced=args.reduced).cfg
+    prompts, frontends = zip(*(cli_frontend(cfg, tok.encode(t, bos=True))
+                               for t in texts))
+    frontends = None if cfg.frontend is None else list(frontends)
     if args.engine == "elastic":
         ladder = tuple(int(x) for x in args.ladder.split(","))
         res = serve_elastic(
-            args.arch, [tok.encode(t, bos=True) for t in texts],
-            reduced=args.reduced, max_new=args.max_new, seed=args.seed,
-            spec=spec, ladder=ladder, shed=args.shed,
-            deadline_s=args.deadline_s, device=args.device)
+            args.arch, prompts, reduced=args.reduced, max_new=args.max_new,
+            seed=args.seed, spec=spec, ladder=ladder, shed=args.shed,
+            deadline_s=args.deadline_s, device=args.device,
+            frontends=frontends)
         e = res["elastic"]
         print(f"[elastic] served {len(res['outputs'])}/{len(texts)} "
               f"requests on {res['engine'].device}, {res['tokens']} tokens "
@@ -282,9 +312,8 @@ def _main():
             print(f"  rid={o.rid} [{o.finish_reason}] -> {t!r}")
         return
     res = serve_continuous(
-        args.arch, [tok.encode(t, bos=True) for t in texts],
-        reduced=args.reduced, max_new=args.max_new, seed=args.seed,
-        spec=spec, device=args.device)
+        args.arch, prompts, reduced=args.reduced, max_new=args.max_new,
+        seed=args.seed, spec=spec, device=args.device, frontends=frontends)
     dev = res["engine"].device
     extra = ""
     if args.prefix_share:

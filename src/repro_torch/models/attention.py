@@ -1,7 +1,8 @@
 """GQA attention: block gather, full-sequence softmax attention, QKV
 projection, init and a batched plain one-token decode.
 
-Counterpart of ``repro/models/attention.py`` (dense GQA only).
+Counterpart of ``repro/models/attention.py`` (GQA with its biases, M-RoPE
+and cross-attention; no MLA).
 :func:`multi_head_attention` dispatches by device.  On the CPU it takes the
 JAX package's two plain paths: direct (materialized scores) up to
 ``DIRECT_MAX_KV`` keys, blockwise (online softmax over 1024 x 1024 blocks)
@@ -18,7 +19,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import FlashAttentionFn
-from repro_torch.models.common import apply_rope, dense_init, torch_dtype
+from repro_torch.models.common import (apply_mrope, apply_rope, dense_init,
+                                       torch_dtype)
 
 NEG_INF = -1.0e30
 DIRECT_MAX_KV = 4096  # direct path threshold
@@ -121,18 +123,32 @@ def multi_head_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     (differentiable through :class:`FlashAttentionFn`), which takes
     self-attention over positions ``0..S-1`` with the default scale; any
     other call on the card raises rather than taking another path."""
-    B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sq, Sk = q.shape[1], k.shape[1]
     if q.device.type == "cuda":
         if not (Sq == Sk and _is_arange(q_pos, Sq)
                 and _is_arange(k_pos, Sk)):
             raise ValueError("on the card multi_head_attention takes self-"
                              "attention over positions arange(S) only")
-        if scale is not None and scale != D ** -0.5:
+        if scale is not None and scale != q.shape[-1] ** -0.5:
             raise ValueError("the flash kernel uses the scale D ** -0.5")
         if force_blockwise:
             raise ValueError("force_blockwise selects a CPU path")
         return FlashAttentionFn.apply(q, k, v, causal, window)
+    return plain_attention(q, k, v, q_pos, k_pos, causal=causal,
+                           window=window, scale=scale,
+                           force_blockwise=force_blockwise)
+
+
+def plain_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None,
+                    force_blockwise: Optional[bool] = None) -> torch.Tensor:
+    """The JAX package's ``multi_head_attention`` in PyTorch ops, on either
+    device: the direct path up to ``DIRECT_MAX_KV`` keys, the blockwise
+    path above it (or as ``force_blockwise`` says).  Shapes as
+    :func:`multi_head_attention`'s."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     scale = scale if scale is not None else D ** -0.5
     qg = q.reshape(B, Sq, Hkv, G, D)
@@ -168,17 +184,37 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def gqa_project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
                     positions: Optional[torch.Tensor], *,
-                    rope_theta: Optional[float] = None):
-    """x: (B,S,d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd), RoPE applied to q/k."""
-    q, k, v = (_project(x, p["wq"]), _project(x, p["wk"]),
-               _project(x, p["wv"]))
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+                    rope_theta: Optional[float] = None,
+                    mrope_positions: Optional[torch.Tensor] = None):
+    """x: (B,S,d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd), with the QKV biases
+    when the config has them, and M-RoPE over ``mrope_positions`` (3, B,
+    S) when given, else RoPE over ``positions`` applied to q/k."""
+    q = gqa_project_q(p, cfg, x)
+    k, v = gqa_project_kv(p, cfg, x)
     theta = cfg.rope_theta if rope_theta is None else rope_theta
-    if positions is not None and theta > 0:
+    if mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, theta)
+        k = apply_mrope(k, mrope_positions, theta)
+    elif positions is not None and theta > 0:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
     return q, k, v
+
+
+def gqa_project_q(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The query projection alone (with its bias), no rotary: the
+    cross-attention's query."""
+    q = _project(x, p["wq"])
+    return q + p["bq"] if cfg.qkv_bias else q
+
+
+def gqa_project_kv(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """The key and value projections alone (with their biases), no
+    rotary: the cross-attention's K/V of the encoder's output."""
+    k, v = _project(x, p["wk"]), _project(x, p["wv"])
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
 
 
 def attn_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -190,14 +226,30 @@ def attn_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 def gqa_apply_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: Optional[torch.Tensor], *, window=None,
                    rope_theta: Optional[float] = None,
+                   mrope_positions: Optional[torch.Tensor] = None,
                    causal: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention. x: (B,S,d) -> (B,S,d)."""
-    q, k, v = gqa_project_qkv(p, cfg, x, positions, rope_theta=rope_theta)
+    """Full-sequence self-attention (``causal=False``: bidirectional, the
+    audio encoder's). x: (B,S,d) -> (B,S,d)."""
+    q, k, v = gqa_project_qkv(p, cfg, x, positions, rope_theta=rope_theta,
+                              mrope_positions=mrope_positions)
     pos = (positions if positions is not None
            else torch.arange(x.shape[1], device=x.device))
     qpos = pos[0] if pos.dim() == 2 else pos
     out = multi_head_attention(q, k, v, qpos, qpos, causal=causal,
                                window=window)
+    return attn_out(out, p["wo"])
+
+
+def gqa_apply_cross(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of x (B,S,d) against precomputed encoder K/V (B,
+    Ssrc, Hkv, hd) -> (B,S,d).  Plain PyTorch on either device: neither
+    package has a kernel for it (the JAX package runs jnp here), so this
+    is its only version."""
+    q = gqa_project_q(p, cfg, x)
+    qpos = torch.arange(x.shape[1], device=x.device)
+    kpos = torch.arange(enc_k.shape[1], device=x.device)
+    out = plain_attention(q, enc_k, enc_v, qpos, kpos, causal=False)
     return attn_out(out, p["wo"])
 
 

@@ -1,5 +1,5 @@
-"""Shared model building blocks: dtypes, inits, RMSNorm, per-head group
-norm, SwiGLU MLP, RoPE.
+"""Shared model building blocks: dtypes, inits, RMSNorm, LayerNorm, per-head
+group norm, the SwiGLU and gelu MLPs, RoPE and M-RoPE.
 
 Counterpart of ``repro/models/common.py``.  Weights keep the JAX package's
 layouts (``(in, *out)`` for dense kernels), so converted parameters drop in
@@ -91,6 +91,18 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * (1.0 + w.float())).to(dt)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis in float32 with weight and bias (the
+    audio family's norm), cast back to ``x``'s dtype."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).pow(2).mean(-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * w.float() + b.float()).to(dt)
+
+
 def group_norm_heads(x: torch.Tensor, w: torch.Tensor,
                      eps: float) -> torch.Tensor:
     """Per-head group norm over the last dim in float32; x: (..., H, D),
@@ -105,6 +117,23 @@ def group_norm_heads(x: torch.Tensor, w: torch.Tensor,
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: ``(silu(x W_gate) * x W_up) W_o``."""
     return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+
+
+def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+                  dtype: torch.dtype) -> dict:
+    """The audio family's MLP: ``wi (d, d_ff)``, ``bi``, ``wo (d_ff, d)``,
+    ``bo``; zero biases, as the JAX package's init."""
+    dev = gen.device
+    return {"wi": dense_init(gen, d_model, (d_ff,), dtype),
+            "bi": torch.zeros((d_ff,), dtype=dtype, device=dev),
+            "wo": dense_init(gen, d_ff, (d_model,), dtype),
+            "bo": torch.zeros((d_model,), dtype=dtype, device=dev)}
+
+
+def gelu_mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``gelu_tanh(x W_i + b_i) W_o + b_o``."""
+    return F.gelu(x @ p["wi"] + p["bi"], approximate="tanh") @ p["wo"] \
+        + p["bo"]
 
 
 # ---------------------------------------------------------------------------
@@ -131,3 +160,58 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# M-RoPE: the rotary channels split into (temporal, height, width) sections
+# in qwen2-vl's proportions (16, 24, 24) of head_dim / 2 = 64
+# ---------------------------------------------------------------------------
+def mrope_sections(half: int) -> tuple[int, int, int]:
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple[int, ...] | None = None) -> torch.Tensor:
+    """x: (B, S, H, D); positions3: (3, B, S) integer (t, h, w) ids.  Each
+    rotary channel takes its section's id; the rotation is
+    :func:`apply_rope`'s.  The channels' ids are gathered by slicing, with
+    no host tensor, so that a CUDA graph can capture the decode step."""
+    half = x.shape[-1] // 2
+    sections = sections or mrope_sections(half)
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (half,)
+    pos = positions3.float()                                   # (3, B, S)
+    chan = torch.cat([pos[i, ..., None].expand(*pos.shape[1:], n)
+                      for i, n in enumerate(sections)], dim=-1)
+    ang = chan * freqs                                         # (B, S, half)
+    sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_positions_at(t: torch.Tensor, num_frontend: int) -> torch.Tensor:
+    """The repo's stub M-RoPE ids at integer positions ``t`` (any shape):
+    ``(3, *t.shape)`` int32.  The first ``num_frontend`` positions are
+    image patches on a square grid of side ``isqrt(num_frontend)`` (t 0,
+    h ``i // side``, w ``i % side``); text positions have t ``i -
+    num_frontend + 1`` and h = w = ``i``.  Computed on ``t``'s device with
+    no host sync (the decode step's per-slot ids)."""
+    side = max(int(math.sqrt(max(num_frontend, 1))), 1)
+    t = t.long()
+    img = t < num_frontend
+    h = torch.where(img, t // side, t)
+    w = torch.where(img, t % side, t)
+    tt = torch.where(img, torch.zeros_like(t), t - num_frontend + 1)
+    return torch.stack([tt, h, w]).to(torch.int32)
+
+
+def default_mrope_positions(batch: int, seq: int, num_frontend: int,
+                            device=None) -> torch.Tensor:
+    """Stub M-RoPE ids of a prefill, ``(3, batch, seq)`` int32: those of
+    :func:`mrope_positions_at` over ``arange(seq)`` for every row."""
+    pos = mrope_positions_at(torch.arange(seq, device=device), num_frontend)
+    return pos[:, None, :].expand(3, batch, seq)

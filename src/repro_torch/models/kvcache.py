@@ -1,5 +1,5 @@
-"""Decode caches for the dense GQA, rwkv6 (ssm) and zamba2 (hybrid)
-families (plain dicts of tensors).
+"""Decode caches for the dense GQA, vlm (qwen2-vl), audio (whisper), rwkv6
+(ssm) and zamba2 (hybrid) families (plain dicts of tensors).
 
 Counterpart of ``repro/models/kvcache.py``.  Two serving layouts for the
 dense family:
@@ -9,6 +9,10 @@ dense family:
 * paged (:func:`init_paged_cache`) — ``k``/``v`` become shared block pools
   ``(L, num_blocks + 1, block_size, Hkv, hd)`` (block 0 is the null
   block), optionally int8 with per-position float32 scale pools.
+
+A vlm cache is the dense one.  An audio cache adds the encoder's
+cross-attention keys and values, ``cross_k``/``cross_v`` ``(L, B,
+max_source_len, Hkv, hd)``, written once by the prefill.
 
 The ssm family carries no sequence-shaped leaf: its contiguous cache is
 the recurrent state, ``att_x``/``ffn_x`` ``(L, B, d)`` in the model dtype
@@ -23,7 +27,8 @@ sequence axis (:func:`paged_names`) and keeps every other leaf per slot:
 the dense family's ``k``/``v``, the hybrid family's ``attn_k``/``attn_v``
 (its ``conv``/``ssm`` stay per slot), and nothing of the ssm family, whose
 paged layout degenerates to the contiguous one (a request needs no
-block).
+block).  The audio family's cross leaves have no decode-time sequence
+axis either: they stay per slot and are never quantized.
 
 Where the JAX package rebuilds a cache with ``.at[].set``, the port updates
 these tensors in place (``index_put_`` / slice assignment): a cache dict is
@@ -43,14 +48,16 @@ SCALE_SUFFIX = "_scale"
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves the dense GQA family (internlm2, gemma3 with its
-    sliding-window layers, minitron, qwen2.5), the ssm (rwkv6) and the
-    hybrid (zamba2) families; MoE, MLA, vision and audio wait for theirs."""
-    if cfg.family != "ssm" and (cfg.family not in ("dense", "hybrid")
-                                or cfg.attention != "gqa"):
+    sliding-window layers, minitron, qwen2.5), the vlm (qwen2-vl) and
+    audio (whisper) families, the ssm (rwkv6) and the hybrid (zamba2)
+    families; MoE and MLA wait for theirs."""
+    if cfg.family != "ssm" and (
+            cfg.family not in ("dense", "vlm", "audio", "hybrid")
+            or cfg.attention != "gqa"):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attention!r} is not "
-            f"ported yet: MoE, MLA, vision and audio come with their own "
-            f"slices (ROADMAP, modules to port)")
+            f"ported yet: MoE and MLA come with their own slices (ROADMAP, "
+            f"modules to port)")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -87,14 +94,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                       "index": idx}
     shape = (cfg.num_layers, batch, S, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "index": idx}
+    out = {"k": torch.zeros(shape, dtype=dt, device=device),
+           "v": torch.zeros(shape, dtype=dt, device=device)}
+    if cfg.family == "audio":   # whisper: the encoder's K/V per layer
+        cross = (cfg.num_layers, batch, cfg.max_source_len,
+                 cfg.num_kv_heads, cfg.resolved_head_dim)
+        out |= {"cross_k": torch.zeros(cross, dtype=dt, device=device),
+                "cross_v": torch.zeros(cross, dtype=dt, device=device)}
+    return out | {"index": idx}
 
 
 def paged_names(cfg: ModelConfig) -> tuple[str, ...]:
-    """Cache leaves that get block-paged (those with a sequence axis):
-    none for the ssm family, the shared block's K/V for the hybrid one."""
+    """Cache leaves that get block-paged (those with a decode-time
+    sequence axis): none for the ssm family, the shared block's K/V for
+    the hybrid one, the self-attention K/V (not the cross leaves) for
+    the others."""
     check_supported(cfg)
     return {"ssm": (), "hybrid": ("attn_k", "attn_v")}.get(cfg.family,
                                                           ("k", "v"))

@@ -50,8 +50,13 @@ class Model:
     def scale_cache_names(self) -> tuple[str, ...]:
         return kvcache.scale_names(self.cfg)
 
-    def prefill(self, params, tokens, cache):
-        return stack_prefill(params, self.cfg, tokens, cache)
+    def prefill(self, params, tokens, cache, *, frontend=None):
+        """Fill ``cache`` from ``tokens (B, S)``; ``frontend`` is a vlm's
+        vision embeddings ``(B, F, d)`` or an audio model's frame
+        embeddings ``(B, max_source_len, d)``
+        (:func:`~repro_torch.models.stacks_infer.stack_prefill`)."""
+        return stack_prefill(params, self.cfg, tokens, cache,
+                             frontend=frontend)
 
     def decode_step(self, params, token, cache, *, ring: bool = False):
         """One-token decode over a contiguous cache of any batch (a slot
@@ -63,7 +68,8 @@ class Model:
 
     def kernel_supported(self) -> bool:
         """Whether :meth:`kernel_decode_step` serves this architecture on a
-        contiguous cache (GQA stacks); the others decode through
+        contiguous cache (GQA stacks: dense, vlm, audio); the others
+        decode through
         :meth:`decode_step`, but for the hybrid family's paged pool."""
         return kernel_supported(self.cfg)
 

@@ -2,8 +2,11 @@
 embedding, unembedding, norms, the per-layer rope theta and window) and
 the full-sequence training forward :func:`stack_forward`.
 
-Counterpart of ``repro/models/stacks.py``: the dense GQA, ssm (rwkv6) and
-hybrid (zamba2) branches of the init, dense GQA of the forward.  Where the
+Counterpart of ``repro/models/stacks.py``: the dense GQA, vlm (qwen2-vl),
+audio (whisper: LayerNorm, gelu MLPs, an encoder and cross-attention), ssm
+(rwkv6) and hybrid (zamba2) branches of the init, the vision-embedding
+overlay and the audio encoder (:func:`encode_source`), dense GQA of the
+forward.  Where the
 JAX package stacks layers on axis 0 for ``lax.scan``, the port keeps
 ``params["layers"]`` as a Python list of per-layer dicts and loops over it.
 """
@@ -16,8 +19,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (dense_init, embed_init, mlp_apply,
-                                       mlp_init, rms_norm, torch_dtype)
+from repro_torch.models.common import (dense_init, embed_init,
+                                       gelu_mlp_apply, gelu_mlp_init,
+                                       layer_norm, mlp_apply, mlp_init,
+                                       rms_norm, torch_dtype)
 from repro_torch.models.kvcache import check_supported
 from repro_torch.models.mamba2 import mamba2_init
 from repro_torch.models.rwkv6 import rwkv6_init
@@ -25,8 +30,29 @@ from repro_torch.models.rwkv6 import rwkv6_init
 NO_WINDOW = 2 ** 30     # far beyond any max_seq_len: never masks
 
 
-def _norm(w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _norm(w, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The audio family's LayerNorm (``w = {"w", "b"}``), everyone else's
+    RMSNorm (``w`` a tensor)."""
+    if cfg.family == "audio":
+        return layer_norm(x, w["w"], w["b"], cfg.norm_eps)
     return rms_norm(x, w, cfg.norm_eps)
+
+
+def _sinusoid(seq: int, d: int, offset=0, device=None) -> torch.Tensor:
+    """Sinusoidal positions ``(seq, d)`` float32 of positions ``arange(seq)
+    + offset`` (the audio family's).  ``offset`` may be an integer tensor
+    of any shape, which then leads the result: ``(*offset.shape, seq, d)``
+    (a decode step's per-slot positions, computed on the device)."""
+    if isinstance(offset, torch.Tensor):
+        device = offset.device
+        pos = (torch.arange(seq, device=device)
+               + offset.long()[..., None]).float()
+    else:
+        pos = torch.arange(offset, offset + seq, device=device).float()
+    inv = torch.exp(-torch.arange(0, d, 2, dtype=torch.float32,
+                                  device=device) / d * math.log(10000.0))
+    ang = pos[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[..., :d]
 
 
 def _layer_theta_window(cfg: ModelConfig, *,
@@ -49,16 +75,22 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on ``gen``'s device: ``embed (V, d)``,
     ``final_norm (d,)``, ``lm_head (d, V)`` and ``layers``, a list of
     ``{"ln1", "ln2", "attn": {wq, wk, wv, wo}, "mlp": {wi_gate, wi_up,
-    wo}}`` (dense), ``{"ln1", "ln2", "mix": <rwkv6 block>}`` (ssm) or
-    ``{"norm", "mamba": <mamba2 block>}`` (hybrid, which also holds one
-    ``shared_attn = {"ln1", "attn", "ln2", "mlp"}`` that every
-    ``hybrid_attn_every``-th layer applies) in the JAX package's weight
-    layouts."""
+    wo}}`` (dense; vlm adds the QKV biases ``bq``, ``bk``, ``bv``),
+    ``{"ln1", "ln2", "mix": <rwkv6 block>}`` (ssm) or ``{"norm", "mamba":
+    <mamba2 block>}`` (hybrid, which also holds one ``shared_attn =
+    {"ln1", "attn", "ln2", "mlp"}`` that every ``hybrid_attn_every``-th
+    layer applies) in the JAX package's weight layouts.  The audio family
+    has LayerNorms ``{"w", "b"}``, gelu MLPs ``{wi, bi, wo, bo}``, an
+    ``encoder = {"layers", "final_norm"}`` of such layers and ``cross``, a
+    list of ``{"ln", "attn"}`` per decoder layer."""
     check_supported(cfg)
     dt = torch_dtype(cfg.dtype)
     dev = gen.device
 
     def norm():
+        if cfg.family == "audio":
+            return {"w": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+                    "b": torch.zeros((cfg.d_model,), dtype=dt, device=dev)}
         return torch.zeros((cfg.d_model,), dtype=dt, device=dev)
 
     p: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
@@ -77,6 +109,18 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
                             "ln2": norm(),
                             "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
         return p
+    if cfg.family == "audio":
+        def layer():
+            return {"ln1": norm(), "ln2": norm(),
+                    "attn": attn.gqa_init(gen, cfg),
+                    "mlp": gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
+        p["layers"] = [layer() for _ in range(cfg.num_layers)]
+        p["encoder"] = {"layers": [layer()
+                                   for _ in range(cfg.encoder_layers)],
+                        "final_norm": norm()}
+        p["cross"] = [{"ln": norm(), "attn": attn.gqa_init(gen, cfg)}
+                      for _ in range(cfg.num_layers)]
+        return p
     p["layers"] = [{"ln1": norm(), "ln2": norm(),
                     "attn": attn.gqa_init(gen, cfg),
                     "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
@@ -84,11 +128,22 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def _embed_tokens(p: dict, cfg: ModelConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
+def _embed_tokens(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  frontend=None) -> torch.Tensor:
+    """Token embeddings ``(B, S, d)``; gemma3 scales them by sqrt(d).  A
+    vlm ``frontend`` ``(B, F, d)`` (precomputed vision embeddings) is
+    written over the first F positions; other families ignore it here
+    (the audio family's goes to :func:`encode_source`)."""
     x = torch.nn.functional.embedding(tokens.long(), p["embed"])
     if cfg.local_global_ratio:           # gemma3 scales its embeddings
         x = x * math.sqrt(cfg.d_model)
+    if frontend is not None and cfg.family == "vlm":
+        F = frontend.shape[1]
+        if F > x.shape[1]:
+            raise ValueError(f"a frontend of {F} positions is longer than "
+                             f"the prompt's {x.shape[1]}")
+        x = torch.cat([frontend.to(x.dtype).expand(x.shape[0], F, -1),
+                       x[:, F:]], dim=1)
     return x
 
 
@@ -129,6 +184,11 @@ def stack_forward(p: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             "stack_forward for the hybrid family (zamba2 training) is not "
             "ported yet: it needs a backward of the SSD scan (ROADMAP, "
             "zamba2 training)")
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"stack_forward for the {cfg.family} family (qwen2-vl and "
+            f"whisper training) is not ported yet: the port serves it; its "
+            f"training is its own slice (ROADMAP, vlm and audio training)")
     if cfg.family != "dense" or cfg.attention != "gqa":
         raise NotImplementedError(
             f"stack_forward for family {cfg.family!r} / attention "
@@ -145,3 +205,22 @@ def stack_forward(p: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             x = _dense_layer(lp, cfg, x, positions, theta, window)
     return _unembed(p, cfg, x), torch.zeros((), dtype=torch.float32,
                                             device=x.device)
+
+
+def encode_source(p: dict, cfg: ModelConfig,
+                  frontend: torch.Tensor) -> torch.Tensor:
+    """The audio encoder over precomputed frame embeddings ``(B, Ssrc, d)``:
+    sinusoidal positions, then bidirectional self-attention layers (flash
+    with ``causal=False`` on the card) with gelu MLPs, then its final
+    LayerNorm.  Returns ``(B, Ssrc, d)`` in the model dtype."""
+    enc = p["encoder"]
+    x = frontend.to(torch_dtype(cfg.dtype))
+    x = x + _sinusoid(x.shape[1], cfg.d_model, device=x.device).to(x.dtype)
+    pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    for lp in enc["layers"]:
+        h = _norm(lp["ln1"], x, cfg)
+        x = x + attn.gqa_apply_full(lp["attn"], cfg, h, pos, causal=False,
+                                    rope_theta=0.0)
+        h = _norm(lp["ln2"], x, cfg)
+        x = x + gelu_mlp_apply(lp["mlp"], h)
+    return _norm(enc["final_norm"], x, cfg)

@@ -1,20 +1,23 @@
-"""Prefill and the batched one-token decode steps of the dense GQA, rwkv6
-(ssm) and zamba2 (hybrid) stacks.
+"""Prefill and the batched one-token decode steps of the dense GQA, vlm,
+audio, rwkv6 (ssm) and zamba2 (hybrid) stacks.
 
 Counterpart of ``repro/models/stacks_infer.py``: :func:`stack_prefill`
-(dense, ssm and hybrid branches) fills a contiguous cache;
+(dense, vlm with its frontend and M-RoPE, audio with its encoder and
+cross-attention, ssm and hybrid branches) fills a contiguous cache;
 :func:`stack_kernel_decode_step` decodes one token for every slot of the
-serving pool through the decode attention kernels (dense GQA, contiguous
-or paged; and the hybrid family's paged pool, its shared attention block
-through the paged kernel);
+serving pool through the decode attention kernels (dense GQA, vlm and
+audio, contiguous or paged; and the hybrid family's paged pool, its shared
+attention block through the paged kernel);
 :func:`stack_decode_step` decodes one token for every row of a contiguous
-cache of any batch (dense through the kernel step; ssm and hybrid in plain
-PyTorch: the recurrent state has no sequence axis for a decode kernel, and
-the JAX engine refuses its kernel backend for the hybrid family).  Caches
-are updated in place (slice assignment and ``index_put_``) where the JAX
-package rebuilds them with ``.at[].set``.
+cache of any batch (dense, vlm and audio through the kernel step; ssm and
+hybrid in plain PyTorch: the recurrent state has no sequence axis for a
+decode kernel, and the JAX engine refuses its kernel backend for the
+hybrid family).  Caches are updated in place (slice assignment and
+``index_put_``) where the JAX package rebuilds them with ``.at[].set``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -25,24 +28,46 @@ from repro_torch.models import attention as attn
 from repro_torch.models import kvcache
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import rwkv6 as rw
-from repro_torch.models.common import mlp_apply
+from repro_torch.models.common import (default_mrope_positions,
+                                       gelu_mlp_apply, mlp_apply,
+                                       mrope_positions_at)
 from repro_torch.models.stacks import (_embed_tokens, _layer_theta_window,
-                                       _norm, _unembed)
+                                       _norm, _sinusoid, _unembed,
+                                       encode_source)
+
+# A product on the card may take another kernel at another row count, and
+# split a row's sums another way: cuBLAS takes another kernel for
+# internlm2's 8192 x 2048 product at 16 rows than at 8, and the norms'
+# plain mean reduction splits rows by the row count.  So that a slot's row
+# rounds alike at every slot count up to DECODE_ROWS (an elastic engine
+# serves on several, a batch=1 injection on one), the kernel decode step
+# runs its embedding, norms, products and logits on at least DECODE_ROWS
+# rows, the rows past the live ones zero-token padding that nothing reads;
+# only the attention kernels see the live rows.
+DECODE_ROWS = 16
 
 
 def stack_prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                  cache: dict):
+                  cache: dict, *, frontend=None):
     """Full-sequence forward over ``tokens (B, S)`` that writes each layer's
-    K/V into positions ``[0, S)`` of the contiguous ``cache`` (dense), each
-    layer's final recurrent state (ssm: ``att_x``, ``ffn_x``, ``wkv``), or
-    each Mamba2 layer's state and each shared-attention use's K/V (hybrid:
-    ``conv``, ``ssm``, ``attn_k``, ``attn_v``), in place, and sets its
-    ``index`` to S.  Returns ``(last_logits (B, V) f32, cache)``."""
+    K/V into positions ``[0, S)`` of the contiguous ``cache`` (dense, vlm;
+    audio also the encoder's ``cross_k``/``cross_v``), each layer's final
+    recurrent state (ssm: ``att_x``, ``ffn_x``, ``wkv``), or each Mamba2
+    layer's state and each shared-attention use's K/V (hybrid: ``conv``,
+    ``ssm``, ``attn_k``, ``attn_v``), in place, and sets its ``index`` to
+    S.  ``frontend``: the vlm family's vision embeddings ``(B, F, d)``,
+    written over the first F positions (F at most S; the M-RoPE ids take
+    the config's ``num_frontend_tokens`` whatever F is, as the JAX
+    package's), or the audio family's frame embeddings ``(B,
+    max_source_len, d)``, which it needs; other families ignore it.
+    Returns ``(last_logits (B, V) f32, cache)``."""
     kvcache.check_supported(cfg)
     B, S = tokens.shape
-    x = _embed_tokens(p, cfg, tokens)
+    x = _embed_tokens(p, cfg, tokens, frontend)
     if cfg.family == "hybrid":
         return _hybrid_prefill(p, cfg, x, cache)
+    if cfg.family == "audio":
+        return _audio_prefill(p, cfg, x, cache, frontend)
     if cfg.family == "ssm":
         for li, lp in enumerate(p["layers"]):
             h = _norm(lp["ln1"], x, cfg)
@@ -58,16 +83,57 @@ def stack_prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
         return _unembed(p, cfg, x[:, -1:])[:, 0], cache
     pos = torch.arange(S, device=x.device)
     positions = pos.expand(B, S)
+    mrope = (default_mrope_positions(B, S, cfg.num_frontend_tokens,
+                                     x.device) if cfg.mrope else None)
     for li, (lp, (theta, window)) in enumerate(
             zip(p["layers"], _layer_theta_window(cfg))):
         h = _norm(lp["ln1"], x, cfg)
         q, k, v = attn.gqa_project_qkv(lp["attn"], cfg, h, positions,
-                                       rope_theta=theta)
+                                       rope_theta=theta,
+                                       mrope_positions=mrope)
         out = attn.multi_head_attention(q, k, v, pos, pos, causal=True,
                                         window=window)
         x = x + attn.attn_out(out, lp["attn"]["wo"])
         h = _norm(lp["ln2"], x, cfg)
         x = x + mlp_apply(lp["mlp"], h)
+        cache["k"][li, :, :S] = k
+        cache["v"][li, :, :S] = v
+    cache["index"].fill_(S)
+    return _unembed(p, cfg, x[:, -1:])[:, 0], cache
+
+
+def _audio_prefill(p: dict, cfg: ModelConfig, x, cache: dict, frontend):
+    """whisper: the encoder over ``frontend`` (flash with ``causal=False``
+    on the card), each decoder layer's cross K/V of its output into
+    ``cross_k``/``cross_v``, then the decoder over the prompt with
+    sinusoidal positions: causal self-attention (flash on the card) whose
+    K/V go to the cache, cross-attention (plain PyTorch on either device:
+    neither package has a kernel for it) and the gelu MLP."""
+    if frontend is None:
+        raise ValueError("the audio family needs its frame embeddings: "
+                         "frontend (B, max_source_len, d_model)")
+    if frontend.shape[1] != cache["cross_k"].shape[2]:
+        raise ValueError(f"a frontend of {frontend.shape[1]} frames; the "
+                         f"cache's cross leaves hold "
+                         f"{cache['cross_k'].shape[2]}")
+    enc = encode_source(p, cfg, frontend)
+    B, S = x.shape[:2]
+    x = x + _sinusoid(S, cfg.d_model, device=x.device).to(x.dtype)
+    pos = torch.arange(S, device=x.device)
+    positions = pos.expand(B, S)
+    for li, (lp, cp) in enumerate(zip(p["layers"], p["cross"])):
+        ek, ev = attn.gqa_project_kv(cp["attn"], cfg, enc)
+        cache["cross_k"][li] = ek
+        cache["cross_v"][li] = ev
+        h = _norm(lp["ln1"], x, cfg)
+        q, k, v = attn.gqa_project_qkv(lp["attn"], cfg, h, positions,
+                                       rope_theta=0.0)
+        out = attn.multi_head_attention(q, k, v, pos, pos, causal=True)
+        x = x + attn.attn_out(out, lp["attn"]["wo"])
+        h = _norm(cp["ln"], x, cfg)
+        x = x + attn.gqa_apply_cross(cp["attn"], cfg, h, ek, ev)
+        h = _norm(lp["ln2"], x, cfg)
+        x = x + gelu_mlp_apply(lp["mlp"], h)
         cache["k"][li, :, :S] = k
         cache["v"][li, :, :S] = v
     cache["index"].fill_(S)
@@ -113,12 +179,14 @@ def _hybrid_prefill(p: dict, cfg: ModelConfig, x, cache: dict):
 
 def kernel_supported(cfg: ModelConfig) -> bool:
     """Whether :func:`stack_kernel_decode_step` serves this config on a
-    contiguous cache: GQA transformer stacks only.  The ssm family carries
-    no sequence-shaped KV for a decode kernel and steps its recurrence in
-    :func:`stack_decode_step`; so does the hybrid family on contiguous
-    stripes, whose kernel backend the JAX engine refuses; its paged pool
-    decodes through :func:`stack_kernel_decode_step`."""
-    return cfg.family == "dense" and cfg.attention == "gqa"
+    contiguous cache: GQA transformer stacks (dense, vlm, and audio, whose
+    cross-attention runs the contiguous decode kernel over its encoder
+    K/V).  The ssm family carries no sequence-shaped KV for a decode
+    kernel and steps its recurrence in :func:`stack_decode_step`; so does
+    the hybrid family on contiguous stripes, whose kernel backend the JAX
+    engine refuses; its paged pool decodes through
+    :func:`stack_kernel_decode_step`."""
+    return cfg.family in ("dense", "vlm", "audio") and cfg.attention == "gqa"
 
 
 def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -133,8 +201,9 @@ def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     W-1, C)``, ``ssm`` ``(L, N, nh, N_state, hd)`` float32,
     ``attn_k``/``attn_v`` ``(n_attn, N, S, Hkv, hd)``.
 
-    The dense family runs :func:`stack_kernel_decode_step` (the decode
-    attention kernel on the card, its plain version on the CPU); ssm and
+    The dense, vlm and audio families run :func:`stack_kernel_decode_step`
+    (the decode attention kernel on the card, its plain version on the
+    CPU); ssm and
     hybrid step their recurrences in plain PyTorch (the recurrent state
     has no sequence axis for a decode kernel, and the JAX engine refuses
     its kernel backend for the hybrid family).  The JAX engine vmaps a
@@ -156,7 +225,7 @@ def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
         logits, _ = stack_decode_step(p, cfg, token, rows, ring=ring)
         index.add_(1)
         return logits, cache
-    if cfg.family == "dense":
+    if kernel_supported(cfg):
         return stack_kernel_decode_step(p, cfg, token, cache, ring=ring)
     x = _embed_tokens(p, cfg, token)                         # (N, 1, d)
     if cfg.family == "hybrid":
@@ -252,24 +321,40 @@ def _paged_attention(cache: dict, names, li: int, q, k_row, v_row, pid, off,
                                   window=window, k_scale=ks_l, v_scale=vs_l)
 
 
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` with zero rows appended on axis 0 up to ``rows``."""
+    n = t.shape[0]
+    return t if n >= rows else torch.cat(
+        [t, t.new_zeros((rows - n, *t.shape[1:]))])
+
+
+@functools.lru_cache(maxsize=None)
+def _source_lengths(n: int, length: int, device) -> torch.Tensor:
+    """A persistent ``(n,)`` int32 device tensor of ``length``: every
+    slot's cross-attention length (the encoder's positions).  Made once
+    per shape, outside any CUDA graph, and never written."""
+    return torch.full((n,), length, dtype=torch.int32, device=device)
+
+
 def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
                              cache: dict, *, tables=None, ring: bool = False):
     """One-token decode for the whole slot pool through the decode kernels.
 
     token: ``(N, 1)`` integer.  cache: the serving layout —
 
-    * contiguous (``tables=None``, dense only): ``k``/``v`` ``(L, N, S,
-      Hkv, hd)`` slot stripes, ``index`` ``(N,)``; runs
+    * contiguous (``tables=None``; dense, vlm, audio): ``k``/``v`` ``(L,
+      N, S, Hkv, hd)`` slot stripes, ``index`` ``(N,)``; runs
       ``decode_attention`` per layer;
     * paged (``tables (N, MB)`` int32): the paged leaves are pools
       ``(L, NB+1, bs, Hkv, hd)`` (block 0 = null), optionally int8 with
       ``<name>_scale`` ``(L, NB+1, bs)`` (quantize on write), every other
-      leaf per slot.  Dense: ``k``/``v``, ``paged_decode_attention`` per
-      layer over the tables, never a gathered view.  Hybrid: each Mamba2
-      layer steps its per-slot ``conv``/``ssm``, and each use of the
-      shared block runs ``paged_decode_attention`` over its
-      ``attn_k``/``attn_v`` pool.  The ssm family's pool pages nothing
-      and decodes through :func:`stack_decode_step`.
+      leaf per slot.  Dense, vlm, audio: ``k``/``v``,
+      ``paged_decode_attention`` per layer over the tables, never a
+      gathered view.  Hybrid: each Mamba2 layer steps its per-slot
+      ``conv``/``ssm``, and each use of the shared block runs
+      ``paged_decode_attention`` over its ``attn_k``/``attn_v`` pool.  The
+      ssm family's pool pages nothing and decodes through
+      :func:`stack_decode_step`.
 
     Each slot writes its new K/V at position ``index`` and attends over
     ``index + 1`` positions.  Dead slots write where nothing live reads:
@@ -278,9 +363,22 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     place (``index`` advances by one); returns ``(logits (N, V) f32,
     cache)``.
 
-    ``ring=True`` (dense, contiguous only: the paged pool takes no ring)
-    reads the stripes of S slots as ring buffers: position ``index`` is
-    written at slot ``index % S`` and the kernel attends over ``min(index
+    The vlm family rotates with M-RoPE at per-slot ids from ``index``
+    (:func:`~repro_torch.models.common.mrope_positions_at`, on the
+    device).  The audio family adds sinusoidal positions at each slot's
+    ``index``, runs its self-attention as above (no rotary), then its
+    cross-attention through ``decode_attention`` over the per-slot
+    ``cross_k``/``cross_v`` (every length ``max_source_len``), then its
+    gelu MLP; the JAX engine vmaps a batch=1 step whose scalar index is
+    each slot's own.
+
+    Everything but the attention kernels runs on ``max(N, DECODE_ROWS)``
+    rows (see ``DECODE_ROWS``), so that a slot's logits round alike at
+    every slot count up to it.
+
+    ``ring=True`` (dense and vlm, contiguous only: the paged pool takes no
+    ring) reads the stripes of S slots as ring buffers: position ``index``
+    is written at slot ``index % S`` and the kernel attends over ``min(index
     + 1, S)`` slots with no window.  That is the windowed attention of the
     JAX ring step because the ring carve windows every layer at
     ``sliding_window >= S`` (``_layer_theta_window(ring=True)``): a ring
@@ -289,11 +387,12 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     them in.
     """
     kvcache.check_supported(cfg)
-    if ring and (tables is not None or not kernel_supported(cfg)):
-        raise ValueError("ring decode runs on contiguous dense stripes "
-                         "here; the hybrid family's ring goes through "
-                         "stack_decode_step, and the paged pool takes no "
-                         "ring")
+    if ring and (tables is not None or not kernel_supported(cfg)
+                 or cfg.family == "audio"):
+        raise ValueError("ring decode runs on contiguous dense and vlm "
+                         "stripes here; the hybrid family's ring goes "
+                         "through stack_decode_step, and the paged pool and "
+                         "the audio family take no ring")
     if not kernel_supported(cfg):
         if tables is None or cfg.family != "hybrid":
             raise ValueError(f"stack_kernel_decode_step serves GQA stacks "
@@ -305,9 +404,17 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
         return _unembed(p, cfg, x)[:, 0], cache
     index = cache["index"]                                   # (N,)
     N = token.shape[0]
+    P = max(N, DECODE_ROWS)
     rows = torch.arange(N, device=index.device)
-    x = _embed_tokens(p, cfg, token)                         # (N, 1, d)
-    pos = index[:, None]
+    pos = _pad_rows(index, P)[:, None]                       # (P, 1)
+    x = _embed_tokens(p, cfg, _pad_rows(token, P))           # (P, 1, d)
+    mrope = (mrope_positions_at(pos, cfg.num_frontend_tokens) if cfg.mrope
+             else None)                                      # (3, P, 1)
+    audio = cfg.family == "audio"
+    if audio:
+        x = x + _sinusoid(1, cfg.d_model, offset=pos[:, 0]).to(x.dtype)
+        src = cache["cross_k"]
+        src_len = _source_lengths(N, src.shape[2], src.device)
     idx = index.long()
     S = cache["k"].shape[2]
     lengths = index + 1
@@ -324,18 +431,31 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
             window = None           # the ring holds the window, no more
         h = _norm(lp["ln1"], x, cfg)
         q, k_new, v_new = attn.gqa_project_qkv(lp["attn"], cfg, h, pos,
-                                               rope_theta=theta)
-        kr, vr = k_new[:, 0], v_new[:, 0]                   # (N, Hkv, hd)
+                                               rope_theta=theta,
+                                               mrope_positions=mrope)
+        q, kr, vr = q[:N, 0], k_new[:N, 0], v_new[:N, 0]    # (N, H·, hd)
         if tables is None:
             k_l, v_l = cache["k"][li], cache["v"][li]
             k_l[rows, widx] = kr.to(k_l.dtype)
             v_l[rows, widx] = vr.to(v_l.dtype)
-            o = decode_attention(q[:, 0], k_l, v_l, lengths, window=window)
+            o = decode_attention(q, k_l, v_l, lengths, window=window)
         else:
-            o = _paged_attention(cache, ("k", "v"), li, q[:, 0], kr, vr,
-                                 pid, off, tables, lengths, window)
-        x = x + attn.attn_out(o, lp["attn"]["wo"])[:, None].to(x.dtype)
-        h = _norm(lp["ln2"], x, cfg)
-        x = x + mlp_apply(lp["mlp"], h)
+            o = _paged_attention(cache, ("k", "v"), li, q, kr, vr, pid, off,
+                                 tables, lengths, window)
+        x = x + attn.attn_out(_pad_rows(o, P), lp["attn"]["wo"])[:, None].to(
+            x.dtype)
+        if audio:
+            cp = p["cross"][li]
+            h = _norm(cp["ln"], x, cfg)
+            qc = attn.gqa_project_q(cp["attn"], cfg, h)[:N, 0]
+            o = decode_attention(qc, cache["cross_k"][li],
+                                 cache["cross_v"][li], src_len)
+            x = x + attn.attn_out(_pad_rows(o, P), cp["attn"]["wo"])[
+                :, None].to(x.dtype)
+            h = _norm(lp["ln2"], x, cfg)
+            x = x + gelu_mlp_apply(lp["mlp"], h)
+        else:
+            h = _norm(lp["ln2"], x, cfg)
+            x = x + mlp_apply(lp["mlp"], h)
     index.add_(1)
-    return _unembed(p, cfg, x)[:, 0], cache
+    return _unembed(p, cfg, x)[:N, 0], cache

@@ -34,7 +34,7 @@ class SamplerConfig:
 
 @torch.no_grad()
 def generate(model, params, prompts, sampler: SamplerConfig, *,
-             generator=None) -> dict:
+             generator=None, frontend=None) -> dict:
     """prompts ``(B, Sp)`` int -> the JAX package's ``generate`` dict on
     the weights' device: ``prompts``, ``completions`` and
     ``behavior_logp`` ``(B, T)`` (T = ``max_new_tokens``), ``tokens``
@@ -48,13 +48,18 @@ def generate(model, params, prompts, sampler: SamplerConfig, *,
     what a fixed-budget rollout records.  Sampling is :func:`sample_logp`
     (the engine's): the greedy kernel at temperature 0, above it a
     Gumbel-max draw from ``generator`` (a ``torch.Generator`` on the
-    weights' device), where the JAX package takes a key."""
+    weights' device), where the JAX package takes a key.  ``frontend``
+    (``(B, F, d)``, a numpy array or a tensor) is the batch's vision or
+    audio embeddings, as ``Model.prefill`` takes them."""
     dev = params["embed"].device
     prompts_t = torch.as_tensor(np.asarray(prompts, np.int32)).to(dev)
     B, Sp = prompts_t.shape
     T = sampler.max_new_tokens
     cache = model.init_cache(B, Sp + T, device=dev)
-    logits, cache = model.prefill(params, prompts_t, cache)
+    logits, cache = model.prefill(
+        params, prompts_t, cache,
+        frontend=None if frontend is None else torch.as_tensor(
+            frontend).to(dev))
     alive = torch.ones((B,), dtype=torch.bool, device=dev)
     toks, logps, masks = [], [], []
     for _ in range(T):
@@ -101,11 +106,12 @@ def _resolve_spec(spec, num_slots, engine_kw) -> tuple:
 
 
 def _engine_session(model, params, prompts_np, sampler: SamplerConfig, *,
-                    engine, generator, device, spec, policy):
+                    engine, generator, device, spec, policy, frontend=None):
     """Shared engine setup of the batch and streaming rollouts: build the
     engine ``spec`` describes, or check and ``reset`` a persistent
     (drained) one with ``params`` and ``generator``; then the prompt rows
-    as the pending request deque, in ``spec.prefix_namespace``."""
+    as the pending request deque, in ``spec.prefix_namespace``, row i
+    with ``frontend[i:i + 1]`` when a frontend ``(B, F, d)`` is given."""
     B, Sp = prompts_np.shape
     T = sampler.max_new_tokens
     if engine is None:
@@ -144,6 +150,8 @@ def _engine_session(model, params, prompts_np, sampler: SamplerConfig, *,
                              f"not {device}")
         engine.reset(params, generator)
     pending = deque(Request(rid=i, prompt=prompts_np[i], max_new_tokens=T,
+                            frontend=(None if frontend is None
+                                      else frontend[i:i + 1]),
                             prefix_key=spec.prefix_namespace,
                             job_id=spec.job_id)
                     for i in range(B))
@@ -169,8 +177,9 @@ def _pack(outs, n_rows: int, T: int, eos_id: int, row_of):
 
 def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
                         spec: RolloutSpec | None = None, generator=None,
-                        num_slots: int | None = None, device=None,
-                        engine: Engine | None = None, **engine_kw) -> dict:
+                        frontend=None, num_slots: int | None = None,
+                        device=None, engine: Engine | None = None,
+                        **engine_kw) -> dict:
     """Serve each row of ``prompts (B, Sp)`` as one request through the
     engine (``num_slots`` KV slots, default one per row; fewer slots than
     rows queue and recycle).  Sampled decoding (``sampler.temperature >
@@ -180,7 +189,9 @@ def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
     and ``engine_kw``, its fields as keyword arguments (``block_size``,
     ``kv_layout``, ``kv_block_size``, ``num_kv_blocks``, ``sched``,
     ``prefix_share``, ``kv_dtype``, ``disagg``, ...), plus ``policy``;
-    ``spec`` and those at once raise.  ``prefix_share=True`` (paged)
+    ``spec`` and those at once raise.  ``frontend`` ``(B, F, d)`` gives
+    row i the request frontend ``frontend[i:i + 1]`` (vlm, audio: such
+    requests never share a radix prefix).  ``prefix_share=True`` (paged)
     serves GRPO's duplicated rows from one prefill each; ``disagg``
     serves through a ``DisaggRouter``, with the same output bit for bit
     when its decode pool has the monolithic engine's slot count.
@@ -205,7 +216,8 @@ def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
     spec, policy = _resolve_spec(spec, num_slots, engine_kw)
     engine, pending = _engine_session(
         model, params, prompts_np, sampler, engine=engine,
-        generator=generator, device=device, spec=spec, policy=policy)
+        generator=generator, device=device, spec=spec, policy=policy,
+        frontend=frontend)
     outs = run_requests(engine, pending)
     completions, behavior_logp, mask, token_versions = _pack(
         outs, B, T, sampler.eos_id, lambda o: o.rid)
@@ -227,7 +239,8 @@ def generate_continuous_stream(model, params, prompts,
                                sampler: SamplerConfig, *,
                                spec: RolloutSpec | None = None,
                                group: int | None = None, sync_params=None,
-                               generator=None, num_slots: int | None = None,
+                               generator=None, frontend=None,
+                               num_slots: int | None = None,
                                device=None, engine: Engine | None = None,
                                **engine_kw):
     """Yield completed GRPO prompt groups (``group`` consecutive rows; each
@@ -261,7 +274,8 @@ def generate_continuous_stream(model, params, prompts,
     g = group or spec.group or 1
     engine, pending = _engine_session(
         model, params, prompts_np, sampler, engine=engine,
-        generator=generator, device=device, spec=spec, policy=policy)
+        generator=generator, device=device, spec=spec, policy=policy,
+        frontend=frontend)
     synced_version = None
     if sync_params is not None:
         _, synced_version = sync_params()   # the session's baseline

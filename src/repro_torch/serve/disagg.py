@@ -51,7 +51,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.serve.engine import (EngineConfig, EngineStats,
-                                      _evict_for, _prefill)
+                                      _evict_for, _prefill, check_frontend)
 from repro_torch.serve.queue import RequestQueue
 from repro_torch.serve.radix import RadixPrefixIndex
 from repro_torch.serve.request import Request
@@ -148,8 +148,9 @@ class PrefillEngine:
     # ---- submission --------------------------------------------------------
     def submit(self, req: Request) -> bool:
         """Enqueue; ``False`` = queue full (backpressure).  Only the
-        prompt's limits are checked here; the router checks the decode
-        side first."""
+        prompt's limits (and its frontend) are checked here; the router
+        checks the decode side first."""
+        check_frontend(self.model.cfg, req)
         if req.prompt_len > self.config.max_seq_len:
             raise ValueError(
                 f"request {req.rid}: prompt {req.prompt_len} exceeds "
@@ -169,8 +170,9 @@ class PrefillEngine:
     # ---- admission ---------------------------------------------------------
     def _match(self, req: Request, *, count: bool = False):
         """Radix lookup (``None`` with sharing off or no match);
-        ``count=True`` marks the admission lookup."""
-        if self.radix is None:
+        ``count=True`` marks the admission lookup.  A frontend request
+        bypasses the tree, as in :meth:`Engine._match`."""
+        if self.radix is None or req.frontend is not None:
             return None
         return self.radix.match(req, count=count)
 
@@ -267,7 +269,7 @@ class PrefillEngine:
         self.slots.insert_prompt(slot, one, n_shared)
         block_ids, tail, slot_leaves = self.slots.boundary(slot,
                                                            req.prompt_len)
-        if self.radix is not None:
+        if self.radix is not None and req.frontend is None:
             self.radix.register(req, block_ids, logits=logits, tail=tail,
                                 slot_leaves=slot_leaves)
         pinned = self.slots.pin_prefix(slot, len(block_ids))

@@ -209,12 +209,44 @@ def _addresses(tree, out: list) -> list:
     return out
 
 
+def check_frontend(cfg, req: Request) -> None:
+    """A request's ``frontend`` against the model's config: a vlm takes
+    ``(1, F, d_model)`` vision embeddings with F at most the prompt's
+    length (or none: a text-only prompt), an audio model needs ``(1,
+    max_source_len, d_model)`` frame embeddings (its cache's cross leaves
+    have that length), a text model takes none.  Raises ``ValueError``."""
+    fr = req.frontend
+    if cfg.frontend is None:
+        if fr is not None:
+            raise ValueError(f"request {req.rid}: family {cfg.family!r} "
+                             f"takes no frontend embeddings")
+        return
+    if fr is None:
+        if cfg.family == "audio":
+            raise ValueError(f"request {req.rid}: the audio family needs "
+                             f"frontend frame embeddings (1, "
+                             f"{cfg.max_source_len}, {cfg.d_model})")
+        return
+    shape = tuple(fr.shape)
+    ok = (len(shape) == 3 and shape[0] == 1 and shape[2] == cfg.d_model
+          and (shape[1] == cfg.max_source_len if cfg.family == "audio"
+               else 1 <= shape[1] <= req.prompt_len))
+    if not ok:
+        want = (f"(1, {cfg.max_source_len}, {cfg.d_model})"
+                if cfg.family == "audio" else
+                f"(1, F <= {req.prompt_len}, {cfg.d_model})")
+        raise ValueError(f"request {req.rid}: frontend of shape {shape}; "
+                         f"{cfg.name} takes {want}")
+
+
 def _prefill(model, params, req: Request, max_seq_len: int, device):
-    """The model's prefill of ``req``'s prompt on a new batch=1 cache:
-    ``(logits (V,), cache)``."""
+    """The model's prefill of ``req``'s prompt (and its frontend, a numpy
+    array or a tensor) on a new batch=1 cache: ``(logits (V,), cache)``."""
     prompt = torch.from_numpy(req.prompt).to(device)[None]
+    frontend = (None if req.frontend is None
+                else torch.as_tensor(req.frontend).to(device))
     logits, one = model.prefill(params, prompt, model.init_cache(
-        1, max_seq_len, device=device))
+        1, max_seq_len, device=device), frontend=frontend)
     return logits[0], one
 
 
@@ -418,9 +450,7 @@ class Engine:
     def submit(self, req: Request) -> bool:
         """Enqueue a request.  Malformed requests raise; a full queue
         returns ``False`` (backpressure: retry after the engine drains)."""
-        if req.frontend is not None:
-            raise NotImplementedError(
-                "frontend embeddings come with the vlm/audio architectures")
+        check_frontend(self.model.cfg, req)
         if req.total_budget > self.config.max_seq_len:
             raise ValueError(
                 f"request {req.rid}: prompt {req.prompt_len} + budget "
@@ -513,8 +543,10 @@ class Engine:
         """Radix lookup for ``req`` (``None`` with sharing off or no
         match).  ``count=True`` marks the admission lookup: the index owns
         the hit/partial/miss counters and bumps exactly one per counted
-        call."""
-        if self.radix is None:
+        call.  A request carrying frontend embeddings never shares: its KV
+        depends on more than its token ids, so it bypasses the tree (no
+        lookup, no count) and never registers."""
+        if self.radix is None or req.frontend is not None:
             return None
         return self.radix.match(req, count=count)
 
@@ -608,7 +640,10 @@ class Engine:
         """Register the prompt slot ``slot`` holds: its full blocks and a
         boundary snapshot of copies taken from the slot itself
         (:meth:`PagedSlotManager.boundary`, and the logits row), so that
-        an exact hit seeds the same bits."""
+        an exact hit seeds the same bits.  A frontend request does not
+        register (:meth:`_match`)."""
+        if req.frontend is not None:
+            return
         block_ids, tail, rows = self.slots.boundary(slot, req.prompt_len)
         self.radix.register(req, block_ids,
                             logits=self._last_logits[slot].clone(),

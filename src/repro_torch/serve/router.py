@@ -342,7 +342,8 @@ class DisaggRouter:
         scored = []
         for i, pe in enumerate(self.prefills):
             score = 0
-            if self.config.kv_routing == "kv_aware" and pe.radix is not None:
+            if (self.config.kv_routing == "kv_aware" and pe.radix is not None
+                    and req.frontend is None):
                 m = pe.radix.match(req)
                 if m is not None:
                     score = m.n_shared + (1 if m.exact else 0)

@@ -12,6 +12,11 @@ JAX package's on converted reduced-internlm2 weights, float32:
 * the conservation case: a paged pool holding radix pins and an agentic
   handle at the resize; the handle resumes on the new engine and both
   pools end clean, the tokens the port's static run's;
+* a ladder 4 -> 8 -> 16 across the 16 rows where the plain mean of
+  squares and the products' kernels would change their rounding, and a
+  static engine of 16 slots, both bit for bit (tokens and logprobs) with
+  a static engine of 8 slots: the decode step runs on ``DECODE_ROWS``
+  rows at any slot count up to 16;
 * ``run_trace`` with a controller forced up a 1 -> 2 -> 4 ladder, and a
   router resized the same way, give the static run's tokens; under a
   deadline that degrades, every degraded request's tokens are a prefix of
@@ -169,6 +174,30 @@ def test_run_trace_with_controller_matches_static(pair, kv):
         [r[2] for r in e["resize_log"]]
     assert rep["engine"].config.num_slots == e["resize_log"][-1][2]
     assert {o.rid: o.tokens for o in rep["outputs"]} == static
+
+
+@pytest.mark.parametrize("kv", ["contiguous", "paged"])
+def test_ladder_across_16_slots_bit_for_bit(pair, kv):
+    n = 20
+
+    def static(slots):
+        eng = _engine(pair, slots, kv_layout=kv, kv_block_size=4)
+        for r in _requests(Request, n):
+            eng.submit(r)
+        return {o.rid: o for o in eng.run()}
+    ref, ref16 = static(8), static(16)
+    ctl = ElasticController(ElasticConfig(
+        ladder=(4, 8, 16), interval_s=0.0, cooldown_s=0.0,
+        grow_pressure=0.5))
+    rep = run_trace(_engine(pair, 4, kv_layout=kv, kv_block_size=4),
+                    _requests(Request, n), realtime=False, controller=ctl)
+    assert max(c[1] for c in rep["elastic"]["capacity_log"]) == 16
+    got = {o.rid: o for o in rep["outputs"]}
+    for run in (ref16, got):
+        assert sorted(run) == sorted(ref)
+        for rid, o in run.items():
+            assert o.tokens == ref[rid].tokens, rid
+            np.testing.assert_array_equal(o.logprobs, ref[rid].logprobs)
 
 
 def test_degraded_requests_are_prefixes_and_sheds_recorded(pair):

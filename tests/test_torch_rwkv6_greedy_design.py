@@ -341,10 +341,12 @@ def test_greedy_slices_cover_the_row_in_multiples_of_four():
 
 
 def test_greedy_cluster_fills_the_card():
-    """The cluster size is chosen from the row count: 16 CTAs a row at the
-    engine's 8 rows, 8 at 16 rows, never more than 16, at least 1."""
-    assert greedy_cluster(8) == 16 and greedy_cluster(16) == 8
-    assert greedy_cluster(1) == 16 and greedy_cluster(1000) == 1
+    """The cluster size is chosen from the row count: 8 CTAs a row at
+    every count up to 16 (one summation order for a row's log-sum-exp at
+    every slot count up to 16), fewer above, never more than 16, at least
+    1."""
+    assert {greedy_cluster(B) for B in range(1, 17)} == {8}
+    assert greedy_cluster(17) == 4 and greedy_cluster(1000) == 1
     for B in range(1, 300):
         c = greedy_cluster(B)
         assert c in (1, 2, 4, 8, 16)

@@ -23,7 +23,8 @@ Phases, in order; any failure exits non-zero:
              64 and 80; float32 and bf16 at odd D (element loads); G 3; G 4
              and 5 at D 128 (minitron-8b's and qwen2.5-32b's decode, G 5
              with the one-position-shorter fault); G 7 at D 128
-             (qwen2-vl-7b's); whisper-tiny's cross-attention over 1500
+             (qwen2-vl-7b's); G 6 at D 128 (dbrx-132b's, with the
+             same fault); whisper-tiny's cross-attention over 1500
              positions at and below the stripe; a plan of one split; the paged entry at bs 1 to 64, bf16 (or
              float32) and int8; zamba2-2.7b's shared-block shape (H = Hkv
              = 32, D 80, the main lengths, bs 16), also timed in bf16 and
@@ -38,7 +39,8 @@ Phases, in order; any failure exits non-zero:
              4, D 128, lengths 257-1024; contiguous, paged bf16 and
              int8), whisper-tiny's self-attention (H = Hkv = 6, D 64; the
              three layouts) and its cross-attention (every length 1500,
-             contiguous), each against SDPA.  Their limits
+             contiguous), dbrx-132b's decode (8 rows, H 48, Hkv 8, D
+             128, lengths 33-576; the three layouts), each against SDPA.  Their limits
              (DECODE_EDGE_TOL) are tighter
              than the timed rows' 2e-2: float32 noise, and one bf16
              rounding step; the smoke shows they catch a row that lost one
@@ -48,7 +50,8 @@ Phases, in order; any failure exits non-zero:
              every slot count up to 16)
              is held and timed at the served models' vocabularies (92544,
              65536, 32000, gemma3's 262144, minitron's 256000, qwen's
-             152064, whisper's 51865), 8 rows with ties planted
+             152064, whisper's 51865, dbrx's 100352), 8 rows with ties
+             planted
              across every edge of the cluster's slices, across the last
              edge alone, between an early column and the last, across the
              1024/2048 edges of a one-CTA-a-row kernel, and a row of equal
@@ -116,7 +119,8 @@ Phases, in order; any failure exits non-zero:
              FLASH_EDGE_CASES in bf16 and float32 (S 1, 63, 64, 65, 130;
              windows 5, 64, 100; G 1, 2, 4; every compiled D from 16 to
              128, and 256; the internlm2, minitron-8b and qwen2.5-32b
-             prefills' S 512 at G 2, 4 and 5; the long-S tiles
+             prefills' S 512 at G 2, 4 and 5, dbrx-132b's at G 6 (also
+             timed against SDPA); the long-S tiles
              from S 1024), bidirectional (``causal=False``) at S 1, 65,
              130, 300 (G 7), 1030 and whisper's encoder's S 1500 at D 64
              (FLASH_BIDIR_CASES), and on strided q, k, v views, the bf16 output held
@@ -429,8 +433,24 @@ Phases, in order; any failure exits non-zero:
              position 300 under ``torch.profiler``
              (``profile_step.profile_calls``): device events a step and
              device-busy ms beside the weight-bytes bound.
+11. serve-dbrx-132b-cut — the MoE family on a cut of dbrx-132b: full
+             width (d_model 6144, 48/8 heads of 128, 16 experts top 4 of
+             10752, vocab 100352), 8 of its 40 layers (27.3 B, 54.6 GB in
+             bf16), after every other phase's tensors are freed.  The 16
+             serve prompts on 8 slots (an expert takes 4 of a decode
+             step's 8 rows: decode drops), 64 new tokens, on contiguous,
+             paged and paged-int8 KV: launches exact (the layout's decode
+             kernel 8 a step, flash 8 a prefill, greedy once a step), ms
+             per decode step against the weight-bytes bound, peak memory,
+             the assignments each MoE layer dropped over the decode steps
+             and over the prefills (the router's own ``keep``, counted on
+             the device); paged bf16 bit for bit with contiguous, int8
+             against it as zamba2's paged run; the graph against the
+             eager block on every layout; then a 2-layer full-width copy
+             in float32 (31.0 GB) at capacity_factor 4.0 = E/k, where
+             nothing drops, prefill against decode within DENSE32_TOL.
 
-In the float32 runs of phases 7 to 10 the engine's tokens are also held to
+In the float32 runs of phases 7 to 11 the engine's tokens are also held to
 the re-prefill's argmax (log-probability gap within the run's limit); in
 bf16 the gap is reported.
 
@@ -446,6 +466,7 @@ parent commit) on this script's timer; it writes
 ``chiprun_out/kernels_{tree,parent}.json``.
 
     python3 chip_smoke.py --only kernels,elastic,serve-qwen2-vl-7b
+    python3 chip_smoke.py --only serve-dbrx-132b-cut
 
 runs the named phases alone (ONLY_PHASES; no result line) and writes
 ``chiprun_out/chip_smoke_only.json``.
@@ -543,12 +564,16 @@ GEMMA_ATTN = (np.asarray([1, 100, 600, 1023, 1024, 1025, 1500, 2048],
 # (label, lengths, S, H, Hkv, D, paged too): qwen2-vl-7b's decode (G 7,
 # lengths past its 256 image positions), whisper-tiny's self-attention (H =
 # Hkv = 6, D 64) and its cross-attention over the encoder's 1500 positions
-# at every row (contiguous only: the cross leaves are per slot)
+# at every row (contiguous only: the cross leaves are per slot), and
+# dbrx-132b's decode (H 48, Hkv 8: G 6, lengths of the serve prompts' 32-512
+# ids and their 64 new tokens)
 FRONTEND_ATTN = (
     ("qwen2-vl", [257, 300, 400, 512, 640, 777, 900, 1024], 1024, 28, 4, 128,
      True),
     ("whisper", [1, 17, 100, 255, 300, 400, 512, 640], 1024, 6, 6, 64, True),
-    ("whisper-cross", [1500] * 8, 1500, 6, 6, 64, False))
+    ("whisper-cross", [1500] * 8, 1500, 6, 6, 64, False),
+    ("dbrx", [33, 100, 200, 255, 300, 400, 512, 576], 1024, 48, 8, 128,
+     True))
 
 # (label, ragged lengths, stripe length S): the serving shape, a long set
 ATTN_CASES = (
@@ -595,6 +620,8 @@ DECODE_EDGE_CASES = (
     # qwen2-vl-7b's G 7 at D 128, and whisper-tiny's cross-attention (G 1,
     # D 64) over its 1500 encoder positions at and just below the stripe
     ("G7-D128", EDGES, 1024, 28, 4, 128, "bfloat16", None, (16,)),
+    # dbrx-132b's G 6 at D 128 (H 48, Hkv 8)
+    ("G6-D128", EDGES, 1024, 48, 8, 128, "bfloat16", None, (16,)),
     ("cross-S1500", [1500, 1500, 1499, 1280, 1281, 1], 1500, 6, 6, 64,
      "bfloat16", None, ()),
     # the head-dim-256 instance (gemma3-4b: H 8, Hkv 4): chunk edges and
@@ -660,7 +687,7 @@ def decode_edge_cases(torch, dev) -> dict:
         errs["decode_attention"] = max(errs["decode_attention"], e)
         msg = [f"contiguous {e:.2e}"]
         if label in ("edges", "zamba2", "G5-D128", "G2-D256", "G7-D128",
-                     "cross-S1500"):
+                     "G6-D128", "cross-S1500"):
             # the limit sees one position go missing
             short = da.decode_attention_plain(
                 q, k, v, (lengths - 1).clamp_min(0), window=window)
@@ -962,7 +989,8 @@ def phase_greedy(torch, dev, timer, record, rows):
     B = 8
     for label, V in (("main", 92544), ("rwkv6", 65536), ("zamba2", 32000),
                      ("gemma3", 262144), ("minitron8b", 256000),
-                     ("qwen2.5-32b", 152064), ("whisper", 51865)):
+                     ("qwen2.5-32b", 152064), ("whisper", 51865),
+                     ("dbrx", 100352)):
         x, want = greedy_logits(torch, g, dev, B, V)
         err = check_greedy(torch, f"V={V}", x, want)
         note = f"; cluster {sampling.greedy_cluster(B)}"
@@ -1496,15 +1524,16 @@ def phase_topk(torch, dev, timer):
 # zamba2's shared attention, gemma3-4b's longest prefill at D 256 without
 # and with its 1024 window
 # (label, rows, positions, H, Hkv, D, window, causal): the timed shapes;
-# qwen2-vl-7b's prefill (G 7) and whisper-tiny's encoder (bidirectional
-# over its 1500 frames, D 64)
+# qwen2-vl-7b's prefill (G 7), whisper-tiny's encoder (bidirectional
+# over its 1500 frames, D 64) and dbrx-132b's longest prefill (G 6)
 FLASH_CASES = (("main", 16, 16 + MAX_NEW - 1, 16, 8, 128, None, True),
                ("long", 2, 4096, 16, 8, 128, None, True),
                ("zamba2", 1, 512, 32, 32, 80, None, True),
                ("gemma3", 1, 1900, 8, 4, 256, None, True),
                ("gemma3-w1024", 1, 1900, 8, 4, 256, 1024, True),
                ("qwen2-vl", 1, 512, 28, 4, 128, None, True),
-               ("whisper-encoder", 1, 1500, 6, 6, 64, None, False))
+               ("whisper-encoder", 1, 1500, 6, 6, 64, None, False),
+               ("dbrx", 1, 512, 48, 8, 128, None, True))
 
 
 # (label, rows, positions, H, Hkv, D, window): held against the plain
@@ -1512,8 +1541,8 @@ FLASH_CASES = (("main", 16, 16 + MAX_NEW - 1, 16, 8, 128, None, True),
 # last tile; windows that end on a tile edge (64) and that empty a query
 # tile's leading key tiles (5, 100); G 1, 2, 4; every compiled D (16 to
 # 128 in steps of 16) at 32-key tiles (below S 256) and 64-key ones; the
-# internlm2, minitron-8b and qwen2.5-32b prefills' own shapes (S 512, Hkv 8,
-# D 128, H 16, 32 and 40: G 2, 4 and 5); from S 1024
+# internlm2, minitron-8b, qwen2.5-32b and dbrx-132b prefills' own shapes (S
+# 512, Hkv 8, D 128, H 16, 32, 40 and 48: G 2, 4, 5 and 6); from S 1024
 # at D 128 the warpgroup-MMA path (S 1030 leaves the last tile's second
 # warpgroup without a row).
 FLASH_EDGE_CASES = (
@@ -1528,6 +1557,7 @@ FLASH_EDGE_CASES = (
     ("prefill-S512", 1, 512, 16, 8, 128, None),
     ("minitron-S512", 1, 512, 32, 8, 128, None),
     ("qwen-S512", 1, 512, 40, 8, 128, None),
+    ("dbrx-S512", 1, 512, 48, 8, 128, None),
     ("G1-D64", 2, 130, 4, 4, 64, None),
     ("G4-D80", 2, 130, 8, 2, 80, 100),
     ("G1-D80-S512", 1, 512, 4, 4, 80, 64),
@@ -1793,10 +1823,13 @@ def wrappers():
 
 
 def build(torch, dev, arch=ARCH):
+    """The model of ``arch`` (an id, or a config such as a cut) and its
+    random weights from seed 0 on ``dev``."""
     from repro_torch.models import build_model
 
     model = build_model(arch)
     cfg = model.cfg
+    arch = cfg.name
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
@@ -4999,15 +5032,18 @@ def weight_bound_ms(params) -> float:
 
 
 def serve_layouts(torch, dev, model, params, arch, prompts, phase, *,
-                  layouts, slots, max_new, max_seq, frontends=None) -> tuple:
+                  layouts, slots, max_new, max_seq, frontends=None,
+                  per_run=None) -> tuple:
     """``prompts`` through ``serve_continuous`` on each layout: exact
     launches, finished outputs; tok/s, ms per decode step against the
     weight-bytes bound, peak memory.  Every layout after the first is held
     to the first (contiguous) as ``phase_serve_paged`` holds zamba2's:
     first tokens and logprobs identical, mean exp(diff) before a request's
     first divergence within PAGED_BF16_TOL of 1, divergent requests
-    reported with their top-2 gap.  Returns the launch totals, the
-    reports and the first layout's outputs."""
+    reported with their top-2 gap.  ``per_run(run, report)``, when given,
+    is called right after each layout's serve run, before anything else
+    runs the model, and returns more of its report.  Returns the launch
+    totals, the reports and the first layout's outputs."""
     from repro_torch.launch.serve import serve_continuous
 
     cfg = model.cfg
@@ -5036,6 +5072,8 @@ def serve_layouts(torch, dev, model, params, arch, prompts, phase, *,
                                  f"{want} ({rep['prefills']} prefills, "
                                  f"{rep['captures']} captures)")
         add_counts(total, counts)
+        # before the comparison below, whose prefills run the model again
+        extra = {} if per_run is None else per_run(run, rep)
         step_ms = rep["decode_time_s"] / max(steps, 1) * 1e3
         r = {"tokens": rep["tokens"], "decode_steps": steps,
              "wall_s": rep["wall_s"], "tok_per_s": rep["tok_per_s"],
@@ -5073,6 +5111,7 @@ def serve_layouts(torch, dev, model, params, arch, prompts, phase, *,
               f"(1 capture in "
               f"{rep['capture_s']:.3f}s); peak memory {peak / 2 ** 30:.2f} "
               f"GiB; launches {counts}{cmp}")
+        r.update(extra)
         res[run] = r
         del rep
     return total, res, base
@@ -5254,6 +5293,130 @@ def phase_serve_dense(torch, dev, arch) -> tuple:
         add_counts(counts, f32_counts)
     del model, params
     return counts, res
+
+
+MOE_ARCH = "dbrx-132b"
+MOE_LAYERS = 8         # the cut: full width, 8 of dbrx-132b's 40 layers
+MOE_PHASE = f"serve-{MOE_ARCH}-cut"
+MOE_SLOTS, MOE_NEW = 8, 64
+MOE_F32_LAYERS = 2     # the float32 copy: 7.75 B parameters, 31.0 GB
+MOE_F32_CF = 4.0       # = E / k: an expert's capacity is T, nothing drops
+
+
+def drop_counter(torch, dev, params, slots):
+    """Count the assignments each MoE layer drops, on the device: while
+    ``on()``, ``moe.moe_route`` also adds its ``~keep`` count into
+    ``drops[kind, layer]`` (kind 0: a call over ``slots`` rows, a decode
+    step; 1: any other, a prefill), the layer found by its router's
+    address.  The add is a device op, so a CUDA graph capture records it
+    and each replay repeats it; nothing is read on the host until
+    ``take()``.  Returns ``(on, off, take)``; ``take()`` returns the counts
+    since the last take as ``{"decode": [...], "prefill": [...]}`` lists
+    by MoE layer and zeroes them."""
+    from repro_torch.models import moe
+
+    at = {lp["moe"]["router"].data_ptr(): i
+          for i, lp in enumerate(params["layers"])}
+    drops = torch.zeros((2, len(at)), dtype=torch.int64, device=dev)
+    route = moe.moe_route
+
+    def counting(p, cfg, xf, capacity=None):
+        r = route(p, cfg, xf, capacity)
+        kind = 0 if xf.shape[0] == slots else 1
+        drops[kind, at[p["router"].data_ptr()]] += (~r["keep"]).sum()
+        return r
+
+    def on():
+        moe.moe_route = counting
+
+    def off():
+        moe.moe_route = route
+
+    def take():
+        d = drops.tolist()
+        drops.zero_()
+        return {"decode": d[0], "prefill": d[1]}
+    return on, off, take
+
+
+def phase_serve_moe(torch, dev) -> tuple:
+    """The MoE family on a cut of dbrx-132b: full width, MOE_LAYERS of its
+    40 layers; the 16 serve prompts on MOE_SLOTS slots (capacity 4 of a
+    decode step's 8 rows: decode drops), MOE_NEW new tokens, on every
+    layout: exact launches, ms per decode step against the weight-bytes
+    bound, peak memory and the assignments dropped per MoE layer; paged
+    bf16 bit for bit with contiguous, int8 held to it as zamba2's paged
+    run; the graph against the eager block on every layout.  Then, the
+    cut freed, a MOE_F32_LAYERS-layer copy in float32 at capacity_factor
+    MOE_F32_CF, where nothing drops: prefill against decode within
+    DENSE32_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    full = get_config(MOE_ARCH)
+    cut = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    model, params = build(torch, dev, cut)
+    cfg = model.cfg
+    prompts = serve_prompts(cfg.vocab_size)
+    lens = [len(p) for p in prompts]
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    print(f"[{MOE_PHASE}] cut of {MOE_ARCH}: {cfg.num_layers} of "
+          f"{full.num_layers} layers (reduced: num_layers {full.num_layers} "
+          f"-> {cfg.num_layers}), {E} experts top {k}; capacity "
+          f"{moe.capacity_for(cfg, MOE_SLOTS)} of a decode step's "
+          f"{MOE_SLOTS} rows, {moe.capacity_for(cfg, min(lens))}-"
+          f"{moe.capacity_for(cfg, max(lens))} of a prefill's "
+          f"{min(lens)}-{max(lens)}")
+    on, off, take = drop_counter(torch, dev, params, MOE_SLOTS)
+
+    def drops(run, rep):
+        d = take()
+        steps = rep["decode_steps"] + 1      # and serve's warm-up block
+        per = {"decode": steps * MOE_SLOTS * k, "prefill": sum(lens) * k}
+        print(f"[{MOE_PHASE}] {run}: assignments dropped per MoE layer, "
+              f"decode (of {per['decode']} each, the warm-up block's "
+              f"included) {d['decode']}, prefill (of {per['prefill']} "
+              f"each) {d['prefill']}")
+        if sum(d["decode"]) == 0:
+            raise AssertionError(f"{MOE_PHASE} {run}: no decode step "
+                                 f"dropped an assignment")
+        return {"dropped": d, "assignments_per_layer": per}
+    on()
+    try:
+        counts, layouts, _ = serve_layouts(
+            torch, dev, model, params, MOE_ARCH, prompts, MOE_PHASE,
+            layouts=(("contiguous", None), ("paged", None),
+                     ("paged", "int8")),
+            slots=MOE_SLOTS, max_new=MOE_NEW, max_seq=MAX_SEQ,
+            per_run=drops)
+    finally:
+        off()
+    if not layouts["paged"]["bit_for_bit"]:
+        raise AssertionError(f"{MOE_PHASE}: paged bf16 is not bit for bit "
+                             f"with contiguous")
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    graph = {run: graph_vs_eager(torch, dev, model, params, MOE_PHASE, run,
+                                 kv=kv, kv_dtype=kv_dtype, prompts=prompts)
+             for run, kv, kv_dtype in (("contiguous", "contiguous", None),
+                                       ("paged", "paged", None),
+                                       ("paged-int8", "paged", "int8"))}
+    add_counts(counts, {k: f.launches for k, f in fns.items()})
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = build(torch, dev, dataclasses.replace(
+        full, num_layers=MOE_F32_LAYERS, capacity_factor=MOE_F32_CF))
+    f32_counts, f32 = float32_check(torch, dev, model, params, MOE_ARCH,
+                                    prompts[:4], MOE_PHASE, max_seq=MAX_SEQ)
+    add_counts(counts, f32_counts)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"layers": MOE_LAYERS, "slots": MOE_SLOTS,
+                    "layouts": layouts, "graph_vs_eager": graph,
+                    "prefill_decode_float32": f32, "launches": counts}
 
 
 VLM_ARCH, WHISPER_ARCH = "qwen2-vl-7b", "whisper-tiny"
@@ -5530,7 +5693,7 @@ SOURCES = {
 
 
 ONLY_PHASES = ("kernels", "elastic", f"serve-{VLM_ARCH}",
-               f"serve-{WHISPER_ARCH}")
+               f"serve-{WHISPER_ARCH}", MOE_PHASE)
 
 
 def run_only(torch, dev, phases, t0) -> int:
@@ -5556,6 +5719,10 @@ def run_only(torch, dev, phases, t0) -> int:
             gc.collect()
             torch.cuda.empty_cache()
             res[arch] = phase_serve_frontend(torch, dev, arch)[1]
+    if MOE_PHASE in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res[MOE_PHASE] = phase_serve_moe(torch, dev)[1]
     smi = card_line()
     print(f"[smoke] phases {phases} passed in "
           f"{time.perf_counter() - t0:.1f}s ({smi})")
@@ -5702,11 +5869,16 @@ def main(argv=None) -> int:
         counts, serve_dense[arch] = phase_serve_dense(torch, dev, arch)
         lap(f"phase_serve_dense {arch}")
         add_counts(dense_counts, counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_counts, serve_moe = phase_serve_moe(torch, dev)
+    lap(f"phase_serve_moe {MOE_ARCH}")
     for counts in (elastic_launches, suspend_launches, agentic_launches,
                    carry_launches, static_launches, prefix_launches,
                    disagg_launches, train_prefix_launches, train_launches,
                    mux_launches_, rwkv_launches, zamba_launches,
-                   gemma_launches, frontend_counts, dense_counts):
+                   gemma_launches, frontend_counts, dense_counts,
+                   moe_counts):
         add_counts(launches, counts)
     launches["topk"] = launches["topk_values"] + launches["topk_mask"]
     smi = card_line()
@@ -5738,7 +5910,7 @@ def main(argv=None) -> int:
                    "serve_zamba2": serve_zamba2,
                    "serve_gemma3": serve_gemma3,
                    "serve_frontend": serve_frontend, "phase_s": phase_s,
-                   "serve_dense": serve_dense},
+                   "serve_dense": serve_dense, "serve_moe": serve_moe},
                   f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": kernels}))

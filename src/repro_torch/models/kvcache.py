@@ -1,5 +1,5 @@
-"""Decode caches for the dense GQA, vlm (qwen2-vl), audio (whisper), rwkv6
-(ssm) and zamba2 (hybrid) families (plain dicts of tensors).
+"""Decode caches for the dense GQA, vlm (qwen2-vl), audio (whisper), MoE
+(dbrx), rwkv6 (ssm) and zamba2 (hybrid) families (plain dicts of tensors).
 
 Counterpart of ``repro/models/kvcache.py``.  Two serving layouts for the
 dense family:
@@ -10,7 +10,7 @@ dense family:
   ``(L, num_blocks + 1, block_size, Hkv, hd)`` (block 0 is the null
   block), optionally int8 with per-position float32 scale pools.
 
-A vlm cache is the dense one.  An audio cache adds the encoder's
+A vlm or MoE cache is the dense one.  An audio cache adds the encoder's
 cross-attention keys and values, ``cross_k``/``cross_v`` ``(L, B,
 max_source_len, Hkv, hd)``, written once by the prefill.
 
@@ -48,16 +48,16 @@ SCALE_SUFFIX = "_scale"
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves the dense GQA family (internlm2, gemma3 with its
-    sliding-window layers, minitron, qwen2.5), the vlm (qwen2-vl) and
-    audio (whisper) families, the ssm (rwkv6) and the hybrid (zamba2)
-    families; MoE and MLA wait for theirs."""
+    sliding-window layers, minitron, qwen2.5), the vlm (qwen2-vl), audio
+    (whisper) and GQA MoE (dbrx) families, the ssm (rwkv6) and the hybrid
+    (zamba2) families; MLA waits for its slice."""
     if cfg.family != "ssm" and (
-            cfg.family not in ("dense", "vlm", "audio", "hybrid")
+            cfg.family not in ("dense", "vlm", "audio", "moe", "hybrid")
             or cfg.attention != "gqa"):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attention!r} is not "
-            f"ported yet: MoE and MLA come with their own slices (ROADMAP, "
-            f"modules to port)")
+            f"ported yet: MLA comes with its own slice (ROADMAP, modules "
+            f"to port)")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,

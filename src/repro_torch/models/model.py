@@ -1,6 +1,7 @@
 """Model facade: one object per architecture exposing init, the training
 forward, caches, prefill and the one-token decode steps (through the decode
-attention kernels for GQA stacks, plain for rwkv6 and zamba2).
+attention kernels for GQA stacks, MoE ones included; plain for rwkv6 and
+zamba2).
 Counterpart of ``repro/models/model.py``."""
 from __future__ import annotations
 
@@ -68,7 +69,7 @@ class Model:
 
     def kernel_supported(self) -> bool:
         """Whether :meth:`kernel_decode_step` serves this architecture on a
-        contiguous cache (GQA stacks: dense, vlm, audio); the others
+        contiguous cache (GQA stacks: dense, vlm, audio, MoE); the others
         decode through
         :meth:`decode_step`, but for the hybrid family's paged pool."""
         return kernel_supported(self.cfg)

@@ -3,8 +3,9 @@ embedding, unembedding, norms, the per-layer rope theta and window) and
 the full-sequence training forward :func:`stack_forward`.
 
 Counterpart of ``repro/models/stacks.py``: the dense GQA, vlm (qwen2-vl),
-audio (whisper: LayerNorm, gelu MLPs, an encoder and cross-attention), ssm
-(rwkv6) and hybrid (zamba2) branches of the init, the vision-embedding
+audio (whisper: LayerNorm, gelu MLPs, an encoder and cross-attention), MoE
+(dbrx: leading dense layers, then MoE layers), ssm (rwkv6) and hybrid
+(zamba2) branches of the init, the vision-embedding
 overlay and the audio encoder (:func:`encode_source`), dense GQA of the
 forward.  Where the
 JAX package stacks layers on axis 0 for ``lax.scan``, the port keeps
@@ -25,6 +26,7 @@ from repro_torch.models.common import (dense_init, embed_init,
                                        rms_norm, torch_dtype)
 from repro_torch.models.kvcache import check_supported
 from repro_torch.models.mamba2 import mamba2_init
+from repro_torch.models.moe import moe_init
 from repro_torch.models.rwkv6 import rwkv6_init
 
 NO_WINDOW = 2 ** 30     # far beyond any max_seq_len: never masks
@@ -79,7 +81,10 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     ``{"ln1", "ln2", "mix": <rwkv6 block>}`` (ssm) or ``{"norm", "mamba":
     <mamba2 block>}`` (hybrid, which also holds one ``shared_attn =
     {"ln1", "attn", "ln2", "mlp"}`` that every ``hybrid_attn_every``-th
-    layer applies) in the JAX package's weight layouts.  The audio family
+    layer applies) in the JAX package's weight layouts.  The MoE family
+    has ``layers`` of ``{"ln1", "ln2", "attn", "moe": <moe block>}`` and,
+    with ``first_dense_layers``, a leading ``dense_layers`` group of dense
+    layers whose MLP is ``d_ff`` wide.  The audio family
     has LayerNorms ``{"w", "b"}``, gelu MLPs ``{wi, bi, wo, bo}``, an
     ``encoder = {"layers", "final_norm"}`` of such layers and ``cross``, a
     list of ``{"ln", "attn"}`` per decoder layer."""
@@ -121,11 +126,29 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         p["cross"] = [{"ln": norm(), "attn": attn.gqa_init(gen, cfg)}
                       for _ in range(cfg.num_layers)]
         return p
-    p["layers"] = [{"ln1": norm(), "ln2": norm(),
-                    "attn": attn.gqa_init(gen, cfg),
-                    "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
-                   for _ in range(cfg.num_layers)]
+
+    def dense_layer():
+        return {"ln1": norm(), "ln2": norm(),
+                "attn": attn.gqa_init(gen, cfg),
+                "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
+    if cfg.is_moe:
+        n_dense = cfg.first_dense_layers
+        if n_dense:
+            p["dense_layers"] = [dense_layer() for _ in range(n_dense)]
+        p["layers"] = [{"ln1": norm(), "ln2": norm(),
+                        "attn": attn.gqa_init(gen, cfg),
+                        "moe": moe_init(gen, cfg)}
+                       for _ in range(cfg.num_layers - n_dense)]
+        return p
+    p["layers"] = [dense_layer() for _ in range(cfg.num_layers)]
     return p
+
+
+def decoder_layers(p: dict) -> list:
+    """The attention stack's layers in order: an MoE model's leading
+    ``dense_layers`` (when it has them), then ``layers``.  The cache's
+    layer index and :func:`_layer_theta_window` run across both."""
+    return p.get("dense_layers", []) + p["layers"]
 
 
 def _embed_tokens(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -184,6 +207,11 @@ def stack_forward(p: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             "stack_forward for the hybrid family (zamba2 training) is not "
             "ported yet: it needs a backward of the SSD scan (ROADMAP, "
             "zamba2 training)")
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "stack_forward for the moe family (dbrx training) is not ported "
+            "yet: the port serves it; its training, with the router's aux "
+            "loss in GRPO, is its own slice (ROADMAP §1, MoE training)")
     if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"stack_forward for the {cfg.family} family (qwen2-vl and "

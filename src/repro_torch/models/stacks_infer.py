@@ -1,16 +1,16 @@
 """Prefill and the batched one-token decode steps of the dense GQA, vlm,
-audio, rwkv6 (ssm) and zamba2 (hybrid) stacks.
+audio, MoE, rwkv6 (ssm) and zamba2 (hybrid) stacks.
 
 Counterpart of ``repro/models/stacks_infer.py``: :func:`stack_prefill`
 (dense, vlm with its frontend and M-RoPE, audio with its encoder and
-cross-attention, ssm and hybrid branches) fills a contiguous cache;
+cross-attention, MoE, ssm and hybrid branches) fills a contiguous cache;
 :func:`stack_kernel_decode_step` decodes one token for every slot of the
-serving pool through the decode attention kernels (dense GQA, vlm and
-audio, contiguous or paged; and the hybrid family's paged pool, its shared
+serving pool through the decode attention kernels (dense GQA, vlm, audio
+and MoE, contiguous or paged; and the hybrid family's paged pool, its shared
 attention block through the paged kernel);
 :func:`stack_decode_step` decodes one token for every row of a contiguous
-cache of any batch (dense, vlm and audio through the kernel step; ssm and
-hybrid in plain PyTorch: the recurrent state has no sequence axis for a
+cache of any batch (dense, vlm, audio and MoE through the kernel step; ssm
+and hybrid in plain PyTorch: the recurrent state has no sequence axis for a
 decode kernel, and the JAX engine refuses its kernel backend for the
 hybrid family).  Caches are updated in place (slice assignment and
 ``index_put_``) where the JAX package rebuilds them with ``.at[].set``.
@@ -27,13 +27,14 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache
 from repro_torch.models import mamba2 as mb
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.common import (default_mrope_positions,
                                        gelu_mlp_apply, mlp_apply,
                                        mrope_positions_at)
 from repro_torch.models.stacks import (_embed_tokens, _layer_theta_window,
                                        _norm, _sinusoid, _unembed,
-                                       encode_source)
+                                       decoder_layers, encode_source)
 
 # A product on the card may take another kernel at another row count, and
 # split a row's sums another way: cuBLAS takes another kernel for
@@ -43,8 +44,18 @@ from repro_torch.models.stacks import (_embed_tokens, _layer_theta_window,
 # serves on several, a batch=1 injection on one), the kernel decode step
 # runs its embedding, norms, products and logits on at least DECODE_ROWS
 # rows, the rows past the live ones zero-token padding that nothing reads;
-# only the attention kernels see the live rows.
+# only the attention kernels see the live rows, and an MoE layer, whose
+# capacity couples the rows it routes, routes the live rows alone.
 DECODE_ROWS = 16
+
+
+def _ffn(lp: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """A layer's feed-forward block over ``h (B, S, d)``: its MoE layer
+    (all B·S rows routed together; the aux loss dropped, as the
+    reference's inference steps drop it) or its SwiGLU MLP."""
+    if "moe" in lp:
+        return moe_lib.moe_apply(lp["moe"], cfg, h)[0]
+    return mlp_apply(lp["mlp"], h)
 
 
 def stack_prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -59,8 +70,9 @@ def stack_prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
     written over the first F positions (F at most S; the M-RoPE ids take
     the config's ``num_frontend_tokens`` whatever F is, as the JAX
     package's), or the audio family's frame embeddings ``(B,
-    max_source_len, d)``, which it needs; other families ignore it.
-    Returns ``(last_logits (B, V) f32, cache)``."""
+    max_source_len, d)``, which it needs; other families ignore it.  An
+    MoE model routes all B·S rows of a layer together.  Returns
+    ``(last_logits (B, V) f32, cache)``."""
     kvcache.check_supported(cfg)
     B, S = tokens.shape
     x = _embed_tokens(p, cfg, tokens, frontend)
@@ -86,7 +98,7 @@ def stack_prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
     mrope = (default_mrope_positions(B, S, cfg.num_frontend_tokens,
                                      x.device) if cfg.mrope else None)
     for li, (lp, (theta, window)) in enumerate(
-            zip(p["layers"], _layer_theta_window(cfg))):
+            zip(decoder_layers(p), _layer_theta_window(cfg))):
         h = _norm(lp["ln1"], x, cfg)
         q, k, v = attn.gqa_project_qkv(lp["attn"], cfg, h, positions,
                                        rope_theta=theta,
@@ -95,7 +107,7 @@ def stack_prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                         window=window)
         x = x + attn.attn_out(out, lp["attn"]["wo"])
         h = _norm(lp["ln2"], x, cfg)
-        x = x + mlp_apply(lp["mlp"], h)
+        x = x + _ffn(lp, cfg, h)
         cache["k"][li, :, :S] = k
         cache["v"][li, :, :S] = v
     cache["index"].fill_(S)
@@ -179,14 +191,15 @@ def _hybrid_prefill(p: dict, cfg: ModelConfig, x, cache: dict):
 
 def kernel_supported(cfg: ModelConfig) -> bool:
     """Whether :func:`stack_kernel_decode_step` serves this config on a
-    contiguous cache: GQA transformer stacks (dense, vlm, and audio, whose
-    cross-attention runs the contiguous decode kernel over its encoder
-    K/V).  The ssm family carries no sequence-shaped KV for a decode
+    contiguous cache: GQA transformer stacks (dense, vlm, MoE, and audio,
+    whose cross-attention runs the contiguous decode kernel over its
+    encoder K/V).  The ssm family carries no sequence-shaped KV for a decode
     kernel and steps its recurrence in :func:`stack_decode_step`; so does
     the hybrid family on contiguous stripes, whose kernel backend the JAX
     engine refuses; its paged pool decodes through
     :func:`stack_kernel_decode_step`."""
-    return cfg.family in ("dense", "vlm", "audio") and cfg.attention == "gqa"
+    return (cfg.family in ("dense", "vlm", "audio", "moe")
+            and cfg.attention == "gqa")
 
 
 def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -201,14 +214,17 @@ def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     W-1, C)``, ``ssm`` ``(L, N, nh, N_state, hd)`` float32,
     ``attn_k``/``attn_v`` ``(n_attn, N, S, Hkv, hd)``.
 
-    The dense, vlm and audio families run :func:`stack_kernel_decode_step`
+    The dense, vlm, audio and MoE families run
+    :func:`stack_kernel_decode_step`
     (the decode attention kernel on the card, its plain version on the
     CPU); ssm and
     hybrid step their recurrences in plain PyTorch (the recurrent state
     has no sequence axis for a decode kernel, and the JAX engine refuses
     its kernel backend for the hybrid family).  The JAX engine vmaps a
     batch-1 step over the slots; the rows here are as independent, so one
-    batched step computes the same thing.  The cache is updated in place
+    batched step computes the same thing (an MoE model's rows are not
+    independent: its layers route all N rows together, as the JAX batched
+    step does).  The cache is updated in place
     (``index`` advances by one); returns ``(logits (N, V) f32, cache)``.
 
     ``ring=True`` decodes over a ring cache (``init_cache(ring=True)``, the
@@ -372,9 +388,13 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     gelu MLP; the JAX engine vmaps a batch=1 step whose scalar index is
     each slot's own.
 
-    Everything but the attention kernels runs on ``max(N, DECODE_ROWS)``
-    rows (see ``DECODE_ROWS``), so that a slot's logits round alike at
-    every slot count up to it.
+    Everything but the attention kernels and the MoE layers runs on
+    ``max(N, DECODE_ROWS)`` rows (see ``DECODE_ROWS``), so that a slot's
+    logits round alike at every slot count up to it (a dense model's).  An
+    MoE layer routes the N slot rows alone, dead slots included, as the
+    JAX kernel step does: its capacity is set by N and the rows compete
+    for it, so a slot's logits depend on its companions and the slot
+    count.
 
     ``ring=True`` (dense and vlm, contiguous only: the paged pool takes no
     ring) reads the stripes of S slots as ring buffers: position ``index``
@@ -418,15 +438,22 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     idx = index.long()
     S = cache["k"].shape[2]
     lengths = index + 1
+    past = None
     if ring:
         widx = idx % S
         lengths = lengths.clamp(max=S)
     elif tables is None:
         widx = idx.clamp(max=S - 1)
+        # An MoE layer routes the dead rows too, so a dead slot's row must
+        # be the reference's: past its stripe it writes nothing, as the
+        # JAX kernel step's out-of-bounds scatter drops, and attends over
+        # the stripe as it stands.  Other families' dead rows reach no live
+        # one, and write clamped onto the last position.
+        past = (idx >= S)[:, None, None] if cfg.is_moe else None
     else:
         pid, off = _paged_position(S, idx, tables)
     for li, (lp, (theta, window)) in enumerate(
-            zip(p["layers"], _layer_theta_window(cfg, ring=ring))):
+            zip(decoder_layers(p), _layer_theta_window(cfg, ring=ring))):
         if ring:
             window = None           # the ring holds the window, no more
         h = _norm(lp["ln1"], x, cfg)
@@ -436,8 +463,12 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
         q, kr, vr = q[:N, 0], k_new[:N, 0], v_new[:N, 0]    # (N, H·, hd)
         if tables is None:
             k_l, v_l = cache["k"][li], cache["v"][li]
-            k_l[rows, widx] = kr.to(k_l.dtype)
-            v_l[rows, widx] = vr.to(v_l.dtype)
+            kr, vr = kr.to(k_l.dtype), vr.to(v_l.dtype)
+            if past is not None:
+                kr = torch.where(past, k_l[rows, widx], kr)
+                vr = torch.where(past, v_l[rows, widx], vr)
+            k_l[rows, widx] = kr
+            v_l[rows, widx] = vr
             o = decode_attention(q, k_l, v_l, lengths, window=window)
         else:
             o = _paged_attention(cache, ("k", "v"), li, q, kr, vr, pid, off,
@@ -454,6 +485,9 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
                 :, None].to(x.dtype)
             h = _norm(lp["ln2"], x, cfg)
             x = x + gelu_mlp_apply(lp["mlp"], h)
+        elif "moe" in lp:
+            h = _norm(lp["ln2"], x, cfg)
+            x = x + _pad_rows(_ffn(lp, cfg, h[:N]), P)
         else:
             h = _norm(lp["ln2"], x, cfg)
             x = x + mlp_apply(lp["mlp"], h)

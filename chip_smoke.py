@@ -138,7 +138,13 @@ Phases, in order; any failure exits non-zero:
              ``scaled_dot_product_attention`` and the bound, and of the
              kernel and SDPA at twice the rows (a time that barely grows
              says the kernel waits on its longest CTA, not on the card's
-             rates).
+             rates).  The D 192 / Dv 128 instance (deepseek-v2's MLA
+             prefill) at MLA_FLASH_EDGE (S 1, 65, 130, 300 with a window,
+             1030; G 1 and 2) and at its prefill's (1 row, S 512, H = Hkv
+             = 128) in bf16 and float32, a key missing from P V shown to
+             fail the bf16 limit, the backward's refusal of Dv != D, and
+             the kernel, plain and SDPA times (SDPA's first backend that
+             takes Dv != D, named) beside the bound.
 4. serve   — internlm2-1.8b at full width (24 layers, d_model 2048, vocab
              92544) in bf16 with seeded random weights: 16 requests with
              prompts of 32-512 token ids, 8 slots, 128 new tokens, through
@@ -449,8 +455,29 @@ Phases, in order; any failure exits non-zero:
              eager block on every layout; then a 2-layer full-width copy
              in float32 (31.0 GB) at capacity_factor 4.0 = E/k, where
              nothing drops, prefill against decode within DENSE32_TOL.
+12. serve-deepseek-v2-cut — deepseek-v2's MLA on a cut: full width
+             (d_model 5120, 128 heads, MLA with kv_lora_rank 512, q_lora
+             1536, rope 64; 160 experts top 6 of 1536 with 2 shared; vocab
+             102400), 8 of its 60 layers (1 dense of 12288, 7 MoE; 29.19 B,
+             58.4 GB in bf16), last.  The 16 serve prompts on 8 slots, 64
+             new tokens, on contiguous, paged and paged-int8 KV: launches
+             exact (flash's D 192 / Dv 128 instance 8 a prefill, greedy
+             once a step, no decode kernel: the absorbed decode is plain
+             PyTorch), ms per decode step against the weight-bytes bound,
+             peak memory, the assignments each MoE layer dropped over the
+             prefills, and none over the decode steps (the engine routes
+             each slot alone, as the reference engine's batch=1 step);
+             paged bf16 bit for bit with contiguous, int8 against it as
+             zamba2's paged run; the graph against the eager block on
+             every layout; 4 and 16 slots against 8 on contiguous
+             (reported: bit for bit, or the largest logprob gap and the
+             first divergent token); then a 2-layer copy in float32 (21.4
+             GB) at capacity_factor 27.0, above E/k = 26.67, where nothing
+             drops, prefill against decode within DENSE32_TOL.  Phase 3
+             holds flash's D 192 / Dv 128 instance at this prefill's
+             shape (and greedy at V 102400).
 
-In the float32 runs of phases 7 to 11 the engine's tokens are also held to
+In the float32 runs of phases 7 to 12 the engine's tokens are also held to
 the re-prefill's argmax (log-probability gap within the run's limit); in
 bf16 the gap is reported.
 
@@ -467,6 +494,7 @@ parent commit) on this script's timer; it writes
 
     python3 chip_smoke.py --only kernels,elastic,serve-qwen2-vl-7b
     python3 chip_smoke.py --only serve-dbrx-132b-cut
+    python3 chip_smoke.py --only kernels,serve-deepseek-v2-cut
 
 runs the named phases alone (ONLY_PHASES; no result line) and writes
 ``chiprun_out/chip_smoke_only.json``.
@@ -990,7 +1018,7 @@ def phase_greedy(torch, dev, timer, record, rows):
     for label, V in (("main", 92544), ("rwkv6", 65536), ("zamba2", 32000),
                      ("gemma3", 262144), ("minitron8b", 256000),
                      ("qwen2.5-32b", 152064), ("whisper", 51865),
-                     ("dbrx", 100352)):
+                     ("dbrx", 100352), ("deepseek-v2", 102400)):
         x, want = greedy_logits(torch, g, dev, B, V)
         err = check_greedy(torch, f"V={V}", x, want)
         note = f"; cluster {sampling.greedy_cluster(B)}"
@@ -1725,6 +1753,115 @@ def flash_edge_cases(torch, dev) -> dict:
     return worst
 
 
+# deepseek-v2's MLA prefill through flash's D 192 / Dv 128 instance:
+# (label, rows, positions, H, Hkv) timed at its longest prompt, and (label,
+# rows, positions, H, Hkv, window) untimed at key-tile edges (S 1, 65, 130
+# at 32-key tiles; 300, 1030 at 64-key ones), G 2 and a window, each held
+# against the plain version in bf16 and float32; the key dropped from P V
+# at the timed shape must fail the bf16 limit
+MLA_FLASH = ("deepseek-v2", 1, 512, 128, 128)
+MLA_FLASH_EDGE = (("S1", 2, 1, 8, 8, None), ("S65", 2, 65, 8, 8, None),
+                  ("S130-G2", 2, 130, 8, 4, None),
+                  ("S300-w100", 1, 300, 8, 8, 100),
+                  ("S1030", 1, 1030, 8, 8, None))
+MLA_FLASH_PLANTED = 300
+
+
+def sdpa_first_backend(torch, q, k, v):
+    """SDPA, causal, on (B, H, S, ·) views of q, k, v through the first of
+    its backends that takes them: ``(backend name, fn)``, or ``(None,
+    error)`` when none does."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    errors = []
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def fn(be=be):
+            with sdpa_kernel([be]):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            errors.append(f"{be.name}: {str(e).splitlines()[0][:120]}")
+            continue
+        return be.name, fn
+    return None, "; ".join(errors)
+
+
+def flash_mla(torch, dev, timer) -> dict:
+    """Flash's D 192 / Dv 128 instance (deepseek-v2's MLA prefill): the
+    MLA_FLASH_EDGE cases and the MLA_FLASH shape against the plain
+    version in bf16 and float32, the planted key in bf16, the kernel,
+    plain and SDPA times with the bound at MLA_FLASH, and the backward's
+    refusal of Dv != D."""
+    from repro_torch.kernels import flash_attention as fa
+
+    D, Dv = fa.MLA_HEAD_DIMS
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def qkv(B, S, H, Hkv, dt):
+        return tuple(torch.randn(B, S, h, d, generator=g, device=dev).to(dt)
+                     for h, d in ((H, D), (Hkv, D), (Hkv, Dv)))
+
+    worst = {}
+    for label, B, S, H, Hkv, window in MLA_FLASH_EDGE:
+        msg = []
+        for dt in (torch.bfloat16, torch.float32):
+            e, sh, el = check_flash(torch, f"mla {label} {dt}",
+                                    *qkv(B, S, H, Hkv, dt), window)
+            w = worst.setdefault(str(dt), [0.0, 0.0, 0.0])
+            w[:] = [max(a, b) for a, b in zip(w, (e, sh, el))]
+            msg.append(f"{str(dt)[6:]} {e:.2e} ({sh:.2f} of the limit; "
+                       f"lse {el:.2e})")
+        print(f"[flash] mla edge {label} (B={B}, S={S}, H={H}, Hkv={Hkv}, "
+              f"D={D}, Dv={Dv}, window {window}): max_abs_err "
+              + ", ".join(msg))
+    label, B, S, H, Hkv = MLA_FLASH
+    q32, k32, v32 = qkv(B, S, H, Hkv, torch.float32)
+    err32, share32, lse32 = check_flash(torch, f"{label} float32", q32, k32,
+                                        v32)
+    del q32, k32, v32
+    q, k, v = qkv(B, S, H, Hkv, torch.bfloat16)
+    err, share, lse_err = check_flash(torch, label, q, k, v)
+    planted = planted_miss(torch, q, k, v, MLA_FLASH_PLANTED)
+    try:
+        fa.FlashAttentionFn.apply(q.detach().requires_grad_(), k, v, True,
+                                  None).float().sum().backward()
+        raise AssertionError("flash backward took Dv != D")
+    except NotImplementedError:
+        pass
+    ms = timer(lambda: fa.flash_attention(q, k, v, return_lse=True))
+    plain_ms = timer(lambda: fa.flash_attention_plain(q, k, v,
+                                                      return_lse=True),
+                     iters=10)
+    backend, fn = sdpa_first_backend(torch, q, k, v)
+    lib_ms = timer(fn) if backend else None
+    n_bytes = (q.numel() + k.numel() + v.numel() + B * S * H * Dv) * 2 \
+        + B * H * S * 4
+    n_ops = 2 * B * H * (D + Dv) * S * (S + 1) // 2
+    b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
+    print(f"[flash] {label} (B={B}, S={S}, H={H}, Hkv={Hkv}, D={D}, "
+          f"Dv={Dv}): max_abs_err={err:.3e} ({share:.2f} of the limit; lse "
+          f"{lse_err:.2e}), float32 {err32:.3e} ({share32:.2f}; lse "
+          f"{lse32:.2e}); key {MLA_FLASH_PLANTED} missing from P V: "
+          f"{planted:.1f} of the limit; backward refuses Dv != D; "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          + (f"{lib_ms:.4f} (SDPA {backend})" if backend else
+             f"null (SDPA refused: {fn})")
+          + f" bound_ms={b_ms:.4f} ({b_by}; {n_bytes / 1e6:.1f} MB, "
+          f"{n_ops / 1e9:.2f} GFLOP)")
+    del q, k, v
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_backend=backend if backend else fn, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, limit_share=share,
+                lse_err=lse_err, float32_err=err32, planted_share=planted,
+                edge_max_err=worst)
+
+
 def phase_flash(torch, dev, timer):
     import torch.nn.functional as F
 
@@ -1803,6 +1940,9 @@ def phase_flash(torch, dev, timer):
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by)
         del q, k, v, out, lse, dout
+    row[MLA_FLASH[0]] = flash_mla(torch, dev, timer)
+    row["max_abs_err"] = max(row["max_abs_err"],
+                             row[MLA_FLASH[0]]["max_abs_err"])
     return row
 
 
@@ -3339,9 +3479,9 @@ def serve_launches(cfg, counts, attn, steps, model_prefills):
     recurrent model's scan once a layer and flash once an attention layer
     (every layer of a dense model, each shared-block use of zamba2's, none
     of rwkv6's; whisper's decoder and encoder layers); the layout's decode
-    kernel ``attn`` once an attention layer per decode step, and for
-    whisper the contiguous kernel once a layer more (its
-    cross-attention)."""
+    kernel ``attn`` once an attention layer per decode step (none for MLA,
+    whose absorbed decode is plain PyTorch), and for whisper the
+    contiguous kernel once a layer more (its cross-attention)."""
     want = {k: 0 for k in counts}
     if cfg.family == "audio":
         want["flash_attention"] = (cfg.num_layers + cfg.encoder_layers) \
@@ -3359,7 +3499,7 @@ def serve_launches(cfg, counts, attn, steps, model_prefills):
     else:
         uses = cfg.num_layers
     want["flash_attention"] = uses * model_prefills
-    want[attn] = uses * steps
+    want[attn] = 0 if cfg.attention == "mla" else uses * steps
     want["greedy_sample"] = steps
     return want
 
@@ -5296,18 +5436,21 @@ def phase_serve_dense(torch, dev, arch) -> tuple:
 
 
 MOE_ARCH = "dbrx-132b"
-MOE_LAYERS = 8         # the cut: full width, 8 of dbrx-132b's 40 layers
 MOE_PHASE = f"serve-{MOE_ARCH}-cut"
+MLA_ARCH = "deepseek-v2-236b"
+MLA_PHASE = "serve-deepseek-v2-cut"
+MOE_LAYERS = 8         # a cut: full width, 8 layers (dbrx 40, deepseek 60)
 MOE_SLOTS, MOE_NEW = 8, 64
-MOE_F32_LAYERS = 2     # the float32 copy: 7.75 B parameters, 31.0 GB
-MOE_F32_CF = 4.0       # = E / k: an expert's capacity is T, nothing drops
+MOE_F32_LAYERS = 2     # the float32 copy: 7.75 B (dbrx), 5.36 B (deepseek)
+MLA_SLOT_COUNTS = (4, 16)  # served on contiguous KV against MOE_SLOTS
 
 
 def drop_counter(torch, dev, params, slots):
     """Count the assignments each MoE layer drops, on the device: while
     ``on()``, ``moe.moe_route`` also adds its ``~keep`` count into
-    ``drops[kind, layer]`` (kind 0: a call over ``slots`` rows, a decode
-    step; 1: any other, a prefill), the layer found by its router's
+    ``drops[kind, layer]`` (kind 0: a decode step, a call over ``slots``
+    rows or one given a capacity, the MLA engine's per-slot routing; 1:
+    any other, a prefill), the layer found by its router's
     address.  The add is a device op, so a CUDA graph capture records it
     and each replay repeats it; nothing is read on the host until
     ``take()``.  Returns ``(on, off, take)``; ``take()`` returns the counts
@@ -5322,7 +5465,7 @@ def drop_counter(torch, dev, params, slots):
 
     def counting(p, cfg, xf, capacity=None):
         r = route(p, cfg, xf, capacity)
-        kind = 0 if xf.shape[0] == slots else 1
+        kind = 0 if xf.shape[0] == slots or capacity is not None else 1
         drops[kind, at[p["router"].data_ptr()]] += (~r["keep"]).sum()
         return r
 
@@ -5339,52 +5482,107 @@ def drop_counter(torch, dev, params, slots):
     return on, off, take
 
 
-def phase_serve_moe(torch, dev) -> tuple:
-    """The MoE family on a cut of dbrx-132b: full width, MOE_LAYERS of its
-    40 layers; the 16 serve prompts on MOE_SLOTS slots (capacity 4 of a
-    decode step's 8 rows: decode drops), MOE_NEW new tokens, on every
-    layout: exact launches, ms per decode step against the weight-bytes
-    bound, peak memory and the assignments dropped per MoE layer; paged
-    bf16 bit for bit with contiguous, int8 held to it as zamba2's paged
-    run; the graph against the eager block on every layout.  Then, the
-    cut freed, a MOE_F32_LAYERS-layer copy in float32 at capacity_factor
-    MOE_F32_CF, where nothing drops: prefill against decode within
-    DENSE32_TOL."""
+def slot_count_check(torch, dev, model, params, arch, prompts, base,
+                     phase, counts, max_new) -> dict:
+    """``prompts`` on contiguous KV at each of ``counts`` slots against
+    ``base``, the MOE_SLOTS-slot run's outputs: bit for bit, or the
+    largest logprob gap before each request's first divergent token and
+    the first such token (reported, not raised: ROADMAP §3 records it)."""
+    from repro_torch.launch.serve import serve_continuous
+
+    res = {}
+    for n in counts:
+        rep = serve_continuous(arch, prompts, model=model, params=params,
+                               max_new=max_new, num_slots=n,
+                               kv="contiguous", max_seq_len=MAX_SEQ,
+                               device=dev)
+        outs = rep["outputs"]
+        check_outputs(f"{phase} {n} slots", outs, len(prompts), max_new)
+        gap, first = 0.0, None
+        for o, b in zip(outs, base):
+            k = next((i for i, (x, y) in enumerate(zip(o.tokens, b.tokens))
+                      if x != y), len(o.tokens))
+            if k < len(o.tokens) and (first is None or k < first[1]):
+                first = (o.rid, k)
+            gap = max([gap] + [abs(x - y) for x, y in
+                               zip(o.logprobs[:k], b.logprobs[:k])])
+        same = same_outputs(outs, base)
+        print(f"[{phase}] {n} slots against {MOE_SLOTS}: "
+              + ("bit for bit (tokens and logprobs)" if same else
+                 f"not bit for bit: largest |logprob gap| {gap:.4e} before "
+                 f"any divergence, first divergent token (rid, position) "
+                 f"{first}")
+              + f"; {rep['decode_time_s'] / max(rep['decode_steps'], 1) * 1e3:.3f}"
+              f" ms per decode step")
+        res[n] = {"bit_for_bit": same, "max_logprob_gap": gap,
+                  "first_divergence": first,
+                  "ms_per_decode_step": rep["decode_time_s"]
+                  / max(rep["decode_steps"], 1) * 1e3}
+        del rep, outs
+    return res
+
+
+def phase_serve_moe(torch, dev, arch) -> tuple:
+    """An MoE model on a cut: full width, MOE_LAYERS of its layers (dbrx
+    40, deepseek-v2 60); the 16 serve prompts on MOE_SLOTS slots, MOE_NEW
+    new tokens, on every layout: exact launches (flash once a layer a
+    prefill, greedy once a step, the layout's decode kernel once a layer a
+    step for GQA and never for MLA, whose absorbed decode is plain
+    PyTorch), ms per decode step against the weight-bytes bound, peak
+    memory and the assignments each MoE layer dropped over the prefills
+    and over the decode steps.  dbrx's engine routes a step's slots
+    together (capacity 4 of 8 rows: its decode must drop); deepseek-v2's
+    routes each slot alone (its decode must drop nothing), so it also
+    serves MLA_SLOT_COUNTS slots against MOE_SLOTS.  Paged bf16 bit for
+    bit with contiguous, int8 held to it as zamba2's paged run; the graph
+    against the eager block on every layout.  Then, the cut freed, a
+    MOE_F32_LAYERS-layer copy in float32 at capacity_factor ceil(E / k),
+    where an expert takes every row and nothing drops: prefill against
+    decode within DENSE32_TOL."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe
 
-    full = get_config(MOE_ARCH)
-    cut = dataclasses.replace(full, num_layers=MOE_LAYERS)
-    model, params = build(torch, dev, cut)
+    phase = {MOE_ARCH: MOE_PHASE, MLA_ARCH: MLA_PHASE}[arch]
+    full = get_config(arch)
+    model, params = build(torch, dev, dataclasses.replace(
+        full, num_layers=MOE_LAYERS))
     cfg = model.cfg
+    per_slot = cfg.attention == "mla"
     prompts = serve_prompts(cfg.vocab_size)
     lens = [len(p) for p in prompts]
     E, k = cfg.num_experts, cfg.num_experts_per_tok
-    print(f"[{MOE_PHASE}] cut of {MOE_ARCH}: {cfg.num_layers} of "
+    n_par = sum(t.numel() for t in _leaves(params))
+    decode = ("decode routes each slot alone" if per_slot else
+              f"capacity {moe.capacity_for(cfg, MOE_SLOTS)} of a decode "
+              f"step's {MOE_SLOTS} rows")
+    print(f"[{phase}] cut of {arch}: {cfg.num_layers} of "
           f"{full.num_layers} layers (reduced: num_layers {full.num_layers} "
-          f"-> {cfg.num_layers}), {E} experts top {k}; capacity "
-          f"{moe.capacity_for(cfg, MOE_SLOTS)} of a decode step's "
-          f"{MOE_SLOTS} rows, {moe.capacity_for(cfg, min(lens))}-"
-          f"{moe.capacity_for(cfg, max(lens))} of a prefill's "
-          f"{min(lens)}-{max(lens)}")
+          f"-> {cfg.num_layers}; {cfg.first_dense_layers} dense), "
+          f"{n_par / 1e9:.2f} B parameters ({n_par * 2 / 1e9:.2f} GB); {E} "
+          f"experts top {k} + {cfg.num_shared_experts} shared; {decode}; a "
+          f"prefill's capacity {moe.capacity_for(cfg, min(lens))}-"
+          f"{moe.capacity_for(cfg, max(lens))} of its {min(lens)}-"
+          f"{max(lens)} rows")
     on, off, take = drop_counter(torch, dev, params, MOE_SLOTS)
 
     def drops(run, rep):
         d = take()
         steps = rep["decode_steps"] + 1      # and serve's warm-up block
         per = {"decode": steps * MOE_SLOTS * k, "prefill": sum(lens) * k}
-        print(f"[{MOE_PHASE}] {run}: assignments dropped per MoE layer, "
+        print(f"[{phase}] {run}: assignments dropped per MoE layer, "
               f"decode (of {per['decode']} each, the warm-up block's "
               f"included) {d['decode']}, prefill (of {per['prefill']} "
               f"each) {d['prefill']}")
-        if sum(d["decode"]) == 0:
-            raise AssertionError(f"{MOE_PHASE} {run}: no decode step "
-                                 f"dropped an assignment")
+        if bool(sum(d["decode"])) == per_slot:
+            raise AssertionError(
+                f"{phase} {run}: decode dropped {sum(d['decode'])} "
+                f"assignments; the engine's routing "
+                f"{'drops none' if per_slot else 'must drop'}")
         return {"dropped": d, "assignments_per_layer": per}
     on()
     try:
-        counts, layouts, _ = serve_layouts(
-            torch, dev, model, params, MOE_ARCH, prompts, MOE_PHASE,
+        counts, layouts, base = serve_layouts(
+            torch, dev, model, params, arch, prompts, phase,
             layouts=(("contiguous", None), ("paged", None),
                      ("paged", "int8")),
             slots=MOE_SLOTS, max_new=MOE_NEW, max_seq=MAX_SEQ,
@@ -5392,30 +5590,34 @@ def phase_serve_moe(torch, dev) -> tuple:
     finally:
         off()
     if not layouts["paged"]["bit_for_bit"]:
-        raise AssertionError(f"{MOE_PHASE}: paged bf16 is not bit for bit "
+        raise AssertionError(f"{phase}: paged bf16 is not bit for bit "
                              f"with contiguous")
     fns = wrappers()
     for f in fns.values():
         f.launches = 0
-    graph = {run: graph_vs_eager(torch, dev, model, params, MOE_PHASE, run,
+    graph = {run: graph_vs_eager(torch, dev, model, params, phase, run,
                                  kv=kv, kv_dtype=kv_dtype, prompts=prompts)
              for run, kv, kv_dtype in (("contiguous", "contiguous", None),
                                        ("paged", "paged", None),
                                        ("paged-int8", "paged", "int8"))}
+    slot_counts = (slot_count_check(torch, dev, model, params, arch,
+                                    prompts, base, phase, MLA_SLOT_COUNTS,
+                                    MOE_NEW) if per_slot else {})
     add_counts(counts, {k: f.launches for k, f in fns.items()})
-    del model, params
+    del model, params, base
     gc.collect()
     torch.cuda.empty_cache()
     model, params = build(torch, dev, dataclasses.replace(
-        full, num_layers=MOE_F32_LAYERS, capacity_factor=MOE_F32_CF))
-    f32_counts, f32 = float32_check(torch, dev, model, params, MOE_ARCH,
-                                    prompts[:4], MOE_PHASE, max_seq=MAX_SEQ)
+        full, num_layers=MOE_F32_LAYERS, capacity_factor=float(-(-E // k))))
+    f32_counts, f32 = float32_check(torch, dev, model, params, arch,
+                                    prompts[:4], phase, max_seq=MAX_SEQ)
     add_counts(counts, f32_counts)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     return counts, {"layers": MOE_LAYERS, "slots": MOE_SLOTS,
-                    "layouts": layouts, "graph_vs_eager": graph,
+                    "parameters": n_par, "layouts": layouts,
+                    "graph_vs_eager": graph, "slot_counts": slot_counts,
                     "prefill_decode_float32": f32, "launches": counts}
 
 
@@ -5693,7 +5895,7 @@ SOURCES = {
 
 
 ONLY_PHASES = ("kernels", "elastic", f"serve-{VLM_ARCH}",
-               f"serve-{WHISPER_ARCH}", MOE_PHASE)
+               f"serve-{WHISPER_ARCH}", MOE_PHASE, MLA_PHASE)
 
 
 def run_only(torch, dev, phases, t0) -> int:
@@ -5719,10 +5921,11 @@ def run_only(torch, dev, phases, t0) -> int:
             gc.collect()
             torch.cuda.empty_cache()
             res[arch] = phase_serve_frontend(torch, dev, arch)[1]
-    if MOE_PHASE in phases:
-        gc.collect()
-        torch.cuda.empty_cache()
-        res[MOE_PHASE] = phase_serve_moe(torch, dev)[1]
+    for arch, phase in ((MOE_ARCH, MOE_PHASE), (MLA_ARCH, MLA_PHASE)):
+        if phase in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            res[phase] = phase_serve_moe(torch, dev, arch)[1]
     smi = card_line()
     print(f"[smoke] phases {phases} passed in "
           f"{time.perf_counter() - t0:.1f}s ({smi})")
@@ -5871,14 +6074,18 @@ def main(argv=None) -> int:
         add_counts(dense_counts, counts)
     gc.collect()
     torch.cuda.empty_cache()
-    moe_counts, serve_moe = phase_serve_moe(torch, dev)
+    moe_counts, serve_moe = phase_serve_moe(torch, dev, MOE_ARCH)
     lap(f"phase_serve_moe {MOE_ARCH}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla_counts, serve_mla = phase_serve_moe(torch, dev, MLA_ARCH)
+    lap(f"phase_serve_moe {MLA_ARCH}")
     for counts in (elastic_launches, suspend_launches, agentic_launches,
                    carry_launches, static_launches, prefix_launches,
                    disagg_launches, train_prefix_launches, train_launches,
                    mux_launches_, rwkv_launches, zamba_launches,
                    gemma_launches, frontend_counts, dense_counts,
-                   moe_counts):
+                   moe_counts, mla_counts):
         add_counts(launches, counts)
     launches["topk"] = launches["topk_values"] + launches["topk_mask"]
     smi = card_line()
@@ -5910,7 +6117,8 @@ def main(argv=None) -> int:
                    "serve_zamba2": serve_zamba2,
                    "serve_gemma3": serve_gemma3,
                    "serve_frontend": serve_frontend, "phase_s": phase_s,
-                   "serve_dense": serve_dense, "serve_moe": serve_moe},
+                   "serve_dense": serve_dense, "serve_moe": serve_moe,
+                   "serve_mla": serve_mla},
                   f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -243,5 +243,5 @@ def _ensure_loaded() -> None:
     # import arch modules lazily to avoid cycles; the port registers the
     # architectures it serves (the others come with their own slices)
     from repro_torch.configs import (  # noqa: F401
-        dbrx_132b, gemma3_4b, internlm2_1_8b, minitron_8b, qwen2_5_32b,
-        qwen2_vl_7b, rwkv6_7b, whisper_tiny, zamba2_2_7b)
+        dbrx_132b, deepseek_v2_236b, gemma3_4b, internlm2_1_8b, minitron_8b,
+        qwen2_5_32b, qwen2_vl_7b, rwkv6_7b, whisper_tiny, zamba2_2_7b)

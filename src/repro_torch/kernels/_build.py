@@ -43,7 +43,7 @@ SIGNATURES = {
         "greedy_sample_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
-        "flash_attention_forward": [_P] * 5 + [_L] * 12 + [_I] * 7
+        "flash_attention_forward": [_P] * 5 + [_L] * 12 + [_I] * 8
                                    + [_F, _I, _P],
     },
     "rwkv6_scan": {

@@ -3,15 +3,18 @@
 // Replaces the TPU kernel in src/repro/kernels/flash_attention.py:
 //   flash_attention  (_fa_kernel at :24, wrapper at :68, pallas_call at :91)
 //
-// What it computes: for q (B, S, H, D) and k, v (B, S, Hkv, D) with
-// H % Hkv == 0, softmax attention of query position i of head h over key
+// What it computes: for q (B, S, H, D), k (B, S, Hkv, D) and v (B, S, Hkv,
+// Dv) with H % Hkv == 0, softmax attention of query position i of head h over key
 // positions j of KV head h / (H / Hkv) with j < S and, when causal,
 // j <= i and i - j < window; scores, softmax and the output sums in
-// float32, the output cast to q's dtype.  It also writes the per-row
+// float32, the output (B, S, H, Dv) cast to q's dtype, with the score
+// scale the caller gives (D ** -0.5).  It also writes the per-row
 // log-sum-exp (B, H, S) float32 of the scaled, masked scores, which the
 // backward pass uses to recompute the probabilities.  A row with no live
 // key gets p = 0 everywhere (zeros out), not exp(NEG_INF - NEG_INF).
-// Head dims that are multiples of 16 up to 128, and 256 (gemma3-4b).
+// Head dims (Dv = D) that are multiples of 16 up to 128, and 256
+// (gemma3-4b); and D 192 with Dv 128, deepseek-v2's MLA prefill (per-head
+// K of 128 expanded columns and 64 rope ones, V of 128).
 //
 // Bound on the H100 (each input read once, each output written once; the
 // causal products 4 B H D S (S + 1) / 2 at 989 TFLOP/s bf16):
@@ -23,7 +26,10 @@
 //     against 100.7 MB, 0.030 ms: operations bound, 0.139 ms;
 //   * gemma3-4b's prefill (1 row, S 1900, H 8, Hkv 4, D 256): 14.8 GFLOP,
 //     0.0150 ms, against 23.4 MB, 0.0070 ms: operations bound, 0.0150 ms
-//     (a 1024 window: 11.6 GFLOP, 0.0117 ms).
+//     (a 1024 window: 11.6 GFLOP, 0.0117 ms);
+//   * deepseek-v2's MLA prefill (1 row, S 512, H = Hkv = 128, D 192, Dv
+//     128; 2 B H (D + Dv) S (S + 1) / 2 operations): 83.9 MB, 0.0250 ms,
+//     against 10.8 GFLOP, 0.0109 ms: bytes bound, 0.0250 ms.
 //
 // The bf16 path (every served and trained model's) has two kernels, picked
 // by shape in launch_bf16:
@@ -49,6 +55,17 @@
 //   Occupancy (nvcc -Xptxas -v): D 128 at 32-key tiles (the training
 //   shape) 52 KB and 167 registers, D 80 at 64-key tiles (zamba2) 55 KB
 //   and 168 registers: 3 CTAs, 12 warps, per SM, set by the registers.
+//   D 192 / Dv 128 (deepseek-v2's MLA): K tiles 192 columns wide and V
+//   tiles 128, each in its own padded ring; O is Dv wide (64 floats a
+//   lane, as at D 128), S as at D 128, and Q's 12 fragments (48 registers
+//   a lane) stay in shared memory as at D 256, loaded where each is used.
+//   Zero-padding V to 192 would read 1.5x its bytes and write a 192-wide
+//   output; this instance reads and writes each once at its own width.
+//   nvcc -Xptxas -v: 218 registers at 64-key tiles (S >= 256) and 163 at
+//   32-key ones, no spill; 111,616 and 68,608 bytes of shared memory: 2
+//   CTAs per SM at 64-key tiles (registers and shared memory alike), 3 at
+//   32.  Its float32 path (16 query rows a warp, Dv 128): 164 registers,
+//   206,848 bytes, one CTA per SM.
 //   D 256 (gemma3-4b): the O accumulator of a warp's 16 rows is 128 floats
 //   a lane, and Q's fragments would be 64 registers more; so at D 256 Q
 //   stays in shared memory and each 16-column step's fragment is loaded
@@ -103,6 +120,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kMaxD = 256;            // gemma3-4b's; below it D <= kSmallD
 constexpr int kSmallD = 128;
+constexpr int kMlaD = 192, kMlaDv = 128;  // deepseek-v2's MLA prefill
 constexpr float kNegInf = -1.0e30f;   // log-sum-exp of a row with no key
 constexpr int kShortS = 256;          // below: 32-key mma.sync tiles
 constexpr int kLongS = 1024;          // from here on at D 128: wgmma
@@ -110,14 +128,14 @@ constexpr int kLongS = 1024;          // from here on at D 128: wgmma
 struct Args {
   const void* q;   // (B, S, H, D)
   const void* k;   // (B, S, Hkv, D)
-  const void* v;
-  void* out;       // (B, S, H, D), q's dtype
+  const void* v;   // (B, S, Hkv, Dv)
+  void* out;       // (B, S, H, Dv), q's dtype
   float* lse;      // (B, H, S) contiguous
   long long q_sb, q_ss, q_sh;  // element strides (batch, position, head)
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  int S, H, Hkv, D;
+  int S, H, Hkv, D, Dv;
   int causal, window;
   float scale;
 };
@@ -276,16 +294,19 @@ __device__ __forceinline__ void store_rows(const Args& a, int b, int h,
   }
 }
 
-template <int D, int kBk_>
+template <int D, int DV, int kBk_>
 struct Tile {
   static constexpr int kThreads = 128;  // 4 warps of 16 query rows
   static constexpr int kBq = 64;        // query rows per CTA
   static constexpr int kBk = kBk_;      // keys per K/V tile
-  static constexpr int kLd = D + 8;     // padded row, elements
+  static constexpr int kLd = D + 8;     // padded Q/K row, elements
+  static constexpr int kLdV = DV + 8;   // padded V row, elements
   static constexpr int kQElems = kBq * kLd;
-  static constexpr int kKVElems = kBk * kLd;  // one of K, V
+  static constexpr int kKElems = kBk * kLd;
+  static constexpr int kVElems = kBk * kLdV;
+  static constexpr int kStage = kKElems + kVElems;  // K, then V
   static constexpr size_t kSmem =             // Q and a 2-stage K/V ring
-      (size_t)(kQElems + 2 * 2 * kKVElems) * sizeof(bf16);
+      (size_t)(kQElems + 2 * kStage) * sizeof(bf16);
 };
 
 // Rows [pos0, pos0 + kRows) of one head into a padded shared tile by
@@ -311,22 +332,24 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
   }
 }
 
-template <int D, int kBk_>
-__global__ void __launch_bounds__(Tile<D, kBk_>::kThreads)
+template <int D, int DV, int kBk_>
+__global__ void __launch_bounds__(Tile<D, DV, kBk_>::kThreads)
     flash_fwd_bf16(Args a) {
-  using T = Tile<D, kBk_>;
-  constexpr int kBk = T::kBk, kLd = T::kLd, kThreads = T::kThreads;
+  using T = Tile<D, DV, kBk_>;
+  constexpr int kBk = T::kBk, kLd = T::kLd, kLdV = T::kLdV;
+  constexpr int kThreads = T::kThreads;
   constexpr int kKS = D / 16;    // 16-column steps of Q K^T
   constexpr int kNB = kBk / 8;   // 8-key blocks of S
-  constexpr int kDB = D / 8;     // 8-column blocks of O
-  // Q's fragments stay in registers up to D 128; at D 256 they would take
-  // 64 registers beside O's 128, so each is loaded where it is used
+  constexpr int kDB = DV / 8;    // 8-column blocks of O
+  // Q's fragments stay in registers up to D 128; above it (D 192: 48
+  // registers beside O's 64 and S's 32; D 256: 64 beside O's 128) each is
+  // loaded where it is used
   constexpr bool kQReg = D <= kSmallD;
   constexpr float kLog2e = 1.4426950408889634f;
 
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ring = qs + T::kQElems;  // stage s: K at 2 s kKVElems, V after it
+  bf16* ring = qs + T::kQElems;  // stage s: K at s kStage, V after it
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;  // longest query tiles first
@@ -349,8 +372,8 @@ __global__ void __launch_bounds__(Tile<D, kBk_>::kThreads)
 
   stage_rows<D, T::kBq, kThreads>(qs, qg, a.q_ss, q0, S, tid);
   stage_rows<D, kBk, kThreads>(ring, kg, a.k_ss, t_first * kBk, S, tid);
-  stage_rows<D, kBk, kThreads>(ring + T::kKVElems, vg, a.v_ss,
-                               t_first * kBk, S, tid);
+  stage_rows<DV, kBk, kThreads>(ring + T::kKElems, vg, a.v_ss,
+                                t_first * kBk, S, tid);
   cp_async_commit();
 
   // this warp's rows [wf, wl]; this lane's rows wf + g and wf + g + 8
@@ -361,9 +384,10 @@ __global__ void __launch_bounds__(Tile<D, kBk_>::kThreads)
   // per-lane ldmatrix offsets, in elements: A fragments and V (.trans)
   // take row (lane & 7) + 8 ((lane >> 3) & 1), column 8 (lane >> 4); K (a
   // col-major B operand) row (lane & 7) + 8 (lane >> 4), column
-  // 8 ((lane >> 3) & 1)
-  const int a_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
-                    (lane >> 4) * 8;
+  // 8 ((lane >> 3) & 1); V's rows are kLdV apart
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_off = a_row * kLd + (lane >> 4) * 8;
+  const int v_off = a_row * kLdV + (lane >> 4) * 8;
   const int k_off = ((lane & 7) + (lane >> 4) * 8) * kLd +
                     ((lane >> 3) & 1) * 8;
 
@@ -381,10 +405,10 @@ __global__ void __launch_bounds__(Tile<D, kBk_>::kThreads)
     cp_async_wait_all();
     __syncthreads();  // tile it landed; every warp is done with tile it - 1
     if (it + 1 < n_tiles) {
-      bf16* nk = ring + ((it + 1) & 1) * 2 * T::kKVElems;
+      bf16* nk = ring + ((it + 1) & 1) * T::kStage;
       stage_rows<D, kBk, kThreads>(nk, kg, a.k_ss, t0 + kBk, S, tid);
-      stage_rows<D, kBk, kThreads>(nk + T::kKVElems, vg, a.v_ss, t0 + kBk,
-                                   S, tid);
+      stage_rows<DV, kBk, kThreads>(nk + T::kKElems, vg, a.v_ss, t0 + kBk,
+                                    S, tid);
     }
     cp_async_commit();
     if (kQReg && it == 0) {
@@ -396,9 +420,9 @@ __global__ void __launch_bounds__(Tile<D, kBk_>::kThreads)
     // of this warp changes nothing: skip its arithmetic
     if (wf >= S || (causal && (t0 > wl || t0 + kBk - 1 <= wf - window)))
       continue;
-    const bf16* kt = ring + (it & 1) * 2 * T::kKVElems;
+    const bf16* kt = ring + (it & 1) * T::kStage;
     const uint32_t k_base = smem_u32(kt + k_off);
-    const uint32_t v_base = smem_u32(kt + T::kKVElems + a_off);
+    const uint32_t v_base = smem_u32(kt + T::kKElems + v_off);
 
     // S = Q K^T
     float s[kNB][4];
@@ -438,9 +462,10 @@ __global__ void __launch_bounds__(Tile<D, kBk_>::kThreads)
       uint32_t pa[4];
       p_fragment(s[2 * kk], s[2 * kk + 1], pa);
 #pragma unroll
-      for (int d2 = 0; d2 < D / 16; ++d2) {
+      for (int d2 = 0; d2 < DV / 16; ++d2) {
         uint32_t bv[4];
-        ldsm_x4_trans(v_base + (kk * 16 * kLd + d2 * 16) * sizeof(bf16), bv);
+        ldsm_x4_trans(v_base + (kk * 16 * kLdV + d2 * 16) * sizeof(bf16),
+                      bv);
         mma16816(o[2 * d2], pa, bv[0], bv[1]);
         mma16816(o[2 * d2 + 1], pa, bv[2], bv[3]);
       }
@@ -450,15 +475,16 @@ __global__ void __launch_bounds__(Tile<D, kBk_>::kThreads)
   store_rows(a, b, h, o, m, l, wf + g, tig);
 }
 
-template <int D, int kBk>
+template <int D, int DV, int kBk>
 int run_bf16(const Args& a, int B, cudaStream_t stream) {
-  using T = Tile<D, kBk>;
+  using T = Tile<D, DV, kBk>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<D, kBk>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_bf16<D, DV, kBk>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.H, B, (a.S + T::kBq - 1) / T::kBq);
-  flash_fwd_bf16<D, kBk><<<grid, T::kThreads, T::kSmem, stream>>>(a);
+  flash_fwd_bf16<D, DV, kBk><<<grid, T::kThreads, T::kSmem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -705,19 +731,20 @@ int run_wgmma(const Args& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 path by shape: warpgroup MMA at D 128 from S kLongS on;
+// The bf16 path by shape: warpgroup MMA at D = Dv = 128 from S kLongS on;
 // otherwise mma.sync tiles, with 32-key tiles below S kShortS (a short
 // sequence's CTAs walk few tiles: smaller ones waste less of the diagonal
-// and fit more CTAs on an SM) and 64-key tiles above; at D 256 32-key
-// tiles at every S (the registers).
-template <int D>
+// and fit more CTAs on an SM) and 64-key tiles above (D 192 / Dv 128 too:
+// its O and S take the registers D 128's do); at D 256 32-key tiles at
+// every S (the registers).
+template <int D, int DV = D>
 int launch_bf16(const Args& a, int B, cudaStream_t stream) {
-  if constexpr (D > kSmallD) {
-    return run_bf16<D, 32>(a, B, stream);
+  if constexpr (D == kMaxD) {
+    return run_bf16<D, DV, 32>(a, B, stream);
   } else {
-    if (D == 128 && a.S >= kLongS) return run_wgmma(a, B, stream);
-    return a.S < kShortS ? run_bf16<D, 32>(a, B, stream)
-                         : run_bf16<D, 64>(a, B, stream);
+    if (D == 128 && DV == 128 && a.S >= kLongS) return run_wgmma(a, B, stream);
+    return a.S < kShortS ? run_bf16<D, DV, 32>(a, B, stream)
+                         : run_bf16<D, DV, 64>(a, B, stream);
   }
 }
 
@@ -744,16 +771,16 @@ __device__ __forceinline__ float warp_max(float x) {
 
 // Shared-memory layout of one CTA of Bq query rows, in bytes.
 struct SmemF32 {
-  int ld, ldo;                       // Q/K/V row stride; output row stride
+  int ld, ldv, ldo;                  // Q/K, V and output row strides
   size_t q, k, v, s, p, o, total;    // offsets
-  __host__ __device__ SmemF32(int D, int Bq) {
+  __host__ __device__ SmemF32(int D, int Dv, int Bq) {
     ld = D + 8;
-    ldo = D + 4;
-    const size_t kv = (size_t)kF32Bk * ld * sizeof(float);
+    ldv = Dv + 8;
+    ldo = Dv + 4;
     q = 0;
     k = q + (size_t)Bq * ld * sizeof(float);
-    v = k + kv;
-    s = v + kv;
+    v = k + (size_t)kF32Bk * ld * sizeof(float);
+    s = v + (size_t)kF32Bk * ldv * sizeof(float);
     p = s + (size_t)Bq * kF32LdS * sizeof(float);
     o = p + (size_t)Bq * kF32LdP * sizeof(float);
     total = o + (size_t)Bq * ldo * sizeof(float);
@@ -777,14 +804,14 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
   }
 }
 
-// ROWS query rows a warp (16; 8 at D 256, for the shared memory); COLS
-// output columns a lane (D up to 32 COLS)
+// ROWS query rows a warp (16; 8 at Dv 256, for the shared memory); COLS
+// output columns a lane (Dv up to 32 COLS)
 template <int ROWS, int COLS>
 __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
   constexpr int kF32Rows = ROWS;
   constexpr int kF32Bq = kF32Threads / 32 * ROWS;  // query rows per CTA
   extern __shared__ __align__(128) unsigned char smem[];
-  const SmemF32 L(a.D, kF32Bq);
+  const SmemF32 L(a.D, a.Dv, kF32Bq);
   float* qs = reinterpret_cast<float*>(smem + L.q);
   float* ks = reinterpret_cast<float*>(smem + L.k);
   float* vs = reinterpret_cast<float*>(smem + L.v);
@@ -795,7 +822,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;  // longest query tiles first
   const int hk = h / (a.H / a.Hkv);
-  const int S = a.S, D = a.D, ld = L.ld, ldo = L.ldo;
+  const int S = a.S, D = a.D, Dv = a.Dv, ld = L.ld, ldv = L.ldv,
+            ldo = L.ldo;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = qt * kF32Bq;
   const float* qg = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
@@ -824,7 +852,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
   for (int t0 = (k_begin / kF32Bk) * kF32Bk; t0 < k_end; t0 += kF32Bk) {
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile_f32(ks, kg, a.k_ss, ld, t0, S - t0, kF32Bk, D, tid);
-    load_tile_f32(vs, vg, a.v_ss, ld, t0, S - t0, kF32Bk, D, tid);
+    load_tile_f32(vs, vg, a.v_ss, ldv, t0, S - t0, kF32Bk, Dv, tid);
     __syncthreads();
 
     // S[16 x 64] = Q K^T for the warp's rows; lane l holds keys l, l + 32
@@ -869,11 +897,11 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
       m_r[r] = m_new;
       pw[r * kF32LdP + lane] = p0;
       pw[r * kF32LdP + lane + 32] = p1;
-      for (int d = lane; d < D; d += 32) ow[r * ldo + d] *= corr;
+      for (int d = lane; d < Dv; d += 32) ow[r * ldo + d] *= corr;
     }
     __syncwarp();
 
-    // O[16 x D] += P V; lane l holds output columns l + 32 j
+    // O[16 x Dv] += P V; lane l holds output columns l + 32 j
     {
       constexpr int kCols = COLS;
       float acc[kF32Rows][kCols];
@@ -882,14 +910,14 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
 #pragma unroll
         for (int j = 0; j < kCols; ++j) {
           const int d = lane + 32 * j;
-          acc[r][j] = d < D ? ow[r * ldo + d] : 0.f;
+          acc[r][j] = d < Dv ? ow[r * ldo + d] : 0.f;
         }
       for (int c = 0; c < kF32Bk; ++c) {
         float vv[kCols];
 #pragma unroll
         for (int j = 0; j < kCols; ++j) {
           const int d = lane + 32 * j;
-          vv[j] = d < D ? vs[c * ld + d] : 0.f;
+          vv[j] = d < Dv ? vs[c * ldv + d] : 0.f;
         }
 #pragma unroll
         for (int r = 0; r < kF32Rows; ++r) {
@@ -903,7 +931,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
 #pragma unroll
         for (int j = 0; j < kCols; ++j) {
           const int d = lane + 32 * j;
-          if (d < D) ow[r * ldo + d] = acc[r][j];
+          if (d < Dv) ow[r * ldo + d] = acc[r][j];
         }
     }
     __syncwarp();
@@ -916,7 +944,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
     const int qpos = q0 + warp * kF32Rows + r;
     if (qpos >= S) break;
     const float inv = 1.f / fmaxf(l_r[r], 1e-30f);
-    for (int d = lane; d < D; d += 32)
+    for (int d = lane; d < Dv; d += 32)
       out[qpos * a.o_ss + d] = ow[r * ldo + d] * inv;
     if (lane == 0)
       a.lse[((long long)b * a.H + h) * S + qpos] =
@@ -927,7 +955,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Args a) {
 template <int ROWS, int COLS>
 int run_f32(const Args& a, int B, cudaStream_t stream) {
   constexpr int kBq = kF32Threads / 32 * ROWS;
-  const SmemF32 L(a.D, kBq);
+  const SmemF32 L(a.D, a.Dv, kBq);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32<ROWS, COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L.total));
@@ -937,9 +965,10 @@ int run_f32(const Args& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// D 192 / Dv 128 at 16 rows a warp: 202 KB of shared memory
 int launch_f32(const Args& a, int B, cudaStream_t stream) {
-  return a.D > kSmallD ? run_f32<8, kMaxD / 32>(a, B, stream)
-                       : run_f32<16, kSmallD / 32>(a, B, stream);
+  return a.Dv > kSmallD ? run_f32<8, kMaxD / 32>(a, B, stream)
+                        : run_f32<16, kSmallD / 32>(a, B, stream);
 }
 
 // dtype codes shared with the Python wrapper
@@ -954,13 +983,17 @@ int flash_attention_forward(
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh, int B,
-    int S, int H, int Hkv, int D, int causal, int window, float scale,
-    int dtype, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv || D % 16 || D < 16 ||
-      (D > kSmallD && D != kMaxD) || B > 65535 || (S + 31) / 32 > 65535)
+    int S, int H, int Hkv, int D, int Dv, int causal, int window,
+    float scale, int dtype, void* stream) {
+  // head dims: Dv = D, a multiple of 16 up to 128, or 256; or D 192, Dv 128
+  const bool dims = Dv == D ? (D % 16 == 0 && D >= 16 &&
+                               (D <= kSmallD || D == kMaxD))
+                            : (D == kMlaD && Dv == kMlaDv);
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv || !dims || B > 65535 ||
+      (S + 31) / 32 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, out, lse, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-         v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, S, H, Hkv, D,
+         v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, S, H, Hkv, D, Dv,
          causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return launch_f32(a, B, s);
@@ -974,6 +1007,7 @@ int flash_attention_forward(
     case 96: return launch_bf16<96>(a, B, s);
     case 112: return launch_bf16<112>(a, B, s);
     case 128: return launch_bf16<128>(a, B, s);
+    case kMlaD: return launch_bf16<kMlaD, kMlaDv>(a, B, s);
     default: return launch_bf16<256>(a, B, s);
   }
 }

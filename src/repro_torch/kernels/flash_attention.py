@@ -5,8 +5,11 @@ Counterpart of ``repro/kernels/flash_attention.py`` (oracle
 ``repro/kernels/ref.py`` ``flash_attention_ref``).  The kernel is
 ``csrc/flash_attention.cu``; its header says what bounds it on the H100
 and how the design answers that.  Layouts are the JAX package's: ``q
-(B, S, H, D)``, ``k``/``v`` ``(B, S, Hkv, D)`` with ``H % Hkv == 0``; the
-kernel reads them in place through their strides.
+(B, S, H, D)``, ``k`` ``(B, S, Hkv, D)`` and ``v`` ``(B, S, Hkv, Dv)``
+with ``H % Hkv == 0``; the kernel reads them in place through their
+strides.  ``Dv`` is ``D`` but for deepseek-v2's MLA prefill, whose
+expanded keys are 192 wide (128 + 64 rope columns) and values 128 (the
+instance ``MLA_HEAD_DIMS``); the scores are scaled by ``D ** -0.5``.
 
 :func:`flash_attention` dispatches by the device of ``q``: a CPU tensor
 runs the plain PyTorch version, a CUDA tensor launches the kernel or
@@ -16,8 +19,9 @@ raises.  ``flash_attention.launches`` counts kernel launches.
 :func:`flash_attention` (which also returns the per-row log-sum-exp), its
 backward :func:`flash_attention_backward_plain`, plain PyTorch that
 recomputes the probabilities from q, k and the log-sum-exp over 1024-row
-query chunks.  The JAX package has no backward kernel; a hand-written one
-is later work (ROADMAP).
+query chunks, for ``Dv == D`` (MLA's training is a later slice).  The JAX
+package has no backward kernel; a hand-written one is later work
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ NEG_INF = -1.0e30
 NO_WINDOW = 2 ** 30     # matches models.stacks.NO_WINDOW: never masks
 MAX_HEAD_DIM = 256      # the largest of the kernels' head-dim instances
 SMALL_HEAD_DIMS = 128   # every multiple of 16 up to it has an instance
+MLA_HEAD_DIMS = (192, 128)  # (D, Dv): the one instance with Dv != D
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -50,8 +55,9 @@ def _mask(q_pos, k_pos, causal: bool, window) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
                           return_lse: bool = False):
-    """``flash_attention_ref``: scores, softmax and the value sum in float32
-    over positions ``0..S-1``, cast to q's dtype at the end.  With
+    """``flash_attention_ref``: scores (scaled by ``D ** -0.5``), softmax
+    and the value sum in float32 over positions ``0..S-1``, cast to q's
+    dtype at the end: ``(B, S, H, Dv)``.  With
     ``return_lse`` also the log-sum-exp ``(B, H, S)`` float32 of the
     scaled, masked scores."""
     B, S, H, D = q.shape
@@ -64,7 +70,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
                     torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
-    out = o.reshape(B, S, H, D).to(q.dtype)
+    out = o.reshape(B, S, H, -1).to(q.dtype)
     if not return_lse:
         return out
     return out, torch.logsumexp(s, dim=-1).reshape(B, H, S)
@@ -113,29 +119,34 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, *,
 # ---------------------------------------------------------------------------
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     return_lse: bool = False):
-    """q: (B,S,H,D); k/v: (B,S,Hkv,D); H % Hkv == 0; bf16 or float32.
-    Causal (optionally windowed) self-attention over positions
-    ``0..S-1``.  Returns ``(B,S,H,D)`` in q's dtype, and with
-    ``return_lse`` the ``(B,H,S)`` float32 log-sum-exp as well."""
+    """q: (B,S,H,D); k: (B,S,Hkv,D); v: (B,S,Hkv,Dv); H % Hkv == 0; bf16
+    or float32.  Causal (optionally windowed) self-attention over
+    positions ``0..S-1``, scores scaled by ``D ** -0.5``.  Returns
+    ``(B,S,H,Dv)`` in q's dtype, and with ``return_lse`` the ``(B,H,S)``
+    float32 log-sum-exp as well.  ``Dv == D`` (a multiple of 16 up to
+    128, or 256), or ``(D, Dv) == MLA_HEAD_DIMS``."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, not "
                          f"{q.device.type}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}: want (B,S,H,D) and two "
-                         f"(B,S,Hkv,D)")
+                         f"{tuple(v.shape)}: want (B,S,H,D), (B,S,Hkv,D) "
+                         f"and (B,S,Hkv,Dv)")
     B, S, H, D = q.shape
-    Hkv = k.shape[2]
+    Hkv, Dv = k.shape[2], v.shape[3]
     if k.shape[:2] != (B, S) or k.shape[3] != D or H % Hkv:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)} (H % Hkv must be 0)")
-    if D % 16 or (D > SMALL_HEAD_DIMS and D != MAX_HEAD_DIM):
-        raise ValueError(f"kernel takes head dims that are multiples of 16 "
-                         f"up to {SMALL_HEAD_DIMS}, and {MAX_HEAD_DIM}; got "
-                         f"{D}")
+    if (D, Dv) != MLA_HEAD_DIMS and (
+            Dv != D or D % 16 or (D > SMALL_HEAD_DIMS and D != MAX_HEAD_DIM)):
+        raise ValueError(f"kernel takes head dims Dv = D that are multiples "
+                         f"of 16 up to {SMALL_HEAD_DIMS}, and "
+                         f"{MAX_HEAD_DIM}, and (D, Dv) = {MLA_HEAD_DIMS}; "
+                         f"got ({D}, {Dv})")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: the "
@@ -148,7 +159,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
             raise ValueError(f"{name} strides {t.stride()}: the head dim "
                              f"must be contiguous and the other strides "
                              f"multiples of {vec} elements")
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -157,7 +168,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     err = lib.flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], B, S, H, Hkv, D, int(causal), _window(window),
+        *out.stride()[:3], B, S, H, Hkv, D, Dv, int(causal), _window(window),
         D ** -0.5, _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", err, "flash_attention launch")
@@ -170,7 +181,8 @@ flash_attention.launches = 0
 
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable :func:`flash_attention`: the kernel (or, on the CPU,
-    the plain version) forward; the plain chunked backward."""
+    the plain version) forward; the plain chunked backward, for ``Dv ==
+    D`` only."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True, window=None):
@@ -183,6 +195,10 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
+        if v.shape[-1] != q.shape[-1]:
+            raise NotImplementedError(
+                f"the flash backward takes Dv = D; got D {q.shape[-1]}, Dv "
+                f"{v.shape[-1]} (MLA training is its own slice: ROADMAP §1)")
         dq, dk, dv = flash_attention_backward_plain(
             q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None

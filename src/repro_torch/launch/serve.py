@@ -12,7 +12,8 @@
 ``--arch`` takes internlm2-1.8b, gemma3-4b (sliding-window layers),
 minitron-8b, qwen2.5-32b, qwen2-vl-7b (M-RoPE, vision embeddings),
 whisper-tiny (an encoder and cross-attention), dbrx-132b (16 experts, top
-4), rwkv6-7b or zamba2-2.7b, on
+4), deepseek-v2-236b (MLA, 160 experts top 6, 2 shared), rwkv6-7b or
+zamba2-2.7b, on
 every layout (rwkv6 has no paged leaf: ``--kv paged`` serves it with zero
 blocks a request, and ``--kv-dtype int8`` raises).  qwen2-vl-7b and
 whisper-tiny requests carry a zero frontend, as the JAX CLI's: a vision
@@ -25,7 +26,10 @@ kernels' plain versions on the CPU.  dbrx-132b at full width holds 131.6 B
 parameters, 263 GB in bf16, more than one 80 GB card: serve it with
 ``--reduced`` (the CLI cuts no depth).  Its MoE layers route a decode
 step's slots together under a capacity, so a request's tokens depend on
-the requests it shares the pool with.
+the requests it shares the pool with.  deepseek-v2-236b at full width
+holds 235.7 B parameters, 471 GB in bf16: serve it with ``--reduced``
+too.  Its engine routes each slot's MoE rows alone, as the JAX engine's
+per-slot step does, so its decode drops nothing.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
-"""GQA attention: block gather, full-sequence softmax attention, QKV
-projection, init and a batched plain one-token decode.
+"""GQA and MLA attention: block gather, full-sequence softmax attention,
+QKV projection, init and a batched plain one-token decode of each.
 
 Counterpart of ``repro/models/attention.py`` (GQA with its biases, M-RoPE
-and cross-attention; no MLA).
+and cross-attention; deepseek-v2's MLA with its expanded prefill and
+absorbed decode).
 :func:`multi_head_attention` dispatches by device.  On the CPU it takes the
 JAX package's two plain paths: direct (materialized scores) up to
 ``DIRECT_MAX_KV`` keys, blockwise (online softmax over 1024 x 1024 blocks)
@@ -20,7 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import FlashAttentionFn
 from repro_torch.models.common import (apply_mrope, apply_rope, dense_init,
-                                       torch_dtype)
+                                       rms_norm, torch_dtype)
 
 NEG_INF = -1.0e30
 DIRECT_MAX_KV = 4096  # direct path threshold
@@ -304,3 +305,143 @@ def gqa_decode_step(p: dict, cfg: ModelConfig, x: torch.Tensor,
     out = torch.einsum("bhgk,bkhd->bhgd", w.to(v_cache.dtype), v_cache)
     out = out.reshape(B, 1, H, -1)
     return attn_out(out, p["wo"]).to(x.dtype), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank KV compression, absorbed decode
+# ---------------------------------------------------------------------------
+def mla_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """The JAX package's MLA weights: ``wq_a (d, qr)``, ``q_norm (qr,)``,
+    ``wq_b (qr, H, hd + rp)``, ``wkv_a (d, r + rp)``, ``kv_norm (r,)``,
+    ``wkv_b_k (r, H, hd)``, ``wkv_b_v (r, H, vd)``, ``wo (H, vd, d)``."""
+    dt = torch_dtype(cfg.dtype)
+    d, H = cfg.d_model, cfg.num_heads
+    hd, vd = cfg.resolved_head_dim, cfg.resolved_v_head_dim
+    r, qr, rp = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.qk_rope_head_dim
+    dev = gen.device
+    return {
+        "wq_a": dense_init(gen, d, (qr,), dt),
+        "q_norm": torch.zeros((qr,), dtype=dt, device=dev),
+        "wq_b": dense_init(gen, qr, (H, hd + rp), dt),
+        "wkv_a": dense_init(gen, d, (r + rp,), dt),
+        "kv_norm": torch.zeros((r,), dtype=dt, device=dev),
+        "wkv_b_k": dense_init(gen, r, (H, hd), dt),
+        "wkv_b_v": dense_init(gen, r, (H, vd), dt),
+        "wo": dense_init(gen, H * vd, (d,), dt).reshape(H, vd, d),
+    }
+
+
+def _mla_q(p: dict, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    """x (B, S, d) -> ``q_nope (B, S, H, hd)``, ``q_rope (B, S, H, rp)``
+    (rotated at ``positions (B, S)``)."""
+    hd = cfg.resolved_head_dim
+    q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = _project(q, p["wq_b"])
+    return q[..., :hd], apply_rope(q[..., hd:], positions, cfg.rope_theta)
+
+
+def _mla_kv_compress(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor):
+    """x (B, S, d) -> the raw compressed ``c_kv (B, S, r)`` and the rotated
+    ``k_rope (B, S, rp)``, one for all heads: what the cache holds."""
+    r = cfg.kv_lora_rank
+    kv = x @ p["wkv_a"]
+    k_rope = apply_rope(kv[..., None, r:], positions, cfg.rope_theta)
+    return kv[..., :r], k_rope[..., 0, :]
+
+
+def mla_apply_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """The prefill (and training) path: the compressed KV expanded to
+    per-head keys of ``hd + rp`` columns (the rope part broadcast over the
+    heads) and values of ``vd``, causal attention scaled by ``(hd + rp)
+    ** -0.5`` through :func:`multi_head_attention` (flash's D 192 / Dv 128
+    instance on the card at deepseek-v2's widths).  x (B, S, d) -> (B, S,
+    d)."""
+    return mla_prefill(p, cfg, x, positions)[0]
+
+
+def mla_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """:func:`mla_apply_full` and what the cache keeps of x: ``(out (B, S,
+    d), c_kv (B, S, r), k_rope (B, S, rp))``, the compression computed
+    once (the JAX prefill computes it again for the cache)."""
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_kv_compress(p, cfg, x, positions)
+    c_n = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_nope = _project(c_n, p["wkv_b_k"])
+    v = _project(c_n, p["wkv_b_v"])
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(
+        *k_nope.shape[:3], k_rope.shape[-1])], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    pos = positions[0] if positions.dim() == 2 else positions
+    out = multi_head_attention(q, k, v, pos, pos, causal=True,
+                               scale=q.shape[-1] ** -0.5)
+    return attn_out(out, p["wo"]), c_kv, k_rope
+
+
+def mla_decode_q(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 pos: torch.Tensor):
+    """The cache-free half of a decode step over rows ``x (P, 1, d)`` at
+    positions ``pos (P, 1)``: the absorbed query ``q_c (P, H, r)`` (``q_nope
+    · wkv_b_k``, in the model dtype), ``q_rope (P, H, rp)``, and the new
+    row's ``c_new (P, r)`` and ``kr_new (P, rp)``."""
+    q_nope, q_rope = _mla_q(p, cfg, x, pos)
+    c_new, kr_new = _mla_kv_compress(p, cfg, x, pos)
+    q_c = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], p["wkv_b_k"])
+    return q_c, q_rope[:, 0], c_new[:, 0], kr_new[:, 0]
+
+
+def mla_attend(p: dict, cfg: ModelConfig, q_c: torch.Tensor,
+               q_rope: torch.Tensor, ckv: torch.Tensor, krope: torch.Tensor,
+               index: torch.Tensor) -> torch.Tensor:
+    """The absorbed attention of N rows over their caches ``ckv (N, S, r)``
+    (raw, normalised here over every position, as the reference does at
+    each step) and ``krope (N, S, rp)``, row b over positions ``<=
+    index[b]``: scores ``q_c·c_n + q_rope·krope`` (each product in the
+    model dtype, then float32), scaled by ``(hd + rp) ** -0.5``, a float32
+    softmax, the weights cast to ``c_n``'s dtype.  Returns ``o_c (N, H,
+    r)``."""
+    scale = (cfg.resolved_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    c_n = rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    s = torch.einsum("bhr,bsr->bhs", q_c, c_n).float()
+    s = s + torch.einsum("bhe,bse->bhs", q_rope, krope).float()
+    s = s * scale
+    valid = (torch.arange(ckv.shape[1], device=ckv.device)[None, :]
+             <= index.long()[:, None])
+    s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bsr->bhr", w.to(c_n.dtype), c_n)
+
+
+def mla_decode_out(p: dict, o_c: torch.Tensor, dtype) -> torch.Tensor:
+    """``o_c (P, H, r)`` through ``wkv_b_v`` and ``wo``: ``(P, 1, d)`` in
+    ``dtype``."""
+    o = torch.einsum("bhr,rhe->bhe", o_c, p["wkv_b_v"])
+    return attn_out(o, p["wo"]).to(dtype)[:, None]
+
+
+def mla_decode_step(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    ckv: torch.Tensor, krope: torch.Tensor,
+                    index: torch.Tensor):
+    """Absorbed one-token decode for a batch of rows, each at its own
+    position, in plain PyTorch on either device (the reference has no TPU
+    kernel for it).
+
+    x: (B, 1, d); ckv: (B, S, r) raw compressed KV; krope: (B, S, rp);
+    index: (B,) integer.  Row b writes its new row at ``index[b]`` (past
+    the stripe, onto its last position, as the JAX step's
+    ``dynamic_update_slice`` clamps) and attends over positions ``<=
+    index[b]`` in the ``kv_lora`` space.  The JAX step takes a scalar
+    index and its engine vmaps it over the slots; the rows here are as
+    independent.  Caches are updated in place; returns ``(out (B, 1, d),
+    ckv, krope)``."""
+    idx = index.long()
+    q_c, q_rope, c_new, kr_new = mla_decode_q(p, cfg, x, idx[:, None])
+    rows = torch.arange(x.shape[0], device=x.device)
+    w = idx.clamp(max=ckv.shape[1] - 1)
+    ckv[rows, w] = c_new.to(ckv.dtype)
+    krope[rows, w] = kr_new.to(krope.dtype)
+    o_c = mla_attend(p, cfg, q_c, q_rope, ckv, krope, idx)
+    return mla_decode_out(p, o_c, x.dtype), ckv, krope

@@ -1,5 +1,6 @@
 """Decode caches for the dense GQA, vlm (qwen2-vl), audio (whisper), MoE
-(dbrx), rwkv6 (ssm) and zamba2 (hybrid) families (plain dicts of tensors).
+(dbrx; deepseek-v2 with MLA), rwkv6 (ssm) and zamba2 (hybrid) families
+(plain dicts of tensors).
 
 Counterpart of ``repro/models/kvcache.py``.  Two serving layouts for the
 dense family:
@@ -10,7 +11,10 @@ dense family:
   ``(L, num_blocks + 1, block_size, Hkv, hd)`` (block 0 is the null
   block), optionally int8 with per-position float32 scale pools.
 
-A vlm or MoE cache is the dense one.  An audio cache adds the encoder's
+A vlm or GQA MoE cache is the dense one.  An MLA cache (deepseek-v2)
+holds the raw compressed KV and the rotated rope keys, ``ckv`` ``(L, B,
+S, r)`` and ``krope`` ``(L, B, S, rp)``, both paged.  An audio cache adds
+the encoder's
 cross-attention keys and values, ``cross_k``/``cross_v`` ``(L, B,
 max_source_len, Hkv, hd)``, written once by the prefill.
 
@@ -49,15 +53,16 @@ SCALE_SUFFIX = "_scale"
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves the dense GQA family (internlm2, gemma3 with its
     sliding-window layers, minitron, qwen2.5), the vlm (qwen2-vl), audio
-    (whisper) and GQA MoE (dbrx) families, the ssm (rwkv6) and the hybrid
-    (zamba2) families; MLA waits for its slice."""
-    if cfg.family != "ssm" and (
-            cfg.family not in ("dense", "vlm", "audio", "moe", "hybrid")
-            or cfg.attention != "gqa"):
+    (whisper) and MoE families (dbrx with GQA, deepseek-v2 with MLA), the
+    ssm (rwkv6) and the hybrid (zamba2) families."""
+    if cfg.family == "ssm":
+        return
+    mla = cfg.family == "moe" and cfg.attention == "mla"
+    if cfg.family not in ("dense", "vlm", "audio", "moe", "hybrid") or (
+            cfg.attention != "gqa" and not mla):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attention!r} is not "
-            f"ported yet: MLA comes with its own slice (ROADMAP, modules "
-            f"to port)")
+            f"ported (the port takes MLA in the MoE family, deepseek-v2's)")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -69,7 +74,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     sliding_window)`` positions a row when the config has a window, and
     the hybrid family's shared-attention stripes ``min(S, 4096)``; the
     decode step then writes position ``index`` at slot ``index % S``.  The
-    ssm family has no sequence axis, so ``ring`` changes nothing there."""
+    ssm family has no sequence axis, and an MLA config no window, so
+    ``ring`` changes nothing there."""
     check_supported(cfg)
     S = (min(max_len, cfg.sliding_window) if ring and cfg.sliding_window
          else max_len)
@@ -92,6 +98,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         return out | {"attn_k": torch.zeros(shape, dtype=dt, device=device),
                       "attn_v": torch.zeros(shape, dtype=dt, device=device),
                       "index": idx}
+    if cfg.attention == "mla":
+        seq = (cfg.num_layers, batch, S)
+        return {"ckv": torch.zeros(seq + (cfg.kv_lora_rank,), dtype=dt,
+                                   device=device),
+                "krope": torch.zeros(seq + (cfg.qk_rope_head_dim,),
+                                     dtype=dt, device=device),
+                "index": idx}
     shape = (cfg.num_layers, batch, S, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     out = {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -107,9 +120,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def paged_names(cfg: ModelConfig) -> tuple[str, ...]:
     """Cache leaves that get block-paged (those with a decode-time
     sequence axis): none for the ssm family, the shared block's K/V for
-    the hybrid one, the self-attention K/V (not the cross leaves) for
-    the others."""
+    the hybrid one, ``ckv``/``krope`` for MLA, the self-attention K/V
+    (not the cross leaves) for the others."""
     check_supported(cfg)
+    if cfg.attention == "mla":
+        return ("ckv", "krope")
     return {"ssm": (), "hybrid": ("attn_k", "attn_v")}.get(cfg.family,
                                                           ("k", "v"))
 

@@ -1,7 +1,7 @@
 """Model facade: one object per architecture exposing init, the training
 forward, caches, prefill and the one-token decode steps (through the decode
-attention kernels for GQA stacks, MoE ones included; plain for rwkv6 and
-zamba2).
+attention kernels for GQA stacks, MoE ones included; plain for rwkv6,
+zamba2 and deepseek-v2's MLA).
 Counterpart of ``repro/models/model.py``."""
 from __future__ import annotations
 
@@ -62,8 +62,9 @@ class Model:
     def decode_step(self, params, token, cache, *, ring: bool = False):
         """One-token decode over a contiguous cache of any batch (a slot
         pool, a batch=1 view, the static ``generate`` batch): the dense
-        family through the decode attention kernel, ssm and hybrid in
-        plain PyTorch; ``ring=True`` decodes over a ring cache from
+        family through the decode attention kernel, ssm, hybrid and MLA
+        in plain PyTorch (an MLA batch's MoE rows routed together);
+        ``ring=True`` decodes over a ring cache from
         ``init_cache(ring=True)``."""
         return stack_decode_step(params, self.cfg, token, cache, ring=ring)
 
@@ -77,13 +78,17 @@ class Model:
     def kernel_decode_step(self, params, token, cache, *, tables=None):
         """Batched one-token decode over a whole slot pool through the
         decode attention kernels; ``tables`` selects the paged layout (the
-        only one for the hybrid family, none for the ssm family)."""
+        only one for the hybrid family, none for the ssm family).  An MLA
+        model takes its plain absorbed step here on either layout, each
+        slot's MoE rows routed alone (the serving pool's semantics)."""
         return stack_kernel_decode_step(params, self.cfg, token, cache,
                                         tables=tables)
 
 
 def build_model(arch: str | ModelConfig, *, reduced: bool = False) -> Model:
-    """``reduced=True`` is the smoke-test variant in float32."""
+    """``reduced=True`` is the smoke-test variant in float32.  At full
+    depth deepseek-v2-236b needs 235.7 B parameters (471 GB in bf16), more
+    than one card holds: serve it ``reduced`` or as a cut (fewer layers)."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     if reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")

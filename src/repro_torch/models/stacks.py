@@ -4,7 +4,8 @@ the full-sequence training forward :func:`stack_forward`.
 
 Counterpart of ``repro/models/stacks.py``: the dense GQA, vlm (qwen2-vl),
 audio (whisper: LayerNorm, gelu MLPs, an encoder and cross-attention), MoE
-(dbrx: leading dense layers, then MoE layers), ssm (rwkv6) and hybrid
+(dbrx, and deepseek-v2 with MLA: leading dense layers, then MoE layers),
+ssm (rwkv6) and hybrid
 (zamba2) branches of the init, the vision-embedding
 overlay and the audio encoder (:func:`encode_source`), dense GQA of the
 forward.  Where the
@@ -84,7 +85,9 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     layer applies) in the JAX package's weight layouts.  The MoE family
     has ``layers`` of ``{"ln1", "ln2", "attn", "moe": <moe block>}`` and,
     with ``first_dense_layers``, a leading ``dense_layers`` group of dense
-    layers whose MLP is ``d_ff`` wide.  The audio family
+    layers whose MLP is ``d_ff`` wide; with ``attention="mla"`` every
+    ``attn`` of both is an MLA block (:func:`~repro_torch.models.attention.
+    mla_init`).  The audio family
     has LayerNorms ``{"w", "b"}``, gelu MLPs ``{wi, bi, wo, bo}``, an
     ``encoder = {"layers", "final_norm"}`` of such layers and ``cross``, a
     list of ``{"ln", "attn"}`` per decoder layer."""
@@ -127,16 +130,18 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
                       for _ in range(cfg.num_layers)]
         return p
 
+    def attention():
+        return (attn.mla_init(gen, cfg) if cfg.attention == "mla"
+                else attn.gqa_init(gen, cfg))
+
     def dense_layer():
-        return {"ln1": norm(), "ln2": norm(),
-                "attn": attn.gqa_init(gen, cfg),
+        return {"ln1": norm(), "ln2": norm(), "attn": attention(),
                 "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
     if cfg.is_moe:
         n_dense = cfg.first_dense_layers
         if n_dense:
             p["dense_layers"] = [dense_layer() for _ in range(n_dense)]
-        p["layers"] = [{"ln1": norm(), "ln2": norm(),
-                        "attn": attn.gqa_init(gen, cfg),
+        p["layers"] = [{"ln1": norm(), "ln2": norm(), "attn": attention(),
                         "moe": moe_init(gen, cfg)}
                        for _ in range(cfg.num_layers - n_dense)]
         return p
@@ -207,6 +212,11 @@ def stack_forward(p: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             "stack_forward for the hybrid family (zamba2 training) is not "
             "ported yet: it needs a backward of the SSD scan (ROADMAP, "
             "zamba2 training)")
+    if cfg.attention == "mla":
+        raise NotImplementedError(
+            "stack_forward for MLA (deepseek-v2 training) is not ported yet: "
+            "the port serves it; its training needs a flash backward for Dv "
+            "!= D and the router's aux loss (ROADMAP §1, MLA training)")
     if cfg.family == "moe":
         raise NotImplementedError(
             "stack_forward for the moe family (dbrx training) is not ported "

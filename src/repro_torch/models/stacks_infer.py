@@ -1,5 +1,6 @@
 """Prefill and the batched one-token decode steps of the dense GQA, vlm,
-audio, MoE, rwkv6 (ssm) and zamba2 (hybrid) stacks.
+audio, MoE (GQA, and deepseek-v2's MLA), rwkv6 (ssm) and zamba2 (hybrid)
+stacks.
 
 Counterpart of ``repro/models/stacks_infer.py``: :func:`stack_prefill`
 (dense, vlm with its frontend and M-RoPE, audio with its encoder and
@@ -12,8 +13,14 @@ attention block through the paged kernel);
 cache of any batch (dense, vlm, audio and MoE through the kernel step; ssm
 and hybrid in plain PyTorch: the recurrent state has no sequence axis for a
 decode kernel, and the JAX engine refuses its kernel backend for the
-hybrid family).  Caches are updated in place (slice assignment and
-``index_put_``) where the JAX package rebuilds them with ``.at[].set``.
+hybrid family).  An MLA stack decodes in plain PyTorch on either device
+(:func:`_mla_decode`; the reference has no kernel for its absorbed
+decode): :func:`stack_decode_step` routes its MoE rows together (the
+reference's batched step), the serving pool's step
+(:func:`stack_kernel_decode_step`) routes each row alone (the reference
+engine's per-slot step).  Caches are updated in place (slice assignment
+and ``index_put_``) where the JAX package rebuilds them with
+``.at[].set``.
 """
 from __future__ import annotations
 
@@ -62,7 +69,8 @@ def stack_prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: dict, *, frontend=None):
     """Full-sequence forward over ``tokens (B, S)`` that writes each layer's
     K/V into positions ``[0, S)`` of the contiguous ``cache`` (dense, vlm;
-    audio also the encoder's ``cross_k``/``cross_v``), each layer's final
+    audio also the encoder's ``cross_k``/``cross_v``; MLA its raw ``ckv``
+    and rotated ``krope``), each layer's final
     recurrent state (ssm: ``att_x``, ``ffn_x``, ``wkv``), or each Mamba2
     layer's state and each shared-attention use's K/V (hybrid: ``conv``,
     ``ssm``, ``attn_k``, ``attn_v``), in place, and sets its ``index`` to
@@ -97,19 +105,26 @@ def stack_prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = pos.expand(B, S)
     mrope = (default_mrope_positions(B, S, cfg.num_frontend_tokens,
                                      x.device) if cfg.mrope else None)
+    mla = cfg.attention == "mla"
     for li, (lp, (theta, window)) in enumerate(
             zip(decoder_layers(p), _layer_theta_window(cfg))):
         h = _norm(lp["ln1"], x, cfg)
-        q, k, v = attn.gqa_project_qkv(lp["attn"], cfg, h, positions,
-                                       rope_theta=theta,
-                                       mrope_positions=mrope)
-        out = attn.multi_head_attention(q, k, v, pos, pos, causal=True,
-                                        window=window)
-        x = x + attn.attn_out(out, lp["attn"]["wo"])
+        if mla:     # the raw compressed KV and the rotated rope keys
+            a, ckv, krope = attn.mla_prefill(lp["attn"], cfg, h, positions)
+            x = x + a
+            cache["ckv"][li, :, :S] = ckv
+            cache["krope"][li, :, :S] = krope
+        else:
+            q, k, v = attn.gqa_project_qkv(lp["attn"], cfg, h, positions,
+                                           rope_theta=theta,
+                                           mrope_positions=mrope)
+            out = attn.multi_head_attention(q, k, v, pos, pos, causal=True,
+                                            window=window)
+            x = x + attn.attn_out(out, lp["attn"]["wo"])
+            cache["k"][li, :, :S] = k
+            cache["v"][li, :, :S] = v
         h = _norm(lp["ln2"], x, cfg)
         x = x + _ffn(lp, cfg, h)
-        cache["k"][li, :, :S] = k
-        cache["v"][li, :, :S] = v
     cache["index"].fill_(S)
     return _unembed(p, cfg, x[:, -1:])[:, 0], cache
 
@@ -224,7 +239,9 @@ def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     batch-1 step over the slots; the rows here are as independent, so one
     batched step computes the same thing (an MoE model's rows are not
     independent: its layers route all N rows together, as the JAX batched
-    step does).  The cache is updated in place
+    step does).  An MLA stack (``ckv``/``krope`` ``(L, N, S, ·)``) runs
+    :func:`_mla_decode` with its MoE layers routing all N rows together,
+    as the JAX batched step does.  The cache is updated in place
     (``index`` advances by one); returns ``(logits (N, V) f32, cache)``.
 
     ``ring=True`` decodes over a ring cache (``init_cache(ring=True)``, the
@@ -241,6 +258,8 @@ def stack_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
         logits, _ = stack_decode_step(p, cfg, token, rows, ring=ring)
         index.add_(1)
         return logits, cache
+    if cfg.attention == "mla":
+        return _mla_decode(p, cfg, token, cache, per_slot=False)
     if kernel_supported(cfg):
         return stack_kernel_decode_step(p, cfg, token, cache, ring=ring)
     x = _embed_tokens(p, cfg, token)                         # (N, 1, d)
@@ -321,20 +340,113 @@ def _paged_attention(cache: dict, names, li: int, q, k_row, v_row, pid, off,
     the ``names`` block pools at ``(pid, off)`` (quantized, with its scale,
     when the pool is int8) and attend ``q (N, H, hd)`` over ``lengths``
     positions through the tables with ``paged_decode_attention``."""
-    k_l, v_l = cache[names[0]][li], cache[names[1]][li]
+    _pool_write(cache, names[0], li, pid, off, k_row)
+    _pool_write(cache, names[1], li, pid, off, v_row)
     ks_l = vs_l = None
     if names[0] + kvcache.SCALE_SUFFIX in cache:
         ks_l = cache[names[0] + kvcache.SCALE_SUFFIX][li]
         vs_l = cache[names[1] + kvcache.SCALE_SUFFIX][li]
-        kq, ks = kvcache.quantize_kv(k_row, 1)
-        vq, vs = kvcache.quantize_kv(v_row, 1)
-        k_l[pid, off], v_l[pid, off] = kq, vq
-        ks_l[pid, off], vs_l[pid, off] = ks, vs
-    else:
-        k_l[pid, off] = k_row.to(k_l.dtype)
-        v_l[pid, off] = v_row.to(v_l.dtype)
-    return paged_decode_attention(q, k_l, v_l, tables, lengths,
+    return paged_decode_attention(q, cache[names[0]][li],
+                                  cache[names[1]][li], tables, lengths,
                                   window=window, k_scale=ks_l, v_scale=vs_l)
+
+
+def _mla_view(cache: dict, name: str, li: int, tables: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """Layer ``li`` of the ``name`` block pool gathered through each
+    slot's table row into a contiguous ``(N, MB · bs, ·)`` view in
+    ``dtype``, dequantized when the pool is int8 (the JAX engine's view)."""
+    pool = cache[name][li]
+    n = tables.shape[0]
+    g = attn.gather_blocks(pool, tables.reshape(-1)).view(
+        n, -1, *pool.shape[2:])
+    if name + kvcache.SCALE_SUFFIX not in cache:
+        return g.to(dtype)
+    sc = attn.gather_blocks(cache[name + kvcache.SCALE_SUFFIX][li],
+                            tables.reshape(-1)).view(n, -1)
+    return kvcache.dequantize_kv(g, sc, dtype)
+
+
+def _mla_decode(p: dict, cfg: ModelConfig, token: torch.Tensor,
+                cache: dict, tables=None, *, per_slot: bool = True):
+    """One-token decode of an MLA stack for N rows at per-row positions
+    ``cache["index"] (N,)``, in plain PyTorch on either device (the JAX
+    package's absorbed ``mla_decode_step``, which has no kernel).
+
+    Everything but the attention over the caches runs on ``P = max(N,
+    DECODE_ROWS)`` rows (see ``DECODE_ROWS``; the pad rows' cache reads and
+    writes are cut off).  ``per_slot=True`` is the serving pool's step,
+    the JAX engine's vmapped batch=1 step: each MoE layer routes all P
+    rows with ``capacity`` P, which drops nothing, and so computes each
+    row's own function, whatever its companions.  ``per_slot=False`` is
+    :func:`stack_decode_step`, the JAX batched step: each MoE layer routes
+    the N rows together at the config's capacity.
+
+    Contiguous (``tables=None``): ``ckv``/``krope`` ``(L, N, S, ·)``
+    stripes; a row past its stripe writes onto its last position and
+    attends over the whole stripe, as the JAX step's clamped
+    ``dynamic_update_slice`` does.  Paged (``tables (N, MB)``): each layer
+    gathers every slot's blocks into a ``(N, MB · bs, ·)`` view in the
+    model dtype (dequantized from an int8 pool), writes the new row there
+    unquantized, attends over the view, and writes the row into the pool
+    (quantized per position for int8): the JAX engine's gathered-view
+    step, whose current row enters its attention at full precision.  Dead
+    slots write through their table rows into the null block.  The cache
+    is updated in place (``index`` advances by one); returns ``(logits (N,
+    V) f32, cache)``."""
+    index = cache["index"]                                   # (N,)
+    N = token.shape[0]
+    P = max(N, DECODE_ROWS)
+    rows = torch.arange(N, device=index.device)
+    idx = index.long()
+    pos = _pad_rows(index, P)[:, None]                       # (P, 1)
+    x = _embed_tokens(p, cfg, _pad_rows(token, P))           # (P, 1, d)
+    if tables is None:
+        widx = idx.clamp(max=cache["ckv"].shape[2] - 1)
+    else:
+        bs = cache["ckv"].shape[2]
+        pid, off = _paged_position(bs, idx, tables)
+        widx = idx.clamp(max=tables.shape[1] * bs - 1)
+    for li, lp in enumerate(decoder_layers(p)):
+        h = _norm(lp["ln1"], x, cfg)
+        q_c, q_rope, c_new, kr_new = attn.mla_decode_q(lp["attn"], cfg, h,
+                                                       pos)
+        c_row, kr_row = c_new[:N], kr_new[:N]
+        if tables is None:
+            ckv, krope = cache["ckv"][li], cache["krope"][li]
+        else:
+            ckv = _mla_view(cache, "ckv", li, tables, x.dtype)
+            krope = _mla_view(cache, "krope", li, tables, x.dtype)
+            _pool_write(cache, "ckv", li, pid, off, c_row)
+            _pool_write(cache, "krope", li, pid, off, kr_row)
+        ckv[rows, widx] = c_row.to(ckv.dtype)
+        krope[rows, widx] = kr_row.to(krope.dtype)
+        o_c = attn.mla_attend(lp["attn"], cfg, q_c[:N], q_rope[:N], ckv,
+                              krope, idx)
+        x = x + attn.mla_decode_out(lp["attn"], _pad_rows(o_c, P), x.dtype)
+        h = _norm(lp["ln2"], x, cfg)
+        if "moe" not in lp:
+            x = x + mlp_apply(lp["mlp"], h)
+        elif per_slot:
+            x = x + moe_lib.moe_apply(lp["moe"], cfg, h, capacity=P)[0]
+        else:
+            x = x + _pad_rows(_ffn(lp, cfg, h[:N]), P)
+    index.add_(1)
+    return _unembed(p, cfg, x)[:N, 0], cache
+
+
+def _pool_write(cache: dict, name: str, li: int, pid, off,
+                row: torch.Tensor) -> None:
+    """Write each slot's new row ``(N, ·)`` into layer ``li`` of the
+    ``name`` block pool at ``(pid, off)``, quantized with its scale when
+    the pool is int8."""
+    pool = cache[name][li]
+    if name + kvcache.SCALE_SUFFIX in cache:
+        q, sc = kvcache.quantize_kv(row, 1)
+        pool[pid, off] = q
+        cache[name + kvcache.SCALE_SUFFIX][li][pid, off] = sc
+    else:
+        pool[pid, off] = row.to(pool.dtype)
 
 
 def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
@@ -396,6 +508,10 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     for it, so a slot's logits depend on its companions and the slot
     count.
 
+    An MLA stack takes :func:`_mla_decode` with per-slot routing, on
+    either layout (``ring`` changes nothing: MLA has no window): no decode
+    kernel runs there.
+
     ``ring=True`` (dense and vlm, contiguous only: the paged pool takes no
     ring) reads the stripes of S slots as ring buffers: position ``index``
     is written at slot ``index % S`` and the kernel attends over ``min(index
@@ -407,6 +523,8 @@ def stack_kernel_decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor,
     them in.
     """
     kvcache.check_supported(cfg)
+    if cfg.attention == "mla":     # no window: a ring changes nothing
+        return _mla_decode(p, cfg, token, cache, tables)
     if ring and (tables is not None or not kernel_supported(cfg)
                  or cfg.family == "audio"):
         raise ValueError("ring decode runs on contiguous dense and vlm "

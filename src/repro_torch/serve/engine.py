@@ -15,7 +15,9 @@ from the engine's ``torch.Generator``), then runs the model's batched
 decode step: ``Model.kernel_decode_step`` for GQA stacks (decode attention
 in a kernel, per layer, over contiguous stripes or paged block pools) and
 for zamba2's paged pool (its shared attention block runs the paged kernel
-over the ``attn_k``/``attn_v`` pools), ``Model.decode_step`` for rwkv6 on
+over the ``attn_k``/``attn_v`` pools) and for deepseek-v2's MLA on either
+layout (its absorbed decode in plain PyTorch, each slot's MoE rows routed
+alone, as the JAX engine's vmapped batch=1 step does), ``Model.decode_step`` for rwkv6 on
 either layout (its pool pages nothing) and contiguous zamba2 (the
 recurrences and zamba2's shared attention block in plain PyTorch).  The
 layout and the model's family decide; there is no backend
@@ -420,11 +422,14 @@ class Engine:
         # positions >= index): recurrent state cannot rewind, so those
         # families suspend at block_size 1 only
         paged_names = set(model.paged_cache_names())
-        # the decode step through the kernels: GQA stacks, and pools with
-        # paged leaves (zamba2's shared block over its attn_k/attn_v pools);
-        # rwkv6's pool pages nothing and steps as a contiguous cache does
-        self._kernel_step = model.kernel_supported() or (
-            self.paged and bool(paged_names))
+        # the pool's batched step: through the kernels for GQA stacks and
+        # pools with paged leaves (zamba2's shared block over its
+        # attn_k/attn_v pools); MLA's step with per-slot routing on either
+        # layout; rwkv6's pool pages nothing and steps as a contiguous
+        # cache does
+        self._kernel_step = (model.kernel_supported()
+                             or model.cfg.attention == "mla"
+                             or (self.paged and bool(paged_names)))
         self._rollback_safe = all(
             k == "index" or k in paged_names or k.endswith(SCALE_SUFFIX)
             for k in self.slots.cache)

@@ -37,6 +37,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
+from _jax_weights import jax_init  # noqa: E402
 
 from repro.models import build_model as jax_build  # noqa: E402
 from repro.serve import DisaggConfig as JaxDisaggConfig  # noqa: E402
@@ -60,7 +61,7 @@ MAX_LEN, BS = 40, 4
 @pytest.fixture(scope="module")
 def pair():
     jm = jax_build(ARCH, reduced=True)
-    jp = jm.init(jax.random.PRNGKey(1))
+    jp = jax_init(jm, 1)
     return jm, jp, build_model(ARCH, reduced=True), from_jax_params(
         jax.tree.map(np.asarray, jp))
 
@@ -145,8 +146,7 @@ def test_contiguous_disagg_recurrent(arch):
     for zamba2, the shared attention's K/V)."""
     jm = jax_build(arch, reduced=True)
     tm = build_model(arch, reduced=True)
-    tp = from_jax_params(jax.tree.map(np.asarray,
-                                      jm.init(jax.random.PRNGKey(1))))
+    tp = from_jax_params(jax.tree.map(np.asarray, jax_init(jm, 1)))
     prompts = _prompts(3)
     mono = _mono(tm, tp, _reqs(prompts, max_new=5))
     dis, router = _router(tm, tp, _reqs(prompts, max_new=5))

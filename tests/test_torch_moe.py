@@ -23,8 +23,9 @@ weights converted from the JAX init, on the CPU:
   together): greedy tokens identical, logprobs within 1e-4 (int8 2e-3);
   the same run at ``capacity_factor`` 1e9 gives other logprobs, so the
   drops reach the engine;
-* ``build_model("dbrx-132b", reduced=True)`` serves on every layout, MLA
-  is still refused, and the training forward refuses the family.
+* ``build_model("dbrx-132b", reduced=True)`` serves on every layout, and
+  the training forward refuses the family (and MLA, whose serving is
+  admitted).
 """
 import dataclasses
 
@@ -287,12 +288,16 @@ def test_reduced_dbrx_serves_every_layout(kw):
 
 
 def test_mla_and_moe_training_still_refused(pair):
+    """Serving MLA is admitted (deepseek-v2 builds and inits); the
+    training forward refuses MLA and the MoE family."""
     ds = ModelConfig(**dataclasses.asdict(jax_get_config(
         "deepseek-v2-236b")))
+    kvcache.check_supported(ds)
+    assert build_model(ds).cfg.attention == "mla"
+    mla = build_model(ds, reduced=True)
+    mp = mla.init(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="MLA"):
-        kvcache.check_supported(ds)
-    with pytest.raises(NotImplementedError):
-        build_model(ds)
+        mla.forward(mp, torch.zeros((1, 4), dtype=torch.int32))
     _, _, tm, tp = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.forward(tp, torch.zeros((1, 4), dtype=torch.int32))

@@ -31,6 +31,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+from _jax_weights import jax_init  # noqa: E402
 from test_torch_rwkv6 import _randomize as rwkv_randomize  # noqa: E402
 from test_torch_zamba2 import _randomize as zamba_randomize  # noqa: E402
 
@@ -53,7 +54,7 @@ def _pair(arch, layers, randomize):
     jcfg = dataclasses.replace(jax_get_config(arch).reduced(),
                                num_layers=layers, dtype="float32")
     jm = JaxModel(jcfg)
-    jp_np = randomize(jm.init(jax.random.PRNGKey(1)))
+    jp_np = randomize(jax_init(jm, 1))
     tm = build_model(dataclasses.replace(build_model(arch, reduced=True).cfg,
                                          num_layers=layers))
     return jm, jax.tree.map(jnp.asarray, jp_np), tm, from_jax_params(jp_np)
@@ -63,6 +64,21 @@ def _pair(arch, layers, randomize):
 def models():
     return {"zamba2": _pair("zamba2-2.7b", 4, zamba_randomize),
             "rwkv6": _pair("rwkv6-7b", 2, rwkv_randomize)}
+
+
+@pytest.fixture(scope="module")
+def served(models):
+    """The port's paged engine on the default prompts, by (arch, int8),
+    made on first use: ``(outputs, the drained engine)``, the monolithic
+    run several tests hold theirs to."""
+    runs = {}
+
+    def get(arch, kv_dtype=None):
+        if (arch, kv_dtype) not in runs:
+            eng = _engine(models, arch, kv_dtype=kv_dtype)
+            runs[arch, kv_dtype] = (_serve(eng, _prompts()), eng)
+        return runs[arch, kv_dtype]
+    return get
 
 
 def _prompts(lens=LENS, seed=7):
@@ -107,11 +123,11 @@ def _close(a, b, atol):
 @pytest.mark.parametrize("arch,kv_dtype", [("zamba2", None),
                                            ("zamba2", "int8"),
                                            ("rwkv6", None)])
-def test_paged_engine_matches_jax_and_contiguous(models, arch, kv_dtype):
+def test_paged_engine_matches_jax_and_contiguous(models, served, arch,
+                                                 kv_dtype):
     jm, jp, _, _ = models[arch]
     prompts = _prompts()
-    eng = _engine(models, arch, kv_dtype=kv_dtype)
-    port = _serve(eng, prompts)
+    port, eng = served(arch, kv_dtype)
     ref = _serve(JaxEngine(jm, jp, _cfg(JaxEngineConfig, kv_dtype=kv_dtype)),
                  prompts, JaxRequest)
     _close(port, ref, 2e-3 if kv_dtype else 1e-4)
@@ -204,16 +220,16 @@ def _suspend_mid_run(eng, prompts, rid=0, after=3):
 @pytest.mark.parametrize("arch,kv_dtype", [("zamba2", None),
                                            ("zamba2", "int8"),
                                            ("rwkv6", None)])
-def test_suspend_resume_at_block_1(models, arch, kv_dtype):
+def test_suspend_resume_at_block_1(models, served, arch, kv_dtype):
     prompts = _prompts()
-    base = _serve(_engine(models, arch, kv_dtype=kv_dtype), prompts)
+    base = served(arch, kv_dtype)[0]
     eng = _engine(models, arch, kv_dtype=kv_dtype)
     _same(_suspend_mid_run(eng, prompts), base)
     assert eng.metrics().suspends == eng.metrics().resumes == 1
     eng.slots.alloc.assert_clean(context="test")
 
 
-def test_zamba2_tool_tokens_export_import_and_refusal(models):
+def test_zamba2_tool_tokens_export_import_and_refusal(models, served):
     _, _, tm, tp = models["zamba2"]
     p = _prompts((9,), seed=5)[0]
     tool = _prompts((3,), seed=6)[0]
@@ -231,7 +247,7 @@ def test_zamba2_tool_tokens_export_import_and_refusal(models):
                                rtol=0)
     # a checkpoint with a suspended handle continues token for token
     prompts = _prompts()
-    base = _serve(_engine(models, "zamba2"), prompts)
+    base = served("zamba2")[0]
     eng = _engine(models, "zamba2")
     for i, q in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=q, max_new_tokens=MAX_NEW))
@@ -256,10 +272,10 @@ def test_zamba2_tool_tokens_export_import_and_refusal(models):
 @pytest.mark.parametrize("arch,kv_dtype", [("zamba2", None),
                                            ("zamba2", "int8"),
                                            ("rwkv6", None)])
-def test_router_matches_monolithic(models, arch, kv_dtype):
+def test_router_matches_monolithic(models, served, arch, kv_dtype):
     _, _, tm, tp = models[arch]
     prompts = _prompts()
-    mono = _serve(_engine(models, arch, kv_dtype=kv_dtype), prompts)
+    mono = served(arch, kv_dtype)[0]
     router = DisaggRouter(tm, tp, DisaggConfig(
         prefill_slots=1, decode_slots=2, max_seq_len=MAX_LEN,
         temperature=0.0, kv_layout="paged", kv_block_size=BS,

@@ -37,6 +37,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
+from _jax_weights import jax_init  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
@@ -61,7 +62,7 @@ LAYOUTS = [("contiguous", None), ("paged", None), ("paged", "int8")]
 
 
 def _pair(jm, seed=1):
-    jp = jm.init(jax.random.PRNGKey(seed))
+    jp = jax_init(jm, seed)
     return jp, from_jax_params(jax.tree.map(np.asarray, jp))
 
 
@@ -70,6 +71,29 @@ def pair():
     jm = jax_build(ARCH, reduced=True)
     jp, tp = _pair(jm)
     return jm, jp, build_model(ARCH, reduced=True), tp
+
+
+@pytest.fixture(scope="module")
+def params7(pair):
+    """The second weights (seed 7) that the weight-sync tests swap in."""
+    return _pair(pair[0], seed=7)
+
+
+@pytest.fixture(scope="module")
+def uninterrupted(pair):
+    """Each package's uninterrupted run of the default request, by
+    (layout, int8, block size), made on first use: ``(jax, port)``, each
+    ``(tokens, logprobs)``."""
+    runs = {}
+
+    def get(kv, kv_dtype, block_size=1):
+        key = (kv, kv_dtype, block_size)
+        if key not in runs:
+            runs[key] = tuple(_uninterrupted(e, c) for e, c in zip(
+                _engines(pair, kv, kv_dtype, block_size),
+                (JaxRequest, Request)))
+        return runs[key]
+    return get
 
 
 def _prompt(seed=0, n=7):
@@ -131,10 +155,9 @@ def _suspend_serve_other_resume(eng, cls, stop):
 @pytest.mark.parametrize("kv,kv_dtype", LAYOUTS)
 @pytest.mark.parametrize("block_size,at_end", [(1, True), (4, True),
                                                (4, False)])
-def test_resume_matches_uninterrupted(pair, kv, kv_dtype, block_size,
-                                      at_end):
-    jref, tref = (_uninterrupted(e, c) for e, c in zip(
-        _engines(pair, kv, kv_dtype, block_size), (JaxRequest, Request)))
+def test_resume_matches_uninterrupted(pair, uninterrupted, kv, kv_dtype,
+                                      block_size, at_end):
+    jref, tref = uninterrupted(kv, kv_dtype, block_size)
     assert tref[0] == jref[0]
     stop = jref[0][_stop_index(jref[0], block_size, at_end)]
     jeng, teng = _engines(pair, kv, kv_dtype, block_size)
@@ -166,12 +189,12 @@ def test_resume_matches_uninterrupted(pair, kv, kv_dtype, block_size,
 
 @pytest.mark.parametrize("kv,kv_dtype", LAYOUTS)
 def test_resume_with_tool_tokens_matches_prompt_continuation(
-        pair, kv, kv_dtype):
+        pair, uninterrupted, kv, kv_dtype):
     """Resuming with tool tokens injected equals a fresh request on the
     prompt, the turn and the tool tokens (float layouts), and the JAX
     engine's resume."""
     tool = np.asarray([7, 11, 13, 2, 250], np.int32)
-    jref, _ = _uninterrupted(_engines(pair, kv, kv_dtype)[0], JaxRequest)
+    jref, _ = uninterrupted(kv, kv_dtype)[0]
     stop = jref[_stop_index(jref, 1, True)]
     outs = []
     for eng, cls in zip(_engines(pair, kv, kv_dtype), (JaxRequest, Request)):
@@ -197,9 +220,10 @@ def test_resume_with_tool_tokens_matches_prompt_continuation(
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
-def test_dropped_handle_restores_block_conservation(pair, kv_dtype):
+def test_dropped_handle_restores_block_conservation(pair, uninterrupted,
+                                                   kv_dtype):
     _, teng = _engines(pair, "paged", kv_dtype)
-    ref, _ = _uninterrupted(_engines(pair, "paged", kv_dtype)[1], Request)
+    ref, _ = uninterrupted("paged", kv_dtype)[1]
     stop = ref[_stop_index(ref, 1, True)]
     teng.submit(_req(Request, rid=0, stop=(stop,)))
     teng.submit(_req(Request, rid=1, stop=(stop,), prompt=_prompt(2, 5)))
@@ -227,13 +251,13 @@ def test_dropped_handle_restores_block_conservation(pair, kv_dtype):
 
 @pytest.mark.parametrize("kv,kv_dtype", [("contiguous", None),
                                          ("paged", None)])
-def test_carry_live_across_weight_sync(pair, kv, kv_dtype):
+def test_carry_live_across_weight_sync(pair, params7, uninterrupted, kv,
+                                      kv_dtype):
     """``reset(params2, carry_live=True)`` mid-generation: the JAX
     engine's tokens, logprobs and ``token_versions``; the tokens before
     the swap the old weights' run bit for bit; deterministic."""
-    jm = pair[0]
-    jp2, tp2 = _pair(jm, seed=7)
-    tref = _uninterrupted(_engines(pair, kv, kv_dtype)[1], Request)
+    jp2, tp2 = params7
+    tref = uninterrupted(kv, kv_dtype)[1]
 
     def carry(eng, cls, new_params):
         eng.submit(_req(cls))
@@ -263,12 +287,12 @@ def test_carry_live_across_weight_sync(pair, kv, kv_dtype):
     assert again.token_versions == tout.token_versions
 
 
-def test_stream_sync_params_versions_match_jax(pair):
+def test_stream_sync_params_versions_match_jax(pair, params7):
     """``generate_continuous_stream(sync_params=...)``: a version bump
     mid-rollout carries the live generations onto the new weights; the
     groups' tokens and ``token_versions`` are the JAX generator's."""
     jm, jp, tm, tp = pair
-    jp2, tp2 = _pair(jm, seed=7)
+    jp2, tp2 = params7
     prompts = np.stack([_prompt(0), _prompt(0), _prompt(4), _prompt(4)])
 
     def poll(old, new):

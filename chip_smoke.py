@@ -476,6 +476,30 @@ Phases, in order; any failure exits non-zero:
              drops, prefill against decode within DENSE32_TOL.  Phase 3
              holds flash's D 192 / Dv 128 instance at this prefill's
              shape (and greedy at V 102400).
+13. train-<arch> — training of every family, last: two GRPO iterations
+             (``run_training``, engine rollout, 4 prompts x 4 samples, 32
+             new tokens at temperature 1, remat on) of gemma3-4b and
+             zamba2-2.7b at full width and of full-width cuts of
+             qwen2-vl-7b (14 of 28 layers; then one step with 256 seeded
+             vision embeddings a row), rwkv6-7b (16 of 32), dbrx-132b (1
+             of 40) and deepseek-v2-236b (2 of 60: its dense layer and
+             one MoE layer), and two ``make_train_step`` steps of
+             whisper-tiny on 1500 seeded frames a row (no GRPO loop
+             carries frames).  Each step's forward, backward and AdamW
+             by CUDA events, peak memory, launches exact (a layer's
+             prefill kernel once a prefill and twice a train step, the
+             decode kernel once an attention layer a decode step on the
+             GQA stacks), finite losses and gradient norms, ratio_mean
+             within TRAIN_RATIO_TOL (printed for the MoE cuts), every
+             TRAIN_WATCH leaf moved; then a 2-layer float32 copy at small
+             widths with the model's head dims, its gradients on the card
+             (kernels, remat) against the CPU's (plain, no remat) within
+             1e-3 of each leaf's norm.  Phase 3 and the scan checks hold
+             FlashAttentionFn at D 192 / Dv 128, Rwkv6ScanFn and
+             Mamba2ScanFn (r/k broadcasts) against autograd through their
+             plain versions in float32 and bf16, each with a planted fault
+             (the backward's delta dropped; the state passing dropped)
+             that must fail.
 
 In the float32 runs of phases 7 to 12 the engine's tokens are also held to
 the re-prefill's argmax (log-probability gap within the run's limit); in
@@ -495,6 +519,7 @@ parent commit) on this script's timer; it writes
     python3 chip_smoke.py --only kernels,elastic,serve-qwen2-vl-7b
     python3 chip_smoke.py --only serve-dbrx-132b-cut
     python3 chip_smoke.py --only kernels,serve-deepseek-v2-cut
+    python3 chip_smoke.py --only train-gemma3-4b,train-whisper-tiny
 
 runs the named phases alone (ONLY_PHASES; no result line) and writes
 ``chiprun_out/chip_smoke_only.json``.
@@ -764,6 +789,54 @@ def check_close(torch, name, got, ref, tol) -> float:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max abs err {err:.3e})")
     return err
+
+
+# |gradient - reference| over the reference's largest |entry|: float32
+# sums in other orders (flash: the kernel's output and log-sum-exp feed
+# the plain backward), and in bf16 a few roundings of the inputs' dtype
+GRAD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+
+
+def grads_of(torch, f, leaves, gys):
+    """Gradients with respect to ``leaves`` of the sum over f's outputs of
+    ``out * gy`` (an output whose gy is None is left out, as training
+    leaves out a scan's final state)."""
+    outs = f(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o.float() * gy).sum() for o, gy in zip(outs, gys)
+               if gy is not None)
+    return torch.autograd.grad(loss, leaves)
+
+
+def check_grads(torch, label, fn, plain, planted, leaves, gys,
+                dtype) -> dict:
+    """An autograd Function ``fn`` (the kernel forward, the plain
+    backward) against autograd through its plain version: each gradient
+    within GRAD_TOL of the reference's largest entry, all finite; the
+    planted fault (a faulty function, or its gradients) must miss the
+    tolerance."""
+    tol = GRAD_TOL[dtype]
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+    want = grads_of(torch, plain, leaves, gys)
+    got = grads_of(torch, fn, leaves, gys)
+    bad = (planted if isinstance(planted, tuple)
+           else grads_of(torch, planted, leaves, gys))
+    errs = [rel(a, b) for a, b in zip(got, want)]
+    miss = max(rel(a, b) for a, b in zip(bad, want))
+    if not all(torch.isfinite(g.float()).all() for g in got):
+        raise AssertionError(f"{label}: non-finite gradients")
+    if max(errs) > tol:
+        raise AssertionError(f"{label}: gradients off autograd through the "
+                             f"plain version by {errs} (limit {tol})")
+    if not miss > tol:
+        raise AssertionError(f"{label}: the gradient check does not see the "
+                             f"planted fault ({miss:.2e} <= {tol})")
+    print(f"[grad] {label}: relative max_abs_err {[f'{e:.2e}' for e in errs]}"
+          f" (limit {tol}); planted fault {miss:.2e}")
+    return {"rel_err": errs, "planted_rel_err": miss, "tol": tol}
 
 
 def phase_kernels(torch, dev, timer):
@@ -1188,6 +1261,34 @@ def scan_planted(torch, r, k, v, lw, u, y0) -> float:
     return share
 
 
+def scan_grad_checks(torch, dev) -> dict:
+    """Rwkv6ScanFn at the rwkv6-7b prefill's widths (B 1, S 512, H 64, Dk
+    = Dv = 64, the model's weak decays), float32 with the final state's
+    gradient and bf16 r/k/v without it, against autograd through the plain
+    scan; the planted fault drops the state passing (every chunk from
+    zero)."""
+    from repro_torch.kernels import rwkv6_scan as rs
+
+    def from_zero(r, k, v, lw, u):
+        return (torch.cat([rs.rwkv6_scan_plain(
+            *(t[:, c:c + SCAN_CHUNK] for t in (r, k, v, lw)), u)[0]
+            for c in range(0, r.shape[1], SCAN_CHUNK)], dim=1),)
+    res = {}
+    for dtype, with_state in (("float32", True), ("bfloat16", False)):
+        leaves = [t.requires_grad_() for t in scan_inputs(
+            torch, dev, 1, 512, 64, 64, 64, dtype, "weak", seed=13)]
+        g = torch.Generator(device=dev).manual_seed(14)
+        gys = (torch.randn(1, 512, 64, 64, generator=g, device=dev),
+               torch.randn(1, 64, 64, 64, generator=g, device=dev)
+               if with_state else None)
+        res[dtype] = check_grads(
+            torch, f"Rwkv6ScanFn {dtype} (B 1, S 512, H 64, Dk = Dv = 64"
+            f"{', with the state' if with_state else ''})",
+            rs.Rwkv6ScanFn.apply, rs.rwkv6_scan_plain, from_zero, leaves,
+            gys, dtype)
+    return res
+
+
 def phase_scan(torch, dev, timer):
     from repro_torch.kernels import rwkv6_scan as rs
 
@@ -1236,6 +1337,7 @@ def phase_scan(torch, dev, timer):
               f"y={err:.3e} ({share:.2f} of the limit) "
               f"state={st_err:.3e}{note}")
         del r, k, v, lw, u, y0
+    row["grads"] = scan_grad_checks(torch, dev)
     return row
 
 
@@ -1372,6 +1474,43 @@ def mamba2_planted(torch, r, k, v, lw, y0) -> float:
     return share
 
 
+def mamba2_grad_checks(torch, dev) -> dict:
+    """Mamba2ScanFn at zamba2-2.7b's prefill widths (B 1, S 512, H 80, N
+    = hd = 64), r and k stride-0 broadcasts of one (B, S, 1, N) slice as
+    the model passes them (their gradients summed over the heads through
+    the expand): bf16 r/k with float32 v (the model's) and the final
+    state's gradient, and all float32 without it, against autograd
+    through the plain scan; the planted fault drops the state passing."""
+    from repro_torch.kernels import mamba2_scan as ms
+
+    def expand(f):
+        def run(r1, k1, v, lw):
+            shape = v.shape[:3] + (r1.shape[3],)
+            return f(r1.expand(shape), k1.expand(shape), v, lw)
+        return run
+
+    def from_zero(r, k, v, lw):
+        return (torch.cat([ms.mamba2_scan_plain(
+            *(t[:, c:c + SCAN_CHUNK] for t in (r, k, v, lw)))[0]
+            for c in range(0, r.shape[1], SCAN_CHUNK)], dim=1),)
+    res = {}
+    for rk_dt, with_state in (("bfloat16", True), ("float32", False)):
+        _, _, v, lw, (r1, k1) = mamba2_inputs(torch, dev, 1, 512, 80, 64, 64,
+                                              rk_dt, "float32", "model",
+                                              seed=13)
+        leaves = [t.detach().requires_grad_() for t in (r1, k1, v, lw)]
+        g = torch.Generator(device=dev).manual_seed(14)
+        gys = (torch.randn(1, 512, 80, 64, generator=g, device=dev),
+               torch.randn(1, 80, 64, 64, generator=g, device=dev)
+               if with_state else None)
+        res[rk_dt] = check_grads(
+            torch, f"Mamba2ScanFn r/k {rk_dt} broadcasts, v float32 (B 1, "
+            f"S 512, H 80, N = hd = 64{', with the state' if with_state else ''})",
+            expand(ms.Mamba2ScanFn.apply), expand(ms.mamba2_scan_plain),
+            expand(from_zero), leaves, gys, rk_dt)
+    return res
+
+
 def phase_mamba2_scan(torch, dev, timer):
     from repro_torch.kernels import mamba2_scan as ms
 
@@ -1415,6 +1554,7 @@ def phase_mamba2_scan(torch, dev, timer):
               f"N={N}, hd={hd}, r/k {rk_dt} "
               f"{'broadcast' if shared else 'per head'}, v {v_dt}, {decay} "
               f"decays): max_abs_err y={err:.3e} state={st_err:.3e}")
+    row["grads"] = mamba2_grad_checks(torch, dev)
     return row
 
 
@@ -1792,12 +1932,33 @@ def sdpa_first_backend(torch, q, k, v):
     return None, "; ".join(errors)
 
 
+def flash_grad_check(torch, g, dt, q, k, v) -> dict:
+    """FlashAttentionFn's gradients at deepseek-v2's MLA prefill shape (D
+    192, Dv 128) against autograd through ``flash_attention_plain``; the
+    planted fault is the backward with ``delta = rowsum(dout * out)``
+    dropped (``out`` passed as zeros)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gy = torch.randn(v.shape[:2] + (q.shape[2], v.shape[3]), generator=g,
+                     device=q.device)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    bad = fa.flash_attention_backward_plain(q, k, v, torch.zeros_like(out),
+                                            lse, gy.to(dt))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    return check_grads(
+        torch, f"FlashAttentionFn D 192 / Dv 128 {str(dt)[6:]} (B "
+        f"{q.shape[0]}, S {q.shape[1]}, H {q.shape[2]})",
+        lambda q, k, v: fa.FlashAttentionFn.apply(q, k, v, True, None),
+        fa.flash_attention_plain, bad, leaves, (gy,), str(dt)[6:])
+
+
 def flash_mla(torch, dev, timer) -> dict:
     """Flash's D 192 / Dv 128 instance (deepseek-v2's MLA prefill): the
     MLA_FLASH_EDGE cases and the MLA_FLASH shape against the plain
     version in bf16 and float32, the planted key in bf16, the kernel,
-    plain and SDPA times with the bound at MLA_FLASH, and the backward's
-    refusal of Dv != D."""
+    plain and SDPA times with the bound at MLA_FLASH, and the gradients of
+    FlashAttentionFn (its plain backward at Dv != D) in both dtypes
+    (:func:`flash_grad_check`)."""
     from repro_torch.kernels import flash_attention as fa
 
     D, Dv = fa.MLA_HEAD_DIMS
@@ -1828,12 +1989,9 @@ def flash_mla(torch, dev, timer) -> dict:
     q, k, v = qkv(B, S, H, Hkv, torch.bfloat16)
     err, share, lse_err = check_flash(torch, label, q, k, v)
     planted = planted_miss(torch, q, k, v, MLA_FLASH_PLANTED)
-    try:
-        fa.FlashAttentionFn.apply(q.detach().requires_grad_(), k, v, True,
-                                  None).float().sum().backward()
-        raise AssertionError("flash backward took Dv != D")
-    except NotImplementedError:
-        pass
+    grads = {str(dt)[6:]: flash_grad_check(torch, g, dt, *qkv(B, S, H, Hkv,
+                                                                dt))
+             for dt in (torch.float32, torch.bfloat16)}
     ms = timer(lambda: fa.flash_attention(q, k, v, return_lse=True))
     plain_ms = timer(lambda: fa.flash_attention_plain(q, k, v,
                                                       return_lse=True),
@@ -1848,7 +2006,7 @@ def flash_mla(torch, dev, timer) -> dict:
           f"Dv={Dv}): max_abs_err={err:.3e} ({share:.2f} of the limit; lse "
           f"{lse_err:.2e}), float32 {err32:.3e} ({share32:.2f}; lse "
           f"{lse32:.2e}); key {MLA_FLASH_PLANTED} missing from P V: "
-          f"{planted:.1f} of the limit; backward refuses Dv != D; "
+          f"{planted:.1f} of the limit; "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
           + (f"{lib_ms:.4f} (SDPA {backend})" if backend else
              f"null (SDPA refused: {fn})")
@@ -1859,7 +2017,7 @@ def flash_mla(torch, dev, timer) -> dict:
                 library_backend=backend if backend else fn, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=err, limit_share=share,
                 lse_err=lse_err, float32_err=err32, planted_share=planted,
-                edge_max_err=worst)
+                edge_max_err=worst, grads=grads)
 
 
 def phase_flash(torch, dev, timer):
@@ -4680,12 +4838,11 @@ def phase_serve_rwkv6(torch, dev):
                                       "serve-rwkv6")
     for k, f in fns.items():
         counts[k] += f.launches
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
-    from repro_torch.models import rwkv6 as rw
+    from repro_torch.kernels import rwkv6_scan as rs
 
     bf = prefill_decode_check(torch, dev, model, params, outs, "serve-rwkv6",
                               "bf16", 0.1,
-                              plain=(rw, "rwkv6_scan", rwkv6_scan_plain))
+                              plain=(rs, "rwkv6_scan", rs.rwkv6_scan_plain))
     paged_counts, paged = phase_serve_paged(torch, dev, model, params,
                                             RWKV_ARCH, outs,
                                             "serve-rwkv6-paged")
@@ -4789,10 +4946,9 @@ def phase_serve_zamba2(torch, dev):
     """zamba2-2.7b at full width through the continuous engine: the SSD
     scan kernel in every Mamba2 layer and flash attention in every shared
     block of every prefill, plain decode steps, greedy sampling."""
-    from repro_torch.kernels.mamba2_scan import mamba2_scan_plain
+    from repro_torch.kernels import mamba2_scan as ms
     from repro_torch.launch.serve import serve_continuous
     from repro_torch.models import build_model
-    from repro_torch.models import mamba2 as mb
 
     model, params = build(torch, dev, ZAMBA_ARCH)
     cfg = model.cfg
@@ -4834,7 +4990,7 @@ def phase_serve_zamba2(torch, dev):
         counts[k] += f.launches
     bf = prefill_decode_check(torch, dev, model, params, outs,
                               "serve-zamba2", "bf16", 0.1,
-                              plain=(mb, "mamba2_scan", mamba2_scan_plain))
+                              plain=(ms, "mamba2_scan", ms.mamba2_scan_plain))
     paged_counts, paged = phase_serve_paged(torch, dev, model, params,
                                             ZAMBA_ARCH, outs,
                                             "serve-zamba2-paged")
@@ -5875,6 +6031,554 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# training of every family: GRPO at full width or as a full-width cut
+# ---------------------------------------------------------------------------
+TRAIN_NEW = MAX_NEW    # tokens a GRPO rollout samples in the family phases
+TRAIN_BATCH, TRAIN_GROUP = 4, 4
+# the step at a realistic GRPO length that splits a train step's time:
+# TRAIN_LONG_ROWS rows of TRAIN_LONG_S positions (prompt and completion;
+# whisper's decoder context is 448); 2 rows keep the largest cut,
+# deepseek-v2's, under about 72 GiB beside its float32 logits
+TRAIN_LONG_ROWS, TRAIN_LONG_S = 2, {"whisper-tiny": 448}
+TRAIN_LONG_S_DEFAULT = 1024
+# layers kept of each model (None: all); every width is the model's own
+TRAIN_CUTS = {"whisper-tiny": None, "gemma3-4b": None, "zamba2-2.7b": None,
+              "qwen2-vl-7b": 14, "rwkv6-7b": 16, "dbrx-132b": 1,
+              "deepseek-v2-236b": 2}
+TRAIN_PHASES = tuple(f"train-{a}" for a in TRAIN_CUTS)
+# |ratio_mean - 1|: the trainer's forward against the engine's decode on
+# the sampled tokens, at the limit each family's serving already holds
+# (internlm2's train phase 1e-2; the recurrent serve phases' prefill
+# against decode 0.1).  The MoE capacity couples other rows in training
+# (all B·S) than in decode, so there it is printed, not gated.
+TRAIN_RATIO_TOL = {"gemma3-4b": 1e-2, "qwen2-vl-7b": 1e-2, "rwkv6-7b": 0.1,
+                   "zamba2-2.7b": 0.1}
+# leaves that must move in a train step: the embedding and, in the first
+# and the last layer, the attention or mixer and the MLP or experts
+TRAIN_WATCH = {
+    "whisper-tiny": ("embed", "encoder.layers.0.attn.wq", "cross.0.attn.wq",
+                     "layers.-1.mlp.wo"),
+    "gemma3-4b": ("embed", "layers.0.attn.wq", "layers.-1.mlp.wo"),
+    "zamba2-2.7b": ("embed", "layers.0.mamba.in_proj",
+                    "layers.-1.mamba.A_log", "shared_attn.attn.wq",
+                    "shared_attn.mlp.wo"),
+    "qwen2-vl-7b": ("embed", "lm_head", "layers.0.attn.bq",
+                    "layers.-1.mlp.wo"),
+    "rwkv6-7b": ("embed", "layers.0.mix.wr", "layers.0.mix.u",
+                 "layers.-1.mix.cm_wv"),
+    "dbrx-132b": ("embed", "layers.0.attn.wq", "layers.0.moe.router",
+                  "layers.0.moe.wo"),
+    "deepseek-v2-236b": ("embed", "dense_layers.0.attn.wkv_a",
+                         "layers.-1.attn.wq_b", "layers.-1.moe.router",
+                         "layers.-1.moe.wi_gate", "layers.-1.moe.shared.wo")}
+# the float32 copy of each family: 2 layers (deepseek: its dense layer and
+# one MoE layer) at a small width that keeps the model's attention and scan
+# head dims (gemma3 256, qwen2-vl and dbrx 128, deepseek's MLA 128 + 64 /
+# 128, zamba2's shared block 80 and SSD 64, rwkv6 64, whisper 64), its
+# expert count and top-k (at a capacity where nothing drops), a window
+# that the sequence crosses
+F32_COPY = {
+    "whisper-tiny": dict(num_layers=2, encoder_layers=2, vocab_size=4096),
+    "gemma3-4b": dict(num_layers=2, d_model=256, num_heads=2, num_kv_heads=1,
+                      d_ff=512, vocab_size=4096, sliding_window=48,
+                      local_global_ratio=1),
+    "zamba2-2.7b": dict(num_layers=2, d_model=320, num_heads=4,
+                        num_kv_heads=4, d_ff=640, vocab_size=4096,
+                        hybrid_attn_every=2),
+    "qwen2-vl-7b": dict(num_layers=2, d_model=256, num_heads=7,
+                        num_kv_heads=1, d_ff=512, vocab_size=4096,
+                        num_frontend_tokens=64),
+    "rwkv6-7b": dict(num_layers=2, d_model=256, num_heads=4, d_ff=512,
+                     vocab_size=4096),
+    "dbrx-132b": dict(num_layers=2, d_model=256, num_heads=6, num_kv_heads=1,
+                      head_dim=128, d_ff=256, moe_d_ff=256, vocab_size=4096,
+                      capacity_factor=4.0),
+    "deepseek-v2-236b": dict(num_layers=2, d_model=256, num_heads=4,
+                             d_ff=512, moe_d_ff=128, kv_lora_rank=64,
+                             q_lora_rank=96, vocab_size=4096,
+                             capacity_factor=27.0)}
+F32_S = 130            # positions of the float32 copies' batch
+F32_GRAD_TOL = 1e-3    # |g_card - g_cpu| over |g_cpu|, leaf by leaf
+# the leaves whose exact gradient is 0, by the end of their path: the key
+# biases of attention without RoPE (whisper's self- and cross-attention),
+# to which the softmax is invariant; they are held instead to float32
+# noise below F32_ZERO_TOL of the whole gradient's norm on both sides
+F32_ZERO_GRAD = {"whisper-tiny": "attn.bk"}
+F32_ZERO_TOL = 1e-6
+
+
+def leaf_at(tree, path: str):
+    for part in path.split("."):
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
+    return tree
+
+
+def named_leaves(tree, prefix=""):
+    """(path, tensor) pairs in the tree's order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in named_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+class StepSplit:
+    """The train step's forward, backward and AdamW split by CUDA events:
+    :meth:`model` wraps a model so that its ``forward`` (the training
+    forward; the engine never calls it) records an event before and after,
+    and while the split is entered the train step's ``adamw_update`` does
+    the same.  Per step: forward from its first event to the logits,
+    backward from there to AdamW's start (the loss and autograd's pass),
+    AdamW to its end."""
+
+    def __init__(self, torch):
+        self.torch, self.marks = torch, []
+
+    def mark(self):
+        e = self.torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.marks.append(e)
+
+    def model(self, model):
+        from repro_torch.models.model import Model
+        split = self
+
+        class Timed(Model):
+            def forward(self, *a, **kw):
+                split.mark()
+                out = super().forward(*a, **kw)
+                split.mark()
+                return out
+        return Timed(model.cfg)
+
+    def __enter__(self):
+        from repro_torch.rl import train_step as ts
+        self._adamw = adamw = ts.adamw_update
+
+        def timed(*a, **kw):
+            self.mark()
+            out = adamw(*a, **kw)
+            self.mark()
+            return out
+        ts.adamw_update = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.rl import train_step as ts
+        ts.adamw_update = self._adamw
+
+    def steps(self) -> list:
+        """Seconds of each step's forward, backward and AdamW; clears the
+        marks."""
+        self.torch.cuda.synchronize()
+        m, self.marks = self.marks, []
+        if len(m) % 4:
+            raise AssertionError(f"train split: {len(m)} events, not four a "
+                                 f"step")
+        return [{"forward_s": m[i].elapsed_time(m[i + 1]) / 1e3,
+                 "backward_s": m[i + 1].elapsed_time(m[i + 2]) / 1e3,
+                 "adamw_s": m[i + 2].elapsed_time(m[i + 3]) / 1e3}
+                for i in range(0, len(m), 4)]
+
+
+def train_split_line(split) -> str:
+    return "; ".join(f"step {i}: forward {s['forward_s']:.3f}s, backward "
+                     f"{s['backward_s']:.3f}s, AdamW {s['adamw_s']:.3f}s"
+                     for i, s in enumerate(split))
+
+
+class KernelBackwards:
+    """While entered, the backward of each kernel's autograd Function
+    (flash's chunked plain backward, the scans' plain recompute under
+    autograd) records a CUDA event before and after it; :meth:`seconds`
+    gives each one's calls and summed seconds and clears them.  These are
+    the parts of a train step that hand-written backward kernels would
+    replace."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels.flash_attention import FlashAttentionFn
+        from repro_torch.kernels.mamba2_scan import Mamba2ScanFn
+        from repro_torch.kernels.rwkv6_scan import Rwkv6ScanFn
+        self.torch = torch
+        self.fns = {"flash_attention": FlashAttentionFn,
+                    "rwkv6_scan": Rwkv6ScanFn, "mamba2_scan": Mamba2ScanFn}
+        self.marks = {k: [] for k in self.fns}
+
+    def _timed(self, name, backward):
+        marks, torch = self.marks[name], self.torch
+
+        def timed(ctx, *grads):
+            a = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = backward(ctx, *grads)
+            b = torch.cuda.Event(enable_timing=True)
+            b.record()
+            marks.append((a, b))
+            return out
+        return staticmethod(timed)
+
+    def __enter__(self):
+        self._orig = {k: f.__dict__["backward"] for k, f in self.fns.items()}
+        for k, f in self.fns.items():
+            f.backward = self._timed(k, self._orig[k].__func__)
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self.fns.items():
+            f.backward = self._orig[k]
+
+    def seconds(self) -> dict:
+        self.torch.cuda.synchronize()
+        out = {k: {"calls": len(m),
+                   "s": sum(a.elapsed_time(b) for a, b in m) / 1e3}
+               for k, m in self.marks.items() if m}
+        self.marks = {k: [] for k in self.fns}
+        return out
+
+
+def train_launches(cfg, hist, train_steps) -> dict:
+    """Launches of a family's train phase: a layer's prefill kernel (flash
+    for attention, the scan for rwkv6 and Mamba2 layers) once a prefill
+    and twice a train step (the forward, and remat's recompute in the
+    backward; whisper's encoder, outside the checkpointed layers, once);
+    the decode kernel once an attention layer a decode step where the
+    engine decodes through it (GQA stacks; zamba2's contiguous shared
+    block and deepseek-v2's absorbed decode are plain); nothing else."""
+    from repro_torch.models.stacks_infer import kernel_supported
+
+    want = {k: 0 for k in wrappers()}
+    L = cfg.num_layers
+    n = sum(r.get("prefills", 0) for r in hist) + 2 * train_steps
+    if cfg.family == "ssm":
+        want["rwkv6_scan"] = L * n
+    elif cfg.family == "hybrid":
+        want["mamba2_scan"] = L * n
+        want["flash_attention"] = L // cfg.hybrid_attn_every * n
+    else:
+        want["flash_attention"] = L * n + cfg.encoder_layers * train_steps
+    if kernel_supported(cfg):
+        want["decode_attention"] = L * sum(r.get("decode_steps", 0)
+                                           for r in hist)
+    return want
+
+
+def train_batch(torch, dev, cfg, B, S, seed, frontend=None) -> dict:
+    """A seeded GRPO-shaped batch on ``dev``: token ids, next-token labels,
+    a loss mask over the last 3/4 of the positions, one advantage a row of
+    either sign, and ``frontend`` (F positions of seeded vision embeddings
+    or audio frames) when given."""
+    from repro_torch.models.common import torch_dtype
+
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, cfg.vocab_size, (B, S + 1)).astype(np.int64)
+    mask = np.zeros((B, S), np.float32)
+    mask[:, S // 4:] = 1
+    adv = np.repeat(rs.randn(B, 1), S, 1).astype(np.float32) * mask
+    b = {"tokens": ids[:, :-1], "labels": ids[:, 1:], "loss_mask": mask,
+         "advantages": adv}
+    if frontend:
+        b["frontend"] = rs.randn(B, frontend, cfg.d_model).astype(
+            np.float32)
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+           for k, v in b.items()}
+    if frontend:
+        out["frontend"] = out["frontend"].to(torch_dtype(cfg.dtype))
+    return out
+
+
+def record_of(i, metrics) -> dict:
+    return {"step": i, **{k: float(metrics[k]) for k in
+                          ("loss", "grad_norm", "entropy", "ratio_mean")}}
+
+
+def make_steps(torch, dev, model, state, n, *, S, frontend, seed=0,
+               rows=TRAIN_BATCH * TRAIN_GROUP):
+    """``n`` ``make_train_step`` steps (remat on, as GRPO's) of ``rows``
+    rows on seeded batches; returns the records."""
+    from repro_torch.rl.train_step import make_train_step
+    from repro_torch.train.optimizer import AdamWConfig
+
+    step = make_train_step(model, AdamWConfig(lr=3e-4))
+    hist = []
+    for i in range(n):
+        batch = train_batch(torch, dev, model.cfg, rows, S, seed + i,
+                            frontend)
+        state, metrics = step(state, batch)
+        hist.append(record_of(i, metrics))
+    return hist
+
+
+def check_train_records(arch, label, hist, ratio_tol=None):
+    for r in hist:
+        if not all(np.isfinite(r[k]) for k in ("loss", "grad_norm",
+                                                "entropy")) \
+                or r["grad_norm"] <= 0:
+            raise AssertionError(f"{label}: step {r['step']} malformed: {r}")
+        if ratio_tol is not None and abs(r["ratio_mean"] - 1) > ratio_tol:
+            raise AssertionError(f"{label}: step {r['step']}: policy and "
+                                 f"behaviour logprobs disagree, ratio_mean "
+                                 f"{r['ratio_mean']} (limit {ratio_tol})")
+
+
+def phase_train_family(torch, dev, arch) -> tuple:
+    """Training of one family on the card.  GRPO (every family but audio):
+    two iterations through ``run_training`` on the engine rollout (TRAIN_
+    BATCH prompts x TRAIN_GROUP samples, TRAIN_NEW new tokens, temperature
+    1, a reward that differs from row to row), at full width (the depth
+    TRAIN_CUTS keeps); whisper-tiny, which no GRPO loop trains (its
+    forward needs frames), two ``make_train_step`` steps on batches of
+    ``max_source_len`` seeded frames a row; qwen2-vl, after its GRPO, one
+    step on a batch with seeded vision embeddings (the overlay in
+    training).  Each step's forward / backward / AdamW split by CUDA
+    events, the peak memory, exact launches (:func:`train_launches`),
+    finite losses and gradient norms, ``ratio_mean`` within
+    TRAIN_RATIO_TOL, every TRAIN_WATCH leaf moved; then one step at a
+    realistic length (:func:`long_step`); then, the model freed, the
+    family's float32 copy (:func:`f32_grad_copy`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_training
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    phase = f"train-{arch}"
+    full = get_config(arch)
+    n = TRAIN_CUTS[arch]
+    model, params = build(torch, dev, full if n is None
+                          else dataclasses.replace(full, num_layers=n))
+    cfg = model.cfg
+    n_par = sum(t.numel() for t in _leaves(params))
+    cut = ("all layers" if n is None else
+           f"a cut of {n} of {full.num_layers} layers")
+    print(f"[{phase}] {arch} at full width, {cut}: {n_par / 1e9:.2f} B "
+          f"parameters, {n_par * 12 / 1e9:.1f} GB of weights, gradients "
+          f"and AdamW moments at 12 bytes a parameter")
+    watch = {p: leaf_at(params, p) for p in TRAIN_WATCH[arch]}
+    before = {p: fingerprint([t]) for p, t in watch.items()}
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepSplit(torch) as split:
+        timed = split.model(model)
+        if cfg.family == "audio":
+            state = {"params": params, "opt": adamw_init(
+                params, AdamWConfig(lr=3e-4))}
+            hist = make_steps(torch, dev, timed, state, 2,
+                              S=16 + TRAIN_NEW - 1,
+                              frontend=cfg.max_source_len)
+            steps_of, roll = 2, None
+        else:
+            state, hist, report = run_training(
+                cfg.name, model=timed, params=params, steps=2,
+                batch=TRAIN_BATCH, group=TRAIN_GROUP, max_new=TRAIN_NEW,
+                temperature=1.0, rollout="engine",
+                reward_fn=token_share_reward(cfg.vocab_size), device=dev,
+                log_every=1, return_report=True)
+            steps_of = len(hist)
+            roll = [t1 - t0_ for _, t0_, t1 in report.timelines["rollout"]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = split.steps()
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: f.launches for k, f in fns.items()}
+    want = train_launches(cfg, hist, steps_of)
+    if counts != want or len(hist) != 2:
+        raise AssertionError(f"{phase}: launches {counts} != {want} "
+                             f"({len(hist)} steps)")
+    check_train_records(arch, phase, hist, TRAIN_RATIO_TOL.get(arch))
+    moved = {p: fingerprint([t]) != before[p] for p, t in watch.items()}
+    if not all(moved.values()):
+        raise AssertionError(f"{phase}: weights did not move: {moved}")
+    if not all(torch.isfinite(t).all() for t in watch.values()):
+        raise AssertionError(f"{phase}: non-finite weights after training")
+    print(f"[{phase}] 2 train steps in {wall:.2f}s"
+          + (f" (rollouts {[round(x, 3) for x in roll]} s)" if roll else "")
+          + f"; {train_split_line(steps)}; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches {counts} (expected); "
+          f"{card_line()}")
+    for r in hist:
+        print(f"[{phase}] step {r['step']}: loss={r['loss']:.6f} grad_norm="
+              f"{r['grad_norm']:.4f} entropy={r['entropy']:.4f} ratio_mean="
+              f"{r['ratio_mean']:.6f}"
+              + (f" decode_steps={r['decode_steps']} prefills="
+                 f"{r['prefills']}" if "prefills" in r else ""))
+    res = {"layers": cfg.num_layers, "params": n_par, "wall_s": wall,
+           "rollout_s": roll, "steps": steps, "max_memory_allocated": peak,
+           "launches": counts, "history": hist}
+    if cfg.family == "vlm":
+        res["overlay"] = vlm_overlay_step(torch, dev, split, timed, state)
+    res["long"] = long_step(torch, dev, split, timed, state)
+    del state, params, model, watch, timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["float32"] = f32_grad_copy(torch, dev, arch)
+    return counts, res
+
+
+def vlm_overlay_step(torch, dev, split, model, state) -> dict:
+    """One ``make_train_step`` step of qwen2-vl on a batch whose first
+    ``num_frontend_tokens`` positions are seeded vision embeddings (the
+    overlay the GRPO loop, which carries no frontend, does not train):
+    flash twice a layer, finite loss and gradient norm, the embedding's
+    text rows and the last layer moved."""
+    cfg = model.cfg
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    before = fingerprint([state["params"]["layers"][-1]["mlp"]["wo"]])
+    with split:
+        hist = make_steps(torch, dev, model, state, 1,
+                          S=cfg.num_frontend_tokens + 64,
+                          frontend=cfg.num_frontend_tokens, seed=7)
+        steps = split.steps()
+    counts = {k: f.launches for k, f in fns.items()}
+    want = train_launches(cfg, [], 1)
+    if counts != want:
+        raise AssertionError(f"train-qwen2-vl overlay: launches {counts} != "
+                             f"{want}")
+    check_train_records(cfg.name, "train-qwen2-vl overlay", hist)
+    if fingerprint([state["params"]["layers"][-1]["mlp"]["wo"]]) == before:
+        raise AssertionError("train-qwen2-vl overlay: weights did not move")
+    print(f"[train-{cfg.name}] a step with {cfg.num_frontend_tokens} seeded "
+          f"vision embeddings a row ({TRAIN_BATCH * TRAIN_GROUP} rows, S "
+          f"{cfg.num_frontend_tokens + 64}): loss={hist[0]['loss']:.6f} "
+          f"grad_norm={hist[0]['grad_norm']:.4f}; {train_split_line(steps)}; "
+          f"launches {counts} (expected)")
+    return {"history": hist, "steps": steps, "launches": counts}
+
+
+def long_step(torch, dev, split, model, state) -> dict:
+    """One ``make_train_step`` step (remat on) at a realistic GRPO length,
+    TRAIN_LONG_ROWS rows of TRAIN_LONG_S positions (with ``max_source_len``
+    seeded frames a row for audio; no vision embeddings for vlm, as in
+    GRPO): the forward / backward / AdamW split, and within the backward
+    each kernel Function's backward (:class:`KernelBackwards`), the peak
+    memory, exact launches, a finite loss and gradient norm."""
+    cfg = model.cfg
+    S = TRAIN_LONG_S.get(cfg.name, TRAIN_LONG_S_DEFAULT)
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with split, KernelBackwards(torch) as kb:
+        hist = make_steps(torch, dev, model, state, 1, S=S,
+                          frontend=cfg.max_source_len
+                          if cfg.family == "audio" else None,
+                          seed=9, rows=TRAIN_LONG_ROWS)
+        steps = split.steps()
+        kernel_bwd = kb.seconds()
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: f.launches for k, f in fns.items()}
+    want = train_launches(cfg, [], 1)
+    if counts != want:
+        raise AssertionError(f"train-{cfg.name} at length {S}: launches "
+                             f"{counts} != {want}")
+    check_train_records(cfg.name, f"train-{cfg.name} at length {S}", hist)
+    parts = ", ".join(f"{k} {v['s']:.3f}s over {v['calls']} calls"
+                      for k, v in kernel_bwd.items())
+    print(f"[train-{cfg.name}] a step at a realistic length "
+          f"({TRAIN_LONG_ROWS} rows x {S} positions): loss="
+          f"{hist[0]['loss']:.6f} grad_norm={hist[0]['grad_norm']:.4f}; "
+          f"{train_split_line(steps)}; of the backward, the kernels' "
+          f"backwards: {parts}; peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"launches {counts} (expected)")
+    return {"rows": TRAIN_LONG_ROWS, "S": S, "history": hist,
+            "steps": steps, "kernel_backward": kernel_bwd,
+            "max_memory_allocated": peak, "launches": counts}
+
+
+def port_grads(torch, model, params, batch, remat):
+    """The loss and its gradients, leaf by leaf in ``named_leaves``
+    order, through ``make_loss_fn``."""
+    from repro_torch.rl.train_step import make_loss_fn
+
+    leaves = []
+
+    def alias(t):
+        leaves.append(t.detach().requires_grad_())
+        return leaves[-1]
+    loss, _ = make_loss_fn(model, remat=remat)(_tree_map(alias, params),
+                                               batch)
+    return float(loss), torch.autograd.grad(loss, leaves)
+
+
+def f32_grad_copy(torch, dev, arch) -> dict:
+    """The family's F32_COPY model in float32, seeded weights, one GRPO
+    batch of 2 rows x F32_S positions (and a frontend where the family
+    takes one): the loss and every gradient leaf through ``make_loss_fn``
+    on the card (kernels, remat on) against the same port on the CPU
+    (plain versions, remat off), each leaf within F32_GRAD_TOL of its norm
+    but the F32_ZERO_GRAD leaves, whose exact gradient is 0: those, card
+    and CPU and their difference, within F32_ZERO_TOL of the whole
+    gradient's norm."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 products must not run in TF32 here")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              **F32_COPY[arch])
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    frontend = {"vlm": cfg.num_frontend_tokens,
+                "audio": cfg.max_source_len}.get(cfg.family)
+    batch = train_batch(torch, "cpu", cfg, 2, F32_S, 11, frontend)
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = port_grads(torch, model, params, batch, remat=False)
+    cpu_s = time.perf_counter() - t0
+    on = {k: v.to(dev) for k, v in batch.items()}
+    l_dev, g_dev = port_grads(torch, model, _tree_map(lambda t: t.to(dev),
+                                                      params), on, remat=True)
+    names = [n for n, _ in named_leaves(params)]
+    total = float(sum(g.square().sum() for g in g_cpu).sqrt())
+    zero = F32_ZERO_GRAD.get(arch)
+    worst, worst_name, floored = -1.0, None, []
+    for name, a, b in zip(names, g_dev, g_cpu):
+        a = a.cpu()
+        err = float((a - b).norm())
+        if zero and name.endswith(zero):
+            if not max(float(a.norm()), float(b.norm()), err) \
+                    <= F32_ZERO_TOL * total:
+                raise AssertionError(
+                    f"train-{arch} float32: gradient {name}, exactly 0, "
+                    f"has norm {float(a.norm()):.3e} on the card and "
+                    f"{float(b.norm()):.3e} on the CPU (whole gradient "
+                    f"{total:.3e})")
+            floored.append(name)
+            continue
+        share = err / (F32_GRAD_TOL * float(b.norm()))
+        if not share <= 1.0:
+            raise AssertionError(f"train-{arch} float32: gradient {name} "
+                                 f"off the CPU's by {err:.3e} (norm "
+                                 f"{float(b.norm()):.3e})")
+        if share > worst:
+            worst, worst_name = share, name
+    if bool(floored) != bool(zero):
+        raise AssertionError(f"train-{arch} float32: no leaf ends in "
+                             f"{zero!r}")
+    if abs(l_dev - l_cpu) > 1e-5 * abs(l_cpu):
+        raise AssertionError(f"train-{arch} float32: loss {l_dev} on the "
+                             f"card, {l_cpu} on the CPU")
+    print(f"[train-{arch}] float32 copy ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, head dims kept; 2 x {F32_S} positions): loss "
+          f"{l_dev:.7f} on the card, {l_cpu:.7f} on the CPU; {len(names)} "
+          f"gradient leaves, the worst ({worst_name}) at {worst:.3f} of its "
+          f"limit ({F32_GRAD_TOL} of its norm)"
+          + (f"; {len(floored)} leaves of exact gradient 0 ({zero}) within "
+             f"{F32_ZERO_TOL} of the whole norm" if floored else "")
+          + f"; CPU side {cpu_s:.1f}s")
+    return {"loss_card": l_dev, "loss_cpu": l_cpu, "worst_share": worst,
+            "worst_leaf": worst_name, "leaves": len(names),
+            "zero_leaves": floored}
+
+
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:44"),
@@ -5895,7 +6599,7 @@ SOURCES = {
 
 
 ONLY_PHASES = ("kernels", "elastic", f"serve-{VLM_ARCH}",
-               f"serve-{WHISPER_ARCH}", MOE_PHASE, MLA_PHASE)
+               f"serve-{WHISPER_ARCH}", MOE_PHASE, MLA_PHASE) + TRAIN_PHASES
 
 
 def run_only(torch, dev, phases, t0) -> int:
@@ -5910,6 +6614,8 @@ def run_only(torch, dev, phases, t0) -> int:
     if "kernels" in phases:
         timer = Timer(torch, dev)
         res["kernels"] = phase_kernels(torch, dev, timer)
+        res["rwkv6_scan"] = phase_scan(torch, dev, timer)
+        res["mamba2_scan"] = phase_mamba2_scan(torch, dev, timer)
         res["flash"] = phase_flash(torch, dev, timer)
         del timer
     if "elastic" in phases:
@@ -5926,6 +6632,11 @@ def run_only(torch, dev, phases, t0) -> int:
             gc.collect()
             torch.cuda.empty_cache()
             res[phase] = phase_serve_moe(torch, dev, arch)[1]
+    for arch in TRAIN_CUTS:
+        if f"train-{arch}" in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            res[f"train-{arch}"] = phase_train_family(torch, dev, arch)[1]
     smi = card_line()
     print(f"[smoke] phases {phases} passed in "
           f"{time.perf_counter() - t0:.1f}s ({smi})")
@@ -6080,12 +6791,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mla_counts, serve_mla = phase_serve_moe(torch, dev, MLA_ARCH)
     lap(f"phase_serve_moe {MLA_ARCH}")
+    train_counts, train_families = {}, {}
+    for arch in TRAIN_CUTS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts, train_families[arch] = phase_train_family(torch, dev, arch)
+        lap(f"phase_train_family {arch}")
+        add_counts(train_counts, counts)
     for counts in (elastic_launches, suspend_launches, agentic_launches,
                    carry_launches, static_launches, prefix_launches,
                    disagg_launches, train_prefix_launches, train_launches,
                    mux_launches_, rwkv_launches, zamba_launches,
                    gemma_launches, frontend_counts, dense_counts,
-                   moe_counts, mla_counts):
+                   moe_counts, mla_counts, train_counts):
         add_counts(launches, counts)
     launches["topk"] = launches["topk_values"] + launches["topk_mask"]
     smi = card_line()
@@ -6118,7 +6836,7 @@ def main(argv=None) -> int:
                    "serve_gemma3": serve_gemma3,
                    "serve_frontend": serve_frontend, "phase_s": phase_s,
                    "serve_dense": serve_dense, "serve_moe": serve_moe,
-                   "serve_mla": serve_mla},
+                   "serve_mla": serve_mla, "train_families": train_families},
                   f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": kernels}))

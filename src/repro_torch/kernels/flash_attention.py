@@ -19,9 +19,8 @@ raises.  ``flash_attention.launches`` counts kernel launches.
 :func:`flash_attention` (which also returns the per-row log-sum-exp), its
 backward :func:`flash_attention_backward_plain`, plain PyTorch that
 recomputes the probabilities from q, k and the log-sum-exp over 1024-row
-query chunks, for ``Dv == D`` (MLA's training is a later slice).  The JAX
-package has no backward kernel; a hand-written one is later work
-(ROADMAP).
+query chunks, for ``Dv == D`` and for MLA's ``Dv != D``.  The JAX package
+has no backward kernel; a hand-written one is later work (ROADMAP).
 """
 from __future__ import annotations
 
@@ -85,15 +84,16 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, *,
     ``block_q`` query rows at a time, so memory stays ``O(block_q * S)``
     per head; with ``delta = rowsum(dout * out)``, ``ds = p * (dout v^T -
     delta)``.  Sums in float32; dk and dv are summed over the G query heads
-    of each KV head.  Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
+    of each KV head.  ``dout`` and ``out`` are ``Dv`` wide, as ``v`` (MLA's
+    192 / 128).  Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
     B, S, H, D = q.shape
-    Hkv = k.shape[2]
+    Hkv, Dv = k.shape[2], v.shape[3]
     G = H // Hkv
     scale = D ** -0.5
     qf = q.float().reshape(B, S, Hkv, G, D)
     kf, vf = k.float(), v.float()
-    do = dout.float().reshape(B, S, Hkv, G, D)
-    delta = (do * out.float().reshape(B, S, Hkv, G, D)).sum(-1)  # (B,S,Hkv,G)
+    do = dout.float().reshape(B, S, Hkv, G, Dv)
+    delta = (do * out.float().reshape(B, S, Hkv, G, Dv)).sum(-1)  # (B,S,Hkv,G)
     lse_g = lse.reshape(B, Hkv, G, S)
     dq = torch.empty_like(qf)
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
@@ -181,8 +181,9 @@ flash_attention.launches = 0
 
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable :func:`flash_attention`: the kernel (or, on the CPU,
-    the plain version) forward; the plain chunked backward, for ``Dv ==
-    D`` only."""
+    the plain version) forward; the plain chunked backward
+    (:func:`flash_attention_backward_plain`), for ``Dv == D`` and for
+    MLA's ``Dv != D`` alike."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True, window=None):
@@ -195,10 +196,6 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if v.shape[-1] != q.shape[-1]:
-            raise NotImplementedError(
-                f"the flash backward takes Dv = D; got D {q.shape[-1]}, Dv "
-                f"{v.shape[-1]} (MLA training is its own slice: ROADMAP §1)")
         dq, dk, dv = flash_attention_backward_plain(
             q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None

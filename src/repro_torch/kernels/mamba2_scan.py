@@ -17,12 +17,19 @@ state ``(B, H, N, hd)`` float32.
 :func:`mamba2_scan` dispatches by the device of ``r``: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernels or raises.
 ``mamba2_scan.launches`` counts calls that launched them (one a call).
+
+:class:`Mamba2ScanFn` is the differentiable form that the model calls,
+prefill and training alike: its forward is :func:`mamba2_scan`, its
+backward the plain version recomputed under autograd
+(:func:`~repro_torch.kernels._recompute.plain_grads`), as the JAX package
+differentiates its jnp scan.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._recompute import plain_grads
 
 MAX_DIM = 128           # N and hd: the kernel's shared-memory sizing
 CHUNK = 64              # the kernel's positions per chunk
@@ -98,3 +105,25 @@ def mamba2_scan(r, k, v, log_w):
 
 
 mamba2_scan.launches = 0
+
+
+class Mamba2ScanFn(torch.autograd.Function):
+    """Differentiable :func:`mamba2_scan`: ``apply(r, k, v, log_w) -> (y,
+    state)``.  The forward is the kernel (the plain version on the CPU)
+    and launches nothing more; the backward recomputes
+    :func:`mamba2_scan_plain` from the saved inputs and takes the gradients
+    of ``y`` and of the final state (None when the caller drops it).  Each
+    gradient has its input's shape: where the model passes r and k as
+    stride-0 broadcasts over the heads, autograd sums them back through
+    the expand."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, log_w)
+        return mamba2_scan(r, k, v, log_w)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return plain_grads(mamba2_scan_plain, ctx.saved_tensors,
+                           ctx.needs_input_grad, (dy, dstate))

@@ -17,12 +17,19 @@ state ``(B, H, Dk, Dv)`` float32.
 :func:`rwkv6_scan` dispatches by the device of ``r``: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel or raises.
 ``rwkv6_scan.launches`` counts kernel launches.
+
+:class:`Rwkv6ScanFn` is the differentiable form that the model calls,
+prefill and training alike: its forward is :func:`rwkv6_scan`, its
+backward the plain version recomputed under autograd
+(:func:`~repro_torch.kernels._recompute.plain_grads`), as the JAX package
+differentiates its jnp scan.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._recompute import plain_grads
 
 MAX_HEAD_DIM = 128      # the kernel's shared-memory sizing
 CHUNK = 64              # positions per chunk of the kernel
@@ -105,3 +112,26 @@ def rwkv6_scan(r, k, v, log_w, u, *, initial_state=None):
 
 
 rwkv6_scan.launches = 0
+
+
+class Rwkv6ScanFn(torch.autograd.Function):
+    """Differentiable :func:`rwkv6_scan`: ``apply(r, k, v, log_w, u,
+    initial_state=None) -> (y, state)``.  The forward is the kernel (the
+    plain version on the CPU) and launches nothing more; the backward
+    recomputes :func:`rwkv6_scan_plain` from the saved inputs and takes
+    the gradients of ``y`` and of the final state (None when the caller
+    drops it) to r, k, v, log_w, u (and the CPU-only initial state)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, initial_state=None):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, log_w, u, initial_state)
+        return rwkv6_scan(r, k, v, log_w, u, initial_state=initial_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        def plain(r, k, v, log_w, u, initial_state=None):
+            return rwkv6_scan_plain(r, k, v, log_w, u,
+                                    initial_state=initial_state)
+        return plain_grads(plain, ctx.saved_tensors, ctx.needs_input_grad,
+                           (dy, dstate))

@@ -4,6 +4,14 @@
         --steps 2 --batch 4 --group 4 --max-new 128 [--kv paged] \
         [--mux off|pipeline|coexec|stream]
 
+``--arch`` takes every family the port serves: dense (internlm2-1.8b,
+gemma3-4b, minitron-8b, qwen2.5-32b), vlm (qwen2-vl-7b, trained without
+vision embeddings, as the JAX loop trains it), MoE (dbrx-132b,
+deepseek-v2-236b with MLA), ssm (rwkv6-7b) and hybrid (zamba2-2.7b).  The
+audio family (whisper-tiny) is refused by name: its forward needs frame
+embeddings that the GRPO loop does not carry; it trains through
+``rl.train_step.make_train_step`` on a batch with a ``frontend``.
+
 Runs the synchronous on-policy loop the paper schedules: rollout (the
 static ``generate`` batch by default, as in the JAX package, or with
 ``--rollout engine`` the continuous-batching engine) -> verifiable

@@ -6,9 +6,10 @@ Per block: one input projection splits into the gate ``z``, the conv input
 over ``xBC``; the SSD recurrence (scalar decay per head, decay applied in
 the output read, the diagonal included) runs with ``C`` as the read vector
 ``r``, ``B`` as the key ``k`` and ``x * dt`` as the value; a gated RMSNorm
-and the output projection close it.  Prefill runs the recurrence through
-``kernels.mamba2_scan`` (the CUDA kernel on CUDA tensors, its plain version
-on CPU tensors); decode steps it in plain PyTorch
+and the output projection close it.  Prefill and the training forward run
+the recurrence through ``kernels.mamba2_scan.Mamba2ScanFn`` (the CUDA
+kernel on CUDA tensors, its plain version on CPU tensors; a plain
+recompute backward); decode steps it in plain PyTorch
 (``models.linear_scan.decay_attention_decode_step``), as the JAX package
 has no decode kernel for it.
 
@@ -24,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.mamba2_scan import mamba2_scan
+from repro_torch.kernels.mamba2_scan import Mamba2ScanFn
 from repro_torch.models.common import dense_init, rms_norm, torch_dtype
 from repro_torch.models.linear_scan import decay_attention_decode_step
 
@@ -112,13 +113,14 @@ def _out(p, cfg: ModelConfig, y, x_in, z, shape, dtype):
 
 def mamba2_apply_full(p, cfg: ModelConfig, x):
     """x: (B, S, d) -> (B, S, d), from zero conv and SSM states (every
-    prefill starts from zero).  Returns ``(out, (conv_state,
-    ssm_state))``."""
+    prefill starts from zero); the prefill's and the training forward's
+    (differentiable through :class:`Mamba2ScanFn`).  Returns ``(out,
+    (conv_state, ssm_state))``."""
     proj = x @ p["in_proj"]
     z, xBC, dt_raw = _split_proj(cfg, proj)
     x_conv, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     x_in, r, k, v, log_w = _ssm_inputs(p, cfg, x_conv, dt_raw)
-    y, ssm_state = mamba2_scan(r, k, v, log_w)
+    y, ssm_state = Mamba2ScanFn.apply(r, k, v, log_w)
     return (_out(p, cfg, y, x_in, z, x.shape, x.dtype),
             (conv_state, ssm_state))
 

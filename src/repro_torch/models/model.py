@@ -27,9 +27,14 @@ class Model:
         """Random parameters on the generator's device."""
         return stack_init(generator, self.cfg)
 
-    def forward(self, params, tokens, *, remat: bool = False):
-        """tokens (B, S) -> (logits (B, S, V) float32, aux scalar)."""
-        return stack_forward(params, self.cfg, tokens, remat=remat)
+    def forward(self, params, tokens, *, frontend=None, remat: bool = False):
+        """tokens (B, S) -> (logits (B, S, V) float32, aux scalar), the
+        training forward of every family; ``frontend`` is a vlm's vision
+        embeddings ``(B, F, d)`` or an audio model's frame embeddings ``(B,
+        max_source_len, d)`` (:func:`~repro_torch.models.stacks.
+        stack_forward`)."""
+        return stack_forward(params, self.cfg, tokens, frontend=frontend,
+                             remat=remat)
 
     def init_cache(self, batch: int, max_len: int, *, ring: bool = False,
                    device) -> dict:

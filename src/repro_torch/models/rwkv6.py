@@ -3,11 +3,12 @@ decay WKV recurrence [arXiv:2404.05892].  Counterpart of
 ``repro/models/rwkv6.py``.
 
 The token mix keeps one shift vector per layer and the ``(H, hd, hd)`` WKV
-state for decode; the channel mix keeps its own shift vector.  Prefill runs
-the recurrence through ``kernels.rwkv6_scan`` (the CUDA kernel on CUDA
-tensors, its plain version on CPU tensors); decode steps it in plain
-PyTorch (``models.linear_scan.decay_attention_decode_step``), as the JAX
-package has no decode kernel for it.  Dtypes follow the JAX package: r, k,
+state for decode; the channel mix keeps its own shift vector.  Prefill and
+the training forward run the recurrence through
+``kernels.rwkv6_scan.Rwkv6ScanFn`` (the CUDA kernel on CUDA tensors, its
+plain version on CPU tensors; a plain recompute backward); decode steps it
+in plain PyTorch (``models.linear_scan.decay_attention_decode_step``), as
+the JAX package has no decode kernel for it.  Dtypes follow the JAX package: r, k,
 v and the gate stay in the model dtype, log_w is float32 (the low-rank
 decay term is cast before it is added to ``w0``).
 """
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.kernels.rwkv6_scan import Rwkv6ScanFn
 from repro_torch.models.common import (dense_init, group_norm_heads,
                                        torch_dtype)
 from repro_torch.models.linear_scan import decay_attention_decode_step
@@ -108,15 +109,16 @@ def _token_mix_out(p, cfg, y, g, x_shape, dtype):
 
 
 def rwkv6_time_mix_full(p, cfg: ModelConfig, x, *, initial=None):
-    """Token mix over a whole sequence x (B, S, d).  ``initial``: (last_x
-    (B, d), wkv state (B, H, hd, hd)) or None; an initial state runs only
-    on CPU tensors (the kernel starts from zero).  Returns ``(out, (last
-    x, final wkv state))``."""
+    """Token mix over a whole sequence x (B, S, d), the prefill's and the
+    training forward's (differentiable through :class:`Rwkv6ScanFn`).
+    ``initial``: (last_x (B, d), wkv state (B, H, hd, hd)) or None; an
+    initial state runs only on CPU tensors (the kernel starts from zero).
+    Returns ``(out, (last x, final wkv state))``."""
     last_x = None if initial is None else initial[0]
     xx = _shift(x, last_x)
     r, k, v, g, log_w = _token_mix_inputs(p, cfg, x, xx)
     st0 = None if initial is None else initial[1]
-    y, state = rwkv6_scan(r, k, v, log_w, p["u"], initial_state=st0)
+    y, state = Rwkv6ScanFn.apply(r, k, v, log_w, p["u"], st0)
     out = _token_mix_out(p, cfg, y, g, x.shape, x.dtype)
     return out, (x[:, -1], state)
 

@@ -5,10 +5,9 @@ the full-sequence training forward :func:`stack_forward`.
 Counterpart of ``repro/models/stacks.py``: the dense GQA, vlm (qwen2-vl),
 audio (whisper: LayerNorm, gelu MLPs, an encoder and cross-attention), MoE
 (dbrx, and deepseek-v2 with MLA: leading dense layers, then MoE layers),
-ssm (rwkv6) and hybrid
-(zamba2) branches of the init, the vision-embedding
-overlay and the audio encoder (:func:`encode_source`), dense GQA of the
-forward.  Where the
+ssm (rwkv6) and hybrid (zamba2) branches of the init and of the forward,
+the vision-embedding overlay and the audio encoder
+(:func:`encode_source`).  Where the
 JAX package stacks layers on axis 0 for ``lax.scan``, the port keeps
 ``params["layers"]`` as a Python list of per-layer dicts and loops over it.
 """
@@ -21,14 +20,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (dense_init, embed_init,
+from repro_torch.models.common import (default_mrope_positions,
+                                       dense_init, embed_init,
                                        gelu_mlp_apply, gelu_mlp_init,
                                        layer_norm, mlp_apply, mlp_init,
                                        rms_norm, torch_dtype)
 from repro_torch.models.kvcache import check_supported
-from repro_torch.models.mamba2 import mamba2_init
-from repro_torch.models.moe import moe_init
-from repro_torch.models.rwkv6 import rwkv6_init
+from repro_torch.models.mamba2 import mamba2_apply_full, mamba2_init
+from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.rwkv6 import (rwkv6_channel_mix, rwkv6_init,
+                                      rwkv6_time_mix_full)
 
 NO_WINDOW = 2 ** 30     # far beyond any max_seq_len: never masks
 
@@ -182,67 +183,124 @@ def _unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return (x @ w).float()
 
 
-def _dense_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, theta: float,
-                 window: int) -> torch.Tensor:
+def _shared_block_full(sp: dict, cfg: ModelConfig, x, positions, pos):
+    """The hybrid family's shared attention + MLP block over a whole
+    sequence; returns ``(x, k, v)``."""
+    h = _norm(sp["ln1"], x, cfg)
+    q, k, v = attn.gqa_project_qkv(sp["attn"], cfg, h, positions)
+    out = attn.multi_head_attention(q, k, v, pos, pos, causal=True)
+    x = x + attn.attn_out(out, sp["attn"]["wo"])
+    h = _norm(sp["ln2"], x, cfg)
+    return x + mlp_apply(sp["mlp"], h), k, v
+
+
+def _decoder_layer(lp: dict, cfg: ModelConfig, x, aux, positions, theta,
+                   window, mrope):
+    """One dense, vlm or MoE layer (GQA or MLA attention; an MoE layer adds
+    its aux loss to ``aux``); returns ``(x, aux)``."""
     h = _norm(lp["ln1"], x, cfg)
-    x = x + attn.gqa_apply_full(lp["attn"], cfg, h, positions,
-                                window=window, rope_theta=theta)
+    if cfg.attention == "mla":
+        a = attn.mla_apply_full(lp["attn"], cfg, h, positions)
+    else:
+        a = attn.gqa_apply_full(lp["attn"], cfg, h, positions, window=window,
+                                rope_theta=theta, mrope_positions=mrope)
+    x = x + a
     h = _norm(lp["ln2"], x, cfg)
-    return x + mlp_apply(lp["mlp"], h)
+    if "moe" in lp:
+        f, al = moe_apply(lp["moe"], cfg, h)
+        aux = aux + al
+    else:
+        f = mlp_apply(lp["mlp"], h)
+    return x + f, aux
+
+
+def _rwkv6_layer(lp: dict, cfg: ModelConfig, x):
+    h = _norm(lp["ln1"], x, cfg)
+    x = x + rwkv6_time_mix_full(lp["mix"], cfg, h)[0]
+    h = _norm(lp["ln2"], x, cfg)
+    return x + rwkv6_channel_mix(lp["mix"], cfg, h)[0]
+
+
+def _hybrid_layer(lp: dict, shared, cfg: ModelConfig, x, positions):
+    """A Mamba2 layer, then the shared block when ``shared`` is given."""
+    h = _norm(lp["norm"], x, cfg)
+    x = x + mamba2_apply_full(lp["mamba"], cfg, h)[0]
+    if shared is not None:
+        x = _shared_block_full(shared, cfg, x, positions, positions[0])[0]
+    return x
+
+
+def _audio_layer(lp: dict, cp: dict, cfg: ModelConfig, x, enc, positions):
+    """A decoder layer: causal self-attention, cross-attention over the
+    K/V projected from the encoder output ``enc``, the gelu MLP."""
+    h = _norm(lp["ln1"], x, cfg)
+    x = x + attn.gqa_apply_full(lp["attn"], cfg, h, positions)
+    h = _norm(cp["ln"], x, cfg)
+    ek, ev = attn.gqa_project_kv(cp["attn"], cfg, enc)
+    x = x + attn.gqa_apply_cross(cp["attn"], cfg, h, ek, ev)
+    h = _norm(lp["ln2"], x, cfg)
+    return x + gelu_mlp_apply(lp["mlp"], h)
 
 
 def stack_forward(p: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-                  remat: bool = False):
-    """tokens: (B,S) integer -> (logits (B,S,V) float32, aux scalar 0).
+                  frontend=None, remat: bool = False):
+    """tokens: (B,S) integer -> (logits (B,S,V) float32, aux float32
+    scalar), the training forward of every family, step for step the JAX
+    package's:
 
-    Dense GQA only; the other families raise (rwkv6 training waits for a
-    backward of the scan and for sharding, zamba2 training for a backward
-    of the SSD scan).  ``remat=True`` wraps each
-    layer in ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
-    the JAX package's ``jax.checkpoint`` around the scanned layer body: the
-    layer's activations are recomputed in the backward pass."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            "stack_forward for the ssm family (rwkv6 training) is not ported "
-            "yet: it needs a backward of the scan and does not fit one card "
-            "at full width (ROADMAP, rwkv6 training)")
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "stack_forward for the hybrid family (zamba2 training) is not "
-            "ported yet: it needs a backward of the SSD scan (ROADMAP, "
-            "zamba2 training)")
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            "stack_forward for MLA (deepseek-v2 training) is not ported yet: "
-            "the port serves it; its training needs a flash backward for Dv "
-            "!= D and the router's aux loss (ROADMAP §1, MLA training)")
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "stack_forward for the moe family (dbrx training) is not ported "
-            "yet: the port serves it; its training, with the router's aux "
-            "loss in GRPO, is its own slice (ROADMAP §1, MoE training)")
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"stack_forward for the {cfg.family} family (qwen2-vl and "
-            f"whisper training) is not ported yet: the port serves it; its "
-            f"training is its own slice (ROADMAP, vlm and audio training)")
-    if cfg.family != "dense" or cfg.attention != "gqa":
-        raise NotImplementedError(
-            f"stack_forward for family {cfg.family!r} / attention "
-            f"{cfg.attention!r} is not ported yet: it comes with the "
-            f"other-architectures slice (ROADMAP, modules to port)")
+    * dense, vlm and MoE share one layer body: a vlm ``frontend (B, F, d)``
+      overlays the first F embeddings and M-RoPE rotates at
+      ``default_mrope_positions(B, S, num_frontend_tokens)``; an MoE model
+      runs its leading ``dense_layers``, then its MoE layers, and ``aux``
+      sums their load-balance losses; MLA goes through
+      :func:`~repro_torch.models.attention.mla_apply_full`;
+    * ssm (rwkv6): the time mix and the channel mix of each layer;
+    * hybrid (zamba2): each Mamba2 layer, and after every
+      ``hybrid_attn_every``-th the one ``shared_attn`` block (its
+      gradients add up over its uses);
+    * audio (whisper): :func:`encode_source` over the ``frontend`` frames
+      (which it needs), sinusoidal decoder positions, and a cross-attention
+      per layer over K/V projected from the encoder output.
+
+    ``aux`` is 0 but for the MoE family.  ``remat=True`` wraps each
+    decoder layer in ``torch.utils.checkpoint`` (non-reentrant), the
+    counterpart of the JAX package's ``jax.checkpoint`` around the scanned
+    layer body: the layer's activations, its kernels' launches included,
+    are recomputed in the backward pass."""
     B, S = tokens.shape
-    x = _embed_tokens(p, cfg, tokens)
+    x = _embed_tokens(p, cfg, tokens, frontend)
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for lp, (theta, window) in zip(p["layers"], _layer_theta_window(cfg)):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(fn, *args):
         if remat:
-            x = checkpoint(_dense_layer, lp, cfg, x, positions, theta,
-                           window, use_reentrant=False)
-        else:
-            x = _dense_layer(lp, cfg, x, positions, theta, window)
-    return _unembed(p, cfg, x), torch.zeros((), dtype=torch.float32,
-                                            device=x.device)
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    if cfg.family == "ssm":
+        for lp in p["layers"]:
+            x = layer(_rwkv6_layer, lp, cfg, x)
+    elif cfg.family == "hybrid":
+        every = cfg.hybrid_attn_every
+        for li, lp in enumerate(p["layers"]):
+            shared = p["shared_attn"] if (li + 1) % every == 0 else None
+            x = layer(_hybrid_layer, lp, shared, cfg, x, positions)
+    elif cfg.family == "audio":
+        if frontend is None:
+            raise ValueError("the audio family needs its frame embeddings: "
+                             "frontend (B, max_source_len, d_model)")
+        enc = encode_source(p, cfg, frontend)
+        x = x + _sinusoid(S, cfg.d_model, device=x.device).to(x.dtype)
+        for lp, cp in zip(p["layers"], p["cross"]):
+            x = layer(_audio_layer, lp, cp, cfg, x, enc, positions)
+    else:
+        mrope = (default_mrope_positions(B, S, cfg.num_frontend_tokens,
+                                         x.device) if cfg.mrope else None)
+        for lp, (theta, window) in zip(decoder_layers(p),
+                                       _layer_theta_window(cfg)):
+            x, aux = layer(_decoder_layer, lp, cfg, x, aux, positions, theta,
+                           window, mrope)
+    return _unembed(p, cfg, x), aux
 
 
 def encode_source(p: dict, cfg: ModelConfig,

@@ -40,8 +40,9 @@ from repro_torch.models.common import (default_mrope_positions,
                                        gelu_mlp_apply, mlp_apply,
                                        mrope_positions_at)
 from repro_torch.models.stacks import (_embed_tokens, _layer_theta_window,
-                                       _norm, _sinusoid, _unembed,
-                                       decoder_layers, encode_source)
+                                       _norm, _shared_block_full, _sinusoid,
+                                       _unembed, decoder_layers,
+                                       encode_source)
 
 # A product on the card may take another kernel at another row count, and
 # split a row's sums another way: cuBLAS takes another kernel for
@@ -165,17 +166,6 @@ def _audio_prefill(p: dict, cfg: ModelConfig, x, cache: dict, frontend):
         cache["v"][li, :, :S] = v
     cache["index"].fill_(S)
     return _unembed(p, cfg, x[:, -1:])[:, 0], cache
-
-
-def _shared_block_full(sp: dict, cfg: ModelConfig, x, positions, pos):
-    """The hybrid family's shared attention + MLP block over a whole
-    sequence; returns ``(x, k, v)``."""
-    h = _norm(sp["ln1"], x, cfg)
-    q, k, v = attn.gqa_project_qkv(sp["attn"], cfg, h, positions)
-    out = attn.multi_head_attention(q, k, v, pos, pos, causal=True)
-    x = x + attn.attn_out(out, sp["attn"]["wo"])
-    h = _norm(sp["ln2"], x, cfg)
-    return x + mlp_apply(sp["mlp"], h), k, v
 
 
 def _hybrid_prefill(p: dict, cfg: ModelConfig, x, cache: dict):

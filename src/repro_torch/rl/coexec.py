@@ -119,7 +119,10 @@ class GRPOJob:
     :class:`~repro_torch.serve.spec.RolloutSpec`: with ``prefix_share``
     each GRPO group's prompt prefills once, with ``disagg`` the rollout
     runs through a ``DisaggRouter``), or, without one, the loose
-    ``num_slots`` ... ``prefix_share`` arguments."""
+    ``num_slots`` ... ``prefix_share`` arguments.  Every family the port
+    serves trains here but the audio one, whose forward needs the frames
+    that no GRPO rollout carries (the JAX loop cannot run it either); a
+    vlm trains without its vision embeddings, as in the JAX loop."""
 
     def __init__(self, job_id: str, model=None, *,
                  arch: str = "internlm2-1.8b", reduced: bool = False,
@@ -140,6 +143,12 @@ class GRPOJob:
         self.rollout = rollout
         self.device = resolve_device(device)
         self.model = model or build_model(arch, reduced=reduced)
+        if self.model.cfg.family == "audio":
+            raise ValueError(
+                f"{self.model.cfg.name}: the GRPO loop carries no frontends "
+                f"and the audio family needs its frame embeddings; train it "
+                f"through rl.train_step.make_train_step with a batch that "
+                f"holds a frontend")
         self.seed = seed
         self.steps = steps
         self.batch = batch

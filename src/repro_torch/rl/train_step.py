@@ -20,9 +20,14 @@ from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
 def make_loss_fn(model, *, remat: bool = True, clip_eps: float = 0.2):
     """loss_fn(params, batch) -> (loss, metrics); ``batch`` holds
     ``tokens``, ``labels``, ``advantages``, ``loss_mask`` and optionally
-    ``behavior_logp``, each (B, S)."""
+    ``behavior_logp``, each (B, S), and optionally ``frontend`` (a vlm's
+    vision embeddings or an audio model's frames, :meth:`Model.forward`).
+    The loss is the policy-gradient loss plus the MoE family's aux
+    loss."""
     def loss_fn(params, batch):
-        logits, aux = model.forward(params, batch["tokens"], remat=remat)
+        logits, aux = model.forward(params, batch["tokens"],
+                                    frontend=batch.get("frontend"),
+                                    remat=remat)
         pg, metrics = policy_gradient_loss(
             logits, batch["labels"], batch["advantages"], batch["loss_mask"],
             behavior_logp=batch.get("behavior_logp"), clip_eps=clip_eps)

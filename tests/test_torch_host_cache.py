@@ -15,6 +15,7 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import numpy as np  # noqa: E402
 

@@ -9,6 +9,7 @@ orders.
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -23,16 +23,17 @@ init, on the CPU:
   paged-int8 within 2e-3; the port engine's decode drops nothing, while
   the batched routing of the same rows drops;
 * flash's plain version at DK 96 / DV 64 equals the JAX
-  ``multi_head_attention`` within 1e-5, and ``FlashAttentionFn`` refuses a
-  backward at DV != DK;
+  ``multi_head_attention`` within 1e-5, and so do ``FlashAttentionFn``'s
+  gradients at DV != DK the JAX vjp's;
 * reduced deepseek-v2 serves through radix, a router and suspend/resume,
-  and the training forward refuses MLA.
+  and the training forward runs MLA.
 """
 import dataclasses
 
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -317,7 +318,8 @@ def test_engine_matches_jax_jnp(pair, jax_runs, layout, kv_dtype,
 def test_flash_plain_mla_dims_match_jax():
     """Flash's plain version at DK 96 / DV 64 (the reduced MLA prefill's)
     against the JAX ``multi_head_attention`` at the reference's scale, and
-    the backward's refusal of DV != DK."""
+    ``FlashAttentionFn``'s gradients at DV != DK against the JAX vjp, all
+    within 1e-5."""
     rs = np.random.RandomState(5)
     B, S, H = 2, 40, 4
     q = rs.randn(B, S, H, 96).astype(np.float32)
@@ -331,10 +333,17 @@ def test_flash_plain_mla_dims_match_jax():
     assert got.shape == (B, S, H, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=0)
-    qt = _t(q).requires_grad_()
-    out = FlashAttentionFn.apply(qt, _t(k), _t(v), True, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.sum().backward()
+    dout = rs.randn(B, S, H, 64).astype(np.float32)
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    out = FlashAttentionFn.apply(*leaves, True, None)
+    got = torch.autograd.grad(out, leaves, _t(dout))
+    _, vjp = jax.vjp(lambda q, k, v: jattn.multi_head_attention(
+        q, k, v, pos, pos, causal=True, scale=96 ** -0.5),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for g, w in zip(got, vjp(jnp.asarray(dout))):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
 
 
 def _serve(engine, prompts):
@@ -382,7 +391,15 @@ def test_reduced_deepseek_serves_radix_router_suspend(pair, mode):
         np.testing.assert_array_equal(o.logprobs, ref[rid].logprobs)
 
 
-def test_training_forward_refuses_mla(pair):
+def test_training_forward_runs_mla(pair):
+    """The training forward runs MLA (through flash's Dv != D path):
+    finite logits, the MoE layer's aux loss, and (all rows routed together
+    in both) the prefill's last logits."""
     _, _, tm, tp = pair
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tm.forward(tp, torch.zeros((1, 4), dtype=torch.int32))
+    tokens = torch.arange(1, 5, dtype=torch.int32)[None]
+    logits, aux = tm.forward(tp, tokens)
+    last, _ = tm.prefill(tp, tokens, tm.init_cache(1, 8, device="cpu"))
+    assert logits.shape == (1, 4, tm.cfg.vocab_size)
+    assert torch.isfinite(logits).all() and float(aux) > 0
+    np.testing.assert_allclose(logits[:, -1].numpy(), last.numpy(),
+                               atol=1e-5, rtol=0)

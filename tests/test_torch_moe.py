@@ -24,7 +24,7 @@ weights converted from the JAX init, on the CPU:
   the same run at ``capacity_factor`` 1e9 gives other logprobs, so the
   drops reach the engine;
 * ``build_model("dbrx-132b", reduced=True)`` serves on every layout, and
-  the training forward refuses the family (and MLA, whose serving is
+  the training forward runs the family (and MLA, whose serving is
   admitted).
 """
 import dataclasses
@@ -32,6 +32,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -287,17 +288,24 @@ def test_reduced_dbrx_serves_every_layout(kw):
     assert all(o.num_tokens == 4 for o in outs)
 
 
-def test_mla_and_moe_training_still_refused(pair):
+def test_mla_and_moe_training_forward_runs(pair):
     """Serving MLA is admitted (deepseek-v2 builds and inits); the
-    training forward refuses MLA and the MoE family."""
+    training forward runs MLA and the MoE family: finite logits, a
+    positive aux loss, and (all rows routed together in both) the
+    prefill's last logits."""
     ds = ModelConfig(**dataclasses.asdict(jax_get_config(
         "deepseek-v2-236b")))
     kvcache.check_supported(ds)
     assert build_model(ds).cfg.attention == "mla"
     mla = build_model(ds, reduced=True)
     mp = mla.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="MLA"):
-        mla.forward(mp, torch.zeros((1, 4), dtype=torch.int32))
     _, _, tm, tp = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward(tp, torch.zeros((1, 4), dtype=torch.int32))
+    tokens = torch.arange(1, 5, dtype=torch.int32)[None]
+    for model, params in ((mla, mp), (tm, tp)):
+        logits, aux = model.forward(params, tokens)
+        last, _ = model.prefill(params, tokens,
+                                model.init_cache(1, 8, device="cpu"))
+        assert logits.shape == (1, 4, model.cfg.vocab_size)
+        assert torch.isfinite(logits).all() and float(aux) > 0
+        np.testing.assert_allclose(logits[:, -1].numpy(), last.numpy(),
+                                   atol=1e-5, rtol=0)

@@ -17,6 +17,7 @@ import warnings
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import numpy as np  # noqa: E402
 from _hypothesis_compat import given, settings, strategies as st  # noqa: E402

@@ -29,6 +29,7 @@ package's on converted reduced-internlm2 weights, float32, paged KV with
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402

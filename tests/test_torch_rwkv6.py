@@ -29,6 +29,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -408,8 +409,15 @@ def test_engine_matches_jax_engine(pair):
 # ---------------------------------------------------------------------------
 def test_ssm_refusals(pair):
     jm, jp, tm, tp = pair
-    with pytest.raises(NotImplementedError, match="rwkv6 training"):
-        stack_forward(tp, tm.cfg, torch.zeros((1, 4), dtype=torch.int32))
+    # the training forward runs the family (through Rwkv6ScanFn): its last
+    # position's logits are the prefill's
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    logits, aux = stack_forward(tp, tm.cfg, tokens)
+    last, _ = tm.prefill(tp, tokens, tm.init_cache(1, 8, device="cpu"))
+    assert logits.shape == (1, 4, tm.cfg.vocab_size) and float(aux) == 0
+    assert torch.isfinite(logits).all()
+    np.testing.assert_allclose(logits[:, -1].numpy(), last.numpy(),
+                               atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="int8"):
         Engine(tm, tp, EngineConfig(num_slots=2, max_seq_len=32,
                                     kv_layout="paged", kv_dtype="int8"),

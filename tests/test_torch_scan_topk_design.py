@@ -26,6 +26,7 @@ Inputs are numpy arrays from a seed.
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -10,6 +10,7 @@ and +0.0 are one value to both sides).
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -14,11 +14,11 @@ made with numpy from a seed and fed to both sides.  Tolerances, and why:
   ``lr * g / (|g| + eps)``, which turns an ulp of difference in a gradient
   near 0 into up to ``ulp / eps`` of the step.
 """
-import dataclasses
 
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -110,12 +110,26 @@ def test_stack_forward_matches_jax(pair, remat):
     assert float(at) == float(aj) == 0.0
 
 
-def test_stack_forward_refuses_other_families(pair):
-    _, _, tm, tp = pair
+def test_stack_forward_runs_every_family():
+    """``stack_forward`` of every family's reduced model (the JAX package's
+    comparisons are ``tests/test_torch_train_families.py``): finite float32
+    logits of the batch's shape, an aux loss only for the MoE family, the
+    frontend that the vlm and audio families take."""
     from repro_torch.models.stacks import stack_forward
-    cfg = dataclasses.replace(tm.cfg, family="ssm")
-    with pytest.raises(NotImplementedError, match="ssm"):
-        stack_forward(tp, cfg, torch.zeros((1, 3), dtype=torch.int32))
+    tokens = torch.arange(1, 7, dtype=torch.int32).reshape(2, 3)
+    for arch in ("gemma3-4b", "qwen2-vl-7b", "whisper-tiny", "dbrx-132b",
+                 "deepseek-v2-236b", "rwkv6-7b", "zamba2-2.7b"):
+        m = build_model(arch, reduced=True)
+        cfg = m.cfg
+        p = m.init(torch.Generator().manual_seed(0))
+        n = {"vlm": 2, "audio": cfg.max_source_len}.get(cfg.family)
+        fr = None if n is None else torch.randn(
+            2, n, cfg.d_model, generator=torch.Generator().manual_seed(1))
+        logits, aux = stack_forward(p, cfg, tokens, frontend=fr)
+        assert logits.dtype == torch.float32, arch
+        assert logits.shape == (2, 3, cfg.vocab_size), arch
+        assert torch.isfinite(logits).all(), arch
+        assert (float(aux) > 0) == cfg.is_moe, arch
 
 
 def _loss_inputs(seed=0, B=3, S=7, V=40):

@@ -31,6 +31,7 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -297,5 +298,15 @@ def test_engine_refusals(audio):
     with pytest.raises(ValueError, match="frame embeddings"):
         tm.prefill(tp, _t(prompt[None]),
                    tm.init_cache(1, MAX_LEN, device="cpu"))
-    with pytest.raises(NotImplementedError, match="audio"):
+    # the training forward needs the frames as the prefill does; with them
+    # its last position's logits are the prefill's
+    with pytest.raises(ValueError, match="frame embeddings"):
         tm.forward(tp, _t(prompt[None]))
+    fr = _t(_frames(cfg, 3))
+    logits, aux = tm.forward(tp, _t(prompt[None]), frontend=fr)
+    last, _ = tm.prefill(tp, _t(prompt[None]),
+                         tm.init_cache(1, MAX_LEN, device="cpu"), frontend=fr)
+    assert logits.shape == (1, len(prompt), cfg.vocab_size)
+    assert float(aux) == 0 and torch.isfinite(logits).all()
+    np.testing.assert_allclose(logits[:, -1].numpy(), last.numpy(),
+                               atol=1e-5, rtol=0)

@@ -23,6 +23,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -374,8 +375,15 @@ def test_engine_matches_jax_engine(pair):
 # ---------------------------------------------------------------------------
 def test_hybrid_refusals(pair):
     jm, jp, tm, tp = pair
-    with pytest.raises(NotImplementedError, match="zamba2 training"):
-        stack_forward(tp, tm.cfg, torch.zeros((1, 4), dtype=torch.int32))
+    # the training forward runs the family (through Mamba2ScanFn and the
+    # shared block): its last position's logits are the prefill's
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    logits, aux = stack_forward(tp, tm.cfg, tokens)
+    last, _ = tm.prefill(tp, tokens, tm.init_cache(1, 8, device="cpu"))
+    assert logits.shape == (1, 4, tm.cfg.vocab_size) and float(aux) == 0
+    assert torch.isfinite(logits).all()
+    np.testing.assert_allclose(logits[:, -1].numpy(), last.numpy(),
+                               atol=1e-5, rtol=0)
     eng = Engine(tm, tp, EngineConfig(num_slots=2, max_seq_len=32,
                                       kv_layout="paged", kv_dtype="int8",
                                       prefix_share=True), device="cpu")

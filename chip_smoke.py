@@ -280,6 +280,27 @@ Phases, in order; any failure exits non-zero:
              the static batch); finite loss and gradient norm; the trainer's
              log-probabilities of the sampled tokens match the engine's
              (mean ratio within 1e-2 of 1); the weights move.
+   sync    — weight sync and sharding on one card (``repro_torch.sync``,
+             ``models.sharding``, ``launch.mesh``), after the train phase
+             while its trained weights and the initial ones are both
+             held: a one-rank NCCL (1, 1) ("data", "model") mesh;
+             ``shard_params`` of the trained weights by the model's
+             logical specs, every local tensor bit for bit, the graph
+             phase's 4 requests served from the local views bit for bit
+             with the weights' own (decode attention, greedy and flash
+             launches exact); an engine on the initial weights, then the
+             trained weights through ``flatten_params``,
+             ``unflatten_params`` into a rollout tree and
+             ``sync_params_between_jobs``, the engine reset with them bit
+             for bit with the trained weights' run; flatten and unflatten
+             timed by CUDA events against one read and one write of the
+             model's bytes; the modelled sync of the model's bytes
+             (``sync_collective_bytes`` at 2 x 8 and 2 x 16, hierarchical
+             and flat; ``ClusterTopology``'s speedups: the paper's link
+             model, not card times); the process group destroyed.  The
+             hierarchical transfer needs a card on each side of the
+             cluster boundary, so it runs only on the CPU tests' gloo
+             worlds.
 6. mux     — the phase-multiplexing executors at the train phase's full
              width and shape, each from a copy of its initial weights:
              ``run_sequential`` (2 iterations) as the reference;
@@ -517,12 +538,14 @@ parent commit) on this script's timer; it writes
 ``chiprun_out/kernels_{tree,parent}.json``.
 
     python3 chip_smoke.py --only kernels,elastic,serve-qwen2-vl-7b
+    python3 chip_smoke.py --only sync
     python3 chip_smoke.py --only serve-dbrx-132b-cut
     python3 chip_smoke.py --only kernels,serve-deepseek-v2-cut
     python3 chip_smoke.py --only train-gemma3-4b,train-whisper-tiny
 
 runs the named phases alone (ONLY_PHASES; no result line) and writes
-``chiprun_out/chip_smoke_only.json``.
+``chiprun_out/chip_smoke_only.json``; ``--only sync`` runs no train phase
+and syncs seed 1's weights into an engine on seed 0's.
 """
 from __future__ import annotations
 
@@ -4033,6 +4056,162 @@ def phase_disagg(torch, dev, model, params):
     return total, res
 
 
+SYNC_SIZES = (8, 16)        # GPUs a pool of the modelled sync: 2 x n
+
+
+def same_bits(torch, a, b) -> bool:
+    """Two tensors of one dtype and shape, equal bit for bit."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def phase_sync(torch, dev, model, params, init_params):
+    """Weight sync and sharding on one card, after the train phase:
+    ``params`` hold two GRPO iterations' updates, ``init_params`` the
+    weights the rollout engines started from.  (a) A one-rank NCCL (1, 1)
+    ("data", "model") mesh (``make_local_mesh``).  (b) ``shard_params`` of
+    ``params`` by the model's logical specs: every local tensor equals its
+    leaf bit for bit, and the serve_short requests served from the local
+    views equal those served on ``params`` bit for bit.  (c) An engine on
+    ``init_params`` serves the requests (other tokens); then
+    ``flatten_params(params)``, ``unflatten_params`` into a rollout tree
+    like ``init_params`` and ``sync_params_between_jobs``; the engine,
+    reset with the synced weights, serves (b)'s reference outputs bit for
+    bit.  Flatten and unflatten are timed by CUDA events against one read
+    and one write of the model's bytes.  (d) The modelled sync of these
+    weights: ``sync_collective_bytes`` at 2 x 8 and 2 x 16 and
+    ``ClusterTopology``'s speedups, the paper's link model, not card
+    times.  (e) The process group is destroyed.  The hierarchical
+    transfer itself needs a rank a card on each side; it runs on gloo
+    worlds in the CPU tests."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.sharding import ShardingRules, shard_params
+    from repro_torch.sync import (ClusterTopology, flatten_params,
+                                  sync_collective_bytes,
+                                  sync_params_between_jobs, unflatten_params)
+
+    cfg = model.cfg
+    total = {k: 0 for k in wrappers()}
+    res = {}
+
+    def served(run, r):
+        want = serve_launches(cfg, r["launches"], "decode_attention",
+                              r["steps"], GRAPH_REQ)
+        if r["launches"] != want:
+            raise AssertionError(f"sync {run}: launches {r['launches']} != "
+                                 f"{want}")
+        add_counts(total, r["launches"])
+        return r
+
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(dev)
+    try:
+        res["mesh_s"] = time.perf_counter() - t0
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if (tuple(mesh.shape) != (1, 1) or mesh.device_type != dev.type
+                or dist.get_backend() != backend):
+            raise AssertionError(f"sync: mesh {mesh}, backend "
+                                 f"{dist.get_backend()}")
+        # (b) sharded parameters serve through the kernels
+        t0 = time.perf_counter()
+        sharded = shard_params(params, model.logical_specs(), mesh,
+                               ShardingRules())
+        torch.cuda.synchronize()
+        res["shard_s"] = time.perf_counter() - t0
+        pairs = list(zip(_leaves(sharded), _leaves(params)))
+        n_leaves = len(pairs)
+        n_shard = sum(any(pl.is_shard() for pl in d.placements)
+                      for d, _ in pairs)
+        if not all(same_bits(torch, d.to_local(), t) for d, t in pairs):
+            raise AssertionError("sync: a local shard differs from its leaf")
+        local = _tree_map(lambda d: d.to_local(), sharded)
+        ref = served("reference", serve_short(torch, dev, model, params))
+        got = served("sharded", serve_short(torch, dev, model, local))
+        if not same_outputs(got["outputs"], ref["outputs"]):
+            raise AssertionError("sync: the sharded weights serve other "
+                                 "tokens or logprobs")
+        print(f"[sync] (1, 1) ('data', 'model') mesh on {backend} in "
+              f"{res['mesh_s']:.2f}s; {len(pairs)} leaves sharded by their "
+              f"logical specs ({n_shard} with a Shard placement) in "
+              f"{res['shard_s']:.2f}s, every local tensor bit for bit; "
+              f"{GRAPH_REQ} requests from the local views bit for bit "
+              f"with the weights' own; launches {got['launches']}")
+        del sharded, local, pairs, got
+        # (c) the flat buffer a sync carries lands in a rollout engine
+        pre = served("stale", serve_short(torch, dev, model, init_params))
+        eng = pre["engine"]
+        if same_outputs(pre["outputs"], ref["outputs"]):
+            raise AssertionError("sync: the engine's starting weights serve "
+                                 "the trained weights' tokens")
+        flat = flatten_params(params)
+        landed = unflatten_params(flat, init_params)
+        synced = sync_params_between_jobs(landed, init_params)
+        if not all(a is b for a, b in zip(_leaves(synced),
+                                          _leaves(landed))):
+            raise AssertionError("sync: sync_params_between_jobs copied")
+        post = served("synced", serve_short(torch, dev, model, synced,
+                                            engine=eng))
+        if not same_outputs(post["outputs"], ref["outputs"]) \
+                or eng.captures != 2 * (dev.type == "cuda"):
+            raise AssertionError(f"sync: the synced engine differs from the "
+                                 f"trained weights' run ({eng.captures} "
+                                 f"captures)")
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        fbytes = flat.numel() * flat.element_size()
+        timer = Timer(torch, dev)
+        f_ms = timer(lambda: flatten_params(params), iters=10)
+        u_ms = timer(lambda: unflatten_params(flat, init_params), iters=10)
+        del timer
+        b_ms, _ = bound(nbytes + fbytes, 0, "bfloat16")
+        print(f"[sync] an engine on the starting weights, then "
+              f"flatten_params ({flat.numel()} {flat.dtype} elements, "
+              f"{nbytes / 1e9:.3f} GB) -> unflatten_params -> "
+              f"sync_params_between_jobs -> reset: bit for bit with the "
+              f"trained weights' run ({eng.captures} captures); flatten "
+              f"{f_ms:.3f} ms, unflatten {u_ms:.3f} ms against {b_ms:.3f} "
+              f"ms (one read and one write at {HBM_BPS / 1e12:.2f} TB/s)")
+        res.update(leaves=n_leaves, sharded_leaves=n_shard,
+                   model_bytes=nbytes, flatten_ms=f_ms, unflatten_ms=u_ms,
+                   bound_ms=b_ms, captures=eng.captures)
+        del flat, landed, synced, eng, pre, post, ref
+    finally:
+        dist.destroy_process_group()
+    # (d) the modelled sync of these weights (the paper's link model)
+    topo = ClusterTopology()
+    modelled = {}
+    for n in SYNC_SIZES:
+        modelled[f"2x{n}"] = {
+            mode: sync_collective_bytes(n, nbytes, mode=mode)
+            for mode in ("hierarchical", "flat")}
+        h, f = (modelled[f"2x{n}"][m] for m in ("hierarchical", "flat"))
+        print(f"[sync] modelled 2 x {n}: hierarchical moves "
+              f"{h['p2p']['cross_cluster']} B across the cluster boundary "
+              f"(point to point) and "
+              f"{h['all_gather']['intra_cluster']} B inside the rows; the "
+              f"flat all-gather {f['all_gather']['cross_cluster']} B across "
+              f"and {f['all_gather']['intra_cluster']} B inside "
+              f"({f['all_gather']['cross_cluster'] / h['p2p']['cross_cluster']:.0f}x"
+              f" across)")
+    res["collective_bytes"] = modelled
+    res["modelled_speedup"] = {
+        "single_node_8": topo.speedup_single_node(nbytes, 8),
+        "multi_node_16": topo.speedup_multi_node(nbytes, 16),
+        "hierarchical_8_s": topo.hierarchical_time_s(nbytes, 8, 8),
+        "flat_fetch_8_s": topo.flat_fetch_time_s(nbytes, 8)}
+    ms = res["modelled_speedup"]
+    print(f"[sync] modelled link times (ClusterTopology: 20 Gbps across, "
+          f"400 Gbps inside; not card times) of {nbytes} B: hierarchical "
+          f"{ms['hierarchical_8_s']:.3f} s against the flat fetch "
+          f"{ms['flat_fetch_8_s']:.3f} s at 8 GPUs a pool, speedup "
+          f"{ms['single_node_8']:.2f}x single-node, "
+          f"{ms['multi_node_16']:.2f}x multi-node (16 a pool); "
+          f"({card_line()})")
+    res["launches"] = total
+    return total, res
+
+
 def phase_train_prefix(torch, dev, model, init_params):
     """Two GRPO iterations through the paged engine rollout with sharing
     on and off, from the same initial weights: losses, rewards and the
@@ -6598,7 +6777,7 @@ SOURCES = {
 }
 
 
-ONLY_PHASES = ("kernels", "elastic", f"serve-{VLM_ARCH}",
+ONLY_PHASES = ("kernels", "elastic", "sync", f"serve-{VLM_ARCH}",
                f"serve-{WHISPER_ARCH}", MOE_PHASE, MLA_PHASE) + TRAIN_PHASES
 
 
@@ -6622,6 +6801,14 @@ def run_only(torch, dev, phases, t0) -> int:
         model, params = build(torch, dev)
         res["elastic"] = phase_elastic(torch, dev, model, params)[1]
         del model, params
+    if "sync" in phases:
+        # no train phase here: seed 1's weights stand for the trained ones
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, params = build(torch, dev)
+        trained = model.init(torch.Generator(device=dev).manual_seed(1))
+        res["sync"] = phase_sync(torch, dev, model, trained, params)[1]
+        del model, params, trained
     for arch in (VLM_ARCH, WHISPER_ARCH):
         if f"serve-{arch}" in phases:
             gc.collect()
@@ -6754,6 +6941,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_launches, train = phase_train(torch, dev, model, params)
     lap("phase_train")
+    torch.cuda.empty_cache()
+    sync_launches, sync = phase_sync(torch, dev, model, params, init_params)
+    lap("phase_sync")
     del params
     torch.cuda.empty_cache()
     mux_launches_, mux = phase_mux(torch, dev, model, init_params)
@@ -6801,7 +6991,7 @@ def main(argv=None) -> int:
     for counts in (elastic_launches, suspend_launches, agentic_launches,
                    carry_launches, static_launches, prefix_launches,
                    disagg_launches, train_prefix_launches, train_launches,
-                   mux_launches_, rwkv_launches, zamba_launches,
+                   sync_launches, mux_launches_, rwkv_launches, zamba_launches,
                    gemma_launches, frontend_counts, dense_counts,
                    moe_counts, mla_counts, train_counts):
         add_counts(launches, counts)
@@ -6831,7 +7021,8 @@ def main(argv=None) -> int:
                    "suspend": suspend, "agentic": agentic, "carry": carry,
                    "static": static, "prefix": prefix, "disagg": disagg,
                    "train_prefix": train_prefix, "total_s": total_s,
-                   "train": train, "mux": mux, "serve_rwkv6": serve_rwkv6,
+                   "train": train, "sync": sync, "mux": mux,
+                   "serve_rwkv6": serve_rwkv6,
                    "serve_zamba2": serve_zamba2,
                    "serve_gemma3": serve_gemma3,
                    "serve_frontend": serve_frontend, "phase_s": phase_s,

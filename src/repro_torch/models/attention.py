@@ -177,6 +177,20 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def gqa_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`gqa_init`'s leaves."""
+    s = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qkv_bias:
+        s |= {"bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+              "bv": ("kv_heads", "head_dim")}
+    return s
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhe->bshe") as one matrix product."""
     d, h, e = w.shape
@@ -328,6 +342,20 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "wkv_b_k": dense_init(gen, r, (H, hd), dt),
         "wkv_b_v": dense_init(gen, r, (H, vd), dt),
         "wo": dense_init(gen, H * vd, (d,), dt).reshape(H, vd, d),
+    }
+
+
+def mla_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`mla_init`'s leaves."""
+    return {
+        "wq_a": ("embed", "kv_lora"),
+        "q_norm": ("kv_lora",),
+        "wq_b": ("kv_lora", "heads", "head_dim"),
+        "wkv_a": ("embed", "kv_lora"),
+        "kv_norm": ("kv_lora",),
+        "wkv_b_k": ("kv_lora", "heads", "head_dim"),
+        "wkv_b_v": ("kv_lora", "heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
     }
 
 

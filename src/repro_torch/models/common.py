@@ -3,7 +3,9 @@ group norm, the SwiGLU and gelu MLPs, RoPE and M-RoPE.
 
 Counterpart of ``repro/models/common.py``.  Weights keep the JAX package's
 layouts (``(in, *out)`` for dense kernels), so converted parameters drop in
-unchanged and the parity tests compare like with like.
+unchanged and the parity tests compare like with like.  Every ``*_init``
+has a parallel ``*_specs`` returning the same tree with logical-axis tuples
+as leaves (consumed by ``models.sharding``).
 """
 from __future__ import annotations
 
@@ -53,6 +55,12 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
     return {"wi_gate": dense_init(gen, d_model, (d_ff,), dtype),
             "wi_up": dense_init(gen, d_model, (d_ff,), dtype),
             "wo": dense_init(gen, d_ff, (d_model,), dtype)}
+
+
+def mlp_specs(cfg) -> dict:
+    """Logical axes of :func:`mlp_init`'s leaves (``models.sharding``)."""
+    return {"wi_gate": ("embed", "ffn"), "wi_up": ("embed", "ffn"),
+            "wo": ("ffn", "embed")}
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +136,12 @@ def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
             "bi": torch.zeros((d_ff,), dtype=dtype, device=dev),
             "wo": dense_init(gen, d_ff, (d_model,), dtype),
             "bo": torch.zeros((d_model,), dtype=dtype, device=dev)}
+
+
+def gelu_mlp_specs(cfg) -> dict:
+    """Logical axes of :func:`gelu_mlp_init`'s leaves."""
+    return {"wi": ("embed", "ffn"), "bi": ("ffn",),
+            "wo": ("ffn", "embed"), "bo": ("embed",)}
 
 
 def gelu_mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -117,6 +117,39 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return out | {"index": idx}
 
 
+def _attn_cache_spec():
+    ax = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax}
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    """:func:`init_cache`'s tree with each leaf's logical axes
+    (``models.sharding``); the layer axis leads, as the cache keeps it."""
+    idx = {"index": ()}
+    if cfg.family in ("dense", "vlm", "moe"):
+        if cfg.attention == "mla":
+            return {"ckv": ("layers", "batch", "cache_seq", "kv_lora"),
+                    "krope": ("layers", "batch", "cache_seq", None)} | idx
+        return _attn_cache_spec() | idx
+    if cfg.family == "ssm":
+        return {"att_x": ("layers", "batch", "embed_act"),
+                "ffn_x": ("layers", "batch", "embed_act"),
+                "wkv": ("layers", "batch", "heads_act", None, None)} | idx
+    if cfg.family == "hybrid":
+        return {"conv": ("layers", "batch", None, "ssm_inner"),
+                "ssm": ("layers", "batch", "heads_act", None, None),
+                "attn_k": ("layers", "batch", "cache_seq", "kv_heads",
+                           "head_dim"),
+                "attn_v": ("layers", "batch", "cache_seq", "kv_heads",
+                           "head_dim")} | idx
+    if cfg.family == "audio":
+        return _attn_cache_spec() | {
+            "cross_k": ("layers", "batch", "source", "kv_heads", "head_dim"),
+            "cross_v": ("layers", "batch", "source", "kv_heads",
+                        "head_dim")} | idx
+    raise ValueError(cfg.family)
+
+
 def paged_names(cfg: ModelConfig) -> tuple[str, ...]:
     """Cache leaves that get block-paged (those with a decode-time
     sequence axis): none for the ssm family, the shared block's K/V for

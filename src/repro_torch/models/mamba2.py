@@ -16,8 +16,9 @@ has no decode kernel for it.
 Dtypes follow the JAX package: ``r``/``k`` stay in the model dtype and are
 broadcasts of one ``(B, S, 1, N)`` slice over the heads (never copied);
 ``dt``, ``log_w`` and ``v = x * dt`` are float32, so the scan's ``y`` is
-float32 until the block casts it back.  The JAX block's sharding
-annotation (``constrain``) has no counterpart on one card.
+float32 until the block casts it back.  The full-sequence projection
+carries the reference's sharding annotation (``models.sharding.
+constrain``), the identity outside ``activation_sharding``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba2_scan import Mamba2ScanFn
 from repro_torch.models.common import dense_init, rms_norm, torch_dtype
 from repro_torch.models.linear_scan import decay_attention_decode_step
+from repro_torch.models.sharding import constrain
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -56,6 +58,20 @@ def mamba2_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "dt_bias": torch.zeros((nh,), dtype=torch.float32, device=dev),
         "norm_w": torch.zeros((inner,), dtype=dt, device=dev),
         "out_proj": dense_init(gen, inner, (cfg.d_model,), dt),
+    }
+
+
+def mamba2_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`mamba2_init`'s leaves."""
+    return {
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": ("conv", "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "norm_w": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
     }
 
 
@@ -116,7 +132,7 @@ def mamba2_apply_full(p, cfg: ModelConfig, x):
     prefill starts from zero); the prefill's and the training forward's
     (differentiable through :class:`Mamba2ScanFn`).  Returns ``(out,
     (conv_state, ssm_state))``."""
-    proj = x @ p["in_proj"]
+    proj = constrain(x @ p["in_proj"], ("batch", "seq", "ffn_act"))
     z, xBC, dt_raw = _split_proj(cfg, proj)
     x_conv, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     x_in, r, k, v, log_w = _ssm_inputs(p, cfg, x_conv, dt_raw)

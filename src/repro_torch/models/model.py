@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.models import kvcache
-from repro_torch.models.stacks import stack_forward, stack_init
+from repro_torch.models.stacks import (stack_forward, stack_init,
+                                      stack_specs)
 from repro_torch.models.stacks_infer import (kernel_supported,
                                              stack_decode_step,
                                              stack_kernel_decode_step,
@@ -26,6 +27,11 @@ class Model:
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters on the generator's device."""
         return stack_init(generator, self.cfg)
+
+    def logical_specs(self) -> dict:
+        """:meth:`init`'s tree with each leaf's logical axes; a layer group
+        is a list of per-layer specs (``models.stacks.stack_specs``)."""
+        return stack_specs(self.cfg)
 
     def forward(self, params, tokens, *, frontend=None, remat: bool = False):
         """tokens (B, S) -> (logits (B, S, V) float32, aux scalar), the
@@ -55,6 +61,10 @@ class Model:
 
     def scale_cache_names(self) -> tuple[str, ...]:
         return kvcache.scale_names(self.cfg)
+
+    def cache_logical_specs(self) -> dict:
+        """:meth:`init_cache`'s tree with each leaf's logical axes."""
+        return kvcache.cache_specs(self.cfg)
 
     def prefill(self, params, tokens, cache, *, frontend=None):
         """Fill ``cache`` from ``tokens (B, S)``; ``frontend`` is a vlm's

@@ -32,7 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (dense_init, mlp_apply, mlp_init,
-                                       torch_dtype)
+                                       mlp_specs, torch_dtype)
+from repro_torch.models.sharding import constrain
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -56,6 +57,20 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     if cfg.num_shared_experts:
         p["shared"] = mlp_init(gen, d, cfg.num_shared_experts * f, dt)
     return p
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`moe_init`'s leaves: experts over the model
+    axis, their embed rows over data."""
+    s = {
+        "router": ("embed", None),
+        "wi_gate": ("experts", "embed", "ffn"),
+        "wi_up": ("experts", "embed", "ffn"),
+        "wo": ("experts", "ffn", "embed"),
+    }
+    if cfg.num_shared_experts:
+        s["shared"] = mlp_specs(cfg)
+    return s
 
 
 def capacity_for(cfg: ModelConfig, T: int,
@@ -111,13 +126,16 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     r = moe_route(p, cfg, xf, capacity)
     C, dest = r["capacity"], r["dest"]
     buf = xf.new_zeros((E * C + 1, d))
-    buf[dest] = xf[r["tok"]]        # repeats only at the drop row E·C
-    eb = buf[:E * C].view(E, C, d)
+    # repeats only at the drop row E·C
+    buf[dest] = constrain(xf[r["tok"]], ("moe_tokens", None))
+    eb = constrain(buf[:E * C].view(E, C, d), ("experts_act", None, None))
     h = F.silu(torch.bmm(eb, p["wi_gate"])) * torch.bmm(eb, p["wi_up"])
+    h = constrain(h, ("experts_act", None, "ffn_act"))
     out = torch.cat([torch.bmm(h, p["wo"]).reshape(E * C, d),
                      xf.new_zeros((1, d))])
     gb = r["gates"].reshape(-1)[r["order"]].to(x.dtype)
-    contrib = out[dest] * gb[:, None]                # (T·k, d), sorted
+    contrib = constrain(out[dest] * gb[:, None],     # (T·k, d), sorted
+                        ("moe_tokens", None))
     # each token's k places in the sorted order, ascending: its experts
     # in ascending id, the order the reference's scatter-add applies them
     order = r["order"]

@@ -77,6 +77,22 @@ def rwkv6_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
+def rwkv6_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`rwkv6_init`'s leaves."""
+    return {
+        "mu_x": ("embed",), "mu": (None, "embed"),
+        "tm_w1": ("embed", None), "tm_w2": (None, None, "embed"),
+        "w0": ("embed",), "w1": ("embed", None), "w2": (None, "embed"),
+        "wr": ("embed", "ssm_inner"), "wk": ("embed", "ssm_inner"),
+        "wv": ("embed", "ssm_inner"), "wg": ("embed", "ssm_inner"),
+        "wo": ("ssm_inner", "embed"),
+        "u": ("heads", "head_dim"), "ln_x": ("heads", "head_dim"),
+        "cm_mu_k": ("embed",), "cm_mu_r": ("embed",),
+        "cm_wk": ("embed", "ffn"), "cm_wv": ("ffn", "embed"),
+        "cm_wr": ("embed", "ssm_inner"),
+    }
+
+
 def _shift(x, last=None):
     """xx[t] = x[t-1]; the first position comes from ``last`` (decode
     state), zeros without it."""

@@ -1,6 +1,7 @@
-"""Layer-stack parameters, the pieces every stack step shares (init,
-embedding, unembedding, norms, the per-layer rope theta and window) and
-the full-sequence training forward :func:`stack_forward`.
+"""Layer-stack parameters, the pieces every stack step shares (init and
+its logical specs :func:`stack_specs`, embedding, unembedding, norms, the
+per-layer rope theta and window) and the full-sequence training forward
+:func:`stack_forward`.
 
 Counterpart of ``repro/models/stacks.py``: the dense GQA, vlm (qwen2-vl),
 audio (whisper: LayerNorm, gelu MLPs, an encoder and cross-attention), MoE
@@ -23,13 +24,16 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (default_mrope_positions,
                                        dense_init, embed_init,
                                        gelu_mlp_apply, gelu_mlp_init,
-                                       layer_norm, mlp_apply, mlp_init,
+                                       gelu_mlp_specs, layer_norm,
+                                       mlp_apply, mlp_init, mlp_specs,
                                        rms_norm, torch_dtype)
 from repro_torch.models.kvcache import check_supported
-from repro_torch.models.mamba2 import mamba2_apply_full, mamba2_init
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.mamba2 import (mamba2_apply_full, mamba2_init,
+                                       mamba2_specs)
+from repro_torch.models.moe import moe_apply, moe_init, moe_specs
 from repro_torch.models.rwkv6 import (rwkv6_channel_mix, rwkv6_init,
-                                      rwkv6_time_mix_full)
+                                      rwkv6_specs, rwkv6_time_mix_full)
+from repro_torch.models.sharding import constrain
 
 NO_WINDOW = 2 ** 30     # far beyond any max_seq_len: never masks
 
@@ -150,6 +154,63 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def _norm_spec(cfg: ModelConfig):
+    if cfg.family == "audio":
+        return {"w": ("embed",), "b": ("embed",)}
+    return ("embed",)
+
+
+def _dense_layer_specs(cfg: ModelConfig, *, use_moe: bool) -> dict:
+    s = {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg)}
+    s["attn"] = (attn.mla_specs(cfg) if cfg.attention == "mla"
+                 else attn.gqa_specs(cfg))
+    if use_moe:
+        s["moe"] = moe_specs(cfg)
+    elif cfg.family == "audio":
+        s["mlp"] = gelu_mlp_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg)
+    return s
+
+
+def stack_specs(cfg: ModelConfig) -> dict:
+    """:func:`stack_init`'s tree with each leaf's logical axes
+    (``models.sharding``).  A layer group is a list of per-layer spec
+    dicts, without the reference's leading ``"layers"`` axis."""
+    s: dict = {"embed": ("vocab", "embed"), "final_norm": _norm_spec(cfg)}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ("embed", "vocab")
+    fam = cfg.family
+
+    def dense(n):
+        return [_dense_layer_specs(cfg, use_moe=False) for _ in range(n)]
+    if fam in ("dense", "vlm", "moe", "audio"):
+        if cfg.is_moe:
+            if cfg.first_dense_layers:
+                s["dense_layers"] = dense(cfg.first_dense_layers)
+            s["layers"] = [_dense_layer_specs(cfg, use_moe=True) for _ in
+                           range(cfg.num_layers - cfg.first_dense_layers)]
+        else:
+            s["layers"] = dense(cfg.num_layers)
+        if fam == "audio":
+            s["encoder"] = {"layers": dense(cfg.encoder_layers),
+                            "final_norm": _norm_spec(cfg)}
+            s["cross"] = [{"ln": _norm_spec(cfg),
+                           "attn": attn.gqa_specs(cfg)}
+                          for _ in range(cfg.num_layers)]
+    elif fam == "ssm":
+        s["layers"] = [{"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg),
+                        "mix": rwkv6_specs(cfg)}
+                       for _ in range(cfg.num_layers)]
+    elif fam == "hybrid":
+        s["layers"] = [{"norm": _norm_spec(cfg), "mamba": mamba2_specs(cfg)}
+                       for _ in range(cfg.num_layers)]
+        s["shared_attn"] = {"ln1": _norm_spec(cfg),
+                            "attn": attn.gqa_specs(cfg),
+                            "ln2": _norm_spec(cfg), "mlp": mlp_specs(cfg)}
+    return s
+
+
 def decoder_layers(p: dict) -> list:
     """The attention stack's layers in order: an MoE model's leading
     ``dense_layers`` (when it has them), then ``layers``.  The cache's
@@ -173,14 +234,14 @@ def _embed_tokens(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
                              f"the prompt's {x.shape[1]}")
         x = torch.cat([frontend.to(x.dtype).expand(x.shape[0], F, -1),
                        x[:, F:]], dim=1)
-    return x
+    return constrain(x, ("batch", "seq", "embed_act"))
 
 
 def _unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm and vocabulary projection; float32 logits."""
     x = _norm(p["final_norm"], x, cfg)
     w = p["embed"].t() if cfg.tie_embeddings else p["lm_head"]
-    return (x @ w).float()
+    return constrain((x @ w).float(), ("batch", "seq", "vocab_act"))
 
 
 def _shared_block_full(sp: dict, cfg: ModelConfig, x, positions, pos):

@@ -156,6 +156,12 @@ Phases, in order; any failure exits non-zero:
              CUDA graph replay (the engine's first tick runs it eagerly);
              each run prints its ms per decode step, captures and their
              seconds.
+   serve-static — ``serve_batch`` (the static entry point) on the same
+             weights: 8 prompts x 32 new tokens in one batch, one prefill
+             and 32 decode steps of every row, at temperature 0 (launches
+             exact: flash 24, decode attention 24 x 32, greedy 32) and at
+             the launcher's 0.8; tokens equal to ``generate``'s on the same
+             encoded prompts and generator seed; tok/s beside the card.
    graph   — the CUDA graph against the engine's eager block
              (``eager_engine``), both on engines of the serve shape with
              the first GRAPH_REQ prompts at GRAPH_NEW new tokens: tokens
@@ -280,6 +286,18 @@ Phases, in order; any failure exits non-zero:
              the static batch); finite loss and gradient norm; the trainer's
              log-probabilities of the sampled tokens match the engine's
              (mean ratio within 1e-2 of 1); the weights move.
+   roofline — the cost walk (``launch/cost.py``) of the same GRPO train
+             step (16 rows x 143 positions, remat, AdamW), one decode step
+             of 8 slots at position 512 with its greedy sampling, and one
+             S 512 prefill, on meta tensors, each beside the same step on
+             the card (the train step on a copy of the weights): the
+             walk's FLOPs and bytes, the compute and memory terms at the
+             H100's rates (``launch.roofline``), ``model_flops_for``, the
+             step's CUDA-event seconds and ``mfu = model_flops / (s x
+             989e12)``, with the train and serve phases' own seconds
+             beside; the walk's kernel launches must equal the card's
+             counters for each step (48 flash a train step: the forward
+             and remat's recompute).
    sync    — weight sync and sharding on one card (``repro_torch.sync``,
              ``models.sharding``, ``launch.mesh``), after the train phase
              while its trained weights and the initial ones are both
@@ -537,6 +555,7 @@ with ``--src`` the kernels of another checkout's ``src`` (an unpacked
 parent commit) on this script's timer; it writes
 ``chiprun_out/kernels_{tree,parent}.json``.
 
+    python3 chip_smoke.py --only serve-static,roofline
     python3 chip_smoke.py --only kernels,elastic,serve-qwen2-vl-7b
     python3 chip_smoke.py --only sync
     python3 chip_smoke.py --only serve-dbrx-132b-cut
@@ -549,6 +568,7 @@ and syncs seed 1's weights into an engine on seed 0's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -562,9 +582,12 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BPS = 3.35e12          # H100 SXM device memory rate, bytes/s
-PEAK = {"bfloat16": 989e12, "tfloat32": 495e12,  # dense ops/s by input type
-        "float32": 67e12}
+# the H100's rates and the kernels' work formulas: one copy, in the package
+from repro_torch.kernels.work import (decode_attention_work,  # noqa: E402
+                                      flash_attention_work,
+                                      greedy_sample_work, mamba2_scan_work,
+                                      rwkv6_scan_work, scan_ops, topk_work)
+from repro_torch.launch.roofline import HBM_BPS, PEAK  # noqa: E402
 ATTN_TOL = dict(atol=2e-2, rtol=2e-2)
 ARCH, SLOTS, MAX_NEW, MAX_SEQ, N_REQ = "internlm2-1.8b", 8, 128, 1024, 16
 RWKV_ARCH = "rwkv6-7b"
@@ -912,18 +935,15 @@ def phase_kernels(torch, dev, timer):
         B, H = q.shape[:2]
         lengths = torch.from_numpy(lengths_np).to(dev)
         live = live_positions(lengths_np, S, window)
-        qo_bytes = 2 * B * H * D * 2 + B * 4
         tables_np, NB = paged_tables(rs, lengths_np, S, bs)
         tables = torch.from_numpy(tables_np).to(dev)
         kp = torch.randn(NB, bs, Hkv, D, **bf)
         vp = torch.randn(NB, bs, Hkv, D, **bf)
         kq, ks = quantize_kv(kp, 2)
         vq, vs = quantize_kv(vp, 2)
-        tbl_bytes = int((tables_np > 0).sum()) * 4
-        for mode, args, kw, elem, extra in (
-                ("bf16", (kp, vp), {}, 2, 0),
-                ("int8", (kq, vq), dict(k_scale=ks, v_scale=vs), 1,
-                 live * 4 * 2)):
+        for mode, args, kw, elem in (
+                ("bf16", (kp, vp), {}, 2),
+                ("int8", (kq, vq), dict(k_scale=ks, v_scale=vs), 1)):
             def kern():
                 return da.paged_decode_attention(q, *args, tables, lengths,
                                                  window=window, **kw)
@@ -939,8 +959,11 @@ def phase_kernels(torch, dev, timer):
                    else f"{label}-int8", err, timer(kern), timer(plain),
                    timer(sdpa(q, kg.to(torch.bfloat16),
                               vg.to(torch.bfloat16), lengths, window)),
-                   live * Hkv * D * 2 * elem + extra + qo_bytes + tbl_bytes,
-                   4 * H * D * live, note=plan)
+                   *decode_attention_work(
+                       B, H, Hkv, D, live, kv_elem=elem,
+                       quantized=mode == "int8",
+                       table_entries=int((tables_np > 0).sum()))[::-1],
+                   note=plan)
             del kg, vg
 
     for label, lengths_np, S in ATTN_CASES:
@@ -948,8 +971,6 @@ def phase_kernels(torch, dev, timer):
         lengths = torch.from_numpy(lengths_np).to(dev)
         live = int(np.minimum(lengths_np, S).sum())
         q = torch.randn(B, H, D, **bf)
-        qo_bytes = 2 * B * H * D * 2 + B * 4
-        ops = 4 * H * D * live
         C, n = da.split_plan(S)
         plan = (f"; plan chunk={C} n_split={n} CTAs={B * Hkv * n}, live "
                 f"{Hkv * int(np.minimum(-(-lengths_np // C), n).sum())}, "
@@ -965,7 +986,8 @@ def phase_kernels(torch, dev, timer):
                timer(lambda: da.decode_attention(q, k, v, lengths)),
                timer(lambda: da.decode_attention_plain(q, k, v, lengths)),
                timer(sdpa(q, k, v, lengths)),
-               live * Hkv * D * 2 * 2 + qo_bytes, ops, note=plan)
+               *decode_attention_work(B, H, Hkv, D, live)[::-1],
+               note=plan)
         del k, v
         paged(label, lengths_np, S, Hkv, D, q, plan)
     # zamba2-2.7b's shared attention block over its paged pool: H = Hkv =
@@ -1000,8 +1022,8 @@ def phase_kernels(torch, dev, timer):
                timer(lambda: da.decode_attention_plain(q, k, v, lengths,
                                                        window=window)),
                timer(sdpa(q, k, v, lengths, window)),
-               live * Hkvg * Dg * 2 * 2 + 2 * B * Hg * Dg * 2 + B * 4,
-               4 * Hg * Dg * live, note=plan)
+               *decode_attention_work(B, Hg, Hkvg, Dg, live)[::-1],
+               note=plan)
         paged(label, lengths_np, S, Hkvg, Dg, q, plan, window)
     del q, k, v
     for label, lens, S, Hf, Hkvf, Df, with_paged in FRONTEND_ATTN:
@@ -1023,8 +1045,8 @@ def phase_kernels(torch, dev, timer):
                timer(lambda: da.decode_attention(q, k, v, lengths)),
                timer(lambda: da.decode_attention_plain(q, k, v, lengths)),
                timer(sdpa(q, k, v, lengths)),
-               live * Hkvf * Df * 2 * 2 + 2 * B * Hf * Df * 2 + B * 4,
-               4 * Hf * Df * live, note=plan)
+               *decode_attention_work(B, Hf, Hkvf, Df, live)[::-1],
+               note=plan)
         del k, v
         if with_paged:
             paged(label, lengths_np, S, Hkvf, Df, q, plan)
@@ -1130,7 +1152,7 @@ def phase_greedy(torch, dev, timer, record, rows):
                timer(lambda: sampling.greedy_sample(x)),
                timer(lambda: sampling.greedy_sample_plain(x)),
                timer(lambda: (torch.argmax(x, -1), torch.logsumexp(x, -1))),
-               B * V * 4 + B * 8, 3 * B * V, "float32", note=note)
+               *greedy_sample_work(B, V)[::-1], note=note)
     row = rows["greedy_sample"]
     row.update(cluster_ms=by_cluster, planted_slice_dropped=token)
     for label, Be, Ve in GREEDY_EDGE_CASES:
@@ -1176,49 +1198,6 @@ SCAN_EDGE_CASES = (
     ("Dk33-f32", 1, 130, 4, 33, 64, "float32", "weak"),
     ("Dv128", 1, 200, 8, 64, 128, "bfloat16", "weak"))
 SCAN_F32_TOL = dict(atol=1e-3, rtol=1e-3)
-
-
-def scan_ops(B, S, H, Dk, Dv, c=SCAN_CHUNK):
-    """Operations of the chunked scan as the earlier one-chunk-at-a-time
-    kernel counted them, per chunk of the run's length: the
-    intra-chunk weights (4 per (t, s < t, d) term: difference,
-    exponential, two products), the u diagonal, the decayed read of the
-    state, A v over s <= t, and the state update.  Kept beside
-    :func:`wkv_ops` so shares stated against it stay comparable."""
-    n = 0
-    for c0 in range(0, S, c):
-        m = min(c, S - c0)
-        n += (4 * Dk * m * (m - 1) // 2 + 3 * Dk * m + 2 * m * Dk * Dv
-              + 2 * Dv * m * (m + 1) // 2 + 2 * m * Dk * Dv)
-    return n * B * H
-
-
-def wkv_ops(B, S, H, Dk, Dv, dtype, c=SCAN_CHUNK, sub=16):
-    """Operations of the chunk-parallel scan at the rates the kernel runs
-    them, counted per chunk of the run's length.  On the tensor cores, at
-    the tf32 rate, each product as often as it is issued (3xTF32: three
-    tf32 products, two against bf16 v): K~^T V in every chunk, (r exp(e))
-    S_in in every chunk after the first, R~ K~^T over the (t, s) pairs of
-    different 16-row sub-blocks, A V over s <= t.  On the CUDA cores, at
-    the float32 rate: the diagonal sub-blocks (4 per (t, s < t, d) term)
-    and the u diagonal, the decayed factors (r exp(e), k exp(cl_last - cl),
-    and R~ and K~ for each sub-block pair), the state passing."""
-    n_v = 2 if dtype == "bfloat16" else 3
-    tc = f32 = 0
-    for i, c0 in enumerate(range(0, S, c)):
-        m = min(c, S - c0)
-        rows = [min(sub, m - b0) for b0 in range(0, m, sub)]
-        diag = sum(n * (n - 1) // 2 for n in rows)
-        below = m * (m - 1) // 2 - diag
-        tc += 2 * m * Dk * Dv * n_v
-        tc += 2 * m * Dk * Dv * 3 * (1 if i else 0)
-        tc += 2 * Dk * below * 3
-        tc += 2 * Dv * (below + diag + m) * n_v
-        f32 += 4 * Dk * diag + 3 * Dk * m + 5 * m * Dk
-        f32 += 3 * Dk * sum(rows[i] + rows[j] for i in range(len(rows))
-                            for j in range(i))
-        f32 += 2 * Dk * Dv
-    return {"tfloat32": tc * B * H, "float32": f32 * B * H}
 
 
 def scan_inputs(torch, dev, B, S, H, Dk, Dv, dtype, decay, seed=3):
@@ -1324,10 +1303,9 @@ def phase_scan(torch, dev, timer):
         ms = timer(lambda: rs.rwkv6_scan(r, k, v, lw, u))
         plain_ms = timer(lambda: rs.rwkv6_scan_plain(r, k, v, lw, u),
                          iters=10)
-        n_bytes = sum(t.numel() * t.element_size()
-                      for t in (r, k, v, lw, u)) + B * S * H * Dv \
-            * v.element_size() + B * H * Dk * Dv * 4
-        b_ms, b_by = bound(n_bytes, wkv_ops(B, S, H, Dk, Dv, dtype))
+        n_ops, n_bytes = rwkv6_scan_work(B, S, H, Dk, Dv, dtype,
+                                         rkv_elem=r.element_size())
+        b_ms, b_by = bound(n_bytes, n_ops)
         old_ms, old_by = bound(n_bytes, scan_ops(B, S, H, Dk, Dv),
                                "float32")
         print(f"[kernels] rwkv6_scan {label} (B={B}, S={S}, H={H}, "
@@ -1401,34 +1379,6 @@ MAMBA_EDGE_CASES = (
     ("N128-f32-rk", 1, 200, 4, 128, 128, "float32", "float32", "weak",
      True))
 MAMBA_F32_TOL = dict(atol=1e-3, rtol=1e-3)
-
-
-def mamba2_ops(B, S, H, N, hd, rk_dtype, v_dtype="float32", shared=True,
-               c=SCAN_CHUNK):
-    """Operations of the chunked SSD scan at the rates the kernel runs
-    them, counted per chunk of the run's length.  On the tensor cores, at
-    the bf16 rate, each product as often as it is issued: an operand in bf16
-    parts (1 for bf16, 3 for float32, exact) times another costs one
-    product per pair of parts i + j <= 2; R K^T over s <= t once per (b,
-    chunk) when r and k are broadcasts over the heads (else per head),
-    (G o L) V over s <= t (G o L in 3 parts), K^T (dk V) in every chunk
-    and R S_in in every chunk after the first (dk V and S_in in 3 parts).
-    On the CUDA cores, at the float32 rate: the decay weights (an
-    exponential and a product per s <= t), the scalings by exp(cl_t) and
-    dk_s, the state passing."""
-    def pairs_of(pa, pb):
-        return sum(i + j <= 2 for i in range(pa) for j in range(pb))
-    p_rk = 1 if rk_dtype == "bfloat16" else 3
-    p_v = 1 if v_dtype == "bfloat16" else 3
-    tc = f32 = 0
-    for i, c0 in enumerate(range(0, S, c)):
-        m = min(c, S - c0)
-        pairs = m * (m + 1) // 2
-        tc += 2 * N * pairs * pairs_of(p_rk, p_rk) * (1 if shared else H)
-        tc += H * (2 * hd * pairs * pairs_of(3, p_v) + 2 * m * N * hd
-                   * pairs_of(p_rk, 3) * (2 if i else 1))
-        f32 += H * (2 * pairs + 2 * m * hd + 2 * N * hd)
-    return {"bfloat16": tc * B, "float32": f32 * B}
 
 
 def mamba2_inputs(torch, dev, B, S, H, N, hd, rk_dt, v_dt, decay,
@@ -1552,10 +1502,8 @@ def phase_mamba2_scan(torch, dev, timer):
         ms_ = timer(lambda: ms.mamba2_scan(r, k, v, lw))
         plain_ms = timer(lambda: ms.mamba2_scan_plain(r, k, v, lw), iters=10)
         # each input read once: r and k are one (B, S, 1, N) slice each
-        n_bytes = sum(t.numel() * t.element_size()
-                      for t in (r1, k1, v, lw)) + B * S * H * hd \
-            * v.element_size() + B * H * N * hd * 4
-        b_ms, b_by = bound(n_bytes, mamba2_ops(B, S, H, N, hd, rk_dt, v_dt))
+        b_ms, b_by = bound(*mamba2_scan_work(B, S, H, N, hd, rk_dt,
+                                             v_dt)[::-1])
         print(f"[kernels] mamba2_scan {label} (B={B}, S={S}, H={H}, N={N}, "
               f"hd={hd}, r/k {rk_dt}, v {v_dt}, {decay} decays): "
               f"max_abs_err y={err:.3e} state={st_err:.3e} "
@@ -1697,8 +1645,8 @@ def phase_topk(torch, dev, timer):
     lib_ms = timer(lambda: torch.topk(x, k, dim=-1))
     mask_ms = timer(lambda: sampling.topk_mask(x, k))
     mask_plain_ms = timer(lambda: sampling.topk_mask_plain(x, k))
-    b_ms, b_by = bound(B * V * 4 + B * k * 4, 0, "float32")
-    mb_ms, _ = bound(2 * B * V * 4, 0, "float32")
+    b_ms, b_by = bound(topk_work(B, V, k)[1], 0, "float32")
+    mb_ms, _ = bound(topk_work(B, V, k, with_mask=True)[1], 0, "float32")
     print(f"[kernels] topk k={k} (B={B}, V={V}): kernel_ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (torch.topk) "
           f"bound_ms={b_ms:.4f} ({b_by}); mask: kernel_ms={mask_ms:.4f} "
@@ -2021,10 +1969,9 @@ def flash_mla(torch, dev, timer) -> dict:
                      iters=10)
     backend, fn = sdpa_first_backend(torch, q, k, v)
     lib_ms = timer(fn) if backend else None
-    n_bytes = (q.numel() + k.numel() + v.numel() + B * S * H * Dv) * 2 \
-        + B * H * S * 4
-    n_ops = 2 * B * H * (D + Dv) * S * (S + 1) // 2
-    b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
+    n_ops, n_bytes = flash_attention_work(B, S, H, Hkv, D, Dv)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    n_ops = n_ops["bfloat16"]
     print(f"[flash] {label} (B={B}, S={S}, H={H}, Hkv={Hkv}, D={D}, "
           f"Dv={Dv}): max_abs_err={err:.3e} ({share:.2f} of the limit; lse "
           f"{lse_err:.2e}), float32 {err32:.3e} ({share32:.2f}; lse "
@@ -2096,13 +2043,8 @@ def phase_flash(torch, dev, timer):
                                                  return_lse=True))
         lib_ms_2x = timer(lambda: sdpa(q2, k2, v2))
         del q2, k2, v2, wmask
-        n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 \
-            + lse.numel() * 4
-        w = S if window is None else window
-        pairs = (sum(min(i + 1, w) for i in range(S)) if causal
-                 else S * S)                  # causal, in window; or all
-        n_ops = 4 * B * H * D * pairs
-        b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
+        b_ms, b_by = bound(*flash_attention_work(
+            B, S, H, Hkv, D, D, causal=causal, window=window)[::-1])
         print(f"[flash] {label} (B={B}, S={S}, H={H}, Hkv={Hkv}, D={D}, "
               f"window {window}, causal={causal}): "
               f"max_abs_err={err:.3e} ({share:.2f} of the limit; lse "
@@ -2899,6 +2841,217 @@ def phase_train(torch, dev, model, params):
                     / s["total_train_s"],
                     "max_memory_allocated": peak, "history": hist,
                     "launches": counts}
+
+
+STATIC_REQ, STATIC_NEW = 8, 32     # the serve-static phase's batch
+ROOF_ROWS = 16                     # the GRPO train step's rows (4 x 4)
+ROOF_PREFILL = 512                 # the roofline phase's prefill length
+
+
+def phase_serve_static(torch, dev, model, params):
+    """``serve_batch`` (the static entry point) on the serve phase's
+    weights: STATIC_REQ prompts x STATIC_NEW new tokens, at temperature 0
+    (launches exact: flash once a layer for the one prefill, decode
+    attention once a layer a step, greedy once a step) and at the
+    launcher's 0.8; each run's tokens equal to ``generate``'s on the same
+    encoded prompts with the same generator seed."""
+    from repro_torch.launch.serve import _encode_prompts, serve_batch
+    from repro_torch.rl import SamplerConfig, generate
+
+    cfg = model.cfg
+    texts = [f"{37 * i}+{11 * i + 5}=" for i in range(STATIC_REQ)]
+    fns = wrappers()
+    total = {k: 0 for k in fns}
+    res = {}
+    for temp in (0.0, 0.8):
+        for f in fns.values():
+            f.launches = 0
+        rep = serve_batch(ARCH, texts, max_new=STATIC_NEW, temperature=temp,
+                          seed=0, device=dev, model=model, params=params)
+        counts = {k: f.launches for k, f in fns.items()}
+        want = {k: 0 for k in counts}
+        want["flash_attention"] = cfg.num_layers
+        want["decode_attention"] = cfg.num_layers * STATIC_NEW
+        want["greedy_sample"] = STATIC_NEW if temp == 0 else 0
+        if counts != want:
+            raise AssertionError(f"serve-static at temperature {temp}: "
+                                 f"launches {counts} != {want}")
+        add_counts(total, counts)
+        prompts, _ = _encode_prompts(model, texts, dev)
+        ref = generate(model, params, prompts,
+                       SamplerConfig(max_new_tokens=STATIC_NEW,
+                                     temperature=temp),
+                       generator=torch.Generator(device=dev).manual_seed(0))
+        if not (torch.equal(rep["completions"], ref["completions"].cpu())
+                and torch.equal(rep["mask"], ref["mask"].cpu())):
+            raise AssertionError(f"serve-static at temperature {temp}: "
+                                 f"tokens differ from generate's")
+        lp = float((rep["logprobs"] - ref["behavior_logp"].cpu()).abs()
+                   .max())
+        print(f"[serve-static] temperature {temp}: {STATIC_REQ} requests x "
+              f"{STATIC_NEW} tokens, {rep['tokens']} tokens in "
+              f"{rep['wall_s']:.3f}s = {rep['tok_per_s']:.1f} tok/s "
+              f"({card_line()}); tokens equal to generate's (max |logprob "
+              f"diff| {lp:.3e}); launches {counts}")
+        res[f"temperature_{temp}"] = {
+            "tokens": rep["tokens"], "wall_s": rep["wall_s"],
+            "tok_per_s": rep["tok_per_s"], "logprob_diff": lp,
+            "launches": counts}
+        del rep, ref
+    return total, res
+
+
+def _event_s(torch, fn, reps: int) -> float:
+    """Median CUDA-event seconds of ``fn()`` over ``reps`` runs, after one
+    unmeasured run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / 1e3)
+    return float(np.median(times))
+
+
+def phase_roofline(torch, dev, model, params, train=None, serve=None):
+    """The cost walk (``launch/cost.py``) of three internlm2 steps on meta
+    tensors, each beside the same step on the card: the GRPO train step
+    (ROOF_ROWS rows x 16 + MAX_NEW - 1 positions, remat, AdamW, on a copy
+    of the weights), one decode step of SLOTS slots at position MAX_SEQ / 2
+    with its greedy sampling, one prefill of ROOF_PREFILL ids.  For each:
+    the walk's FLOPs and bytes, its compute and memory terms at the H100's
+    rates (``launch.roofline``), ``model_flops_for``, the card's
+    CUDA-event seconds of the step and ``mfu = model_flops / (seconds x
+    989e12)``; the walk's kernel launches must equal the card's launch
+    counters for the step.  The train and serve phases' own seconds
+    (``train``, ``serve``), where given, are printed beside."""
+    from repro_torch.configs import InputShape
+    from repro_torch.kernels.sampling import greedy_sample
+    from repro_torch.launch.cost import analyze_step
+    from repro_torch.launch.roofline import PEAK_FLOPS, model_flops_for
+    from repro_torch.rl.train_step import make_train_step
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             warmup_cosine)
+
+    cfg = model.cfg
+    fns = wrappers()
+    abstract = model.init_abstract()
+    S = 16 + MAX_NEW - 1
+    opt_cfg = AdamWConfig(lr=3e-4)
+    step = make_train_step(model, opt_cfg,
+                           lr_schedule=warmup_cosine(opt_cfg.lr, 10, 2))
+
+    def train_batch(device):
+        g = torch.Generator(device=device).manual_seed(5) \
+            if device != "meta" else None
+
+        def ids():
+            if g is None:
+                return torch.empty((ROOF_ROWS, S), dtype=torch.int32,
+                                   device=device)
+            return torch.randint(0, cfg.vocab_size, (ROOF_ROWS, S),
+                                 generator=g, device=device,
+                                 dtype=torch.int32)
+
+        def f32(fill):
+            return torch.full((ROOF_ROWS, S), fill, dtype=torch.float32,
+                              device=device)
+        return {"tokens": ids(), "labels": ids(), "loss_mask": f32(1.0),
+                "advantages": f32(0.5), "behavior_logp": f32(-3.0)}
+
+    def decode(p, token, cache):
+        logits, _ = model.kernel_decode_step(p, token, cache)
+        return greedy_sample(logits)
+
+    def decode_args(p, device):
+        cache = model.init_cache(SLOTS, MAX_SEQ, device=device)
+        cache["index"] = torch.full((SLOTS,), MAX_SEQ // 2,
+                                    dtype=torch.int32, device=device)
+        return (p, torch.zeros((SLOTS, 1), dtype=torch.int32,
+                               device=device), cache)
+
+    def prefill_args(p, device):
+        return (p, torch.zeros((1, ROOF_PREFILL), dtype=torch.int32,
+                               device=device),
+                model.init_cache(1, ROOF_PREFILL, device=device))
+
+    cases = {
+        "train": (lambda st, b: step(st, b),
+                  ({"params": abstract, "opt": adamw_init(abstract)},
+                   train_batch("meta")),
+                  InputShape("grpo", S, ROOF_ROWS, "train")),
+        "decode": (decode, decode_args(abstract, "meta"),
+                   InputShape("decode", MAX_SEQ, SLOTS, "decode")),
+        "prefill": (model.prefill, prefill_args(abstract, "meta"),
+                    InputShape("prefill", ROOF_PREFILL, 1, "prefill")),
+    }
+    res, total = {}, {k: 0 for k in fns}
+    for name, (fn, meta_args, shape) in cases.items():
+        t0 = time.perf_counter()
+        costs = analyze_step(fn, *meta_args)
+        walk_s = time.perf_counter() - t0
+        # the same step on the card, its launches counted
+        if name == "train":
+            copy = _tree_map(lambda t: t.clone(), params)
+            state = {"params": copy, "opt": adamw_init(copy)}
+            batch = train_batch(dev)
+            args = (state, batch)
+            reps = 2
+        elif name == "decode":
+            args, reps = decode_args(params, dev), 10
+        else:
+            args, reps = prefill_args(params, dev), 5
+        torch.cuda.synchronize()
+        for f in fns.values():
+            f.launches = 0
+        with torch.no_grad() if name != "train" \
+                else contextlib.nullcontext():
+            fn(*args)
+            torch.cuda.synchronize()
+            card = {k: f.launches for k, f in fns.items()}
+            secs = _event_s(torch, lambda: fn(*args), reps)
+        add_counts(total, {k: f.launches for k, f in fns.items()})
+        walked = {k: costs.kernel_launches.get(k, 0) for k in card}
+        if walked != card:
+            raise AssertionError(f"roofline {name}: the walk's launches "
+                                 f"{walked} != the card's {card}")
+        mf = model_flops_for(cfg, shape)
+        compute_s = costs.flops / PEAK_FLOPS
+        memory_s = costs.bytes / HBM_BPS
+        mfu = mf / (secs * PEAK_FLOPS)
+        beside = ""
+        if name == "train" and train:
+            phase_s = float(np.mean(train["train_s"]))
+            beside = (f"; the train phase's train seconds per iteration "
+                      f"{phase_s:.4f} (mfu {mf / (phase_s * PEAK_FLOPS):.4f})")
+        if name == "decode" and serve:
+            phase_s = serve["contiguous"]["ms_per_decode_step"] / 1e3
+            beside = (f"; the serve phase's CUDA-graph decode step "
+                      f"{phase_s * 1e3:.4f} ms (mfu "
+                      f"{mf / (phase_s * PEAK_FLOPS):.4f})")
+        print(f"[roofline] {name} {shape.global_batch} x {shape.seq_len}: "
+              f"walk flops={costs.flops:.4e} (products "
+              f"{costs.product_flops:.4e}, kernels {costs.kernel_flops:.4e})"
+              f" bytes={costs.bytes:.4e} peak live={costs.peak_bytes:.4e}; "
+              f"compute_s={compute_s:.4e} memory_s={memory_s:.4e} "
+              f"(bound {max(compute_s, memory_s):.4e}); model_flops="
+              f"{mf:.4e}; measured_s={secs:.4e} "
+              f"({max(compute_s, memory_s) / secs:.3f} of the bound); "
+              f"mfu={mfu:.4f}{beside}; launches walk {walked} == card; "
+              f"walk {walk_s:.1f}s ({card_line()})")
+        res[name] = {"flops": costs.flops, "bytes": costs.bytes,
+                     "product_flops": costs.product_flops,
+                     "kernel_flops": costs.kernel_flops,
+                     "peak_bytes": costs.peak_bytes, "compute_s": compute_s,
+                     "memory_s": memory_s, "model_flops": mf,
+                     "measured_s": secs, "mfu": mfu, "launches": card,
+                     "walk_s": walk_s}
+        del args
+    return total, res
 
 
 # ---------------------------------------------------------------------------
@@ -6777,7 +6930,8 @@ SOURCES = {
 }
 
 
-ONLY_PHASES = ("kernels", "elastic", "sync", f"serve-{VLM_ARCH}",
+ONLY_PHASES = ("kernels", "serve-static", "roofline", "elastic", "sync",
+               f"serve-{VLM_ARCH}",
                f"serve-{WHISPER_ARCH}", MOE_PHASE, MLA_PHASE) + TRAIN_PHASES
 
 
@@ -6797,6 +6951,16 @@ def run_only(torch, dev, phases, t0) -> int:
         res["mamba2_scan"] = phase_mamba2_scan(torch, dev, timer)
         res["flash"] = phase_flash(torch, dev, timer)
         del timer
+    if "serve-static" in phases or "roofline" in phases:
+        model, params = build(torch, dev)
+        if "serve-static" in phases:
+            res["serve-static"] = phase_serve_static(torch, dev, model,
+                                                     params)[1]
+        if "roofline" in phases:
+            res["roofline"] = phase_roofline(torch, dev, model, params)[1]
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
     if "elastic" in phases:
         model, params = build(torch, dev)
         res["elastic"] = phase_elastic(torch, dev, model, params)[1]
@@ -6907,6 +7071,9 @@ def main(argv=None) -> int:
     init_params = _tree_map(lambda t: t.clone(), params)
     launches, serve = phase_serve(torch, dev, model, params)
     lap("phase_serve")
+    static_serve_launches, serve_static = phase_serve_static(
+        torch, dev, model, params)
+    lap("phase_serve_static")
     graph = phase_graph(torch, dev, model, params)
     lap("phase_graph")
     trace = phase_trace(torch, dev, model, params,
@@ -6941,6 +7108,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_launches, train = phase_train(torch, dev, model, params)
     lap("phase_train")
+    torch.cuda.empty_cache()
+    roofline_launches, roofline = phase_roofline(torch, dev, model, params,
+                                                 train=train, serve=serve)
+    lap("phase_roofline")
     torch.cuda.empty_cache()
     sync_launches, sync = phase_sync(torch, dev, model, params, init_params)
     lap("phase_sync")
@@ -6988,7 +7159,8 @@ def main(argv=None) -> int:
         counts, train_families[arch] = phase_train_family(torch, dev, arch)
         lap(f"phase_train_family {arch}")
         add_counts(train_counts, counts)
-    for counts in (elastic_launches, suspend_launches, agentic_launches,
+    for counts in (static_serve_launches, roofline_launches,
+                   elastic_launches, suspend_launches, agentic_launches,
                    carry_launches, static_launches, prefix_launches,
                    disagg_launches, train_prefix_launches, train_launches,
                    sync_launches, mux_launches_, rwkv_launches, zamba_launches,
@@ -7022,6 +7194,7 @@ def main(argv=None) -> int:
                    "static": static, "prefix": prefix, "disagg": disagg,
                    "train_prefix": train_prefix, "total_s": total_s,
                    "train": train, "sync": sync, "mux": mux,
+                   "serve_static": serve_static, "roofline": roofline,
                    "serve_rwkv6": serve_rwkv6,
                    "serve_zamba2": serve_zamba2,
                    "serve_gemma3": serve_gemma3,

@@ -8,8 +8,10 @@ pools ``(NB, bs, Hkv, D)`` with ``block_tables (B, MB)``.  The kernels read
 those layouts in place.
 
 Dispatch is by the device of ``q``: a CPU tensor runs the plain PyTorch
-version, a CUDA tensor launches the kernel or raises, anything else
-raises.  There is no fallback from the kernel to the plain version.  Each
+version, a CUDA tensor launches the kernel or raises, a ``meta`` tensor
+(the cost walk's) is validated as a CUDA one and takes the meta case
+(``kernels.work``), which computes nothing, and anything else raises.
+There is no fallback from the kernel to the plain version.  Each
 wrapper counts its calls that launch the kernels in ``<wrapper>.launches``
 (one per call: the split pass and the merge).
 
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 NEG_INF = -1.0e30
 NO_WINDOW = 2 ** 30     # matches models.stacks.NO_WINDOW: never masks
@@ -161,7 +163,7 @@ def merge_partials_plain(m, l, acc, dtype=torch.float32):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 def _check_cuda(q, named: dict) -> None:
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode attention takes CPU or CUDA tensors, "
                          f"not {q.device.type}")
     for name, t in named.items():
@@ -212,13 +214,15 @@ def decode_attention(q, k, v, lengths, *, window=None):
     _check_heads(H, Hkv, D)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"k/v dtype {k.dtype}/{v.dtype} != q dtype {q.dtype}")
+    if q.device.type == "meta":
+        return _decode_meta("decode_attention", q, (k, v), S, window)
     lib = _build.load("decode_attention")
     chunk, n_split = split_plan(S)
-    out, work = torch.empty_like(q), _workspace(q, n_split)
+    out, partials = torch.empty_like(q), _workspace(q, n_split)
     err = lib.decode_attention_contiguous(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), work.data_ptr(), B, H, Hkv, D, S, _window(window),
-        chunk, n_split, D ** -0.5, _DTYPE_CODES[q.dtype],
+        out.data_ptr(), partials.data_ptr(), B, H, Hkv, D, S,
+        _window(window), chunk, n_split, D ** -0.5, _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", err, "decode_attention launch")
     _build.count(decode_attention)
@@ -268,15 +272,19 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
         raise TypeError("k_pool and v_pool dtypes differ")
     _check_cuda(q, named)
     _check_heads(H, Hkv, D)
-    lib = _build.load("decode_attention")
     MB = block_tables.shape[1]
+    if q.device.type == "meta":
+        return _decode_meta("paged_decode_attention", q, (k_pool, v_pool),
+                            MB * bs, window, tables=block_tables,
+                            quantized=quant)
+    lib = _build.load("decode_attention")
     chunk, n_split = split_plan(MB * bs)
-    out, work = torch.empty_like(q), _workspace(q, n_split)
+    out, partials = torch.empty_like(q), _workspace(q, n_split)
     err = lib.decode_attention_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), work.data_ptr(), B, H, Hkv, D, bs,
-        MB, _window(window), chunk, n_split, D ** -0.5,
+        lens.data_ptr(), out.data_ptr(), partials.data_ptr(), B, H, Hkv, D,
+        bs, MB, _window(window), chunk, n_split, D ** -0.5,
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", err, "paged_decode_attention launch")
@@ -286,3 +294,26 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
 
 decode_attention.launches = 0
 paged_decode_attention.launches = 0
+
+
+def _decode_meta(name, q, kv, S, window, *, tables=None, quantized=False):
+    """The meta case of either wrapper: K/V (stripes or pools) gathered
+    over every dimension but a stripe's batch and heads, q over its head
+    dim; the output in q's placements; the work of every row attending
+    over ``min(S, window)`` positions (the data's lengths are not known
+    on meta: the stripe or table length is what a full cache reads)."""
+    q = work.gather_dims(q, (2,))
+    paged = tables is not None
+    kl = work.local(work.gather_dims(kv[0], (0, 1, 3) if paged else (1, 3)))
+    work.local(work.gather_dims(kv[1], (0, 1, 3) if paged else (1, 3)))
+    tables = work.local(work.gather_dims(tables, (1,)))
+    ql = work.local(q)
+    B, H, D = ql.shape
+    live = B * (S if window is None else min(S, int(window)))
+    ops, n_bytes = work.decode_attention_work(
+        B, H, kl.shape[2], D, live, q_elem=q.element_size(),
+        kv_elem=kl.element_size(), quantized=quantized,
+        table_entries=0 if tables is None else tables.numel())
+    work.record(name, ops, n_bytes)
+    return work.wrap_like(torch.empty(ql.shape, dtype=q.dtype,
+                                      device="meta"), q, {0: 0, 1: 1})

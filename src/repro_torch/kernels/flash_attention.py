@@ -13,7 +13,9 @@ instance ``MLA_HEAD_DIMS``); the scores are scaled by ``D ** -0.5``.
 
 :func:`flash_attention` dispatches by the device of ``q``: a CPU tensor
 runs the plain PyTorch version, a CUDA tensor launches the kernel or
-raises.  ``flash_attention.launches`` counts kernel launches.
+raises, a ``meta`` tensor (the cost walk's) is validated as a CUDA one and
+takes the meta case (``kernels.work``), which computes nothing.
+``flash_attention.launches`` counts kernel launches.
 
 :class:`FlashAttentionFn` is the differentiable form: its forward is
 :func:`flash_attention` (which also returns the per-row log-sum-exp), its
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 NEG_INF = -1.0e30
 NO_WINDOW = 2 ** 30     # matches models.stacks.NO_WINDOW: never masks
@@ -128,7 +130,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      return_lse=return_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, not "
                          f"{q.device.type}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
@@ -159,6 +161,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
             raise ValueError(f"{name} strides {t.stride()}: the head dim "
                              f"must be contiguous and the other strides "
                              f"multiples of {vec} elements")
+    if q.device.type == "meta":
+        return _flash_meta(q, k, v, causal, window, return_lse)
     out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
@@ -179,6 +183,28 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 flash_attention.launches = 0
 
 
+def _flash_meta(q, k, v, causal, window, return_lse):
+    """The meta case: keys and values gathered over their sequence and
+    head dims, q over its head dim; outputs in q's batch, sequence and head
+    placements; the local shards' work recorded."""
+    q = work.gather_dims(q, (3,))
+    k, v = (work.gather_dims(t, (1, 3)) for t in (k, v))
+    ql, kl = work.local(q), work.local(k)
+    B, Sq, H, D = ql.shape
+    S, Hkv, Dv = kl.shape[1], kl.shape[2], v.shape[3]
+    ops, n_bytes = work.flash_attention_work(
+        B, S, H, Hkv, D, Dv, causal=causal, window=window,
+        elem=q.element_size(), q_rows=Sq)
+    work.record("flash_attention", ops, n_bytes)
+    out = work.wrap_like(torch.empty((B, Sq, H, Dv), dtype=q.dtype,
+                                     device="meta"), q, {0: 0, 1: 1, 2: 2})
+    if not return_lse:
+        return out
+    lse = work.wrap_like(torch.empty((B, H, Sq), dtype=torch.float32,
+                                     device="meta"), q, {0: 0, 1: 2, 2: 1})
+    return out, lse
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable :func:`flash_attention`: the kernel (or, on the CPU,
     the plain version) forward; the plain chunked backward
@@ -196,6 +222,33 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward_plain(
-            q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window)
+        if work.is_dtensor(q):
+            return _backward_meta(ctx, q, k, v, dout)
+        with work.scope("flash_attention_backward"):
+            dq, dk, dv = flash_attention_backward_plain(
+                q, k, v, out, lse, dout, causal=ctx.causal,
+                window=ctx.window)
         return dq, dk, dv, None, None
+
+
+def _backward_meta(ctx, q, k, v, dout):
+    """The plain backward's meta case on ``DTensor``\\ s: walked on meta
+    tensors of one rank's shapes (q's local rows and heads, the keys
+    gathered as the forward's meta case gathers them, one key head a
+    local group), zeros returned in the inputs' placements."""
+    k_l = work.local(work.gather_dims(k, (1, 3)))
+    work.gather_dims(v, (1, 3))
+    B, S, H, D = work.local(work.gather_dims(q, (3,))).shape
+    Dv, f32 = v.shape[3], torch.float32
+    Hkv = max(1, H * k.shape[2] // q.shape[2])
+    with work.scope("flash_attention_backward"):
+        flash_attention_backward_plain(
+            work.empty(B, S, H, D, dtype=q.dtype),
+            work.empty(B, S, Hkv, D, dtype=k_l.dtype),
+            work.empty(B, S, Hkv, Dv, dtype=v.dtype),
+            work.empty(B, S, H, Dv, dtype=q.dtype),
+            work.empty(B, H, S, dtype=f32),
+            work.empty(B, S, H, Dv, dtype=dout.dtype),
+            causal=ctx.causal, window=ctx.window)
+    return work.zero_grads((q, k, v), ctx.needs_input_grad[:3]) \
+        + (None, None)

@@ -15,7 +15,9 @@ with ``r``/``k`` ``(B, S, H, N)``, ``v`` ``(B, S, H, hd)`` and ``log_w``
 state ``(B, H, N, hd)`` float32.
 
 :func:`mamba2_scan` dispatches by the device of ``r``: a CPU tensor runs the
-plain version, a CUDA tensor launches the kernels or raises.
+plain version, a CUDA tensor launches the kernels or raises, a ``meta``
+tensor (the cost walk's) is validated as a CUDA one and takes the meta
+case (``kernels.work``), which computes nothing.
 ``mamba2_scan.launches`` counts calls that launched them (one a call).
 
 :class:`Mamba2ScanFn` is the differentiable form that the model calls,
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels._recompute import plain_grads
 
 MAX_DIM = 128           # N and hd: the kernel's shared-memory sizing
@@ -57,7 +59,7 @@ def mamba2_scan(r, k, v, log_w):
     start from a zero state, as the TPU kernel does."""
     if r.device.type == "cpu":
         return mamba2_scan_plain(r, k, v, log_w)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"mamba2_scan takes CPU or CUDA tensors, not "
                          f"{r.device.type}")
     if r.dim() != 4 or k.shape != r.shape or v.dim() != 4 \
@@ -85,6 +87,8 @@ def mamba2_scan(r, k, v, log_w):
         if name != "log_w" and t.stride(-1) != 1:
             raise ValueError(f"{name} strides {t.stride()}: the last dim "
                              f"must be contiguous")
+    if r.device.type == "meta":
+        return _scan_meta(r, k, v, log_w)
     y = torch.empty((B, S, H, hd), dtype=v.dtype, device=r.device)
     state = torch.empty((B, H, N, hd), dtype=torch.float32, device=r.device)
     # the kernel's scratch (its size checked there): every chunk's (D, D)
@@ -107,6 +111,26 @@ def mamba2_scan(r, k, v, log_w):
 mamba2_scan.launches = 0
 
 
+def _scan_meta(r, k, v, log_w):
+    """The meta case: every input gathered over its sequence and last
+    dims; y and the state in v's batch and head placements; the local
+    shards' work recorded, r and k counted once a head when they are
+    broadcasts over the heads (stride 0), as the model passes them."""
+    shared = r.stride(2) == 0 and k.stride(2) == 0
+    r, k, v, log_w = (work.gather_dims(t, (1, 3))
+                      for t in (r, k, v, log_w))
+    B, S, H, hd = work.local(v).shape
+    N = r.shape[3]
+    work.record("mamba2_scan", *work.mamba2_scan_work(
+        B, S, H, N, hd, work.elem_name(r.dtype), work.elem_name(v.dtype),
+        shared=shared))
+    y = work.wrap_like(torch.empty((B, S, H, hd), dtype=v.dtype,
+                                   device="meta"), v, {0: 0, 2: 2})
+    state = work.wrap_like(torch.empty((B, H, N, hd), dtype=torch.float32,
+                                       device="meta"), v, {0: 0, 2: 1})
+    return y, state
+
+
 class Mamba2ScanFn(torch.autograd.Function):
     """Differentiable :func:`mamba2_scan`: ``apply(r, k, v, log_w) -> (y,
     state)``.  The forward is the kernel (the plain version on the CPU)
@@ -125,5 +149,23 @@ class Mamba2ScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        return plain_grads(mamba2_scan_plain, ctx.saved_tensors,
-                           ctx.needs_input_grad, (dy, dstate))
+        saved, needs = ctx.saved_tensors, ctx.needs_input_grad
+        if work.is_dtensor(saved[2]):
+            # the meta case: the recompute walked on one rank's shapes
+            r, k, v, _ = saved
+            shared = r.stride(2) == 0 and k.stride(2) == 0
+            gathered = [work.gather_dims(t, (1, 3)) for t in saved]
+            B, S, H, hd = work.local(gathered[2]).shape
+            N, f32 = r.shape[3], torch.float32
+            rk = [work.empty(B, S, 1 if shared else H, N, dtype=t.dtype)
+                  .expand(B, S, H, N) for t in (r, k)]
+            with work.scope("mamba2_scan_backward"):
+                plain_grads(mamba2_scan_plain, (
+                    *rk, work.empty(B, S, H, hd, dtype=v.dtype),
+                    work.empty(B, S, H, 1, dtype=f32)), needs, (
+                    None if dy is None else work.empty(B, S, H, hd,
+                                                       dtype=dy.dtype),
+                    None if dstate is None else work.empty(B, H, N, hd,
+                                                           dtype=f32)))
+            return work.zero_grads(saved, needs)
+        return plain_grads(mamba2_scan_plain, saved, needs, (dy, dstate))

@@ -15,7 +15,9 @@ with ``r``/``k``/``log_w`` ``(B, S, H, Dk)``, ``v`` ``(B, S, H, Dv)``, ``u``
 state ``(B, H, Dk, Dv)`` float32.
 
 :func:`rwkv6_scan` dispatches by the device of ``r``: a CPU tensor runs the
-plain version, a CUDA tensor launches the kernel or raises.
+plain version, a CUDA tensor launches the kernel or raises, a ``meta``
+tensor (the cost walk's) is validated as a CUDA one and takes the meta
+case (``kernels.work``), which computes nothing.
 ``rwkv6_scan.launches`` counts kernel launches.
 
 :class:`Rwkv6ScanFn` is the differentiable form that the model calls,
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels._recompute import plain_grads
 
 MAX_HEAD_DIM = 128      # the kernel's shared-memory sizing
@@ -56,7 +58,7 @@ def rwkv6_scan(r, k, v, log_w, u, *, initial_state=None):
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, log_w, u,
                                 initial_state=initial_state)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"rwkv6_scan takes CPU or CUDA tensors, not "
                          f"{r.device.type}")
     if initial_state is not None:
@@ -89,6 +91,8 @@ def rwkv6_scan(r, k, v, log_w, u, *, initial_state=None):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} strides {t.stride()}: the head dim "
                              f"must be contiguous")
+    if r.device.type == "meta":
+        return _scan_meta(r, k, v, log_w, u)
     u = u.contiguous()
     y = torch.empty((B, S, H, Dv), dtype=v.dtype, device=r.device)
     state = torch.empty((B, H, Dk, Dv), dtype=torch.float32,
@@ -114,6 +118,23 @@ def rwkv6_scan(r, k, v, log_w, u, *, initial_state=None):
 rwkv6_scan.launches = 0
 
 
+def _scan_meta(r, k, v, log_w, u):
+    """The meta case: every input gathered over its sequence and head
+    dims (and u over its key dim); y and the state in v's batch and head
+    placements; the local shards' work recorded."""
+    r, k, log_w, v = (work.gather_dims(t, (1, 3)) for t in (r, k, log_w, v))
+    u = work.gather_dims(u, (1,))
+    B, S, H, Dk = work.local(r).shape
+    Dv = v.shape[3]
+    work.record("rwkv6_scan", *work.rwkv6_scan_work(
+        B, S, H, Dk, Dv, work.elem_name(r.dtype), rkv_elem=r.element_size()))
+    y = work.wrap_like(torch.empty((B, S, H, Dv), dtype=v.dtype,
+                                   device="meta"), v, {0: 0, 2: 2})
+    state = work.wrap_like(torch.empty((B, H, Dk, Dv), dtype=torch.float32,
+                                       device="meta"), v, {0: 0, 2: 1})
+    return y, state
+
+
 class Rwkv6ScanFn(torch.autograd.Function):
     """Differentiable :func:`rwkv6_scan`: ``apply(r, k, v, log_w, u,
     initial_state=None) -> (y, state)``.  The forward is the kernel (the
@@ -133,5 +154,23 @@ class Rwkv6ScanFn(torch.autograd.Function):
         def plain(r, k, v, log_w, u, initial_state=None):
             return rwkv6_scan_plain(r, k, v, log_w, u,
                                     initial_state=initial_state)
-        return plain_grads(plain, ctx.saved_tensors, ctx.needs_input_grad,
-                           (dy, dstate))
+        saved, needs = ctx.saved_tensors, ctx.needs_input_grad
+        if work.is_dtensor(saved[0]):
+            # the meta case: the recompute walked on one rank's shapes
+            r, v = saved[0], saved[2]
+            gathered = [work.gather_dims(t, (1, 3)) for t in saved[:4]]
+            B, S, H, Dk = work.local(gathered[0]).shape
+            Dv, f32 = v.shape[3], torch.float32
+            with work.scope("rwkv6_scan_backward"):
+                plain_grads(plain, (
+                    work.empty(B, S, H, Dk, dtype=r.dtype),
+                    work.empty(B, S, H, Dk, dtype=saved[1].dtype),
+                    work.empty(B, S, H, Dv, dtype=v.dtype),
+                    work.empty(B, S, H, Dk, dtype=f32),
+                    work.empty(H, Dk, dtype=f32), None), needs, (
+                    None if dy is None else work.empty(B, S, H, Dv,
+                                                       dtype=dy.dtype),
+                    None if dstate is None else work.empty(B, H, Dk, Dv,
+                                                           dtype=f32)))
+            return work.zero_grads(saved, needs)
+        return plain_grads(plain, saved, needs, (dy, dstate))

@@ -14,13 +14,15 @@ Counterpart of ``repro/kernels/sampling.py``.
   does the port's.
 
 A CPU tensor runs the plain version, a CUDA tensor launches the kernel or
-raises.  Each wrapper's ``launches`` counts its kernel launches.
+raises, a ``meta`` tensor (the cost walk's) is validated as a CUDA one and
+takes the meta case (``kernels.work``), which computes nothing.  Each
+wrapper's ``launches`` counts its kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 NEG_INF = -1.0e30
 MAX_TOPK = 1024         # the kernel's shared-memory sizing
@@ -72,6 +74,14 @@ def greedy_sample(logits):
     :func:`greedy_cluster` CTAs."""
     if logits.device.type == "cpu":
         return greedy_sample_plain(logits)
+    if logits.device.type == "meta":
+        _check_logits(logits, "greedy_sample")
+        x = work.gather_dims(logits, (1,))
+        B, V = work.local(x).shape
+        work.record("greedy_sample", *work.greedy_sample_work(B, V))
+        return tuple(work.wrap_like(torch.empty((B,), dtype=dt,
+                                                device="meta"), x, {0: 0})
+                     for dt in (torch.int32, torch.float32))
     out = _greedy_launch(logits, greedy_cluster(logits.shape[0]))
     _build.count(greedy_sample)
     return out
@@ -79,12 +89,7 @@ def greedy_sample(logits):
 
 def _greedy_launch(logits, cluster: int):
     """One launch of the greedy kernel with ``cluster`` CTAs per row."""
-    if logits.device.type != "cuda":
-        raise ValueError(f"greedy_sample takes CPU or CUDA tensors, not "
-                         f"{logits.device.type}")
-    if logits.dim() != 2 or logits.dtype != torch.float32 \
-            or not logits.is_contiguous():
-        raise ValueError("logits must be contiguous (B, V) float32")
+    _check_logits(logits, "greedy_sample")
     B, V = logits.shape
     tokens = torch.empty((B,), dtype=torch.int32, device=logits.device)
     logprobs = torch.empty((B,), dtype=torch.float32, device=logits.device)
@@ -98,6 +103,17 @@ def _greedy_launch(logits, cluster: int):
 
 
 greedy_sample.launches = 0
+
+
+def _check_logits(logits, what: str) -> None:
+    """The kernels' checks of the logits: a CUDA (or meta) contiguous
+    ``(B, V)`` float32 tensor."""
+    if logits.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{what} takes CPU or CUDA tensors, not "
+                         f"{logits.device.type}")
+    if logits.dim() != 2 or logits.dtype != torch.float32 \
+            or not logits.is_contiguous():
+        raise ValueError("logits must be contiguous (B, V) float32")
 
 
 def topk_values_plain(logits, k: int):
@@ -123,15 +139,22 @@ def _check_k(logits, k: int) -> None:
 def _topk_launch(logits, k: int, with_mask: bool):
     """One launch of the top-k kernel: ``(values (B, k), mask (B, V) or
     None)``."""
-    if logits.device.type != "cuda":
-        raise ValueError(f"topk takes CPU or CUDA tensors, not "
-                         f"{logits.device.type}")
     _check_k(logits, k)
-    if logits.dtype != torch.float32 or not logits.is_contiguous():
-        raise ValueError("logits must be contiguous (B, V) float32")
+    _check_logits(logits, "topk")
     if k > MAX_TOPK:
         raise ValueError(f"the kernel takes k up to {MAX_TOPK}; got {k}")
     B, V = logits.shape
+    if logits.device.type == "meta":
+        x = work.gather_dims(logits, (1,))
+        B, V = work.local(x).shape
+        work.record("topk_mask" if with_mask else "topk_values",
+                    *work.topk_work(B, V, k, with_mask=with_mask))
+        top = work.wrap_like(torch.empty((B, k), dtype=torch.float32,
+                                         device="meta"), x, {0: 0})
+        mask = (work.wrap_like(torch.empty((B, V), dtype=torch.float32,
+                                           device="meta"), x, {0: 0})
+                if with_mask else None)
+        return top, mask
     top = torch.empty((B, k), dtype=torch.float32, device=logits.device)
     mask = (torch.empty((B, V), dtype=torch.float32, device=logits.device)
             if with_mask else None)
@@ -150,7 +173,8 @@ def topk_values(logits, k: int):
     if logits.device.type == "cpu":
         return topk_values_plain(logits, k)
     top, _ = _topk_launch(logits, k, with_mask=False)
-    _build.count(topk_values)
+    if logits.device.type == "cuda":        # not the meta case
+        _build.count(topk_values)
     return top
 
 
@@ -162,7 +186,8 @@ def topk_mask(logits, k: int):
     if logits.device.type == "cpu":
         return topk_mask_plain(logits, k)
     _, mask = _topk_launch(logits, k, with_mask=True)
-    _build.count(topk_mask)
+    if logits.device.type == "cuda":        # not the meta case
+        _build.count(topk_mask)
     return mask
 
 

@@ -1,4 +1,5 @@
-"""Serving driver: the continuous-batching engine on the port.
+"""Serving drivers: the continuous-batching engine (default), its elastic
+form, and the static batch on the port.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --kv paged --kv-dtype int8 --batch 8 --slots 4 --max-new 32
@@ -8,6 +9,8 @@
         --prefill-slots 2 --decode-slots 6    # split prefill/decode pools
     PYTHONPATH=src python -m repro_torch.launch.serve --engine elastic \
         --ladder 2,4,8 [--shed --deadline-s 2]   # closed-loop capacity
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine static \
+        --batch 8 --max-new 32                # one prefill, fixed decode
 
 ``--arch`` takes internlm2-1.8b, gemma3-4b (sliding-window layers),
 minitron-8b, qwen2.5-32b, qwen2-vl-7b (M-RoPE, vision embeddings),
@@ -42,7 +45,8 @@ import torch
 from repro_torch.data import tokenizer as tok
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.rl.rollout import run_requests
+from repro_torch.rl.rollout import (SamplerConfig, completions_to_text,
+                                    generate, run_requests)
 from repro_torch.serve.request import Request
 from repro_torch.serve.spec import RolloutSpec
 
@@ -61,6 +65,66 @@ def cli_frontend(cfg, prompt):
         return prompt, np.zeros((1, cfg.max_source_len, cfg.d_model),
                                 np.float32)
     return prompt, None
+
+
+def _encode_prompts(model, prompts_text, device):
+    """Text prompts -> ``(prompts, frontend)``: each prompt byte-encoded
+    with a BOS and padded to the longest (a ``(B, P)`` int32 numpy array,
+    as ``generate`` takes it), and a zero float32 frontend on ``device``
+    for a vlm ``(B, num_frontend_tokens, d)`` or an audio model ``(B,
+    max_source_len, d)``, else None, as the JAX package's static path
+    builds them."""
+    ids = [tok.encode(t, bos=True) for t in prompts_text]
+    prompts = tok.pad_batch(ids, max(len(i) for i in ids))
+    cfg, B = model.cfg, len(ids)
+    fr = None
+    if cfg.frontend == "vision":
+        fr = torch.zeros((B, cfg.num_frontend_tokens, cfg.d_model),
+                         device=device)
+    elif cfg.frontend == "audio":
+        fr = torch.zeros((B, cfg.max_source_len, cfg.d_model),
+                         device=device)
+    return prompts, fr
+
+
+def serve_batch(arch: str, prompts_text: list[str], *, reduced: bool = False,
+                max_new: int = 32, temperature: float = 0.8, seed: int = 0,
+                generator: torch.Generator | None = None, device=None,
+                model=None, params=None) -> dict:
+    """Static batch: one prefill of the whole batch (flash attention on the
+    card), then ``max_new`` decode steps of every row through
+    ``rl.rollout.generate`` (decode attention on the card; the greedy
+    kernel at temperature 0): every request pays ``max_new`` steps
+    whatever it samples.  Params default to the model's random init from a
+    ``torch.Generator`` seeded with ``seed``; sampling draws from
+    ``generator`` (default: another seeded with ``seed``), where the JAX
+    package takes a key.  ``device`` is the CUDA card unless
+    ``device="cpu"``; with no card and no device it raises.
+
+    Returns the JAX package's dict (``texts``, ``wall_s``, ``tokens``,
+    ``tok_per_s``) with ``completions``, ``logprobs`` and ``mask`` (``(B,
+    max_new)``, on the CPU) beside it."""
+    dev = resolve_device(device)
+    if model is None:
+        model = build_model(arch, reduced=reduced)
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    prompts, fr = _encode_prompts(model, prompts_text, dev)
+    sampler = SamplerConfig(max_new_tokens=max_new, temperature=temperature)
+    t0 = time.perf_counter()
+    out = generate(model, params, prompts, sampler, generator=generator,
+                   frontend=fr)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    comp, logp, mask = (out[k].cpu() for k in ("completions",
+                                               "behavior_logp", "mask"))
+    n_tok = int(mask.sum())
+    return {"texts": completions_to_text(comp, mask), "wall_s": dt,
+            "tokens": n_tok, "tok_per_s": n_tok / max(dt, 1e-9),
+            "completions": comp, "logprobs": logp, "mask": mask}
 
 
 def serve_continuous(arch: str, prompts, *, reduced: bool = False,
@@ -218,12 +282,15 @@ def serve_elastic(arch: str, prompts, *, reduced: bool = False,
 def _main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
-    ap.add_argument("--engine", choices=("continuous", "elastic"),
+    ap.add_argument("--engine", choices=("continuous", "static",
+                                         "elastic"),
                     default="continuous",
-                    help="continuous = a fixed slot pool; elastic = the "
-                         "continuous engine under the closed-loop capacity "
-                         "controller (serve.elastic), replaying a "
-                         "staggered arrival trace")
+                    help="continuous = a fixed slot pool; static = one "
+                         "batch: one prefill, then max-new decode steps of "
+                         "every row (rl.rollout.generate, temperature "
+                         "0.8); elastic = the continuous engine under the "
+                         "closed-loop capacity controller (serve.elastic), "
+                         "replaying a staggered arrival trace")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the smoke-test variant (2 layers, fp32)")
     ap.add_argument("--device", default=None,
@@ -319,6 +386,16 @@ def _main():
               f"{e['class_counts']}")
         for o, t in zip(res["outputs"], res["texts"]):
             print(f"  rid={o.rid} [{o.finish_reason}] -> {t!r}")
+        return
+    if args.engine == "static":
+        res = serve_batch(args.arch, texts, reduced=args.reduced,
+                          max_new=args.max_new, seed=args.seed,
+                          device=args.device)
+        print(f"[static] served {len(texts)} requests, {res['tokens']} "
+              f"tokens in {res['wall_s']:.2f}s ({res['tok_per_s']:.1f} "
+              f"tok/s)")
+        for p, t in zip(texts, res["texts"]):
+            print(f"  {p!r} -> {t!r}")
         return
     res = serve_continuous(
         args.arch, prompts, reduced=args.reduced, max_new=args.max_new,

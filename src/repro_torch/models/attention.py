@@ -106,8 +106,11 @@ def _blockwise_attention(q, k, v, q_pos, k_pos, *, causal, window, scale,
 
 
 def _is_arange(pos: torch.Tensor, n: int) -> bool:
-    return pos.shape == (n,) and bool(torch.equal(
-        pos, torch.arange(n, dtype=pos.dtype, device=pos.device)))
+    """``pos`` is ``arange(n)`` (on meta, where there are no values to
+    read: of its shape)."""
+    return pos.shape == (n,) and (pos.device.type == "meta" or bool(
+        torch.equal(pos, torch.arange(n, dtype=pos.dtype,
+                                      device=pos.device))))
 
 
 def multi_head_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
@@ -123,9 +126,10 @@ def multi_head_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     ``force_blockwise`` says.  CUDA tensors run the flash-attention kernel
     (differentiable through :class:`FlashAttentionFn`), which takes
     self-attention over positions ``0..S-1`` with the default scale; any
-    other call on the card raises rather than taking another path."""
+    other call on the card raises rather than taking another path.  Meta
+    tensors (the cost walk's) take the card's path."""
     Sq, Sk = q.shape[1], k.shape[1]
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         if not (Sq == Sk and _is_arange(q_pos, Sq)
                 and _is_arange(k_pos, Sk)):
             raise ValueError("on the card multi_head_attention takes self-"

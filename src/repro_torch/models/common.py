@@ -28,6 +28,18 @@ def torch_dtype(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # Inits (explicit generator; the generator's device is the params' device)
 # ---------------------------------------------------------------------------
+class AbstractGenerator(torch.Generator):
+    """A generator handle whose ``device`` is ``meta``.  Every init helper
+    allocates and draws on ``gen.device``, so an init given this handle
+    builds the parameter tree of shapes and dtypes as empty meta tensors
+    and draws nothing (``Model.init_abstract``): the same code path as a
+    real init, with no storage behind it."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def truncated_normal_init(gen: torch.Generator, shape, scale: float,
                           dtype: torch.dtype) -> torch.Tensor:
     """Fan-in scaled normal truncated at two standard deviations, drawn in

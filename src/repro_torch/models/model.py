@@ -1,7 +1,8 @@
 """Model facade: one object per architecture exposing init, the training
 forward, caches, prefill and the one-token decode steps (through the decode
 attention kernels for GQA stacks, MoE ones included; plain for rwkv6,
-zamba2 and deepseek-v2's MLA).
+zamba2 and deepseek-v2's MLA), plus the abstract parameters and inputs
+(``meta`` tensors) that the dry-run places on the production meshes.
 Counterpart of ``repro/models/model.py``."""
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.configs.shapes import InputShape
 from repro_torch.models import kvcache
+from repro_torch.models.common import AbstractGenerator
 from repro_torch.models.stacks import (stack_forward, stack_init,
                                       stack_specs)
 from repro_torch.models.stacks_infer import (kernel_supported,
@@ -27,6 +30,12 @@ class Model:
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters on the generator's device."""
         return stack_init(generator, self.cfg)
+
+    def init_abstract(self) -> dict:
+        """:meth:`init`'s tree with the same shapes and dtypes as empty
+        ``meta`` tensors; nothing is drawn (the init run on an
+        :class:`~repro_torch.models.common.AbstractGenerator`)."""
+        return stack_init(AbstractGenerator(), self.cfg)
 
     def logical_specs(self) -> dict:
         """:meth:`init`'s tree with each leaf's logical axes; a layer group
@@ -98,6 +107,44 @@ class Model:
         slot's MoE rows routed alone (the serving pool's semantics)."""
         return stack_kernel_decode_step(params, self.cfg, token, cache,
                                         tables=tables)
+
+    def input_specs(self, shape: InputShape) -> dict:
+        """``meta`` stand-ins for every model input of this shape, with the
+        JAX package's names, shapes and dtypes:
+
+        train   -> {tokens, labels, loss_mask, advantages [, frontend]}
+        prefill -> {tokens [, frontend]}
+        decode  -> {token, cache}
+
+        ``frontend`` is a vlm's ``(B, num_frontend_tokens, d)`` or an audio
+        model's ``(B, max_source_len, d)`` float32 embeddings; the decode
+        cache is :meth:`init_cache` on ``meta``, a ring cache for
+        ``long_500k`` on a config with a sliding window."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def sds(size, dtype):
+            return torch.empty(size, dtype=dtype, device="meta")
+        i32, f32 = torch.int32, torch.float32
+        front = {}
+        if cfg.frontend == "vision":
+            front["frontend"] = sds((B, cfg.num_frontend_tokens,
+                                     cfg.d_model), f32)
+        elif cfg.frontend == "audio":
+            front["frontend"] = sds((B, cfg.max_source_len, cfg.d_model),
+                                    f32)
+        if shape.kind == "train":
+            return {"tokens": sds((B, S), i32), "labels": sds((B, S), i32),
+                    "loss_mask": sds((B, S), f32),
+                    "advantages": sds((B, S), f32)} | front
+        if shape.kind == "prefill":
+            return {"tokens": sds((B, S), i32)} | front
+        if shape.kind == "decode":
+            ring = shape.name == "long_500k" and bool(cfg.sliding_window)
+            return {"token": sds((B, 1), i32),
+                    "cache": self.init_cache(B, S, ring=ring,
+                                             device="meta")}
+        raise ValueError(shape.kind)
 
 
 def build_model(arch: str | ModelConfig, *, reduced: bool = False) -> Model:

@@ -47,8 +47,9 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
     def experts(n_in, n_out):
         w = torch.empty((E, n_in, n_out), dtype=dt, device=gen.device)
-        for e in range(E):
-            w[e] = dense_init(gen, n_in, (n_out,), dt)
+        if w.device.type != "meta":     # an abstract init draws nothing
+            for e in range(E):
+                w[e] = dense_init(gen, n_in, (n_out,), dt)
         return w
 
     p = {"router": dense_init(gen, d, (E,), torch.float32),

@@ -65,8 +65,8 @@ def make_train_step(model, opt_cfg: AdamWConfig = AdamWConfig(), *,
         if microbatches <= 1:
             metrics, grads = _value_and_grad(loss_fn, params, batch)
         else:
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device), params)
+            gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                            params)
             for i in range(microbatches):
                 size = next(iter(batch.values())).shape[0] // microbatches
                 mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}

@@ -23,7 +23,8 @@ process groups, and its base :class:`RecordingComm` only logs each one's
 bytes.  :func:`sync_collective_bytes` runs the very sync functions once a
 rank on ``meta`` tensors through the recording seam, the counterpart of
 the reference's ``lower_sync`` and its HLO walk, so that counting a 65.5
-GB model costs nothing.
+GB model costs nothing; ``lower_sync`` itself, which lowers a sync to
+HLO, has no port.
 """
 from __future__ import annotations
 

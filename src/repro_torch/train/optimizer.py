@@ -25,12 +25,17 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels.work import is_dtensor
+
 SLICE = 1 << 26      # elements of a leaf's slice in the norm and the update
 
 
 def _slices(*ts):
     """Matching flat slices of at most SLICE elements of contiguous tensors
-    of one shape (in-place views)."""
+    of one shape (in-place views); of ``DTensor``\\ s (the dry-run's
+    sharded state, all in one placement), of their local shards: the
+    update is elementwise."""
+    ts = [t.to_local() if is_dtensor(t) else t for t in ts]
     flat = [t.view(-1) for t in ts]
     return [tuple(f[a:a + SLICE] for f in flat)
             for a in range(0, flat[0].numel(), SLICE)]
@@ -70,11 +75,18 @@ def adamw_init(params, cfg: AdamWConfig = AdamWConfig()) -> dict:
     dt = getattr(torch, cfg.moment_dtype)
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros_like(p, dtype=dt)
     step = torch.zeros((), dtype=torch.int32,
                        device=tree_leaves(params)[0].device)
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "step": step}
+
+
+def adamw_opt_specs(param_specs) -> dict:
+    """Logical specs for the optimizer state, mirroring the params tree:
+    :func:`adamw_init`'s ``mu`` and ``nu`` take the parameters' specs (a
+    moment is sharded as its parameter is), the scalar ``step`` none."""
+    return {"mu": param_specs, "nu": param_specs, "step": ()}
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -82,6 +94,9 @@ def global_norm(tree) -> torch.Tensor:
     leaf summed a slice at a time)."""
     total = 0
     for x in tree_leaves(tree):
+        if is_dtensor(x):      # a sharded leaf: DTensor sums the shards
+            total = total + x.float().square().sum()
+            continue
         for (s,) in _slices(x.contiguous()):
             total = total + s.float().square().sum()
     return torch.sqrt(total)
@@ -98,14 +113,20 @@ def adamw_update(grads, opt, params, cfg: AdamWConfig,
     scale = None
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+        if is_dtensor(scale):      # replicated: every shard's factor
+            scale = scale.full_tensor()
     lr = cfg.lr if lr_schedule is None else lr_schedule(step)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.float()
+    if is_dtensor(stepf):          # replicated: every shard's count
+        stepf = stepf.full_tensor()
     bc1 = 1.0 - torch.pow(torch.tensor(b1, device=stepf.device), stepf)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, device=stepf.device), stepf)
     for leaf in zip(tree_leaves(params), tree_leaves(grads),
                     tree_leaves(opt["mu"]), tree_leaves(opt["nu"])):
         p0, g0 = leaf[:2]
+        if is_dtensor(g0) and g0.placements != p0.placements:
+            g0 = g0.redistribute(p0.device_mesh, p0.placements)
         for p, g, m, v in _slices(p0, g0.contiguous(), *leaf[2:]):
             g = g.to(m.dtype)
             if scale is not None:

@@ -1,0 +1,7 @@
+"""The share of the traced span (the job's last train phase in the
+window) in which no operation ran on the device, in percent."""
+from rlbench.harness.readers import idle_share
+
+
+def read(obs):
+    return idle_share(obs)

@@ -365,8 +365,8 @@ Phases, in order; any failure exits non-zero:
              per train step).  Prints each run's rollout and train busy
              time, overlap, back-to-back bubble and reclaimed fraction,
              ms per decode step and its engines' CUDA graph captures; for
-             coexec the pinned bytes, each phase's switch time and the
-             peak device memory; for stream the reward pool's timeline.
+             coexec the pinned bytes, each phase's runs and run time and
+             the peak device memory; for stream the reward pool's timeline.
 7. serve-rwkv6 — internlm2's weights freed, rwkv6-7b at full width (32
              layers, d_model 4096, 64 heads of 64, vocab 65536) in bf16 with
              seeded random weights: the same 16 prompt lengths, 8 slots, 128
@@ -5017,8 +5017,8 @@ def phase_mux(torch, dev, model, init_params):
                 c["pinned"] for c in offs):
             raise AssertionError(f"mux coexec: offloads of {key} did not "
                                  f"reuse one pinned buffer")
-    switch = {k: {"switch_time": st.switch_time, "run_time": st.run_time,
-                  "runs": st.runs, "warm_starts": st.warm_starts}
+    phases = {k: {"run_time": st.run_time, "runs": st.runs,
+                  "warm_starts": st.warm_starts}
               for k, st in sorted(rt.stats.items())}
     summary = copy_summary(copies)
     firsts = {}
@@ -5041,9 +5041,8 @@ def phase_mux(torch, dev, model, init_params):
           f"first buffer ({len(reuse)} keys), peak device memory "
           f"{peak / 2 ** 30:.2f} GiB; job0 iteration 0 identical to the "
           f"sequential run's; per phase "
-          + "; ".join(f"{k}: switch {v['switch_time']:.3f}s in "
-                      f"{v['runs']} runs, run {v['run_time']:.3f}s"
-                      for k, v in switch.items()))
+          + "; ".join(f"{k}: {v['runs']} runs, run {v['run_time']:.3f}s"
+                      for k, v in phases.items()))
     for k, v in summary.items():
         print(f"[mux] coexec {k}: {v['n']} copies of {v['bytes']} bytes, "
               f"mean {v['mean_s']:.4f}s (max {v['max_s']:.4f}s), "
@@ -5053,7 +5052,7 @@ def phase_mux(torch, dev, model, init_params):
                              launches=c_co, graph=g_co,
                              host_cache_bytes=cache_bytes,
                              host_mem_available=[mem_before, mem_after],
-                             max_memory_allocated=peak, phases=switch,
+                             max_memory_allocated=peak, phases=phases,
                              copies=copies, copy_summary=summary,
                              offload_host_s=rt.cache.offload_s,
                              allocator=allocs,

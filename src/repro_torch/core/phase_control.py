@@ -25,6 +25,13 @@ stream on the card, and so for the other thread's phase.  Tensors that
 cross from one stream to another go through :func:`hand_over` and
 :func:`take_over`.  :meth:`PhaseProfile.to_job` turns a measured profile
 into the planner's ``RLJob`` (``core/job.py``).
+
+With span recording on (``core.telemetry``), :meth:`RollMuxRuntime.phase`
+and :meth:`RollMuxRuntime.permit` each record a ``phase`` span, from the
+permit request to its release, carrying the job id (every span beneath it
+inherits it) and the phase's name as its ``kind``; its ``permit.wait``
+child ends when the permit is granted, and a cold start is an ``init``
+span.
 """
 from __future__ import annotations
 
@@ -38,9 +45,12 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.core.job import RLJob
 from repro_torch.core.telemetry import MetricsSnapshot
-from repro_torch.train.checkpoints import HostStateCache
+# the module, not the class: the cache records spans, so importing it first
+# imports this module while it is still loading
+from repro_torch.train import checkpoints
 from repro_torch.train.optimizer import tree_leaves
 
 
@@ -156,7 +166,6 @@ class PhaseStats:
     runs: int = 0
     warm_starts: int = 0
     cold_starts: int = 0
-    switch_time: float = 0.0
     run_time: float = 0.0
     wait_time: float = 0.0
 
@@ -256,7 +265,7 @@ class RollMuxRuntime:
 
     def __init__(self, host_cache_gb: float = 64.0):
         self.pools: dict[str, PermitPool] = {}
-        self.cache = HostStateCache(int(host_cache_gb * 2**30))
+        self.cache = checkpoints.HostStateCache(int(host_cache_gb * 2**30))
         self.stats: dict[str, PhaseStats] = {}
         self.hooks: list[Callable[[str, str, str], None]] = []
         self._t0 = time.perf_counter()
@@ -306,39 +315,40 @@ class RollMuxRuntime:
             def wrapped(job_id: str, *args, **kwargs):
                 key = f"{job_id}/{pool}"
                 st = self.stats.setdefault(f"{job_id}:{pname}", PhaseStats())
-                t_req = time.perf_counter()
-                p = self.pool(pool)
-                p.acquire()                       # run permit (intra-group FIFO)
-                try:
-                    t_start = time.perf_counter()
-                    st.wait_time += t_start - t_req
-                    self._emit(job_id, pname, "start")
-                    state, sw = self.cache.restore(key)
-                    if state is None:             # cold start
-                        t0 = time.perf_counter()
-                        if init_fn is None:
-                            raise RuntimeError(
-                                f"no cached state and no init_fn for {key}")
-                        state = init_fn()
-                        sw = time.perf_counter() - t0
-                        st.cold_starts += 1
-                    else:
-                        st.warm_starts += 1
-                    st.switch_time += sw
-                    state, out = fn(state, *args, **kwargs)
-                    # suspend: data plane out; returns once the copy, and so
-                    # the phase's work on this stream, has completed
-                    self.cache.offload(key, state)
-                    t_end = time.perf_counter()
-                    st.run_time += t_end - t_start
-                    st.runs += 1
-                    p.timeline.append((f"{job_id}:{pname}", t_start - self._t0,
-                                       t_end - self._t0))
-                    p.busy_time += t_end - t_start
-                    self._emit(job_id, pname, "end")
-                    return out
-                finally:
-                    p.release()
+                with telemetry.span("phase", job=job_id, kind=pname):
+                    t_req = time.perf_counter()
+                    p = self.pool(pool)
+                    with telemetry.span("permit.wait"):
+                        p.acquire()               # run permit (intra-group FIFO)
+                    try:
+                        t_start = time.perf_counter()
+                        st.wait_time += t_start - t_req
+                        self._emit(job_id, pname, "start")
+                        state, _ = self.cache.restore(key)
+                        if state is None:         # cold start
+                            if init_fn is None:
+                                raise RuntimeError(
+                                    f"no cached state and no init_fn for {key}")
+                            with telemetry.span("init"):
+                                state = init_fn()
+                            st.cold_starts += 1
+                        else:
+                            st.warm_starts += 1
+                        state, out = fn(state, *args, **kwargs)
+                        # suspend: data plane out; returns once the copy, and
+                        # so the phase's work on this stream, has completed
+                        self.cache.offload(key, state)
+                        t_end = time.perf_counter()
+                        st.run_time += t_end - t_start
+                        st.runs += 1
+                        p.timeline.append((f"{job_id}:{pname}",
+                                           t_start - self._t0,
+                                           t_end - self._t0))
+                        p.busy_time += t_end - t_start
+                        self._emit(job_id, pname, "end")
+                        return out
+                    finally:
+                        p.release()
 
             wrapped.pool_name = pool
             wrapped.phase_name = pname
@@ -354,15 +364,17 @@ class RollMuxRuntime:
         single-job trainer, where params are handed over directly instead
         of through the actor cache)."""
         p = self.pool(pool, capacity)
-        p.acquire()
-        t_start = time.perf_counter()
-        try:
-            yield p
-        finally:
-            t_end = time.perf_counter()
-            p.timeline.append((who, t_start - self._t0, t_end - self._t0))
-            p.busy_time += t_end - t_start
-            p.release()
+        with telemetry.phase_span(who):
+            with telemetry.span("permit.wait"):
+                p.acquire()
+            t_start = time.perf_counter()
+            try:
+                yield p
+            finally:
+                t_end = time.perf_counter()
+                p.timeline.append((who, t_start - self._t0, t_end - self._t0))
+                p.busy_time += t_end - t_start
+                p.release()
 
     def seed_state(self, job_id: str, pool: str, state) -> None:
         """Pre-populate the actor cache (Init phase of the dependency graph)."""

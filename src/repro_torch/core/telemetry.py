@@ -1,5 +1,5 @@
 """Unified telemetry: one typed, mergeable snapshot of every metrics
-surface in the stack.
+surface in the stack, and the spans the program records while it runs.
 
 :class:`MetricsSnapshot` is the one shape a component reports its health
 in.  Snapshots from different components merge
@@ -10,11 +10,33 @@ fields union.
 Counterpart of ``repro/core/telemetry.py``.  In the port only
 ``RollMuxRuntime.metrics()`` produces snapshots so far; the engine's
 ``metrics()`` comes with its trace replay (ROADMAP).
+
+*Spans* are the port's own (the JAX package has none): named intervals of
+a GRPO iteration's layers, recorded in memory while recording is on
+(:func:`set_recording`) and taken with :func:`take_spans`.  Each holds its
+name, job id, request id, parent span, start and end
+(``time.perf_counter_ns``, the clock of ``PermitPool.timeline``) and
+optional ``bytes``, ``kind`` and ``device_s``.  A thread-local stack gives
+each span its parent, so threads never adopt each other's spans; a span
+without a job id takes its parent's (``RollMuxRuntime.phase`` and
+``permit`` open a ``phase`` span carrying one).  A span given a
+``device`` records a CUDA event on that device's current stream at each
+end, resolved to ``device_s`` by :func:`take_spans`, never while the
+program runs.  With recording off every site gets the one shared
+:data:`NO_SPAN` after one check of a module-level flag, and records
+nothing.  Sites stay out of anything a CUDA graph captures: an event
+recorded there would be captured into the graph.
 """
 from __future__ import annotations
 
+import itertools
+import threading
+import time
 import warnings
 from dataclasses import dataclass, field, fields
+from typing import Optional
+
+import torch
 
 
 def warn_legacy_once(flag: list, message: str) -> None:
@@ -179,3 +201,186 @@ class MetricsSnapshot:
                  slot_utilization=self.slot_utilization,
                  kv_block_utilization=self.kv_block_utilization)
         return d
+
+
+# ---------------------------------------------------------------------------
+# Spans
+# ---------------------------------------------------------------------------
+_recording = False
+_finished: list = []              # spans stopped and not yet taken
+_lock = threading.Lock()
+_ids = itertools.count(1)
+_local = threading.local()
+
+
+@dataclass(frozen=True)
+class SpanRecord:
+    """One finished span.  ``id`` is unique in the process, ``parent`` the
+    id of the span open beneath it on the same thread (None at the top)
+    and ``thread`` that thread's ident; ``t0_ns``, ``t1_ns`` are
+    ``time.perf_counter_ns`` readings."""
+    name: str
+    job: Optional[str]
+    rid: Optional[int]
+    id: int
+    parent: Optional[int]
+    thread: int
+    t0_ns: int
+    t1_ns: int
+    bytes: Optional[int] = None
+    kind: Optional[str] = None
+    device_s: Optional[float] = None
+
+    @property
+    def seconds(self) -> float:
+        return (self.t1_ns - self.t0_ns) / 1e9
+
+
+def _stack() -> list:
+    st = getattr(_local, "stack", None)
+    if st is None:
+        st = _local.stack = []
+    return st
+
+
+def _event(device):
+    """A timing event recorded on the current stream of ``device`` (a
+    ``torch.device`` or a tensor on it), or None off the card."""
+    if isinstance(device, torch.Tensor):
+        device = device.device
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+class Span:
+    """A span being recorded: ``with span(...)``, or :meth:`start` and
+    :meth:`stop` given the clock readings a caller made itself."""
+    __slots__ = ("name", "job", "rid", "kind", "nbytes", "device", "id",
+                 "parent", "thread", "t0", "t1", "ev0", "ev1", "dropped")
+
+    def __init__(self, name, job, rid, kind, device):
+        self.name, self.job, self.rid, self.kind = name, job, rid, kind
+        self.device = device
+        self.nbytes = self.ev0 = self.ev1 = None
+        self.dropped = False
+
+    def start(self, t0_ns: Optional[int] = None) -> "Span":
+        stack = _stack()
+        parent = stack[-1] if stack else None
+        self.parent = None if parent is None else parent.id
+        if self.job is None and parent is not None:
+            self.job = parent.job
+        self.id = next(_ids)
+        self.thread = threading.get_ident()
+        self.t0 = time.perf_counter_ns() if t0_ns is None else t0_ns
+        if self.device is not None:
+            self.ev0 = _event(self.device)
+        stack.append(self)
+        return self
+
+    def stop(self, t1_ns: Optional[int] = None) -> None:
+        """End the span (and any span still open above it on this thread,
+        which an exception left behind: those are not recorded)."""
+        self.t1 = time.perf_counter_ns() if t1_ns is None else t1_ns
+        if self.device is not None and self.ev0 is not None:
+            self.ev1 = _event(self.device)
+        stack = _stack()
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i] is self:
+                del stack[i:]
+                break
+        if not self.dropped:
+            with _lock:
+                _finished.append(self)
+
+    def note(self, nbytes: Optional[int] = None, start=None, end=None):
+        """Attach the bytes the span moved and the CUDA events around its
+        device work, where the caller recorded them itself."""
+        if nbytes is not None:
+            self.nbytes = nbytes
+        if start is not None:
+            self.ev0, self.ev1 = start, end
+
+    def discard(self) -> None:
+        """Record nothing when the span stops."""
+        self.dropped = True
+
+    def __enter__(self) -> "Span":
+        return self.start()
+
+    def __exit__(self, *exc) -> bool:
+        self.stop()
+        return False
+
+
+class _NoSpan:
+    """What every site gets with recording off: does nothing."""
+    __slots__ = ()
+
+    def start(self, t0_ns=None):
+        return self
+
+    def stop(self, t1_ns=None):
+        pass
+
+    def note(self, nbytes=None, start=None, end=None):
+        pass
+
+    def discard(self):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+def span(name: str, *, job: Optional[str] = None, rid: Optional[int] = None,
+         kind: Optional[str] = None, device=None):
+    """A span named ``name`` (:data:`NO_SPAN` with recording off).
+    ``device`` (a ``torch.device`` or a tensor on it) asks for the span's
+    device seconds: a CUDA event at each end, on the current stream."""
+    if not _recording:
+        return NO_SPAN
+    return Span(name, job, rid, kind, device)
+
+
+def phase_span(who: str):
+    """The ``phase`` span of a run permit labelled ``job:phase``, as the
+    pool timelines label it."""
+    if not _recording:
+        return NO_SPAN
+    job, _, kind = who.partition(":")
+    return Span("phase", job, None, kind or None, None)
+
+
+def set_recording(on: bool) -> None:
+    """Turn span recording on or off (off at import)."""
+    global _recording
+    _recording = bool(on)
+
+
+def take_spans() -> list[SpanRecord]:
+    """Every span finished since the last take, in the order they ended,
+    their device seconds resolved (waiting for their end events); the
+    recorder keeps none of them."""
+    global _finished
+    with _lock:
+        spans, _finished = _finished, []
+    out = []
+    for s in spans:
+        device_s = None
+        if s.ev0 is not None and s.ev1 is not None:
+            s.ev1.synchronize()
+            device_s = s.ev0.elapsed_time(s.ev1) / 1e3
+        out.append(SpanRecord(s.name, s.job, s.rid, s.id, s.parent,
+                              s.thread, s.t0, s.t1, s.nbytes, s.kind,
+                              device_s))
+    return out

@@ -29,6 +29,13 @@ through ``hand_over``/``take_over``.  The port's AdamW updates the weights
 in place, where the JAX package makes new arrays: wherever a rollout may
 run while the optimizer steps, it is handed a snapshot of the weights (a
 clone on the train stream), never the live tensors.
+
+With span recording on (``core.telemetry``) a job's rollout is a
+``rollout`` span (the engine's spans, ``rollout.pack`` and
+``rollout.sync`` beneath it), its train phase a ``train`` span
+(``train.reward``, ``train.batch``, the train step's ``train.forward``,
+``train.backward`` and ``train.adamw``, ``train.sync``), and
+:func:`run_coexec`'s weight sync a ``sync`` span around its offload.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.core.phase_control import (PhaseProfile, PhaseStreams,
                                             RollMuxRuntime, hand_over,
                                             sync_current_stream, take_over)
@@ -241,17 +249,19 @@ class GRPOJob:
         """Generate completions for iteration ``k`` with weights ``params``.
         Returns ``(task_batch, rollout_out)``; waits for this phase's stream
         so permit timelines measure real phase time."""
-        b = self.task.sample_batch(self.batch)
-        prompts = np.repeat(b.prompts, self.group, axis=0)
-        if self.rollout == "static":
-            out = generate(self.model, params, prompts, self.sampler,
-                           generator=self.generator)
-        else:
-            with torch.no_grad(), self._serving(params, prompts) as eng:
-                out = generate_continuous(self.model, params, prompts,
-                                          self.sampler, engine=eng,
-                                          spec=self.spec)
-        self._sync()
+        with telemetry.span("rollout"):
+            b = self.task.sample_batch(self.batch)
+            prompts = np.repeat(b.prompts, self.group, axis=0)
+            if self.rollout == "static":
+                out = generate(self.model, params, prompts, self.sampler,
+                               generator=self.generator)
+            else:
+                with torch.no_grad(), self._serving(params, prompts) as eng:
+                    out = generate_continuous(self.model, params, prompts,
+                                              self.sampler, engine=eng,
+                                              spec=self.spec)
+            with telemetry.span("rollout.sync"):
+                self._sync()
         return b, out
 
     def rollout_stream(self, params, k: int, on_group, on_batch=None,
@@ -317,23 +327,27 @@ class GRPOJob:
         metrics the history records (the JAX package's, plus the step's
         ``grad_norm`` and, when ``out`` carries ``engine_stats``, the
         rollout's ``prefills``, ``prefix_hits`` and ``decode_steps``)."""
-        if rewards is None:
-            rewards = self.compute_rewards(b, out)
-        adv = group_advantages(rewards, self.group)
-        tb = build_train_batch(out, adv, b.prompts.shape[1])
-        state, metrics = self._train_step(state, tb)
-        self._sync()
-        rec = {"reward": float(rewards.mean()),
-               "acc": float((rewards >= 1.0).mean()),
-               "loss": float(metrics["loss"]),
-               "entropy": float(metrics["entropy"]),
-               "clip_frac": float(metrics["clip_frac"]),
-               "ratio_mean": float(metrics["ratio_mean"]),
-               "ratio_max": float(metrics["ratio_max"]),
-               "grad_norm": float(metrics["grad_norm"]),
-               "tokens": int(out["mask"].sum())}
-        if "engine_stats" in out:
-            rec.update(_rollout_counts(out["engine_stats"]))
+        with telemetry.span("train"):
+            with telemetry.span("train.reward"):
+                if rewards is None:
+                    rewards = self.compute_rewards(b, out)
+                adv = group_advantages(rewards, self.group)
+            with telemetry.span("train.batch"):
+                tb = build_train_batch(out, adv, b.prompts.shape[1])
+            state, metrics = self._train_step(state, tb)
+            with telemetry.span("train.sync"):
+                self._sync()
+            rec = {"reward": float(rewards.mean()),
+                   "acc": float((rewards >= 1.0).mean()),
+                   "loss": float(metrics["loss"]),
+                   "entropy": float(metrics["entropy"]),
+                   "clip_frac": float(metrics["clip_frac"]),
+                   "ratio_mean": float(metrics["ratio_mean"]),
+                   "ratio_max": float(metrics["ratio_max"]),
+                   "grad_norm": float(metrics["grad_norm"]),
+                   "tokens": int(out["mask"].sum())}
+            if "engine_stats" in out:
+                rec.update(_rollout_counts(out["engine_stats"]))
         return state, rec
 
 
@@ -644,8 +658,9 @@ def run_coexec(jobs: list[GRPOJob], *, host_cache_gb: float = 8.0,
                         new_params, rec = train(jid, b, out)
                         # weight sync: trained params -> this job's
                         # rollout entry of the actor cache
-                        rt.cache.offload(f"{jid}/rollout",
-                                         {"params": new_params})
+                        with telemetry.span("sync", job=jid):
+                            rt.cache.offload(f"{jid}/rollout",
+                                             {"params": new_params})
                     del out, new_params
                     rec = {"step": k, **rec, "rollout_staleness": 0}
                     histories[jid].append(rec)

@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.data import tokenizer as tok
 from repro_torch.device import resolve_device
 from repro_torch.serve.engine import Engine, sample_logp
@@ -219,20 +220,21 @@ def generate_continuous(model, params, prompts, sampler: SamplerConfig, *,
         generator=generator, device=device, spec=spec, policy=policy,
         frontend=frontend)
     outs = run_requests(engine, pending)
-    completions, behavior_logp, mask, token_versions = _pack(
-        outs, B, T, sampler.eos_id, lambda o: o.rid)
-    dev = engine.device
-    prompts_t = torch.from_numpy(prompts_np).to(dev)
-    completions_t = torch.from_numpy(completions).to(dev)
-    return {
-        "prompts": prompts_t,
-        "completions": completions_t,
-        "tokens": torch.cat([prompts_t, completions_t], dim=1),
-        "behavior_logp": torch.from_numpy(behavior_logp).to(dev),
-        "mask": torch.from_numpy(mask).to(dev),
-        "token_versions": token_versions,
-        "engine_stats": engine.metrics(),
-    }
+    with telemetry.span("rollout.pack"):
+        completions, behavior_logp, mask, token_versions = _pack(
+            outs, B, T, sampler.eos_id, lambda o: o.rid)
+        dev = engine.device
+        prompts_t = torch.from_numpy(prompts_np).to(dev)
+        completions_t = torch.from_numpy(completions).to(dev)
+        return {
+            "prompts": prompts_t,
+            "completions": completions_t,
+            "tokens": torch.cat([prompts_t, completions_t], dim=1),
+            "behavior_logp": torch.from_numpy(behavior_logp).to(dev),
+            "mask": torch.from_numpy(mask).to(dev),
+            "token_versions": token_versions,
+            "engine_stats": engine.metrics(),
+        }
 
 
 def generate_continuous_stream(model, params, prompts,

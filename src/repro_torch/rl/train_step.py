@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.rl.grpo import policy_gradient_loss
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
                                          adamw_update, tree_leaves, tree_map)
@@ -41,9 +42,12 @@ def _value_and_grad(loss_fn, params, batch):
     """(metrics, detached) and the gradients, a tree like ``params`` in the
     parameters' dtypes."""
     train = tree_map(lambda t: t.detach().requires_grad_(), params)
-    loss, metrics = loss_fn(train, batch)
+    with telemetry.span("train.forward", device=batch["tokens"]):
+        loss, metrics = loss_fn(train, batch)
     leaves = tree_leaves(train)
-    by_leaf = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+    with telemetry.span("train.backward", device=batch["tokens"]):
+        grads = torch.autograd.grad(loss, leaves)
+    by_leaf = dict(zip(map(id, leaves), grads))
     return ({k: v.detach() for k, v in metrics.items()},
             tree_map(lambda t: by_leaf[id(t)], train))
 
@@ -75,8 +79,9 @@ def make_train_step(model, opt_cfg: AdamWConfig = AdamWConfig(), *,
                     acc.add_(gi)
                 del g
             grads = tree_map(lambda g: g / microbatches, gsum)
-        _, _, opt_metrics = adamw_update(grads, state["opt"], params,
-                                         opt_cfg, lr_schedule)
+        with telemetry.span("train.adamw", device=batch["tokens"]):
+            _, _, opt_metrics = adamw_update(grads, state["opt"], params,
+                                             opt_cfg, lr_schedule)
         return state, metrics | opt_metrics
 
     return train_step

@@ -83,6 +83,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.core.telemetry import MetricsSnapshot, warn_legacy_once
 from repro_torch.data import tokenizer as tok
 from repro_torch.device import resolve_device
@@ -606,25 +607,27 @@ class Engine:
         if m is not None and m.exact:
             slot = self._admit_shared_exact(req, m)
         else:
-            logits, one = _prefill(self.model, self.params, req,
-                                   self.config.max_seq_len, self.device)
-            if not self.paged:
-                slot = self.slots.assign(req.rid)
-                insert_cache(self.slots.cache, one, slot)
-            else:
-                if m is not None:
-                    self.radix.touch(m)
-                    slot = self.slots.assign_shared(
-                        req.rid, prompt_len=req.prompt_len,
-                        total_budget=req.total_budget,
-                        shared_ids=m.block_ids)
-                    self._stats.prefix_partial_hits += 1
+            with telemetry.span("engine.prefill", rid=req.rid,
+                                device=self.device):
+                logits, one = _prefill(self.model, self.params, req,
+                                       self.config.max_seq_len, self.device)
+                if not self.paged:
+                    slot = self.slots.assign(req.rid)
+                    insert_cache(self.slots.cache, one, slot)
                 else:
-                    slot = self.slots.assign(req.rid,
-                                             prompt_len=req.prompt_len,
-                                             total_budget=req.total_budget)
-                self.slots.insert_prompt(slot, one, shared)
-            self._last_logits[slot] = logits
+                    if m is not None:
+                        self.radix.touch(m)
+                        slot = self.slots.assign_shared(
+                            req.rid, prompt_len=req.prompt_len,
+                            total_budget=req.total_budget,
+                            shared_ids=m.block_ids)
+                        self._stats.prefix_partial_hits += 1
+                    else:
+                        slot = self.slots.assign(
+                            req.rid, prompt_len=req.prompt_len,
+                            total_budget=req.total_budget)
+                    self.slots.insert_prompt(slot, one, shared)
+                self._last_logits[slot] = logits
             if self.radix is not None:
                 self._register_prefix(req, slot)
         self._alive[slot] = True
@@ -750,7 +753,8 @@ class Engine:
             return None
         key = self._graph_key()
         if self._graph is None or key != self._graph_key_at:
-            self._capture(key)
+            with telemetry.span("engine.capture", kind="block"):
+                self._capture(key)
         return self._graph
 
     def warm_up(self) -> None:
@@ -856,8 +860,17 @@ class Engine:
         """One scheduler iteration: admit waiting requests, then run
         ``block_size`` decode steps for all slots (on the card, one replay
         of the block's CUDA graph).  Returns the number of decode steps
-        executed (0 = no work)."""
-        self._admit()
+        executed (0 = no work).  An ``engine.step`` span, holding
+        ``engine.admit`` (an ``engine.prefill`` a prefilled request),
+        ``engine.capture`` and ``engine.tick``: the tick's span is the
+        interval ``decode_time_s`` adds, with the device seconds of its
+        replay and copy to the host."""
+        with telemetry.span("engine.step"):
+            return self._step()
+
+    def _step(self) -> int:
+        with telemetry.span("engine.admit"):
+            self._admit()
         if not self._active:
             if self.queue:
                 raise RuntimeError(
@@ -866,7 +879,9 @@ class Engine:
             return 0
         K = self.config.block_size
         graph = self._graph_for_tick()
-        t_decode = time.perf_counter()
+        tick = telemetry.span("engine.tick", device=self.device)
+        t_decode = time.perf_counter_ns()
+        tick.start(t_decode)
         tables = None
         if self.paged:
             # materialize the blocks this decode block will write into;
@@ -885,7 +900,9 @@ class Engine:
         for slot in self._active:
             self._host_index[slot] += K
         host = self._out.cpu().numpy()    # the tick's one copy to the host
-        t_decode = time.perf_counter() - t_decode
+        t_end = time.perf_counter_ns()
+        tick.stop(t_end)
+        t_decode = (t_end - t_decode) / 1e9
         self._warm = True
         toks, recs = host[:K], host[2 * K:3 * K].astype(bool)
         logps = host[K:2 * K].view(np.float32)
@@ -1051,7 +1068,8 @@ class Engine:
             if entry is not None:
                 entry[1].reset()
             t0 = time.perf_counter()
-            graph, out, counts = self._record_graph(fn)
+            with telemetry.span("engine.capture", kind="inject"):
+                graph, out, counts = self._record_graph(fn)
             entry = self._inject_graphs[(kind, n)] = (key, graph, out,
                                                       counts)
             self.inject_captures += 1
@@ -1343,7 +1361,12 @@ class Engine:
         (each token's version says which weights sampled it).  Queued
         requests stay queued and the stats keep counting the batch;
         harvest finished outputs first, the reset drops them.  New weights
-        capture the decode block's graph anew, once."""
+        capture the decode block's graph anew, once.  An ``engine.reset``
+        span."""
+        with telemetry.span("engine.reset"):
+            self._reset(params, generator, carry_live)
+
+    def _reset(self, params, generator, carry_live: bool) -> None:
         if params is not None and params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine on {self.device}")

@@ -48,6 +48,7 @@ import time
 
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.train.optimizer import tree_leaves, tree_map
 
 _ALIGN = 256          # byte alignment of each leaf inside a pinned buffer
@@ -179,41 +180,46 @@ class HostStateCache:
         subclass may record them."""
 
     def offload(self, key: str, tree) -> float:
-        """Device -> host.  Returns seconds spent."""
+        """Device -> host.  Returns seconds spent.  A ``cache.offload``
+        span with its bytes and (on the card) its copies' events."""
         t0 = time.perf_counter()
-        leaves = [t.detach() for t in tree_leaves(tree)]
-        device = leaves[0].device
-        if any(t.device != device for t in leaves):
-            raise ValueError(f"host cache: {key!r} spans devices "
-                             f"{sorted({str(t.device) for t in leaves})}")
-        if device.type != "cuda":
-            host = tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
-            host_leaves = tree_leaves(host)
-            entry = _Entry(host, host_leaves, device,
-                           sum(t.numel() * t.element_size()
-                               for t in host_leaves))
+        with telemetry.span("cache.offload") as sp:
+            leaves = [t.detach() for t in tree_leaves(tree)]
+            device = leaves[0].device
+            if any(t.device != device for t in leaves):
+                raise ValueError(f"host cache: {key!r} spans devices "
+                                 f"{sorted({str(t.device) for t in leaves})}")
+            if device.type != "cuda":
+                host = tree_map(lambda t: t.detach().to("cpu", copy=True),
+                                tree)
+                host_leaves = tree_leaves(host)
+                entry = _Entry(host, host_leaves, device,
+                               sum(t.numel() * t.element_size()
+                                   for t in host_leaves))
+                self._put(key, entry)
+                sp.note(nbytes=entry.nbytes)
+                return time.perf_counter() - t0
+            while True:
+                entry = self._pinned_for(key, leaves, device)
+                with entry.lock:
+                    if entry.buffer.tensor is None:   # released meanwhile
+                        continue
+                    stream = torch.cuda.current_stream(device)
+                    if entry.buffer.last_read is not None:
+                        stream.wait_event(entry.buffer.last_read)
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record(stream)
+                    for h, t in zip(entry.leaves, leaves):
+                        h.copy_(t, non_blocking=True)
+                    end.record(stream)
+                    end.synchronize()
+                    entry.host_tree = _rebuild(tree, entry.leaves)
+                break
             self._put(key, entry)
+            sp.note(nbytes=entry.nbytes, start=start, end=end)
+            self._copied(key, "offload", entry.nbytes, start, end)
             return time.perf_counter() - t0
-        while True:
-            entry = self._pinned_for(key, leaves, device)
-            with entry.lock:
-                if entry.buffer.tensor is None:   # released meanwhile
-                    continue
-                stream = torch.cuda.current_stream(device)
-                if entry.buffer.last_read is not None:
-                    stream.wait_event(entry.buffer.last_read)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record(stream)
-                for h, t in zip(entry.leaves, leaves):
-                    h.copy_(t, non_blocking=True)
-                end.record(stream)
-                end.synchronize()
-                entry.host_tree = _rebuild(tree, entry.leaves)
-            break
-        self._put(key, entry)
-        self._copied(key, "offload", entry.nbytes, start, end)
-        return time.perf_counter() - t0
 
     def _pinned_for(self, key: str, leaves, device) -> _Entry:
         """The key's pinned entry if its leaves match ``leaves``' shapes and
@@ -256,15 +262,19 @@ class HostStateCache:
         if entry is None:
             return None, 0.0
         if entry.buffer is None:
-            tree = tree_map(lambda t: t.to(entry.device, copy=True),
-                            entry.host_tree)
+            with telemetry.span("cache.restore") as sp:
+                sp.note(nbytes=entry.nbytes)
+                tree = tree_map(lambda t: t.to(entry.device, copy=True),
+                                entry.host_tree)
         return tree, time.perf_counter() - t0
 
     def _restore_pinned(self, key: str, entry: _Entry):
         """Queue the copies of ``entry`` to its device on the current
-        stream; None if its buffer was released before they could be."""
-        with entry.lock:
+        stream; None if its buffer was released before they could be.  A
+        ``cache.restore`` span with its bytes and its copies' events."""
+        with telemetry.span("cache.restore") as sp, entry.lock:
             if entry.buffer.tensor is None:
+                sp.discard()
                 return None
             stream = torch.cuda.current_stream(entry.device)
             start = torch.cuda.Event(enable_timing=True)
@@ -275,6 +285,7 @@ class HostStateCache:
             end.record(stream)
             entry.buffer.last_read = end
             tree = _rebuild(entry.host_tree, out)
+            sp.note(nbytes=entry.nbytes, start=start, end=end)
         self._copied(key, "restore", entry.nbytes, start, end)
         return tree
 
